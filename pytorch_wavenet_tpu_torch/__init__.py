@@ -1,0 +1,57 @@
+"""pytorch_wavenet_tpu_torch: the PyTorch/CUDA port of pytorch_wavenet_tpu.
+
+WaveNet for one NVIDIA H100: the plain PyTorch model, Fast-WaveNet
+generation, checkpoints in the JAX package's format, and single-stream
+serving through a hand-written CUDA kernel for the fused generation loop
+(``ops/cuda/gen_kernel.py``, source in ``csrc/``). Importing the package
+builds nothing and touches no device; kernels build with ``nvcc`` at first
+use. Entry points take ``device`` (default ``"cuda"``, which raises when no
+card is present); ``device="cpu"`` runs the plain PyTorch versions.
+"""
+
+from .config import PRESETS, WaveNetConfig, get_config
+from .models.convert import from_jax_params, to_numpy_params
+from .models.generate import (
+    GenState,
+    StreamState,
+    buffer_length,
+    gen_step,
+    generate,
+    generate_fast,
+    init_gen_state,
+)
+from .models.wavenet import (
+    embed_inputs,
+    forward,
+    init_wavenet,
+    parameter_count,
+    wavenet_logits,
+)
+from .ops.cuda.gen_kernel import FusedGenState, generate_fast_fused
+from .ops.mulaw import (
+    dequantize_data,
+    dequantize_to_f32,
+    mu_law_encoding,
+    mu_law_expansion,
+    quantize_data,
+)
+from .utils.checkpoints import (
+    latest_checkpoint,
+    load_checkpoint,
+    load_latest_model_from,
+    save_checkpoint,
+)
+
+__all__ = [
+    "PRESETS", "WaveNetConfig", "get_config",
+    "from_jax_params", "to_numpy_params",
+    "GenState", "StreamState", "buffer_length", "gen_step", "generate",
+    "generate_fast", "init_gen_state",
+    "embed_inputs", "forward", "init_wavenet", "parameter_count",
+    "wavenet_logits",
+    "FusedGenState", "generate_fast_fused",
+    "dequantize_data", "dequantize_to_f32", "mu_law_encoding",
+    "mu_law_expansion", "quantize_data",
+    "latest_checkpoint", "load_checkpoint", "load_latest_model_from",
+    "save_checkpoint",
+]

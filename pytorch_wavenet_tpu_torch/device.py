@@ -1,0 +1,22 @@
+"""Device selection for the port's entry points.
+
+Entry points take an explicit ``device`` that defaults to ``"cuda"``. A
+CUDA device without a card raises: nothing falls back to the CPU on its
+own. Tests pass ``device="cpu"``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device: str | torch.device = "cuda") -> torch.device:
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {device!r} requested but torch.cuda.is_available() is "
+            "False; pass device='cpu' to run the plain PyTorch path"
+        )
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {device!r}")
+    return dev

@@ -1,0 +1,237 @@
+"""Autoregressive generation in plain PyTorch.
+
+The counterpart of the JAX package's ``models/generate.py`` for
+unconditioned models:
+
+* :func:`generate` — the naive O(receptive_field)-per-sample path, kept as
+  the correctness oracle;
+* :func:`generate_fast` — Fast-WaveNet generation over exactly-sized ring
+  buffers, one :func:`gen_step` per sample.
+
+The serving path runs the fused kernel instead
+(``ops/cuda/gen_kernel.py``); this module is its reference and the home of
+the ring-buffer semantics both share. At temperature 0 the three paths
+(naive, fast, teacher-forced trunk) agree class for class.
+
+Sampling at temperature > 0 is inverse-CDF over the tempered softmax with
+one uniform per (step, stream) drawn from a ``torch.Generator``; it cannot
+reproduce the JAX package's draws, which come from ``jax.random``.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ..config import WaveNetConfig
+from ..device import resolve_device
+from ..ops.mulaw import mu_law_expansion_torch
+from .wavenet import Params, _mm, params_to, wavenet_logits
+
+
+class GenState(NamedTuple):
+    """One ring buffer per layer: ``buffers[l][s, p, :]`` holds the
+    residual-stream input of layer ``l`` for stream ``s`` written at time
+    ``t`` with ``p = t mod P_l``, ``P_l = (k-1)*d_l + 1``. ``t`` is the
+    global time cursor (a Python int)."""
+
+    buffers: tuple  # L tensors, (S, P_l, R) each
+    t: int
+
+
+class StreamState(NamedTuple):
+    """Streaming handle for :func:`generate_fast`: the ring state plus the
+    next input class per stream. Passing it back (``first_samples=None``)
+    continues the rollout with no re-priming, bitwise equal to one
+    uninterrupted run at temperature 0."""
+
+    gen: GenState
+    cls: torch.Tensor  # (S,) int64 next input class
+
+
+def buffer_length(cfg: WaveNetConfig, layer: int | None = None) -> int:
+    """Ring length ``(kernel_size-1)*d + 1`` of ``layer`` (the longest
+    layer's when ``layer`` is None)."""
+    d = cfg.max_dilation if layer is None else cfg.dilations[layer]
+    return (cfg.kernel_size - 1) * d + 1
+
+
+def init_gen_state(cfg: WaveNetConfig, num_streams: int = 1,
+                   device: str | torch.device = "cuda",
+                   dtype=torch.float32) -> GenState:
+    """Zero-filled rings."""
+    dev = resolve_device(device)
+    bufs = tuple(
+        torch.zeros((num_streams, buffer_length(cfg, l),
+                     cfg.residual_channels), dtype=dtype, device=dev)
+        for l in range(cfg.num_layers)
+    )
+    return GenState(buffers=bufs, t=0)
+
+
+def gen_step(params: Params, cfg: WaveNetConfig, state: GenState,
+             cur_class: torch.Tensor) -> tuple[torch.Tensor, GenState]:
+    """One autoregressive step for all streams: logits ``(S, classes)``
+    and the advanced state.
+
+    The ring slot of this step is written IN PLACE (the returned state
+    shares the buffers of ``state``); the tap slots read here never equal
+    the written slot, so the order of read and write does not matter."""
+    k = cfg.kernel_size
+    cdt = cfg.compute_dtype
+    t = state.t
+    h = params["start"]["w"][cur_class.long()]
+    if "b" in params["start"]:
+        h = h + params["start"]["b"]
+    h = h.to(torch.float32)
+
+    S = h.shape[0]
+    skip = torch.zeros((S, cfg.skip_channels), dtype=torch.float32,
+                       device=h.device)
+    lp = params["layers"]
+    for l, d in enumerate(cfg.dilations):
+        buf = state.buffers[l]
+        P = buf.shape[1]
+        z = _mm(h, lp["w_in"][l, k - 1], cdt)
+        for j in range(k - 1):
+            idx = (t - (k - 1 - j) * d) % P
+            z = z + _mm(buf[:, idx].to(torch.float32), lp["w_in"][l, j], cdt)
+        buf[:, t % P] = h.to(buf.dtype)
+        if "b_in" in lp:
+            z = z + lp["b_in"][l]
+        f, g = z.chunk(2, dim=-1)
+        u = torch.tanh(f) * torch.sigmoid(g)
+
+        s = _mm(u, lp["w_skip"][l], cdt)
+        if "b_skip" in lp:
+            s = s + lp["b_skip"][l]
+        skip = skip + s
+
+        r = _mm(u, lp["w_res"][l], cdt)
+        if "b_res" in lp:
+            r = r + lp["b_res"][l]
+        h = r + h
+
+    y = torch.relu(skip)
+    y = torch.relu(_mm(y, params["end1"]["w"], cdt) + params["end1"]["b"])
+    logits = _mm(y, params["end2"]["w"], cdt) + params["end2"]["b"]
+    return logits, GenState(buffers=state.buffers, t=t + 1)
+
+
+def _sample(logits: torch.Tensor, u: torch.Tensor, classes: int,
+            temperature: float, regularize: float) -> torch.Tensor:
+    """Temperature sampling with the optional quadratic regularizer toward
+    the mid class; temperature <= 0 is the argmax (first index on ties).
+    Inverse-CDF over the tempered softmax, one uniform ``u`` per stream."""
+    if regularize != 0.0:
+        c = torch.arange(classes, dtype=torch.float32, device=logits.device)
+        logits = logits - (c - classes / 2.0) ** 2 * regularize
+    if temperature <= 0:
+        return torch.argmax(logits, dim=-1)
+    probs = torch.softmax(logits / temperature, dim=-1)
+    cdf = torch.cumsum(probs, dim=-1)
+    idx = (u[..., None] > cdf).sum(dim=-1)
+    return torch.clamp(idx, max=classes - 1)
+
+
+def _prime_2d(cfg: WaveNetConfig, first_samples, device) -> torch.Tensor:
+    """``(S, num_given)`` int64 prime on ``device``; one mid-class sample
+    when none is given."""
+    if first_samples is None:
+        return torch.full((1, 1), cfg.classes // 2, dtype=torch.long,
+                          device=device)
+    p = torch.as_tensor(first_samples).to(device=device, dtype=torch.long)
+    return p.reshape(1, -1) if p.dim() == 1 else p
+
+
+def classes_to_waveform(cls: torch.Tensor, classes: int) -> torch.Tensor:
+    return mu_law_expansion_torch((cls.to(torch.float32) / classes) * 2.0 - 1.0,
+                                  classes)
+
+
+def _uniforms(generator, total: int, streams: int, device) -> torch.Tensor:
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    return torch.rand((total, streams), generator=generator).to(device)
+
+
+@torch.no_grad()
+def generate_fast(params: Params, cfg: WaveNetConfig,
+                  generator: torch.Generator | None, num_samples: int,
+                  first_samples=None, temperature: float = 1.0,
+                  regularize: float = 0.0, state: StreamState | None = None,
+                  return_state: bool = False,
+                  device: str | torch.device = "cuda"):
+    """Fast-WaveNet generation.
+
+    ``first_samples``: int ``(S, num_given)`` prime per stream (or
+    ``(num_given,)``); defaults to one mid-class sample. The given samples
+    are pushed through the rings one step at a time and the last one is
+    the first generation input. ``generator`` (a CPU ``torch.Generator``)
+    draws the sampling uniforms; it may be None at temperature 0.
+
+    Returns ``(waveform (S, num_samples) float32, classes (S, num_samples)
+    int64)``, plus the new :class:`StreamState` with ``return_state``."""
+    dev = resolve_device(device)
+    params = params_to(params, dev)
+    if state is not None:
+        if first_samples is not None:
+            raise ValueError("pass either first_samples or state, not both")
+        given = state.cls.to(dev).reshape(-1, 1).long()
+        # the caller's state stays as it was: roll on a copy of the rings
+        gstate = GenState(tuple(b.clone() for b in state.gen.buffers),
+                          state.gen.t)
+    else:
+        given = _prime_2d(cfg, first_samples, dev)
+        gstate = init_gen_state(cfg, given.shape[0], dev)
+    S, num_given = given.shape
+    total = num_given - 1 + num_samples
+    uniforms = _uniforms(generator, total, S, dev)
+
+    cur = given[:, 0]
+    samples = []
+    for i in range(total):
+        logits, gstate = gen_step(params, cfg, gstate, cur)
+        sampled = _sample(logits, uniforms[i], cfg.classes, temperature,
+                          regularize)
+        samples.append(sampled)
+        cur = given[:, i + 1] if i + 1 < num_given else sampled
+    out = torch.stack(samples[num_given - 1:], dim=1)
+    wav = classes_to_waveform(out, cfg.classes)
+    if not return_state:
+        return wav, out
+    return wav, out, StreamState(gen=gstate, cls=cur)
+
+
+@torch.no_grad()
+def generate(params: Params, cfg: WaveNetConfig,
+             generator: torch.Generator | None, num_samples: int,
+             first_samples=None, temperature: float = 1.0,
+             regularize: float = 0.0, device: str | torch.device = "cuda"):
+    """Naive generation: the full receptive-field window through the
+    teacher-forced trunk per sample. O(rf) per step; the oracle for
+    :func:`generate_fast`. Short primes are left-padded with class 0 (and
+    the default prime is class 0, as in the JAX package)."""
+    dev = resolve_device(device)
+    params = params_to(params, dev)
+    rf = cfg.receptive_field
+    if first_samples is None:
+        given = torch.zeros((1, 1), dtype=torch.long, device=dev)
+    else:
+        given = _prime_2d(cfg, first_samples, dev)
+    S, num_given = given.shape
+    window = torch.zeros((S, rf), dtype=torch.long, device=dev)
+    ng = min(num_given, rf)
+    window[:, rf - ng:] = given[:, num_given - ng:]
+    uniforms = _uniforms(generator, num_samples, S, dev)
+
+    samples = []
+    for i in range(num_samples):
+        logits = wavenet_logits(params, cfg, window, out_len=1)[:, 0, :]
+        sampled = _sample(logits, uniforms[i], cfg.classes, temperature,
+                          regularize)
+        samples.append(sampled)
+        window = torch.cat([window[:, 1:], sampled[:, None]], dim=1)
+    out = torch.stack(samples, dim=1)
+    return classes_to_waveform(out, cfg.classes), out

@@ -1,0 +1,428 @@
+"""Fused generation loop: the CUDA kernel K1, its plain PyTorch version and
+the wrapper that picks between them.
+
+The kernel (``csrc/gen_kernel.cu``) replaces the JAX package's Pallas TPU
+kernel ``ops/pallas/gen_kernel.py::generate_fast_fused``: the whole
+autoregressive loop (priming, generation, sampling, feedback, ring state)
+runs in ONE launch per call, one thread block per stream. Its source says
+what bounds it on an H100 and what the design does about that.
+
+:func:`fused_plain` computes the same function with PyTorch ops, step by
+step, on any device. The wrapper :func:`generate_fast_fused` runs the
+plain version only for tensors on the CPU; for CUDA tensors it launches
+the kernel or raises. ``launches`` counts kernel launches.
+
+Sampling at temperature > 0 adds counter-hash Gumbel noise (the int32 hash
+of the JAX package's HBM kernel, keyed by class, stream, absolute step and
+seed), so the kernel and the plain version draw the same noise, and a
+chunked rollout equals a single shot at every temperature when the seed is
+the same. The TPU kernel's on-core PRNG has no counterpart here: at
+temperature > 0 rollouts differ from the JAX package's.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
+
+import torch
+
+from ...config import WaveNetConfig
+from ...device import resolve_device
+from ...models.generate import classes_to_waveform
+from ...models.wavenet import Params, params_to
+
+# kernel launches since the count was last set to 0 (the plain version
+# does not count)
+launches = 0
+
+MAX_STREAMS = 8
+
+
+class FusedGenState(NamedTuple):
+    """Streaming state of :func:`generate_fast_fused`: the rings, the
+    absolute steps completed and the next input class per stream. Passing
+    it back continues the rollout with no re-priming, bitwise equal to an
+    uninterrupted run."""
+
+    rings: tuple        # L tensors, (P_l * streams, R) f32; row slot*streams + s
+    t: int              # absolute steps completed
+    cls: torch.Tensor   # (streams,) int32 next input class
+
+
+def periods(cfg: WaveNetConfig) -> list[int]:
+    return [(cfg.kernel_size - 1) * d + 1 for d in cfg.dilations]
+
+
+def ring_views(rings: torch.Tensor, cfg: WaveNetConfig,
+               streams: int) -> list[torch.Tensor]:
+    """Per-layer ``(P_l * streams, R)`` views of the flat ring buffer
+    (layer after layer, row ``slot * streams + s``)."""
+    R, views, off = cfg.residual_channels, [], 0
+    for P in periods(cfg):
+        views.append(rings[off:off + P * streams * R].view(P * streams, R))
+        off += P * streams * R
+    return views
+
+
+def prepare_weights(params: Params, cfg: WaveNetConfig,
+                    fuse_res: bool) -> dict:
+    """The kernel's operands, contiguous f32 on the params' device: fused
+    filter|gate taps, [skip|res] output weights, zero biases where the
+    model has none and, under ``fuse_res``, the chain weights
+    ``wf[l] = w_res[l] @ w_cur[l+1]`` and ``bf[l] = b_res[l] @ w_cur[l+1]
+    + b_in[l+1]``."""
+    L, k = cfg.num_layers, cfg.kernel_size
+    R, D, S = cfg.residual_channels, cfg.dilation_channels, cfg.skip_channels
+    lp = params["layers"]
+    f32 = torch.float32
+    dev = lp["w_in"].device
+
+    def get(tree, name, shape):
+        x = tree.get(name)
+        return torch.zeros(shape, dtype=f32, device=dev) if x is None else x
+
+    w_tap = lp["w_in"].to(f32).contiguous()
+    b_in = get(lp, "b_in", (L, 2 * D)).to(f32).contiguous()
+    w = {
+        "w_start": params["start"]["w"].to(f32).contiguous(),
+        "b_start": get(params["start"], "b", (R,)).to(f32).contiguous(),
+        "w_tap": w_tap,
+        "b_in": b_in,
+        "w_out": torch.cat([lp["w_skip"].to(f32), lp["w_res"].to(f32)],
+                           dim=2).contiguous(),
+        "b_out": torch.cat([get(lp, "b_skip", (L, S)).to(f32),
+                            get(lp, "b_res", (L, R)).to(f32)],
+                           dim=1).contiguous(),
+        "w_end1": params["end1"]["w"].to(f32).contiguous(),
+        "b_end1": params["end1"]["b"].to(f32).contiguous(),
+        "w_end2": params["end2"]["w"].to(f32).contiguous(),
+        "b_end2": params["end2"]["b"].to(f32).contiguous(),
+    }
+    if fuse_res:
+        w_res = lp["w_res"].to(f32)
+        w_cur = w_tap[:, k - 1]
+        b_res = get(lp, "b_res", (L, R)).to(f32)
+        w["wf"] = torch.einsum("ldr,lrm->ldm", w_res[:-1],
+                               w_cur[1:]).contiguous()
+        w["bf"] = (torch.einsum("lr,lrm->lm", b_res[:-1], w_cur[1:])
+                   + b_in[1:]).contiguous()
+    return w
+
+
+# ------------------------------------------------------- counter-hash noise
+
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(x: torch.Tensor, m: int) -> torch.Tensor:
+    """``(x * m) mod 2**32`` for int64 ``x`` in [0, 2**32) without int64
+    overflow: the multiplier goes in two 16-bit halves."""
+    lo = x * (m & 0xFFFF)
+    hi = ((x * (m >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & _M32
+
+
+def hash_uniform(ta: int, seed: int, streams: int, classes: int,
+                 device) -> torch.Tensor:
+    """Uniforms ``(streams, classes)`` in [1e-7, 1 - 1e-7] for absolute
+    step ``ta``: the kernel's integer hash in int64 arithmetic masked to 32
+    bits."""
+    c = torch.arange(classes, dtype=torch.int64, device=device)
+    s = torch.arange(streams, dtype=torch.int64, device=device)
+    x = _mul32(c[None, :] * streams + s[:, None], 0x9E3779B9)
+    x = x ^ ((ta * 0x85EBCA6B) & _M32)
+    x = x ^ (seed & _M32)
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x85EBCA6B)
+    x = x ^ (x >> 13)
+    x = _mul32(x, 0xC2B2AE35)
+    x = x ^ (x >> 16)
+    u = (x >> 8).to(torch.float32) * (1.0 / (1 << 24))
+    return torch.clamp(u, 1e-7, 1.0 - 1e-7)
+
+
+def hash_gumbel(ta: int, seed: int, streams: int, classes: int,
+                device) -> torch.Tensor:
+    """Gumbel noise ``(streams, classes)`` for absolute step ``ta``, the
+    kernel's ``hash_gumbel``."""
+    u = hash_uniform(ta, seed, streams, classes, device)
+    return -torch.log(-torch.log(u))
+
+
+# ------------------------------------------------------------ plain version
+
+
+@torch.no_grad()
+def fused_plain(w: dict, cfg: WaveNetConfig, prime: torch.Tensor,
+                rings: torch.Tensor, t0: int, total: int, temperature: float,
+                regularize: float, seed: int, fuse_res: bool,
+                return_gaps: bool = False):
+    """The kernel's function in PyTorch ops: ``total`` steps for every
+    stream of ``prime`` (int32 ``(streams, num_given)``), updating the flat
+    ``rings`` in place. Returns the sampled classes ``(streams, total)``
+    int32, and with ``return_gaps`` also the per-step gap between the two
+    best sampling scores ``(streams, total)`` (what decides whether a
+    differently-rounded version may pick another class)."""
+    L, k = cfg.num_layers, cfg.kernel_size
+    D, S, C = cfg.dilation_channels, cfg.skip_channels, cfg.classes
+    streams, num_given = prime.shape
+    per = periods(cfg)
+    views = ring_views(rings, cfg, streams)
+    if regularize != 0.0:
+        c = torch.arange(C, dtype=torch.float32, device=prime.device)
+        reg = (c - C / 2.0) ** 2 * regularize
+    all_cls = torch.empty((streams, total), dtype=torch.int32,
+                          device=prime.device)
+    gaps = torch.empty((streams, total), dtype=torch.float32,
+                       device=prime.device) if return_gaps else None
+    cls = prime[:, 0].long()
+    for t in range(total):
+        ta = t0 + t
+        h = w["w_start"][cls] + w["b_start"]
+        skip = torch.zeros((streams, S), dtype=torch.float32,
+                           device=h.device)
+
+        def rows(l, slot):
+            return views[l][slot * streams:(slot + 1) * streams]
+
+        # ring taps of every layer read before any write of this step (a
+        # tap never reads the slot written at this step)
+        tap_dots = [[rows(l, (ta - (k - 1 - j) * d) % per[l]) @ w["w_tap"][l, j]
+                     for j in range(k - 1)]
+                    for l, d in enumerate(cfg.dilations)]
+
+        def extras(l, z):
+            for j in range(k - 1):
+                z = z + tap_dots[l][j]
+            return z
+
+        if not fuse_res:
+            for l in range(L):
+                z = extras(l, h @ w["w_tap"][l, k - 1] + w["b_in"][l])
+                u = torch.tanh(z[:, :D]) * torch.sigmoid(z[:, D:])
+                sr = u @ w["w_out"][l] + w["b_out"][l]
+                skip = skip + sr[:, :S]
+                rows(l, ta % per[l]).copy_(h)
+                h = h + sr[:, S:]
+        else:
+            z = extras(0, h @ w["w_tap"][0, k - 1] + w["b_in"][0])
+            for l in range(L):
+                rows(l, ta % per[l]).copy_(h)
+                if l + 1 < L:
+                    pre = extras(l + 1, h @ w["w_tap"][l + 1, k - 1]
+                                 + w["bf"][l])
+                u = torch.tanh(z[:, :D]) * torch.sigmoid(z[:, D:])
+                if l + 1 < L:
+                    z = pre + u @ w["wf"][l]
+                sr = u @ w["w_out"][l] + w["b_out"][l]
+                skip = skip + sr[:, :S]
+                h = h + sr[:, S:]
+
+        y = torch.relu(skip)
+        y = torch.relu(y @ w["w_end1"] + w["b_end1"])
+        score = y @ w["w_end2"] + w["b_end2"]
+        if regularize != 0.0:
+            score = score - reg
+        if temperature > 0:
+            score = score / temperature + hash_gumbel(ta, seed, streams, C,
+                                                      score.device)
+        sampled = torch.argmax(score, dim=-1)
+        all_cls[:, t] = sampled.to(torch.int32)
+        if return_gaps:
+            top2 = torch.topk(score, 2, dim=-1).values
+            gaps[:, t] = top2[:, 0] - top2[:, 1]
+        cls = prime[:, t + 1].long() if t + 1 < num_given else sampled
+    return (all_cls, gaps) if return_gaps else all_cls
+
+
+# ------------------------------------------------------------------ kernel
+
+_PTR = ctypes.c_void_p
+_INT = ctypes.c_int
+
+
+def _bind():
+    from .build import load
+
+    lib = load("gen_kernel")
+    fn = lib.wavenet_gen_fused
+    if fn.argtypes is None:
+        fn.argtypes = ([_PTR] * 16 + [_INT] * 11
+                       + [ctypes.c_float, ctypes.c_float, _INT, _INT, _PTR])
+        fn.restype = _INT
+    return lib
+
+
+def operand_shapes(cfg: WaveNetConfig, fuse_res: bool) -> dict:
+    """The shape of each operand of :func:`prepare_weights` that the
+    kernel reads."""
+    L, k, C = cfg.num_layers, cfg.kernel_size, cfg.classes
+    R, D = cfg.residual_channels, cfg.dilation_channels
+    S, E = cfg.skip_channels, cfg.end_channels
+    shapes = {"w_start": (C, R), "b_start": (R,), "w_tap": (L, k, R, 2 * D),
+              "b_in": (L, 2 * D), "w_out": (L, D, S + R), "b_out": (L, S + R),
+              "w_end1": (S, E), "b_end1": (E,), "w_end2": (E, C),
+              "b_end2": (C,)}
+    if fuse_res:
+        shapes.update(wf=(L - 1, D, 2 * D), bf=(L - 1, 2 * D))
+    return shapes
+
+
+def fused_cuda(w: dict, cfg: WaveNetConfig, prime: torch.Tensor,
+               rings: torch.Tensor, t0: int, total: int, temperature: float,
+               regularize: float, seed: int, fuse_res: bool) -> torch.Tensor:
+    """Launch the kernel on the current stream with the same contract as
+    :func:`fused_plain` (no gaps). Raises on operands that do not match
+    ``cfg`` (the kernel would read out of bounds) and if the launch
+    fails."""
+    global launches
+    if prime.dim() != 2:
+        raise ValueError(f"prime must be (streams, num_given), not "
+                         f"{tuple(prime.shape)}")
+    streams, num_given = prime.shape
+    if not 1 <= streams <= MAX_STREAMS:
+        raise ValueError(f"{streams} streams: the kernel takes 1 to "
+                         f"{MAX_STREAMS}")
+    if num_given < 1 or total < 1:
+        raise ValueError(f"{num_given} prime classes and {total} steps: "
+                         f"the kernel needs at least one of each")
+    if t0 < 0 or t0 + total >= 2**31:
+        raise ValueError("absolute steps must lie in [0, 2**31)")
+    shapes = operand_shapes(cfg, fuse_res)
+    for name, shape in shapes.items():
+        x = w.get(name)
+        if x is None or tuple(x.shape) != shape:
+            raise ValueError(f"weight {name} must have shape {shape}, not "
+                             f"{None if x is None else tuple(x.shape)}")
+    per = periods(cfg)
+    R = cfg.residual_channels
+    if rings.numel() != sum(per) * streams * R:
+        raise ValueError("rings do not match the config and stream count")
+    dev = prime.device
+    if dev.type != "cuda":
+        raise ValueError(f"the kernel runs on CUDA tensors, not {dev}")
+    for name in shapes:
+        x = w[name]
+        if x.device != dev or x.dtype != torch.float32 or not x.is_contiguous():
+            raise ValueError(f"weight {name} must be contiguous f32 on {dev}")
+    if (rings.device != dev or rings.dtype != torch.float32
+            or not rings.is_contiguous()):
+        raise ValueError(f"rings must be contiguous f32 on {dev}")
+    if prime.dtype != torch.int32 or not prime.is_contiguous():
+        raise ValueError("prime must be contiguous int32")
+    offs = [0]
+    for P in per[:-1]:
+        offs.append(offs[-1] + P * streams * R)
+    meta = torch.tensor([[d, P, o] for d, P, o in
+                         zip(cfg.dilations, per, offs)],
+                        dtype=torch.int32).to(dev)
+    out = torch.empty((streams, total), dtype=torch.int32, device=dev)
+    lib = _bind()
+    wf = w["wf"] if fuse_res else w["b_in"]  # unread without fuse_res
+    bf = w["bf"] if fuse_res else w["b_in"]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.wavenet_gen_fused(
+        w["w_start"].data_ptr(), w["b_start"].data_ptr(),
+        w["w_tap"].data_ptr(), w["b_in"].data_ptr(), w["w_out"].data_ptr(),
+        w["b_out"].data_ptr(), w["w_end1"].data_ptr(),
+        w["b_end1"].data_ptr(), w["w_end2"].data_ptr(),
+        w["b_end2"].data_ptr(), wf.data_ptr(), bf.data_ptr(),
+        prime.data_ptr(), meta.data_ptr(), rings.data_ptr(), out.data_ptr(),
+        streams, num_given, total, t0, cfg.num_layers, cfg.kernel_size, R,
+        cfg.dilation_channels, cfg.skip_channels, cfg.end_channels,
+        cfg.classes, float(temperature), float(regularize),
+        int(seed), int(bool(fuse_res)), stream)
+    if err != 0:
+        raise RuntimeError(f"gen_kernel launch failed: cudaError {err}")
+    launches += 1
+    return out
+
+
+# ----------------------------------------------------------------- wrapper
+
+
+def _seed_from(generator_or_seed) -> int:
+    if generator_or_seed is None:
+        return 0
+    if isinstance(generator_or_seed, torch.Generator):
+        return int(torch.randint(0, 2**31 - 1, (1,),
+                                 generator=generator_or_seed))
+    return int(generator_or_seed) & 0x7FFFFFFF
+
+
+@torch.no_grad()
+def generate_fast_fused(params: Params, cfg: WaveNetConfig,
+                        generator_or_seed=None, num_samples: int = 1,
+                        first_samples=None, temperature: float = 1.0,
+                        regularize: float = 0.0,
+                        state: FusedGenState | None = None,
+                        return_state: bool = False, fuse_res: bool = False,
+                        device: str | torch.device = "cuda"):
+    """Fused generation for up to 8 streams, the same contract as
+    ``models.generate.generate_fast``: ``first_samples`` int ``(S,
+    num_given)`` (or ``(num_given,)``, default one mid-class sample).
+    Returns ``(waveform (S, num_samples) f32, classes (S, num_samples)
+    int32)``, plus a :class:`FusedGenState` with ``return_state``; passing
+    that state back (``first_samples=None``) continues the rollout.
+
+    ``generator_or_seed`` (int, ``torch.Generator`` or None = 0) keys the
+    sampling noise; keep it the same across the chunks of one rollout.
+    ``fuse_res`` shortens the serial chain with pre-multiplied weights: the
+    same function, reassociated (logits agree to about 1e-5).
+
+    On ``device="cpu"`` this runs :func:`fused_plain`; on a CUDA device it
+    launches the kernel."""
+    dev = resolve_device(device)
+    params = params_to(params, dev)
+    C = cfg.classes
+    if state is not None:
+        if first_samples is not None:
+            raise ValueError("pass either first_samples or state, not both")
+        prime = state.cls.to(dev, torch.int32).reshape(-1, 1)
+        t0 = int(state.t)
+    else:
+        if first_samples is None:
+            first_samples = torch.full((1, 1), C // 2, dtype=torch.int32)
+        prime = torch.as_tensor(first_samples).to(dev, torch.int32)
+        if prime.dim() == 1:
+            prime = prime.reshape(1, -1)
+        t0 = 0
+    prime = prime.contiguous()
+    streams, num_given = prime.shape
+    total = num_given - 1 + num_samples
+    if not 1 <= streams <= MAX_STREAMS:
+        raise ValueError(f"{streams} streams: the fused kernel takes 1 to "
+                         f"{MAX_STREAMS}")
+    if num_given < 1 or num_samples < 1:
+        raise ValueError("need at least one prime class and one sample")
+    if t0 + total >= 2**31:
+        raise ValueError("absolute step count overflows int32")
+    if bool(((prime < 0) | (prime >= C)).any()):
+        raise ValueError(f"prime classes must lie in [0, {C})")
+
+    R = cfg.residual_channels
+    per = periods(cfg)
+    if state is not None:
+        if len(state.rings) != len(per) or any(
+                r.shape != (P * streams, R) for r, P in zip(state.rings, per)):
+            raise ValueError("state rings do not match the config")
+        rings = torch.cat([r.to(dev, torch.float32).reshape(-1)
+                           for r in state.rings])
+    else:
+        rings = torch.zeros(sum(per) * streams * R, dtype=torch.float32,
+                            device=dev)
+    w = prepare_weights(params, cfg, fuse_res)
+    seed = _seed_from(generator_or_seed)
+    run = fused_plain if dev.type == "cpu" else fused_cuda
+    all_cls = run(w, cfg, prime, rings, t0, total, temperature, regularize,
+                  seed, fuse_res)
+
+    cls = all_cls[:, num_given - 1:total]
+    wav = classes_to_waveform(cls, C)
+    if not return_state:
+        return wav, cls
+    new_state = FusedGenState(rings=tuple(ring_views(rings, cfg, streams)),
+                              t=t0 + total,
+                              cls=all_cls[:, total - 1].clone())
+    return wav, cls, new_state

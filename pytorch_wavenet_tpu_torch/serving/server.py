@@ -1,0 +1,259 @@
+"""Streaming synthesis server: WaveNet generation over HTTP.
+
+The single-stream serving path of the JAX package's ``scripts/serve.py``
+(without ``--batcher``): audio is generated in chunks by the fused
+generation kernel, the ring state (``FusedGenState``) flows from one chunk
+to the next, and each chunk's PCM goes to the client as soon as it exists.
+Concurrent requests take turns chunk by chunk on one lock.
+
+Endpoints
+  GET  /health       -> JSON {status, backend, receptive_field,
+                        parameter_count, classes, sample_rate}
+  GET  /synthesize   -> audio/wav, streamed while it generates; query
+                        params num_samples (16000), temperature (1.0),
+                        seed (0), chunk (2048)
+  POST /synthesize   -> the same, parameters as a JSON body, plus "prime"
+                        (mu-law class ids) or "prime_audio" (float samples
+                        in [-1, 1]), cut to the last receptive_field samples
+
+A request's seed keys its sampling noise for every chunk, so a response
+does not depend on the chunk size at any temperature.
+
+Run:
+  python -m pytorch_wavenet_tpu_torch.serving.server --snapshot model.ckpt --port 8765
+  curl -sN 'localhost:8765/synthesize?num_samples=16000&temperature=0.9' > x.wav
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import struct
+import sys
+import threading
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from urllib.parse import parse_qs, urlparse
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from ..models.wavenet import params_to
+from ..ops.cuda.gen_kernel import generate_fast_fused
+from ..ops.mulaw import quantize_data
+from ..utils.checkpoints import load_checkpoint, load_latest_model_from
+
+
+def wav_header(num_samples: int, sr: int) -> bytes:
+    """44-byte RIFF/WAVE header for 16-bit mono PCM of a known length,
+    written first so that clients can play the stream as it arrives."""
+    data_bytes = num_samples * 2
+    return (
+        b"RIFF" + struct.pack("<I", 36 + data_bytes) + b"WAVE"
+        + b"fmt " + struct.pack("<IHHIIHH", 16, 1, 1, sr, sr * 2, 2, 16)
+        + b"data" + struct.pack("<I", data_bytes)
+    )
+
+
+class Synthesizer:
+    """Owns the model on one device and runs rollouts chunk by chunk
+    through the fused generation kernel (its plain version on the CPU)."""
+
+    def __init__(self, params, cfg, sr: int = 16000,
+                 device: str | torch.device = "cuda"):
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.params = params_to(params, self.device)
+        self.sr = sr
+        self.lock = threading.Lock()
+        self.backend = ("cuda-fused" if self.device.type == "cuda"
+                        else "cpu-plain")
+
+    def stream(self, num_samples: int, temperature: float, seed: int,
+               chunk: int, prime=None):
+        """Yield float32 waveform chunks of at most ``chunk`` samples. The
+        ring state carries across chunks; ``prime`` (flat class ids)
+        replaces the mid-class cold start."""
+        cfg = self.cfg
+        first = (torch.full((1, 1), cfg.classes // 2, dtype=torch.int32)
+                 if prime is None
+                 else torch.as_tensor(np.asarray(prime, np.int32))[None])
+        kernel_seed = int(torch.randint(
+            0, 2**31 - 1, (1,), generator=torch.Generator().manual_seed(seed)))
+        state = None
+        done = 0
+        while done < num_samples:
+            n = min(chunk, num_samples - done)
+            with self.lock:
+                wav, _, state = generate_fast_fused(
+                    self.params, cfg, kernel_seed, n,
+                    first if state is None else None,
+                    temperature=temperature, state=state, return_state=True,
+                    fuse_res=True, device=self.device)
+                out = wav[0].cpu().numpy()
+            done += n
+            yield out
+
+
+def make_handler(synth: Synthesizer, max_samples: int):
+    class Handler(BaseHTTPRequestHandler):
+        protocol_version = "HTTP/1.1"
+
+        def log_message(self, fmt, *args):
+            sys.stderr.write("%s - %s\n" % (self.address_string(),
+                                            fmt % args))
+
+        def _json(self, code: int, obj: dict):
+            body = json.dumps(obj).encode()
+            self.send_response(code)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def _params_from(self, query: dict, body: dict) -> dict:
+            def pick(name, cast, default):
+                if name in body:
+                    return cast(body[name])
+                if name in query:
+                    return cast(query[name][0])
+                return default
+
+            req = {
+                "num_samples": pick("num_samples", int, 16000),
+                "temperature": pick("temperature", float, 1.0),
+                "seed": pick("seed", int, 0),
+                "chunk": pick("chunk", int, 2048),
+                "prime": None,
+            }
+            classes = synth.cfg.classes
+            if body.get("prime") is not None:
+                req["prime"] = np.asarray(body["prime"], np.int64)
+                if (req["prime"].ndim != 1 or (req["prime"] < 0).any()
+                        or (req["prime"] >= classes).any()):
+                    raise ValueError(f"prime must be a flat list of class "
+                                     f"ids in [0, {classes})")
+            elif body.get("prime_audio") is not None:
+                audio = np.asarray(body["prime_audio"], np.float64)
+                if audio.ndim != 1:
+                    raise ValueError("prime_audio must be a flat list of "
+                                     "samples in [-1, 1]")
+                req["prime"] = quantize_data(np.clip(audio, -1.0, 1.0),
+                                             classes)
+            if req["prime"] is not None:
+                # only the last receptive_field samples reach the rollout
+                # (the rings hold exactly that much history)
+                rf = synth.cfg.receptive_field
+                req["prime"] = req["prime"][-rf:].astype(np.int32)
+            return req
+
+        def _synthesize(self, body: dict):
+            q = parse_qs(urlparse(self.path).query)
+            try:
+                req = self._params_from(q, body)
+            except (ValueError, TypeError) as e:
+                return self._json(400, {"error": f"bad parameter: {e}"})
+            if not 0 < req["num_samples"] <= max_samples:
+                return self._json(400, {"error": f"num_samples must be in "
+                                                 f"(0, {max_samples}]"})
+            if req["chunk"] < 1:
+                return self._json(400, {"error": "chunk must be >= 1"})
+            if req["prime"] is not None and req["prime"].size < 1:
+                return self._json(400, {"error": "prime is empty"})
+
+            gen = synth.stream(req["num_samples"], req["temperature"],
+                               req["seed"], req["chunk"], req["prime"])
+            self.send_response(200)
+            self.send_header("Content-Type", "audio/wav")
+            self.send_header("Content-Length",
+                             str(44 + req["num_samples"] * 2))
+            self.end_headers()
+            self.wfile.write(wav_header(req["num_samples"], synth.sr))
+            try:
+                for wav in gen:
+                    pcm = np.clip(wav * 32767.0, -32768, 32767)
+                    self.wfile.write(pcm.astype("<i2").tobytes())
+                    self.wfile.flush()
+            except BrokenPipeError:
+                gen.close()  # client hung up: stop at the chunk boundary
+
+        def do_GET(self):
+            path = urlparse(self.path).path
+            if path == "/health":
+                return self._json(200, {
+                    "status": "ok",
+                    "backend": synth.backend,
+                    "receptive_field": synth.cfg.receptive_field,
+                    "parameter_count": synth.cfg.parameter_count(),
+                    "classes": synth.cfg.classes,
+                    "sample_rate": synth.sr,
+                })
+            if path == "/synthesize":
+                return self._synthesize({})
+            self._json(404, {"error": f"no route {path}"})
+
+        def do_POST(self):
+            path = urlparse(self.path).path
+            if path != "/synthesize":
+                return self._json(404, {"error": f"no route {path}"})
+            length = int(self.headers.get("Content-Length", 0) or 0)
+            body = {}
+            if length:
+                try:
+                    body = json.loads(self.rfile.read(length) or b"{}")
+                except json.JSONDecodeError:
+                    return self._json(400, {"error": "body is not JSON"})
+            if not isinstance(body, dict):
+                return self._json(400, {"error": "body must be a JSON object"})
+            self._synthesize(body)
+
+    return Handler
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description=__doc__,
+                                formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--snapshot-path", default="snapshots",
+                   help="serve the newest checkpoint in this directory")
+    p.add_argument("--snapshot", default=None, help="explicit checkpoint file")
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=8765, help="0 = any free port")
+    p.add_argument("--sr", type=int, default=16000)
+    p.add_argument("--max-samples", type=int, default=16000 * 60,
+                   help="per-request ceiling")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (the kernel) or cpu (its plain version)")
+    return p.parse_args(argv)
+
+
+def main(argv=None, on_ready=None):
+    """Load the checkpoint, start the server and serve until interrupted or
+    until ``server.shutdown()``. ``on_ready(server)`` is called once the
+    socket is bound (its port is ``server.server_address[1]``)."""
+    args = parse_args(argv)
+    if args.snapshot:
+        blob = load_checkpoint(args.snapshot, args.device)
+    else:
+        blob = load_latest_model_from(args.snapshot_path, args.device)
+    if blob["config"] is None:
+        raise SystemExit("the checkpoint carries no config")
+    synth = Synthesizer(blob["params"], blob["config"], args.sr, args.device)
+    # build the kernel and load it on the card before the first request
+    next(synth.stream(1, 1.0, 0, 1))
+    server = ThreadingHTTPServer((args.host, args.port),
+                                 make_handler(synth, args.max_samples))
+    print(f"serving {synth.cfg.parameter_count():,}-param model on "
+          f"http://{args.host}:{server.server_address[1]} "
+          f"(backend: {synth.backend})", flush=True)
+    if on_ready is not None:
+        on_ready(server)
+    try:
+        server.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        server.server_close()
+
+
+if __name__ == "__main__":
+    main()

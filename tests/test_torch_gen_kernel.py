@@ -1,0 +1,202 @@
+"""The fused generation loop (kernel K1): its plain PyTorch version on the
+CPU against the JAX package's Pallas kernel in interpret mode, the
+streaming state and the counter-hash noise. The CUDA kernel itself is
+tested on a card in test_torch_gpu.py."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import pytorch_wavenet_tpu as wt
+import pytorch_wavenet_tpu_torch as pt
+from pytorch_wavenet_tpu.models.generate import buffer_length
+from pytorch_wavenet_tpu.ops.pallas.gen_kernel import (
+    generate_fast_fused as jax_fused,
+)
+from pytorch_wavenet_tpu_torch.ops.cuda import gen_kernel as gk
+
+
+def _np_params(cfg, seed):
+    shapes = jax.eval_shape(lambda: wt.init_wavenet(jax.random.PRNGKey(0), cfg))
+    rng = np.random.default_rng(seed)
+    return jax.tree.map(
+        lambda s: rng.uniform(-0.3, 0.3, s.shape).astype(np.float32), shapes)
+
+
+@pytest.fixture(scope="module")
+def tiny():
+    cfgj, cfgt = wt.get_config("tiny"), pt.get_config("tiny")
+    npp = _np_params(cfgj, 0)
+    return (cfgj, jax.tree.map(jnp.asarray, npp), cfgt,
+            pt.from_jax_params(npp, "cpu"))
+
+
+def _prime(cfg, streams, seed, length=None):
+    rng = np.random.default_rng(seed)
+    return rng.integers(0, cfg.classes,
+                        (streams, length or cfg.receptive_field))
+
+
+CASES = {
+    "full_rf_prime": dict(prime=("rf", 2), n=40),
+    "short_prime": dict(prime=(3, 1), n=32),
+    "default_prime": dict(prime=None, n=12),
+    "wraparound": dict(prime=("rf", 1), n="wrap"),
+    "regularize": dict(prime=("rf", 2), n=24, regularize=0.05),
+    "fuse_res": dict(prime=("rf", 2), n=40, fuse_res=True),
+    "fuse_res_short_prime": dict(prime=(5, 3), n=30, fuse_res=True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_plain_matches_jax_pallas_kernel(tiny, case):
+    cfgj, jp, cfgt, tp = tiny
+    spec = CASES[case]
+    n = spec["n"] if spec["n"] != "wrap" else 2 * buffer_length(cfgj) + 3
+    prime = None
+    if spec["prime"] is not None:
+        length, streams = spec["prime"]
+        prime = _prime(cfgj, streams, 7,
+                       cfgj.receptive_field if length == "rf" else length)
+    kw = dict(temperature=0.0, regularize=spec.get("regularize", 0.0),
+              fuse_res=spec.get("fuse_res", False))
+    _, cj, sj = jax_fused(
+        jp, cfgj, jax.random.PRNGKey(0), n,
+        None if prime is None else jnp.asarray(prime, jnp.int32),
+        return_state=True, interpret=True, **kw)
+    before = gk.launches
+    _, ct, st = pt.generate_fast_fused(tp, cfgt, 0, n, prime,
+                                       return_state=True, device="cpu", **kw)
+    assert gk.launches == before  # the plain version launches nothing
+    np.testing.assert_array_equal(ct.numpy(), np.asarray(cj))
+    # the streaming state has the JAX package's layout and values
+    assert st.t == int(sj.t)
+    np.testing.assert_array_equal(st.cls.numpy(), np.asarray(sj.cls))
+    for rt, rj in zip(st.rings, sj.rings):
+        assert tuple(rt.shape) == rj.shape
+        np.testing.assert_allclose(rt.numpy(), np.asarray(rj),
+                                   atol=1e-5, rtol=1e-5)
+
+
+def test_plain_matches_generate_fast_at_t0(tiny):
+    _, _, cfg, tp = tiny
+    prime = _prime(cfg, 3, 8)
+    _, cf = pt.generate_fast_fused(tp, cfg, 0, 30, prime, temperature=0.0,
+                                   device="cpu")
+    _, cx = pt.generate_fast(tp, cfg, None, 30, prime, temperature=0.0,
+                             device="cpu")
+    np.testing.assert_array_equal(cf.numpy(), cx.numpy())
+
+
+@pytest.mark.parametrize("temperature,fuse_res", [
+    (0.0, False), (1.0, False), (0.7, True),
+])
+def test_resume_equals_one_shot_bitwise(tiny, temperature, fuse_res):
+    _, _, cfg, tp = tiny
+    prime = _prime(cfg, 2, 9)
+    kw = dict(temperature=temperature, fuse_res=fuse_res, device="cpu")
+    w_all, c_all = pt.generate_fast_fused(tp, cfg, 21, 60, prime, **kw)
+    _, c1, st = pt.generate_fast_fused(tp, cfg, 21, 25, prime,
+                                       return_state=True, **kw)
+    _, c2, st = pt.generate_fast_fused(tp, cfg, 21, 20, None, state=st,
+                                       return_state=True, **kw)
+    w3, c3 = pt.generate_fast_fused(tp, cfg, 21, 15, None, state=st, **kw)
+    assert torch.equal(torch.cat([c1, c2, c3], dim=1), c_all)
+    assert torch.equal(w3, w_all[:, -15:])
+    assert st.t == cfg.receptive_field - 1 + 45
+
+
+def test_same_seed_same_rollout_at_temperature(tiny):
+    _, _, cfg, tp = tiny
+    prime = _prime(cfg, 2, 10, 4)
+    runs = [pt.generate_fast_fused(tp, cfg, seed, 48, prime, temperature=1.0,
+                                   device="cpu")[1] for seed in (5, 5, 6)]
+    assert torch.equal(runs[0], runs[1])
+    assert not torch.equal(runs[0], runs[2])
+    gen = [pt.generate_fast_fused(
+        tp, cfg, torch.Generator().manual_seed(3), 16, prime,
+        temperature=1.0, device="cpu")[1] for _ in range(2)]
+    assert torch.equal(gen[0], gen[1])
+
+
+def test_hash_noise_matches_uint32_arithmetic():
+    """The int64-masked hash equals the same mixing in numpy uint32, whose
+    arithmetic wraps like the kernel's."""
+    streams, classes, seed = 3, 40, 123456789
+    for ta in (0, 1, 77, 2**31 - 5):
+        got = gk.hash_uniform(ta, seed, streams, classes, "cpu").numpy()
+        c = np.arange(classes, dtype=np.uint32)[None, :]
+        s = np.arange(streams, dtype=np.uint32)[:, None]
+        with np.errstate(over="ignore"):
+            x = (c * np.uint32(streams) + s) * np.uint32(0x9E3779B9)
+            x ^= np.uint32(ta) * np.uint32(0x85EBCA6B)
+            x ^= np.uint32(seed)
+            x ^= x >> np.uint32(16)
+            x *= np.uint32(0x85EBCA6B)
+            x ^= x >> np.uint32(13)
+            x *= np.uint32(0xC2B2AE35)
+            x ^= x >> np.uint32(16)
+        u = (x >> np.uint32(8)).astype(np.float32) * np.float32(1.0 / (1 << 24))
+        u = np.clip(u, np.float32(1e-7), np.float32(1.0 - 1e-7))
+        np.testing.assert_array_equal(got, u)
+        # f32 logarithms of two libraries: a few ulp apart
+        np.testing.assert_allclose(
+            gk.hash_gumbel(ta, seed, streams, classes, "cpu").numpy(),
+            -np.log(-np.log(u)), atol=1e-6)
+
+
+def test_wrapper_rejects_bad_inputs(tiny):
+    _, _, cfg, tp = tiny
+    with pytest.raises(ValueError):
+        pt.generate_fast_fused(tp, cfg, 0, 4, np.zeros((9, 3), np.int64),
+                               device="cpu")
+    with pytest.raises(ValueError):
+        pt.generate_fast_fused(tp, cfg, 0, 4, [1, cfg.classes], device="cpu")
+    _, _, st = pt.generate_fast_fused(tp, cfg, 0, 2, return_state=True,
+                                      device="cpu")
+    with pytest.raises(ValueError):
+        pt.generate_fast_fused(tp, cfg, 0, 2, [1], state=st, device="cpu")
+    with pytest.raises(ValueError):
+        pt.generate_fast_fused(tp, cfg, 0, 4, np.zeros((1, 0), np.int64),
+                               device="cpu")
+
+
+def _bad_operands(cfg, w, prime, rings):
+    """Each case breaks one operand of the launcher."""
+    def without(name):
+        return {k: v for k, v in w.items() if k != name}
+
+    def reshaped(name):
+        return {**w, name: w[name][..., :-1].contiguous()}
+
+    return {
+        "w_out_shape": (reshaped("w_out"), prime, 5, True),
+        "w_end2_shape": (reshaped("w_end2"), prime, 5, True),
+        "w_tap_shape": (reshaped("w_tap"), prime, 5, False),
+        "missing_wf": (without("wf"), prime, 5, True),
+        "empty_prime": (w, prime[:, :0], 5, True),
+        "no_steps": (w, prime, 0, True),
+        "nine_streams": (w, prime.repeat(9, 1), 5, True),
+    }
+
+
+@pytest.mark.parametrize("case", ["w_out_shape", "w_end2_shape", "w_tap_shape",
+                                  "missing_wf", "empty_prime", "no_steps",
+                                  "nine_streams"])
+def test_launcher_checks_operands_before_the_device(tiny, case):
+    """Operands that disagree with the config raise before any launch,
+    whatever their device; the kernel would read out of bounds."""
+    _, _, cfg, tp = tiny
+    w = gk.prepare_weights(tp, cfg, True)
+    prime = torch.zeros((1, 2), dtype=torch.int32)
+    rings = torch.zeros(sum(gk.periods(cfg)) * cfg.residual_channels)
+    bw, bprime, total, fuse = _bad_operands(cfg, w, prime, rings)[case]
+    with pytest.raises(ValueError) as err:
+        gk.fused_cuda(bw, cfg, bprime, rings, 0, total, 0.0, 0.0, 0, fuse)
+    assert "CUDA tensors" not in str(err.value)
+    # the well-formed call gets as far as the device check
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        gk.fused_cuda(w, cfg, prime, rings, 0, 5, 0.0, 0.0, 0, True)
+    assert gk.launches == 0

@@ -1,0 +1,39 @@
+"""The port imports neither JAX nor the JAX package, and importing it has
+no side effects (no build, no device)."""
+
+import os
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_CHECK = """
+import importlib, pkgutil, sys
+import pytorch_wavenet_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+banned = [m for m in sys.modules
+          if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "msgpack",
+                                 "pytorch_wavenet_tpu")]
+assert not banned, banned
+from pytorch_wavenet_tpu_torch.ops.cuda import build, gen_kernel
+assert not build._libs and gen_kernel.launches == 0
+assert not build.BUILD_DIR.exists() or not any(build.BUILD_DIR.glob("*.tmp.*"))
+print(len(names))
+"""
+
+
+def test_no_jax_import():
+    out = subprocess.run([sys.executable, "-c", _CHECK], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= 12  # every submodule was imported
+
+
+def test_chip_smoke_imports_no_jax():
+    src = open(os.path.join(REPO, "chip_smoke.py")).read()
+    for name in ("jax", "flax", "optax", "msgpack", "pytorch_wavenet_tpu."):
+        assert f"import {name}" not in src
+        assert f"from {name}" not in src
+    assert "pytorch_wavenet_tpu import" not in src
