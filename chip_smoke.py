@@ -19,7 +19,27 @@ Phases (any failure stops the run with a nonzero exit):
      around exactly this phase;
   5. times with CUDA events: K1 at the serving chunk, at the bench shape
      (saber, full-rf prime, 65536 samples, temperature 1) and for
-     chaconne; the plain version; the bound from the shapes.
+     chaconne; the plain version; the bound from the shapes;
+  6. kernel K4 (batched many-stream generation) against its plain version
+     at chaconne width, 256 lanes and 200 (a tail tile), exact and
+     ``fuse_res + skip_slab``: a teacher-forced prime, rollouts at
+     temperature 0 and hot with per-lane seeds, temperatures and clocks,
+     a resumed chunk at the pool's clock, three resumed chunks equal to
+     one shot bitwise, NaN-filled fresh rings giving the classes of
+     zeroed ones, and a fresh call equal bitwise (classes and ring) to the
+     same rollout at the pool's clock over zeroed history;
+  7. the ContinuousBatcher on the card (chaconne, 256 lanes): staggered
+     greedy requests and bursts of seeded hot ones, each equal to its solo
+     call bitwise;
+  8. batched serving (the main path of this slice): chaconne served by
+     ``serving.server.main --batcher --lanes 256 --batch-chunk 2048``; 64
+     concurrent 16000-sample requests, all complete, two byte-equal to
+     their solo rollouts, /stats counting them; K4's launch count read
+     around exactly this phase, and the plain version barred from it;
+     aggregate samples/s and time to first audio;
+  9. times with CUDA events: K4 on a resumed 2048-step chunk at 128, 256
+     and 1024 lanes, per tile width at 256 and 1024 lanes; the plain
+     version; the bound from the shapes.
 
 The line before the last is one JSON object listing the kernels; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -299,18 +319,57 @@ def _flops_per_step(cfg):
     return 2 * (L * (k * R * 2 * D + D * (S + R)) + S * E + E * C)
 
 
-def bound_ms(pt, gk, params, cfg, streams, num_given, total):
+def bound_ms(pt, gk, params, cfg, streams, num_given, total, lane_rows=0):
     """Least time for the call: the larger of its bytes (the model's
-    parameters, the prime and the rings read once, classes and rings
-    written once; no fuse_res products, no stand-in zero biases) over the
-    memory rate and its f32 operations over the f32 peak."""
+    parameters, the prime, the rings and ``lane_rows`` per-lane f32/int32
+    rows read once, classes and rings written once; no fuse_res products,
+    no stand-in zero biases) over the memory rate and its f32 operations
+    over the f32 peak."""
     ring = sum(gk.periods(cfg)) * streams * cfg.residual_channels * 4
     nbytes = (4 * pt.parameter_count(params) + 2 * ring
-              + 4 * streams * (num_given + total))
+              + 4 * streams * (num_given + total + lane_rows))
     flops = _flops_per_step(cfg) * streams * total
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_PEAK_FLOPS
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops
                                        else "operations")
+
+
+def trunk_bounds(cfg, batch, out_len):
+    """Bounds of the training trunk kernels K2 (forward) and K3 (backward),
+    still to be ported, from their shapes: ``{name: (ms, bound_by)}``.
+    Layer l's gated unit is needed on the output window widened by every
+    later layer's lookback (W_l positions per item; the JAX kernel's
+    ``_windows`` without its 128-lane rounding). Forward operations per
+    position: the fused tap product 2*(k*R)*(2D) and the residual product
+    2*D*R; bytes: the embedded input stream (f32) read once, the gated
+    units (batch, out, L*D) f32 written once, each layer's input window
+    saved once in bf16, and the trunk weights. Backward: the tap product
+    recomputed and two of its size for the weight and input gradients, two
+    of the residual product's size; bytes: the saves and the units'
+    gradient read once, the input stream's gradient and the weight
+    gradients written once."""
+    k, R, D, L = (cfg.kernel_size, cfg.residual_channels,
+                  cfg.dilation_channels, cfg.num_layers)
+    T = cfg.receptive_field + out_len - 1
+    W, reach = [], 0
+    for d in reversed(cfg.dilations):
+        W.append(min(T, out_len + reach))
+        reach += (k - 1) * d
+    pos = batch * sum(W)
+    tap, res = 2 * k * R * 2 * D, 2 * D * R
+    w_bytes = 4 * L * (k * R * 2 * D + 2 * D + D * R + R)
+    saves = 2 * R * pos
+    units = 4 * batch * out_len * L * D
+    stream = 4 * batch * T * R
+    out = {}
+    for name, flops, nbytes in (
+            ("K2", pos * (tap + res), stream + units + saves + w_bytes),
+            ("K3", pos * (3 * tap + 2 * res),
+             saves + units + stream + 2 * w_bytes)):
+        t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / F32_PEAK_FLOPS
+        out[name] = (1e3 * max(t_b, t_o),
+                     "bytes" if t_b > t_o else "operations")
+    return out
 
 
 def _time(torch, fn, reps, warm=True):
@@ -392,6 +451,445 @@ def phase_times(torch, pt, gk, dev, card):
     return dict(ms=k_ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by)
 
 
+
+# ---------------------------------------------------------------------- K4
+
+K4_VARIANTS = (("exact", False, False), ("fuse_res + skip_slab", True, True))
+
+
+def _lane_rows(torch, dev, lanes, temps_cycle=(0.0, 0.9, 1.0)):
+    """Per-lane temperatures cycling through ``temps_cycle``, distinct
+    seeds, and non-zero noise clocks."""
+    i = torch.arange(lanes, dtype=torch.int32)
+    temps = torch.tensor([temps_cycle[j % len(temps_cycle)]
+                          for j in range(lanes)], dtype=torch.float32)
+    return (temps.to(dev), (i * 7919 - 1000).to(dev),
+            ((i * 37) % 1000 - 300).to(dev))
+
+
+def _rollout_check(torch, ck, cp, gaps, rk, rp, tag, what):
+    """Kernel and plain version from the same state: every lane's classes
+    agree up to its first mismatch, which must be at a near-tie of the
+    plain version's scores; rings agree on the lanes that never parted.
+    Returns (lanes that parted, ring error)."""
+    diff = ck != cp
+    parted = diff.any(dim=1)
+    n = int(parted.sum())
+    if n:
+        lanes = parted.nonzero()[:, 0]
+        first = diff.int().argmax(dim=1)[lanes]
+        gap = float(gaps[lanes, first].max())
+        check(gap < NEAR_TIE, f"{tag} {what}: {n} lanes part, widest plain "
+              f"gap at a parting {gap}")
+    keep = ~parted
+    err = (float((rk[:, keep] - rp[:, keep]).abs().max())
+           if bool(keep.any()) else 0.0)
+    check(err <= RING_TOL, f"{tag} {what}: ring error {err}")
+    log(f"[{tag}] {what}: {ck.shape[0] - n} of {ck.shape[0]} lanes identical "
+        f"over {ck.shape[1]} steps, {n} part at a near-tie (gap < "
+        f"{NEAR_TIE}); ring max abs err {err:.3g} on the identical lanes")
+    return n, err
+
+
+def _roll_ring(torch, ghbm, cfg, ring, delta):
+    """The ring as a call started ``delta`` steps later would hold it: each
+    layer's slot s moves to (s + delta) mod P."""
+    R, out = cfg.residual_channels, torch.empty_like(ring)
+    for first, P in zip(ghbm.ring_offsets(cfg), ghbm.periods(cfg)):
+        blk = ring[first * R:(first + P) * R].view(P, R, -1)
+        out[first * R:(first + P) * R] = torch.roll(
+            blk, delta % P, dims=0).reshape(P * R, -1)
+    return out
+
+
+def phase_k4_vs_plain(torch, pt, ghbm, dev):
+    """K4 against its plain version at chaconne width. Returns the largest
+    ring error and the class mismatch and near-tie counts."""
+    worst, mismatches, near_ties = 0.0, 0, 0
+    cfg = pt.get_config("chaconne")
+    params = pt.init_wavenet(cfg, torch.Generator().manual_seed(SEED), dev)
+    C, rows = cfg.classes, ghbm.ring_rows(cfg)
+    clock = max(ghbm.periods(cfg))  # the pool's clock at bootstrap
+    for lanes in (256, 200):
+        zeros = torch.zeros(lanes, dtype=torch.int32, device=dev)
+        greedy = torch.zeros(lanes, device=dev)
+        temps, seeds, toffs = _lane_rows(torch, dev, lanes)
+        prime = torch.randint(0, C, (lanes, 600),
+                              generator=torch.Generator().manual_seed(7))
+        prime = prime.to(dev, torch.int32)
+        short = prime[:, :16].contiguous()
+        for name, fuse, slab in K4_VARIANTS:
+            w = ghbm.prepare_weights(params, cfg, fuse, slab)
+            tag = f"K4 chaconne {lanes} lanes {name}"
+
+            def both(prime, ring, t0, total, temps, seeds, toffs):
+                rp = ring.clone()
+                ck = ghbm.batched_cuda(w, cfg, prime, ring, t0, total, temps,
+                                       seeds, toffs, 0, 0.0, fuse, slab, True)
+                torch.cuda.synchronize()
+                cp, gaps = ghbm.batched_plain(w, cfg, prime, rp, t0, total,
+                                              temps, seeds, toffs, 0, 0.0,
+                                              fuse, slab, True,
+                                              return_gaps=True)
+                return ck, cp, gaps, ring, rp
+
+            # teacher-forced: a prime of 300 classes, one sample after
+            forced = prime[:, :300].contiguous()
+            ck, cp, gaps, rk, rp = both(forced, torch.zeros(rows, lanes,
+                                                            device=dev),
+                                        0, 300, greedy, zeros, zeros)
+            miss = ck[:, :299] != cp[:, :299]
+            ties = gaps[:, :299] < NEAR_TIE
+            bad = int((miss & ~ties).sum())
+            err = float((rk - rp).abs().max())
+            log(f"[{tag}] teacher-forced 299 steps: {int(miss.sum())} class "
+                f"mismatches ({bad} not at a near-tie), {int(ties.sum())} "
+                f"near-ties (gap < {NEAR_TIE}), ring max abs err {err:.3g}")
+            check(bad == 0, f"{tag}: kernel disagrees with plain off a "
+                  f"near-tie")
+            check(err <= RING_TOL, f"{tag}: ring error {err} > {RING_TOL}")
+            worst = max(worst, err)
+            mismatches += int(miss.sum())
+            near_ties += int(ties.sum())
+
+            # free-running from fresh rings: greedy, then hot with per-lane
+            # seeds, temperatures {0, 0.9, 1.0} and non-zero clocks
+            for what, rows_ in (("rollout T=0", (greedy, zeros, zeros)),
+                                ("hot rollout lane_seed/lane_clock",
+                                 (temps, seeds, toffs))):
+                n, e = _rollout_check(
+                    torch, *both(short, torch.zeros(rows, lanes, device=dev),
+                                 0, 215, *rows_), tag, what)
+                mismatches += n
+                near_ties += n
+                worst = max(worst, e)
+
+            # a resumed chunk at the pool's clock or later, T = 0.9: rings
+            # written by a 600-step kernel call, then 200 steps from there
+            ring = torch.zeros(rows, lanes, device=dev)
+            head = ghbm.batched_cuda(w, cfg, prime, ring, 0, 600, greedy,
+                                     zeros, zeros, 0, 0.0, fuse, slab, True)
+            check(600 >= clock, "the resumed chunk starts before the clock")
+            hot = torch.full((lanes,), 0.9, device=dev)
+            n, e = _rollout_check(
+                torch, *both(head[:, -1:].contiguous(), ring, 600, 200, hot,
+                             seeds, toffs), tag, "resumed chunk t0=600 T=0.9")
+            mismatches += n
+            near_ties += n
+            worst = max(worst, e)
+
+            # three resumed chunks equal one shot, bitwise
+            r1 = torch.zeros(rows, lanes, device=dev)
+            c_all = ghbm.batched_cuda(w, cfg, short, r1, 0, 615, temps,
+                                      seeds, toffs, 0, 0.0, fuse, slab, True)
+            r3 = torch.zeros(rows, lanes, device=dev)
+            parts, t0, p = [], 0, short
+            for total in (215, 200, 200):
+                c = ghbm.batched_cuda(w, cfg, p, r3, t0, total, temps, seeds,
+                                      toffs, 0, 0.0, fuse, slab, True)
+                parts.append(c[:, p.shape[1] - 1:])
+                t0 += total
+                p = c[:, -1:].contiguous()
+            same = (torch.equal(torch.cat(parts, dim=1), c_all[:, 15:])
+                    and torch.equal(r1, r3))
+            check(same, f"{tag}: chunked rollout differs from one shot")
+            log(f"[{tag}] 3-chunk resume (215+200+200 steps) equals one shot "
+                f"bitwise (classes and ring)")
+
+            # predication: a NaN-filled fresh ring gives the classes of a
+            # zeroed one
+            cls = [ghbm.batched_cuda(w, cfg, short,
+                                     torch.full((rows, lanes), fill,
+                                                device=dev),
+                                     0, 215, temps, seeds, toffs, 0, 0.0,
+                                     fuse, slab, True)
+                   for fill in (float("nan"), 0.0)]
+            torch.cuda.synchronize()
+            check(torch.equal(cls[0], cls[1]),
+                  f"{tag}: a NaN-filled fresh ring changes the classes")
+            log(f"[{tag}] NaN-filled fresh ring: same classes as a zeroed "
+                f"ring over 215 steps")
+
+            # what the pool relies on: a fresh call from one class equals,
+            # bitwise, the same rollout at the pool's clock over zeroed
+            # history (same request-local noise clock), ring rolled by it
+            one = short[:, :1].contiguous()
+            r_fresh = torch.full((rows, lanes), float("nan"), device=dev)
+            c_fresh = ghbm.batched_cuda(w, cfg, one, r_fresh, 0, 600, temps,
+                                        seeds, toffs, 0, 0.0, fuse, slab,
+                                        True)
+            r_pool = torch.zeros(rows, lanes, device=dev)
+            c_pool = ghbm.batched_cuda(w, cfg, one, r_pool, clock, 600, temps,
+                                       seeds, toffs - clock, 0, 0.0, fuse,
+                                       slab, True)
+            same = (torch.equal(c_fresh, c_pool) and torch.equal(
+                _roll_ring(torch, ghbm, cfg, r_fresh, clock), r_pool))
+            check(same, f"{tag}: a fresh call differs from its rollout over "
+                  f"zeroed history")
+            log(f"[{tag}] fresh call equals its rollout at t0={clock} over "
+                f"zeroed history bitwise (classes and ring, 600 steps)")
+    return worst, mismatches, near_ties
+
+
+def _solo_cls(pt, params, cfg, prime, n, temperature, seed, dev):
+    _, cls = pt.generate_fast_batched(
+        params, cfg, 0, n, prime, temperature=temperature,
+        lane_seed=seed, fuse_res=True, skip_slab=True, device=dev)
+    return cls.cpu().numpy()
+
+
+def phase_k4_batcher(torch, np, pt, dev):
+    """The ContinuousBatcher on the card: pooled responses equal their solo
+    calls bitwise."""
+    from pytorch_wavenet_tpu_torch.serving import ContinuousBatcher
+
+    cfg = pt.get_config("chaconne")
+    params = pt.init_wavenet(cfg, torch.Generator().manual_seed(SEED), dev)
+    rng = np.random.default_rng(5)
+    b = ContinuousBatcher(params, cfg, lanes=256, chunk=512, fuse_res=True,
+                          skip_slab=True, device=dev)
+    reqs = []
+    t = time.time()
+    try:
+        b.prewarm()
+        # staggered greedy requests, then bursts of seeded hot ones, all
+        # admitted while the pool runs
+        for i in range(6):
+            prime = rng.integers(0, cfg.classes, (1, 64, 700)[i % 3])
+            reqs.append((b.submit(prime, 1500, temperature=0.0, seed=100 + i),
+                         prime, 1500, 0.0, 100 + i))
+            time.sleep(0.25)
+        for burst in range(4):
+            for j in range(10):
+                prime = rng.integers(0, cfg.classes, (1, 64)[j % 2])
+                temp, seed = (0.9, 1.0)[j % 2], 1000 + 10 * burst + j
+                reqs.append((b.submit(prime, 1200, temperature=temp,
+                                      seed=seed), prime, 1200, temp, seed))
+            time.sleep(0.3)
+        got = [h.result(timeout=600)[1] for h, *_ in reqs]
+        stats = b.stats()
+    finally:
+        b.close()
+    dt = time.time() - t
+    check(stats["completed"] == len(reqs) and stats["failed"] == 0,
+          f"batcher stats: {stats}")
+    # solo references, one call per (prime length, length, temperature):
+    # under lane_seed a lane's rollout does not depend on the lanes beside
+    # it, so each lane of such a call is that request's solo rollout; the
+    # first two requests also get literal one-lane calls
+    groups = {}
+    for i, (_, prime, n, temp, seed) in enumerate(reqs):
+        groups.setdefault((prime.size, n, temp), []).append(i)
+    for idx in groups.values():
+        _, _, n, temp, _ = reqs[idx[0]]
+        ref = _solo_cls(pt, params, cfg,
+                        np.stack([reqs[i][1] for i in idx]), n, temp,
+                        [reqs[i][4] for i in idx], dev)
+        for row, i in enumerate(idx):
+            check(np.array_equal(got[i], ref[row]),
+                  f"pooled request {i} differs from its solo rollout")
+    for i in (0, 6):
+        _, prime, n, temp, seed = reqs[i]
+        ref = _solo_cls(pt, params, cfg, prime[None], n, temp, [seed], dev)
+        check(np.array_equal(got[i], ref[0]),
+              f"pooled request {i} differs from its one-lane solo call")
+    log(f"[batcher] chaconne, 256 lanes, chunk 512: {len(reqs)} requests "
+        f"(6 staggered greedy, 40 hot in 4 bursts) all equal their solo "
+        f"rollouts bitwise; {stats['pool_steps']} pool steps, "
+        f"{stats['prime_calls']} prime calls, {dt:.1f} s")
+
+
+def phase_k4_serving(torch, np, pt, gk, ghbm, dev):
+    """The main path of this slice. Returns the K4 launches counted around
+    it and the served figures."""
+    from pytorch_wavenet_tpu_torch.ops.mulaw import dequantize_to_f32
+    from pytorch_wavenet_tpu_torch.serving import server as srv
+
+    cfg = pt.get_config("chaconne")
+    params = pt.init_wavenet(cfg, torch.Generator().manual_seed(SEED), dev)
+    n, n_req = 16000, 64
+    temps = [(0.9, 1.0, 0.0, 0.9)[i % 4] for i in range(n_req)]
+    plain_calls = []
+    real_plain = ghbm.batched_plain
+
+    def barred(*args, **kwargs):
+        plain_calls.append(1)
+        raise RuntimeError("the plain version ran on the card path")
+
+    with tempfile.TemporaryDirectory() as d:
+        path = pt.save_checkpoint(d, "chaconne", 0, params, cfg=cfg)
+        box, ready = {}, threading.Event()
+
+        def on_ready(server):
+            box["server"] = server
+            ready.set()
+
+        ghbm.batched_plain = barred
+        gk.launches = 0
+        ghbm.launches = 0
+        th = threading.Thread(target=srv.main, kwargs=dict(
+            argv=["--snapshot", path, "--port", "0", "--batcher", "--lanes",
+                  "256", "--batch-chunk", "2048"], on_ready=on_ready),
+            daemon=True)
+        t0 = time.time()
+        th.start()
+        try:
+            while not ready.wait(1):
+                check(th.is_alive() and time.time() - t0 < 600,
+                      "batcher server did not come up")
+            server = box["server"]
+            base = f"http://127.0.0.1:{server.server_address[1]}"
+            log(f"[serve-batcher] up in {time.time() - t0:.1f} s at {base}")
+            try:
+                with urllib.request.urlopen(base + "/health", timeout=60) as r:
+                    health = json.loads(r.read())
+                check(health["backend"] == "cuda-batcher", f"health: {health}")
+                with urllib.request.urlopen(base + "/stats", timeout=60) as r:
+                    before = json.loads(r.read())
+                out = [None] * n_req
+
+                def fetch(i):
+                    url = (f"{base}/synthesize?num_samples={n}"
+                           f"&temperature={temps[i]}&seed={500 + i}")
+                    t = time.time()
+                    with urllib.request.urlopen(url, timeout=900) as r:
+                        head = r.read(46)  # header + the first sample
+                        t_first = time.time() - t
+                        blob = head + r.read()
+                    out[i] = (blob, t_first, time.time() - t)
+
+                threads = [threading.Thread(target=fetch, args=(i,))
+                           for i in range(n_req)]
+                t = time.time()
+                for th_ in threads:
+                    th_.start()
+                for th_ in threads:
+                    th_.join(900)
+                wall = time.time() - t
+                with urllib.request.urlopen(base + "/stats", timeout=60) as r:
+                    stats = json.loads(r.read())
+            finally:
+                server.shutdown()
+                th.join(120)
+        finally:
+            ghbm.batched_plain = real_plain
+        launched, k1 = ghbm.launches, gk.launches
+    check(not th.is_alive(), "batcher server thread did not stop")
+    check(all(o is not None for o in out), "a request did not finish")
+    pcms = [np.frombuffer(_read_wav(blob, n), "<i2") for blob, _, _ in out]
+    done = stats["completed"] - before["completed"]
+    check(done == n_req and stats["failed"] == 0,
+          f"/stats counts {done} completed of {n_req}: {stats}")
+    check(not plain_calls and k1 == 0,
+          f"plain calls {len(plain_calls)}, K1 launches {k1} on the K4 path")
+    expect = stats["pool_steps"] + stats["prime_calls"] + 1  # + prewarm step
+    log(f"[serve-batcher] K4 launches during serving: {launched} (expected "
+        f"{expect}: {stats['pool_steps']} pool steps + "
+        f"{stats['prime_calls']} prime calls + 1 prewarm step); K1 launches "
+        f"{k1}; plain-version calls {len(plain_calls)}")
+    check(launched == expect and stats["pool_steps"] >= n // 2048,
+          f"{launched} K4 launches, expected {expect}")
+
+    # what came out: two responses equal their solo rollouts byte for byte
+    for i in (0, 2):
+        cls = _solo_cls(pt, params, cfg, [[cfg.classes // 2]], n, temps[i],
+                        [500 + i], dev)[0]
+        wav = dequantize_to_f32(cls, cfg.classes)
+        check(np.isfinite(wav).all(), "non-finite waveform")
+        solo = np.clip(wav * 32767.0, -32768, 32767).astype("<i2")
+        check(np.array_equal(pcms[i], solo),
+              f"served request {i} (T={temps[i]}) differs from its solo "
+              f"rollout")
+    ttfa = sorted(o[1] for o in out)
+    served = n_req * n / wall
+    log(f"[serve-batcher] {n_req} concurrent {n}-sample requests in "
+        f"{wall:.2f} s: {served:.0f} samples/s served; time to first audio "
+        f"median {1e3 * ttfa[n_req // 2]:.0f} ms, max {1e3 * ttfa[-1]:.0f} "
+        f"ms; requests 0 and 2 equal their solo rollouts byte for byte; "
+        f"{stats['pool_steps']} pool steps of 2048")
+    return launched, dict(samples_per_s=served, wall_s=wall,
+                          ttfa_median_ms=1e3 * ttfa[n_req // 2],
+                          ttfa_max_ms=1e3 * ttfa[-1])
+
+
+def phase_k4_times(torch, pt, ghbm, dev, card):
+    """K4 on a resumed 2048-step chunk (the pool's call). Returns the
+    256-lane measurements for the kernels line."""
+    def setup(cfg, lanes):
+        params = pt.init_wavenet(cfg, torch.Generator().manual_seed(SEED),
+                                 dev)
+        prime = torch.randint(0, cfg.classes, (lanes, 1),
+                              generator=torch.Generator().manual_seed(3))
+        temps = torch.full((lanes,), 0.9, device=dev)
+        _, seeds, toffs = _lane_rows(torch, dev, lanes)
+        return (params, ghbm.prepare_weights(params, cfg, True, True), cfg,
+                prime.to(dev, torch.int32),
+                torch.zeros(ghbm.ring_rows(cfg), lanes, device=dev),
+                temps, seeds, toffs)
+
+    def call(run, ops, steps, **kw):
+        _, w, cfg, prime, ring, temps, seeds, toffs = ops
+        clock = max(ghbm.periods(cfg))  # the pool's bootstrap clock
+        return lambda: run(w, cfg, prime, ring, clock, steps, temps, seeds,
+                           toffs, 0, 0.0, True, True, True, **kw)
+
+    cfg = pt.get_config("chaconne")
+
+    out = {}
+    for lanes in (128, 256, 1024):
+        ops = setup(cfg, lanes)
+        params = ops[0]
+        ms = _time(torch, call(ghbm.batched_cuda, ops, 2048), 2)
+        best = min(ms)
+        b_ms, b_by = bound_ms(pt, ghbm, params, cfg, lanes, 1, 2048,
+                              lane_rows=3)
+        log(f"[time] K4 chaconne fuse_res+skip_slab, {lanes} lanes (tile "
+            f"{ghbm.default_tile(lanes)}), resumed 2048-step chunk, T=0.9 "
+            f"lane_seed: " + ", ".join(f"{m:.2f}" for m in ms)
+            + f" ms; {1e3 * best / 2048:.2f} us/step, "
+            f"{lanes * 2048 / best * 1e3:.0f} samples/s; bound {b_ms:.4f} "
+            f"ms ({b_by}), {100 * b_ms / best:.2f} % of it [{card}]")
+        out[lanes] = dict(ms=best, bound_ms=b_ms, bound_by=b_by)
+    # the tile sweep behind default_tile: each width at both pool sizes
+    for lanes in (256, 1024):
+        ops = setup(cfg, lanes)
+        for tile in ghbm.TILES:
+            best = min(_time(torch, call(ghbm.batched_cuda, ops, 2048,
+                                         tile=tile), 1))
+            log(f"[time] K4 {lanes} lanes, tile {tile} ({-(-lanes // tile)} "
+                f"blocks, {ghbm.shared_bytes(cfg, tile, True)} B shared): "
+                f"{best:.2f} ms per 2048-step chunk, "
+                f"{1e3 * best / 2048:.2f} us/step [{card}]")
+    ops = setup(cfg, 256)
+    cut = _time(torch, call(ghbm.batched_plain, ops, 256), 1,
+                warm=False)[0]
+    log(f"[time] plain version, 256 lanes, the same chunk cut to 256 steps: "
+        f"{cut:.1f} ms, {1e3 * cut / 256:.1f} us/step [{card}]")
+    plain = _time(torch, call(ghbm.batched_plain, ops, 2048), 1,
+                  warm=False)[0]
+    log(f"[time] plain version, 256 lanes, the whole 2048-step chunk: "
+        f"{plain:.1f} ms, {1e3 * plain / 2048:.1f} us/step [{card}]")
+    log("[time] library call: none (no single PyTorch call computes the loop)")
+    # where a step's time goes: chaconne widths at 1, 2 and 3 blocks, 256
+    # lanes; the slope is the cost of one layer, the intercept that of the
+    # embed, the skip-row and head products and the sampling
+    us = []
+    for blocks in (1, 2, 3):
+        ops = setup(pt.get_config("chaconne", blocks=blocks), 256)
+        us.append(1e3 * min(_time(torch, call(ghbm.batched_cuda, ops, 2048),
+                                  1)) / 2048)
+    per_layer = (us[2] - us[0]) / 20
+    log(f"[time] K4 chaconne widths, 256 lanes, 10/20/30 layers: "
+        + ", ".join(f"{u:.2f}" for u in us) + f" us/step; {per_layer:.2f} "
+        f"us per layer, {us[0] - 10 * per_layer:.2f} us per step outside "
+        f"the layers [{card}]")
+    for name, (ms, by) in trunk_bounds(cfg, 16, 1024).items():
+        log(f"[bound] {name} (training trunk, not ported yet), chaconne, "
+            f"batch 16, output_length 1024: {ms:.4f} ms ({by}), from the "
+            f"shapes")
+    return dict(out[256], plain_ms=plain)
+
+
 # -------------------------------------------------------------------- main
 
 
@@ -406,6 +904,7 @@ def main():
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import pytorch_wavenet_tpu_torch as pt
     from pytorch_wavenet_tpu_torch.ops.cuda import gen_kernel as gk
+    from pytorch_wavenet_tpu_torch.ops.cuda import gen_kernel_hbm as ghbm
 
     t_start = time.time()
     dev = torch.device("cuda")
@@ -417,6 +916,14 @@ def main():
     log(f"phase serving done at {time.time() - t_start:.0f} s")
     times = phase_times(torch, pt, gk, dev, card)
     log(f"phase times done at {time.time() - t_start:.0f} s")
+    k4_err, k4_mm, k4_nt = phase_k4_vs_plain(torch, pt, ghbm, dev)
+    log(f"phase K4 kernel-vs-plain done at {time.time() - t_start:.0f} s")
+    phase_k4_batcher(torch, np, pt, dev)
+    log(f"phase K4 batcher done at {time.time() - t_start:.0f} s")
+    k4_launched, served = phase_k4_serving(torch, np, pt, gk, ghbm, dev)
+    log(f"phase K4 serving done at {time.time() - t_start:.0f} s")
+    k4_times = phase_k4_times(torch, pt, ghbm, dev, card)
+    log(f"phase K4 times done at {time.time() - t_start:.0f} s")
 
     kernels = [{
         "name": "gen_fused (K1, fuse_res)",
@@ -432,6 +939,23 @@ def main():
         "library_ms": None,
         "class_mismatches": mismatches,
         "near_ties": near_ties,
+    }, {
+        "name": "gen_batched (K4, fuse_res + skip_slab, 256 lanes, "
+                "2048-step chunk)",
+        "route": "cuda",
+        "source": "pytorch_wavenet_tpu_torch/csrc/gen_kernel_hbm.cu",
+        "replaces": "pytorch_wavenet_tpu/ops/pallas/gen_kernel_hbm.py:1037",
+        "launches": k4_launched,
+        "max_abs_err": k4_err,
+        "ms": k4_times["ms"],
+        "plain_ms": k4_times["plain_ms"],
+        "bound_ms": k4_times["bound_ms"],
+        "bound_by": k4_times["bound_by"],
+        "library_ms": None,
+        "class_mismatches": k4_mm,
+        "near_ties": k4_nt,
+        "served_samples_per_s": served["samples_per_s"],
+        "ttfa_median_ms": served["ttfa_median_ms"],
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,12 @@
 """pytorch_wavenet_tpu_torch: the PyTorch/CUDA port of pytorch_wavenet_tpu.
 
 WaveNet for one NVIDIA H100: the plain PyTorch model, Fast-WaveNet
-generation, checkpoints in the JAX package's format, and single-stream
-serving through a hand-written CUDA kernel for the fused generation loop
-(``ops/cuda/gen_kernel.py``, source in ``csrc/``). Importing the package
+generation, checkpoints in the JAX package's format, single-stream serving
+through a hand-written CUDA kernel for the fused generation loop
+(``ops/cuda/gen_kernel.py``), and continuous-batching serving of many
+streams (``serving/batcher.py``) through a hand-written CUDA kernel for
+batched generation (``ops/cuda/gen_kernel_hbm.py``); the kernel sources
+are in ``csrc/``. Importing the package
 builds nothing and touches no device; kernels build with ``nvcc`` at first
 use. Entry points take ``device`` (default ``"cuda"``, which raises when no
 card is present); ``device="cpu"`` runs the plain PyTorch versions.
@@ -28,6 +31,8 @@ from .models.wavenet import (
     wavenet_logits,
 )
 from .ops.cuda.gen_kernel import FusedGenState, generate_fast_fused
+from .ops.cuda.gen_kernel_hbm import HbmGenState, generate_fast_batched
+from .serving.batcher import ContinuousBatcher
 from .ops.mulaw import (
     dequantize_data,
     dequantize_to_f32,
@@ -50,6 +55,7 @@ __all__ = [
     "embed_inputs", "forward", "init_wavenet", "parameter_count",
     "wavenet_logits",
     "FusedGenState", "generate_fast_fused",
+    "HbmGenState", "generate_fast_batched", "ContinuousBatcher",
     "dequantize_data", "dequantize_to_f32", "mu_law_encoding",
     "mu_law_expansion", "quantize_data",
     "latest_checkpoint", "load_checkpoint", "load_latest_model_from",

@@ -36,6 +36,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "gen_common.cuh"
+
 #define NT 512  // threads per block
 
 namespace {
@@ -63,35 +65,6 @@ struct Args {
   float temperature, regularize;
   unsigned seed;
 };
-
-__device__ __forceinline__ int pmod(int a, int p) {
-  int r = a % p;
-  return r < 0 ? r + p : r;
-}
-
-__device__ __forceinline__ float sigmoidf_(float x) {
-  return 1.0f / (1.0f + expf(-x));
-}
-
-// Counter-hash Gumbel noise, the same int32 mixing as the JAX package's HBM
-// kernel (gen_kernel_hbm.py hash_gumbel) with the stream index in place of
-// the lane. The PyTorch version (hash_uniform, hash_gumbel in
-// ops/cuda/gen_kernel.py) repeats it.
-__device__ __forceinline__ float hash_gumbel(unsigned c, unsigned s,
-                                             unsigned streams, unsigned ta,
-                                             unsigned seed) {
-  unsigned x = (c * streams + s) * 0x9E3779B9u;
-  x ^= ta * 0x85EBCA6Bu;
-  x ^= seed;
-  x ^= x >> 16;
-  x *= 0x85EBCA6Bu;
-  x ^= x >> 13;
-  x *= 0xC2B2AE35u;
-  x ^= x >> 16;
-  float u = __fmul_rn((float)(x >> 8), 1.0f / 16777216.0f);
-  u = fminf(fmaxf(u, 1e-7f), (float)(1.0 - 1e-7));
-  return -logf(-logf(u));
-}
 
 // Partial sums of x (n_in, in shared memory; relu'd when RELU) times the
 // columns of the row-major W (n_in, n_out), split into G row groups:
@@ -276,7 +249,7 @@ __global__ void __launch_bounds__(NT) gen_fused_kernel(Args a) {
       }
       if (a.temperature > 0.f)
         v = __fadd_rn(__fdiv_rn(v, a.temperature),
-                      hash_gumbel(c, s, a.streams, ta, a.seed));
+                      counter_gumbel(c * a.streams + s, ta, a.seed));
       lg[c] = v;
     }
     __syncthreads();

@@ -21,6 +21,7 @@ import ctypes
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 PKG_DIR = Path(__file__).resolve().parents[2]
@@ -31,6 +32,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
 _libs: dict[str, ctypes.CDLL] = {}
+_load_lock = threading.Lock()  # a server's worker thread and its caller
 
 
 def nvcc() -> str:
@@ -46,8 +48,13 @@ def library_path(name: str) -> Path:
 
 
 def _stale(name: str) -> bool:
-    so, src = library_path(name), SRC_DIR / f"{name}.cu"
-    return not so.exists() or so.stat().st_mtime < src.stat().st_mtime
+    """The library is missing, or older than its source or any shared
+    header (``csrc/*.cuh``)."""
+    so = library_path(name)
+    if not so.exists():
+        return True
+    sources = [SRC_DIR / f"{name}.cu", *SRC_DIR.glob("*.cuh")]
+    return so.stat().st_mtime < max(p.stat().st_mtime for p in sources)
 
 
 def _start(name: str, verbose: bool) -> tuple[subprocess.Popen, Path]:
@@ -86,10 +93,11 @@ def build(names: list[str] | None = None, verbose: bool = False) -> dict:
 def load(name: str) -> ctypes.CDLL:
     """The built library for ``csrc/<name>.cu``, building it first when it
     is missing or stale."""
-    lib = _libs.get(name)
-    if lib is None:
-        if _stale(name):
-            build([name])
-        lib = ctypes.CDLL(str(library_path(name)))
-        _libs[name] = lib
-    return lib
+    with _load_lock:
+        lib = _libs.get(name)
+        if lib is None:
+            if _stale(name):
+                build([name])
+            lib = ctypes.CDLL(str(library_path(name)))
+            _libs[name] = lib
+        return lib

@@ -123,16 +123,18 @@ def _mul32(x: torch.Tensor, m: int) -> torch.Tensor:
     return (lo + hi) & _M32
 
 
-def hash_uniform(ta: int, seed: int, streams: int, classes: int,
-                 device) -> torch.Tensor:
-    """Uniforms ``(streams, classes)`` in [1e-7, 1 - 1e-7] for absolute
-    step ``ta``: the kernel's integer hash in int64 arithmetic masked to 32
-    bits."""
-    c = torch.arange(classes, dtype=torch.int64, device=device)
-    s = torch.arange(streams, dtype=torch.int64, device=device)
-    x = _mul32(c[None, :] * streams + s[:, None], 0x9E3779B9)
-    x = x ^ ((ta * 0x85EBCA6B) & _M32)
-    x = x ^ (seed & _M32)
+def counter_uniform(idx, tloc, seed, device) -> torch.Tensor:
+    """Uniforms in [1e-7, 1 - 1e-7] from the counter hash of ``(idx, tloc,
+    seed)`` (ints or integer tensors, broadcast together): the int32
+    mixing of the JAX package's ``gen_kernel_hbm.py::hash_gumbel`` and of
+    ``csrc/gen_common.cuh``, in int64 arithmetic masked to 32 bits, so
+    negative and wrapping values hash as the int32 kernels see them."""
+    def u32(v):
+        return torch.as_tensor(v, dtype=torch.int64, device=device) & _M32
+
+    x = _mul32(u32(idx), 0x9E3779B9)
+    x = x ^ _mul32(u32(tloc), 0x85EBCA6B)
+    x = x ^ u32(seed)
     x = x ^ (x >> 16)
     x = _mul32(x, 0x85EBCA6B)
     x = x ^ (x >> 13)
@@ -140,6 +142,16 @@ def hash_uniform(ta: int, seed: int, streams: int, classes: int,
     x = x ^ (x >> 16)
     u = (x >> 8).to(torch.float32) * (1.0 / (1 << 24))
     return torch.clamp(u, 1e-7, 1.0 - 1e-7)
+
+
+def hash_uniform(ta: int, seed: int, streams: int, classes: int,
+                 device) -> torch.Tensor:
+    """Uniforms ``(streams, classes)`` for absolute step ``ta``, K1's
+    keying: index ``class * streams + stream``, one seed."""
+    c = torch.arange(classes, dtype=torch.int64, device=device)
+    s = torch.arange(streams, dtype=torch.int64, device=device)
+    return counter_uniform(c[None, :] * streams + s[:, None], ta, seed,
+                           device)
 
 
 def hash_gumbel(ta: int, seed: int, streams: int, classes: int,

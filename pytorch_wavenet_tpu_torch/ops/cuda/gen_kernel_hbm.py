@@ -1,0 +1,489 @@
+"""Batched many-stream generation: the CUDA kernel K4, its plain PyTorch
+version and the wrapper that picks between them.
+
+The kernel (``csrc/gen_kernel_hbm.cu``) replaces the JAX package's Pallas
+TPU kernel ``ops/pallas/gen_kernel_hbm.py::generate_fast_batched``: the
+autoregressive loop of many independent streams ("lanes") in ONE launch
+per call, the ring state in device memory in the JAX layout
+``(sum_l P_l * R, streams)`` (row ``(ring_off[l] + slot) * R + r``), so a
+state compares with the JAX package's as it is. Its source says what
+bounds it on an H100 and what the design does about that.
+
+Semantics carried over from the TPU kernel:
+
+* a fresh call allocates the ring uninitialised; a tap with lookback ``m``
+  contributes only once ``ta >= m`` (``ta`` the absolute step), and is
+  never read before that (the kernel stages 0.0 through a select, so its
+  sums group the same rows at every step and a fresh call equals a rollout
+  over zeroed history bitwise);
+* a resumed call continues at the state's absolute time; ``lane_clock``
+  moves only the noise counter, never a ring slot;
+* ``fuse_res`` (pre-multiplied chain weights) and ``skip_slab`` (the skip
+  projection as one ``(L*D, S)`` product after the layer walk)
+  reassociate sums: the same function, logits within f32 rounding;
+* sampling is per-lane: lanes with temperature > 0 draw
+  ``argmax(logits / max(T, 1e-6) + gumbel)``, the others take the argmax
+  (first index on ties). The Gumbel noise is the JAX package's int32
+  counter hash, keyed by ``(class, ta + lane_clock, lane_seed)`` with
+  ``lane_seed``, else by ``(class * streams + lane, ta, seed)``.
+
+Differences from the JAX package: a scalar temperature > 0 without
+``lane_seed`` goes to the per-lane counter-hash path (the TPU kernel draws
+from the TPU's own PRNG there, which has no counter-part), so such
+rollouts differ from the JAX package's; any stream count >= 1 runs as it
+is (the TPU kernel pads to 128 lanes); rings are f32 (bf16 and int8 rings
+are not ported yet); no conditioning inputs.
+
+:func:`batched_plain` computes the function with PyTorch ops, one step at
+a time, on any device. :func:`run_batched` runs it only for tensors on the
+CPU; for CUDA tensors it launches the kernel (:func:`batched_cuda`) or
+raises. ``launches`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ...config import WaveNetConfig
+from ...device import resolve_device
+from ...models.generate import classes_to_waveform
+from ...models.wavenet import Params, params_to
+from . import gen_kernel as k1
+from .gen_kernel import _seed_from, counter_uniform, periods
+
+# kernel launches since the count was last set to 0 (the plain version
+# does not count)
+launches = 0
+
+TILES = (2, 4)  # lanes per thread block the kernel is compiled for
+
+
+class HbmGenState(NamedTuple):
+    """Streaming state of :func:`generate_fast_batched`: the ring, the
+    absolute steps completed and the next input class per stream. Passing
+    it back continues every stream with no re-priming, bitwise equal to an
+    uninterrupted run."""
+
+    ring: torch.Tensor  # (sum(P_l) * R, streams) f32
+    t: int              # absolute steps completed
+    cls: torch.Tensor   # (streams,) int32 next input class
+
+
+def ring_offsets(cfg: WaveNetConfig) -> list[int]:
+    """First ring slot of each layer (``ring_off`` of the JAX kernel)."""
+    return np.cumsum([0] + periods(cfg))[:-1].tolist()
+
+
+def ring_rows(cfg: WaveNetConfig) -> int:
+    return sum(periods(cfg)) * cfg.residual_channels
+
+
+def prepare_weights(params: Params, cfg: WaveNetConfig, fuse_res: bool,
+                    skip_slab: bool) -> dict:
+    """K4's operands, contiguous f32 on the params' device: K1's (see
+    ``gen_kernel.prepare_weights``: fused filter|gate taps, [skip|res]
+    output weights, zero biases where the model has none, the ``fuse_res``
+    chain weights) and under ``skip_slab`` the residual-only output weights
+    ``w_res``/``b_res``, the concatenated skip weights ``w_skip`` ``(L*D,
+    S)`` and the pre-summed skip bias ``b_skip`` ``(S,)`` in place of the
+    [skip|res] pair. ``meta`` int32 ``(L, 3)`` holds each layer's dilation,
+    period and first ring slot, on the device once rather than per launch
+    (a host-to-device copy from pageable memory waits for the stream)."""
+    w = k1.prepare_weights(params, cfg, fuse_res and cfg.num_layers > 1)
+    w["meta"] = torch.tensor(
+        [[d, P, o] for d, P, o in zip(cfg.dilations, periods(cfg),
+                                      ring_offsets(cfg))],
+        dtype=torch.int32).to(w["w_tap"].device)
+    if skip_slab:
+        L, D, S = cfg.num_layers, cfg.dilation_channels, cfg.skip_channels
+        b_out = w.pop("b_out")
+        w_out = w.pop("w_out")
+        w["w_res"] = w_out[:, :, S:].contiguous()
+        w["b_res"] = b_out[:, S:].contiguous()
+        w["w_skip"] = w_out[:, :, :S].reshape(L * D, S).contiguous()
+        w["b_skip"] = b_out[:, :S].sum(dim=0).contiguous()
+    return w
+
+
+def operand_shapes(cfg: WaveNetConfig, fuse_res: bool,
+                   skip_slab: bool) -> dict:
+    """The shape of each operand of :func:`prepare_weights` that the kernel
+    reads."""
+    L, k, C = cfg.num_layers, cfg.kernel_size, cfg.classes
+    R, D = cfg.residual_channels, cfg.dilation_channels
+    S, E = cfg.skip_channels, cfg.end_channels
+    shapes = {"w_start": (C, R), "b_start": (R,), "w_tap": (L, k, R, 2 * D),
+              "b_in": (L, 2 * D), "w_end1": (S, E), "b_end1": (E,),
+              "w_end2": (E, C), "b_end2": (C,), "meta": (L, 3)}
+    if skip_slab:
+        shapes.update(w_res=(L, D, R), b_res=(L, R), w_skip=(L * D, S),
+                      b_skip=(S,))
+    else:
+        shapes.update(w_out=(L, D, S + R), b_out=(L, S + R))
+    if fuse_res and L > 1:
+        shapes.update(wf=(L - 1, D, 2 * D), bf=(L - 1, 2 * D))
+    return shapes
+
+
+# ------------------------------------------------------------ plain version
+
+
+@torch.no_grad()
+def batched_plain(w: dict, cfg: WaveNetConfig, prime: torch.Tensor,
+                  ring: torch.Tensor, t0: int, total: int,
+                  temps: torch.Tensor, seeds: torch.Tensor,
+                  toffs: torch.Tensor, seed: int, regularize: float,
+                  fuse_res: bool, skip_slab: bool, lane_seed: bool,
+                  return_gaps: bool = False):
+    """The kernel's function in PyTorch ops: ``total`` steps from absolute
+    step ``t0`` for every lane of ``prime`` (int32 ``(streams,
+    num_given)``), updating ``ring`` ``(sum P * R, streams)`` in place.
+    ``temps`` ``(streams,)`` f32, ``seeds``/``toffs`` ``(streams,)`` int32
+    (read under ``lane_seed``), ``seed`` the one seed otherwise. Returns
+    the sampled classes ``(streams, total)`` int32 and, with
+    ``return_gaps``, the per-step gap between the two best sampling scores
+    ``(streams, total)`` (what decides whether a differently-rounded
+    version may pick another class). The sums follow the JAX kernel's
+    order."""
+    L, k = cfg.num_layers, cfg.kernel_size
+    R, D, S, C = (cfg.residual_channels, cfg.dilation_channels,
+                  cfg.skip_channels, cfg.classes)
+    fuse_res = fuse_res and L > 1
+    streams, num_given = prime.shape
+    dev = prime.device
+    per, first = periods(cfg), ring_offsets(cfg)
+    slots = ring.view(sum(per), R, streams)
+    w_cur = w["w_tap"][:, k - 1]
+    hot = temps > 0
+    any_hot = bool(hot.any())
+    tdiv = torch.clamp(temps, min=1e-6)[:, None]
+    cidx = torch.arange(C, dtype=torch.int64, device=dev)
+    lanes = torch.arange(streams, dtype=torch.int64, device=dev)
+    if regularize != 0.0:
+        reg = (cidx.to(torch.float32) - C / 2.0) ** 2 * regularize
+    all_cls = torch.empty((streams, total), dtype=torch.int32, device=dev)
+    gaps = (torch.empty((streams, total), dtype=torch.float32, device=dev)
+            if return_gaps else None)
+    cls = prime[:, 0].long()
+    for t in range(total):
+        ta = t0 + t
+        h = w["w_start"][cls] + w["b_start"]
+        skip = torch.zeros((streams, S), dtype=torch.float32, device=dev)
+        slab = []
+
+        def extras(l, z):
+            # predicated taps: skipped (never read) while ta < lookback
+            d, P = cfg.dilations[l], per[l]
+            for j in range(k - 1):
+                m = (k - 1 - j) * d
+                if ta >= m:
+                    z = z + slots[first[l] + (ta - m) % P].T @ w["w_tap"][l, j]
+            return z
+
+        def write(l, h):
+            slots[first[l] + ta % per[l]] = h.T
+
+        def consume(l, u, h, skip):
+            if skip_slab:
+                slab.append(u)
+                return h + (u @ w["w_res"][l] + w["b_res"][l]), skip
+            sr = u @ w["w_out"][l] + w["b_out"][l]
+            return h + sr[:, S:], skip + sr[:, :S]
+
+        if not fuse_res:
+            for l in range(L):
+                write(l, h)
+                z = extras(l, h @ w_cur[l] + w["b_in"][l])
+                u = torch.tanh(z[:, :D]) * torch.sigmoid(z[:, D:])
+                h, skip = consume(l, u, h, skip)
+        else:
+            z = extras(0, h @ w_cur[0] + w["b_in"][0])
+            for l in range(L):
+                write(l, h)
+                if l + 1 < L:
+                    pre = extras(l + 1, h @ w_cur[l + 1] + w["bf"][l])
+                u = torch.tanh(z[:, :D]) * torch.sigmoid(z[:, D:])
+                if l + 1 < L:
+                    z = pre + u @ w["wf"][l]
+                h, skip = consume(l, u, h, skip)
+
+        if skip_slab:
+            row = torch.cat(slab, dim=1) @ w["w_skip"] + w["b_skip"]
+        else:
+            row = skip
+        y = torch.relu(row)
+        y = torch.relu(y @ w["w_end1"] + w["b_end1"])
+        score = y @ w["w_end2"] + w["b_end2"]
+        if regularize != 0.0:
+            score = score - reg
+        if any_hot:
+            if lane_seed:
+                u01 = counter_uniform(cidx[None, :],
+                                      ta + toffs.long()[:, None],
+                                      seeds.long()[:, None], dev)
+            else:
+                u01 = counter_uniform(cidx[None, :] * streams + lanes[:, None],
+                                      ta, seed, dev)
+            drawn = score / tdiv - torch.log(-torch.log(u01))
+            score = torch.where(hot[:, None], drawn, score)
+        sampled = torch.argmax(score, dim=-1)
+        all_cls[:, t] = sampled.to(torch.int32)
+        if return_gaps:
+            top2 = torch.topk(score, 2, dim=-1).values
+            gaps[:, t] = top2[:, 0] - top2[:, 1]
+        cls = prime[:, t + 1].long() if t + 1 < num_given else sampled
+    return (all_cls, gaps) if return_gaps else all_cls
+
+
+# ------------------------------------------------------------------ kernel
+
+_PTR = ctypes.c_void_p
+_INT = ctypes.c_int
+
+
+def _bind():
+    from .build import load
+
+    lib = load("gen_kernel_hbm")
+    fn = lib.wavenet_gen_batched
+    if fn.argtypes is None:
+        fn.argtypes = ([_PTR] * 23 + [_INT] * 11
+                       + [ctypes.c_float] + [_INT] * 5 + [_PTR])
+        fn.restype = _INT
+        lib.wavenet_gen_batched_smem.argtypes = [_INT] * 9
+        lib.wavenet_gen_batched_smem.restype = _INT
+    return lib
+
+
+def default_tile(streams: int) -> int:
+    """Lanes per thread block: 4 once that still gives one block per SM of
+    an H100 (132 blocks, from 525 lanes), else 2. Measured at chaconne
+    widths (PERF.md section 5): 2 lanes fastest at 256, 4 at 1024."""
+    return 4 if -(-streams // 4) >= 132 else 2
+
+
+def shared_bytes(cfg: WaveNetConfig, tile: int, skip_slab: bool) -> int:
+    """Dynamic shared memory of one block of the kernel."""
+    return _bind().wavenet_gen_batched_smem(
+        tile, cfg.num_layers, cfg.kernel_size, cfg.residual_channels,
+        cfg.dilation_channels, cfg.skip_channels, cfg.end_channels,
+        cfg.classes, int(bool(skip_slab)))
+
+
+def batched_cuda(w: dict, cfg: WaveNetConfig, prime: torch.Tensor,
+                 ring: torch.Tensor, t0: int, total: int,
+                 temps: torch.Tensor, seeds: torch.Tensor,
+                 toffs: torch.Tensor, seed: int, regularize: float,
+                 fuse_res: bool, skip_slab: bool, lane_seed: bool,
+                 tile: int | None = None) -> torch.Tensor:
+    """Launch the kernel on the current stream with the contract of
+    :func:`batched_plain` (no gaps). ``tile`` lanes per block, one of
+    ``TILES``: callers leave it to :func:`default_tile`; the tests and
+    ``chip_smoke.py``'s tile sweep set it. Raises on operands that do
+    not match ``cfg`` (the kernel would read out of bounds) and if the
+    launch fails."""
+    global launches
+    fuse_res = fuse_res and cfg.num_layers > 1
+    if prime.dim() != 2:
+        raise ValueError(f"prime must be (streams, num_given), not "
+                         f"{tuple(prime.shape)}")
+    streams, num_given = prime.shape
+    if streams < 1 or num_given < 1 or total < 1:
+        raise ValueError(f"{streams} streams, {num_given} prime classes and "
+                         f"{total} steps: the kernel needs at least one of "
+                         f"each")
+    if t0 < 0 or t0 + total >= 2**31:
+        raise ValueError("absolute steps must lie in [0, 2**31)")
+    tile = default_tile(streams) if tile is None else tile
+    if tile not in TILES:
+        raise ValueError(f"tile {tile}: the kernel is compiled for {TILES}")
+    shapes = operand_shapes(cfg, fuse_res, skip_slab)
+    for name, shape in shapes.items():
+        x = w.get(name)
+        if x is None or tuple(x.shape) != shape:
+            raise ValueError(f"weight {name} must have shape {shape}, not "
+                             f"{None if x is None else tuple(x.shape)}")
+    if tuple(ring.shape) != (ring_rows(cfg), streams):
+        raise ValueError(f"ring must be {(ring_rows(cfg), streams)}, not "
+                         f"{tuple(ring.shape)}")
+    for name, x, dt in (("temps", temps, torch.float32),
+                        ("seeds", seeds, torch.int32),
+                        ("toffs", toffs, torch.int32)):
+        if tuple(x.shape) != (streams,) or x.dtype != dt:
+            raise ValueError(f"{name} must be ({streams},) {dt}")
+    dev = prime.device
+    if dev.type != "cuda":
+        raise ValueError(f"the kernel runs on CUDA tensors, not {dev}")
+    for name in shapes:
+        x = w[name]
+        dt = torch.int32 if name == "meta" else torch.float32
+        if x.device != dev or x.dtype != dt or not x.is_contiguous():
+            raise ValueError(f"weight {name} must be contiguous {dt} on {dev}")
+    for name, x in (("ring", ring), ("temps", temps), ("seeds", seeds),
+                    ("toffs", toffs)):
+        if x.device != dev or not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous on {dev}")
+    if ring.dtype != torch.float32:
+        raise ValueError("ring must be f32")
+    if prime.dtype != torch.int32 or not prime.is_contiguous():
+        raise ValueError("prime must be contiguous int32")
+    out = torch.empty((streams, total), dtype=torch.int32, device=dev)
+    lib = _bind()
+    unread = w["b_in"]  # pointer for operands of the other variants
+    ptr = {name: w[name].data_ptr() if name in shapes else unread.data_ptr()
+           for name in ("w_out", "b_out", "w_res", "b_res", "w_skip",
+                        "b_skip", "wf", "bf")}
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.wavenet_gen_batched(
+        w["w_start"].data_ptr(), w["b_start"].data_ptr(),
+        w["w_tap"].data_ptr(), w["b_in"].data_ptr(), ptr["w_out"],
+        ptr["b_out"], ptr["w_res"], ptr["b_res"], ptr["w_skip"],
+        ptr["b_skip"], w["w_end1"].data_ptr(), w["b_end1"].data_ptr(),
+        w["w_end2"].data_ptr(), w["b_end2"].data_ptr(), ptr["wf"],
+        ptr["bf"], temps.data_ptr(), seeds.data_ptr(), toffs.data_ptr(),
+        prime.data_ptr(), w["meta"].data_ptr(), ring.data_ptr(),
+        out.data_ptr(),
+        streams, num_given, total, t0, cfg.num_layers, cfg.kernel_size,
+        cfg.residual_channels, cfg.dilation_channels, cfg.skip_channels,
+        cfg.end_channels, cfg.classes, float(regularize), int(seed),
+        int(fuse_res), int(bool(skip_slab)), int(bool(lane_seed)), tile,
+        stream)
+    if err != 0:
+        raise RuntimeError(f"gen_kernel_hbm launch failed: error {err}")
+    launches += 1
+    return out
+
+
+def run_batched(w: dict, cfg: WaveNetConfig, prime: torch.Tensor,
+                ring: torch.Tensor, t0: int, total: int, temps: torch.Tensor,
+                seeds: torch.Tensor, toffs: torch.Tensor, seed: int,
+                regularize: float, fuse_res: bool, skip_slab: bool,
+                lane_seed: bool) -> torch.Tensor:
+    """The plain version for tensors on the CPU, the kernel for CUDA
+    tensors (which raises rather than fall back)."""
+    run = batched_plain if prime.device.type == "cpu" else batched_cuda
+    return run(w, cfg, prime, ring, t0, total, temps, seeds, toffs, seed,
+               regularize, fuse_res, skip_slab, lane_seed)
+
+
+# ----------------------------------------------------------------- wrapper
+
+
+def _host(x) -> np.ndarray:
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def _int32_bits(x) -> np.ndarray:
+    """Integers wrapped into int32, as the JAX package's ``jnp.asarray(x,
+    jnp.int32)`` leaves a seed or a clock."""
+    return (_host(x).astype(np.int64) & 0xFFFFFFFF).astype(
+        np.uint32).view(np.int32)
+
+
+def _lane_row(x, streams: int, dtype, name: str, device) -> torch.Tensor:
+    t = torch.as_tensor(_host(x)).to(device=device, dtype=dtype)
+    if tuple(t.shape) != (streams,):
+        raise ValueError(f"{name} must have shape ({streams},), not "
+                         f"{tuple(t.shape)}")
+    return t.contiguous()
+
+
+@torch.no_grad()
+def generate_fast_batched(params: Params, cfg: WaveNetConfig,
+                          generator_or_seed=None, num_samples: int = 1,
+                          first_samples=None, temperature=1.0,
+                          regularize: float = 0.0,
+                          state: HbmGenState | None = None,
+                          return_state: bool = False, fuse_res: bool = False,
+                          skip_slab: bool = False, lane_seed=None,
+                          lane_clock=None,
+                          device: str | torch.device = "cuda"):
+    """Batched generation for any number of streams, the contract of the
+    JAX package's ``generate_fast_batched`` (f32 rings, unconditioned).
+
+    ``first_samples`` int ``(streams, num_given)`` (or ``(num_given,)``,
+    default one mid-class sample). Returns ``(waveform (streams,
+    num_samples) f32, classes (streams, num_samples) int32)``, plus an
+    :class:`HbmGenState` with ``return_state``; passing it back
+    (``first_samples=None``) continues every stream (the caller's state is
+    left as it was).
+
+    ``temperature``: a scalar or a per-stream ``(streams,)`` array; lanes
+    with temperature <= 0 take the argmax. ``lane_seed`` ``(streams,)``
+    int32 keys each stream's noise by its own seed and request-local step
+    (``ta + lane_clock``, ``lane_clock`` default zeros), so a stream's
+    rollout is the same whatever shares the call; a scalar temperature is
+    broadcast. Without ``lane_seed``, ``generator_or_seed`` (int,
+    ``torch.Generator`` or None = 0) keys one noise for the call.
+
+    On ``device="cpu"`` this runs :func:`batched_plain`; on a CUDA device
+    it launches the kernel."""
+    if lane_clock is not None and lane_seed is None:
+        raise ValueError("lane_clock only rebases the lane_seed noise "
+                         "counters: pass lane_seed too")
+    dev = resolve_device(device)
+    params = params_to(params, dev)
+    C = cfg.classes
+    rows = ring_rows(cfg)
+    if state is not None:
+        if first_samples is not None:
+            raise ValueError("pass either first_samples or state, not both")
+        prime = state.cls.to(dev, torch.int32).reshape(-1, 1)
+        t0 = int(state.t)
+        if tuple(state.ring.shape) != (rows, prime.shape[0]):
+            raise ValueError(f"state ring {tuple(state.ring.shape)} does not "
+                             f"match the config and {prime.shape[0]} streams")
+        ring = state.ring.to(dev, torch.float32).clone()
+    else:
+        if first_samples is None:
+            first_samples = torch.full((1, 1), C // 2, dtype=torch.int32)
+        prime = torch.as_tensor(_host(first_samples)).to(dev, torch.int32)
+        if prime.dim() == 1:
+            prime = prime.reshape(1, -1)
+        t0 = 0
+        ring = None
+    prime = prime.contiguous()
+    if prime.dim() != 2:
+        raise ValueError("first_samples must be (streams, num_given)")
+    streams, num_given = prime.shape
+    total = num_given - 1 + num_samples
+    if streams < 1 or num_given < 1 or num_samples < 1:
+        raise ValueError("need at least one stream, one prime class and one "
+                         "sample")
+    if t0 + total >= 2**31:
+        raise ValueError("absolute step count overflows int32")
+    if bool(((prime < 0) | (prime >= C)).any()):
+        raise ValueError(f"prime classes must lie in [0, {C})")
+    if ring is None:  # uninitialised: the taps are predicated on ta >= m
+        ring = torch.empty((rows, streams), dtype=torch.float32, device=dev)
+
+    if _host(temperature).ndim == 0:
+        temps = torch.full((streams,), float(temperature),
+                           dtype=torch.float32, device=dev)
+    else:
+        temps = _lane_row(temperature, streams, torch.float32,
+                          "temperature", dev)
+    if lane_seed is not None:
+        seeds = _lane_row(_int32_bits(lane_seed), streams, torch.int32,
+                          "lane_seed", dev)
+        toffs = (torch.zeros_like(seeds) if lane_clock is None else
+                 _lane_row(_int32_bits(lane_clock), streams, torch.int32,
+                           "lane_clock", dev))
+    else:
+        seeds = toffs = torch.zeros((streams,), dtype=torch.int32,
+                                    device=dev)
+    w = prepare_weights(params, cfg, fuse_res, skip_slab)
+    all_cls = run_batched(w, cfg, prime, ring, t0, total, temps, seeds,
+                          toffs, _seed_from(generator_or_seed), regularize,
+                          fuse_res, skip_slab, lane_seed is not None)
+
+    cls = all_cls[:, num_given - 1:total]
+    wav = classes_to_waveform(cls, C)
+    if not return_state:
+        return wav, cls
+    return wav, cls, HbmGenState(ring=ring, t=t0 + total,
+                                 cls=all_cls[:, total - 1].clone())

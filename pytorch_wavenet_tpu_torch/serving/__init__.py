@@ -1,0 +1,13 @@
+from .batcher import (
+    ContinuousBatcher,
+    GenerationHandle,
+    PoolOverloaded,
+    RequestCancelled,
+)
+
+__all__ = [
+    "ContinuousBatcher",
+    "GenerationHandle",
+    "PoolOverloaded",
+    "RequestCancelled",
+]

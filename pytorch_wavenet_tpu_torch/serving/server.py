@@ -1,14 +1,23 @@
 """Streaming synthesis server: WaveNet generation over HTTP.
 
-The single-stream serving path of the JAX package's ``scripts/serve.py``
-(without ``--batcher``): audio is generated in chunks by the fused
-generation kernel, the ring state (``FusedGenState``) flows from one chunk
-to the next, and each chunk's PCM goes to the client as soon as it exists.
-Concurrent requests take turns chunk by chunk on one lock.
+The serving paths of the JAX package's ``scripts/serve.py``:
+
+* single stream (default): audio is generated in chunks by the fused
+  generation kernel (K1), the ring state (``FusedGenState``) flows from one
+  chunk to the next, and each chunk's PCM goes to the client as soon as it
+  exists. Concurrent requests take turns chunk by chunk on one lock.
+* ``--batcher``: concurrent requests share one persistent multi-stream
+  rollout (``serving/batcher.py``, the batched kernel K4): each request
+  takes a lane of a ``--lanes`` pool, joins at the next chunk boundary and
+  streams out chunk by chunk; a client that hangs up frees its lane. The
+  pool runs ``fuse_res``, and ``skip_slab`` when the model's skip width is
+  256 or more. ``--max-pending`` answers 503 beyond that queue depth.
 
 Endpoints
   GET  /health       -> JSON {status, backend, receptive_field,
                         parameter_count, classes, sample_rate}
+  GET  /stats        -> JSON {backend} plus, with --batcher, the pool's
+                        gauges and counters (ContinuousBatcher.stats)
   GET  /synthesize   -> audio/wav, streamed while it generates; query
                         params num_samples (16000), temperature (1.0),
                         seed (0), chunk (2048)
@@ -17,17 +26,22 @@ Endpoints
                         in [-1, 1]), cut to the last receptive_field samples
 
 A request's seed keys its sampling noise for every chunk, so a response
-does not depend on the chunk size at any temperature.
+does not depend on the chunk size at any temperature; with --batcher it
+does not depend on the pool's load either (the request's ``chunk`` is
+ignored there: the pool's chunk rules).
 
 Run:
   python -m pytorch_wavenet_tpu_torch.serving.server --snapshot model.ckpt --port 8765
+  python -m pytorch_wavenet_tpu_torch.serving.server --snapshot model.ckpt --batcher --lanes 256 --batch-chunk 2048
   curl -sN 'localhost:8765/synthesize?num_samples=16000&temperature=0.9' > x.wav
 """
 
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
+import queue
 import struct
 import sys
 import threading
@@ -40,8 +54,9 @@ import torch
 from ..device import resolve_device
 from ..models.wavenet import params_to
 from ..ops.cuda.gen_kernel import generate_fast_fused
-from ..ops.mulaw import quantize_data
+from ..ops.mulaw import dequantize_to_f32, quantize_data
 from ..utils.checkpoints import load_checkpoint, load_latest_model_from
+from .batcher import ContinuousBatcher, PoolOverloaded
 
 
 def wav_header(num_samples: int, sr: int) -> bytes:
@@ -57,23 +72,82 @@ def wav_header(num_samples: int, sr: int) -> bytes:
 
 class Synthesizer:
     """Owns the model on one device and runs rollouts chunk by chunk
-    through the fused generation kernel (its plain version on the CPU)."""
+    through the fused generation kernel, or, with ``batcher_opts``
+    (:class:`ContinuousBatcher` keyword arguments), splices concurrent
+    requests into one pooled rollout of the batched kernel (the plain
+    versions on the CPU)."""
 
     def __init__(self, params, cfg, sr: int = 16000,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda",
+                 batcher_opts: dict | None = None):
         self.device = resolve_device(device)
         self.cfg = cfg
-        self.params = params_to(params, self.device)
         self.sr = sr
         self.lock = threading.Lock()
-        self.backend = ("cuda-fused" if self.device.type == "cuda"
-                        else "cpu-plain")
+        self.batcher = None
+        if batcher_opts is not None:
+            self.params = params
+            self.batcher = ContinuousBatcher(params, cfg, device=self.device,
+                                             **batcher_opts)
+            self.batcher.prewarm()
+            self.backend = f"{self.device.type}-batcher"
+        else:
+            self.params = params_to(params, self.device)
+            self.backend = ("cuda-fused" if self.device.type == "cuda"
+                            else "cpu-plain")
+
+    def close(self):
+        """Finish the pool's accepted requests, then stop it."""
+        if self.batcher is not None:
+            self.batcher.close(drain=True)
+
+    def _stream_batched(self, num_samples: int, temperature: float,
+                        seed: int, prime=None):
+        """Bridge the batcher's chunk callbacks into a generator: the
+        request joins the shared rollout at the next chunk boundary and wav
+        chunks flow out as the pool produces them. The request's seed
+        drives its own lane's noise counters, so the response does not
+        depend on the pool's load. If the consumer abandons the stream
+        (client hang-up), the request is cancelled and its lane frees at
+        the next chunk boundary. Raises :class:`PoolOverloaded` at the
+        first ``next`` when the pool's queue is full."""
+        chunks: queue.Queue = queue.Queue()
+        if prime is None:
+            prime = np.asarray([self.cfg.classes // 2], np.int32)
+        handle = self.batcher.submit(
+            np.asarray(prime, np.int32), num_samples,
+            temperature=temperature, on_chunk=chunks.put, seed=seed)
+        got = 0
+        try:
+            while got < num_samples:
+                try:
+                    cls = chunks.get(timeout=1.0)
+                except queue.Empty:
+                    if not handle.done():
+                        continue
+                    # the last chunks can land between the timeout and the
+                    # done() check: drain before giving up
+                    try:
+                        cls = chunks.get_nowait()
+                    except queue.Empty:
+                        handle.result(timeout=0)  # re-raise a batcher error
+                        break
+                cls = cls[: num_samples - got]
+                got += cls.size
+                yield dequantize_to_f32(cls, self.cfg.classes)
+        finally:
+            handle.cancel()  # no-op if complete; frees the lane otherwise
 
     def stream(self, num_samples: int, temperature: float, seed: int,
                chunk: int, prime=None):
-        """Yield float32 waveform chunks of at most ``chunk`` samples. The
+        """Yield float32 waveform chunks (of at most ``chunk`` samples on
+        the single-stream path; the pool's chunks with the batcher). The
         ring state carries across chunks; ``prime`` (flat class ids)
         replaces the mid-class cold start."""
+        if self.batcher is not None:
+            yield from self._stream_batched(num_samples, temperature, seed,
+                                            prime)
+            return
         cfg = self.cfg
         first = (torch.full((1, 1), cfg.classes // 2, dtype=torch.int32)
                  if prime is None
@@ -163,6 +237,12 @@ def make_handler(synth: Synthesizer, max_samples: int):
 
             gen = synth.stream(req["num_samples"], req["temperature"],
                                req["seed"], req["chunk"], req["prime"])
+            # pull the first chunk BEFORE committing a 200: a full pool
+            # still maps to an HTTP status instead of a truncated stream
+            try:
+                first = next(gen)
+            except PoolOverloaded as e:
+                return self._json(503, {"error": str(e)})
             self.send_response(200)
             self.send_header("Content-Type", "audio/wav")
             self.send_header("Content-Length",
@@ -170,7 +250,7 @@ def make_handler(synth: Synthesizer, max_samples: int):
             self.end_headers()
             self.wfile.write(wav_header(req["num_samples"], synth.sr))
             try:
-                for wav in gen:
+                for wav in itertools.chain([first], gen):
                     pcm = np.clip(wav * 32767.0, -32768, 32767)
                     self.wfile.write(pcm.astype("<i2").tobytes())
                     self.wfile.flush()
@@ -188,6 +268,11 @@ def make_handler(synth: Synthesizer, max_samples: int):
                     "classes": synth.cfg.classes,
                     "sample_rate": synth.sr,
                 })
+            if path == "/stats":
+                out = {"backend": synth.backend}
+                if synth.batcher is not None:
+                    out.update(synth.batcher.stats())
+                return self._json(200, out)
             if path == "/synthesize":
                 return self._synthesize({})
             self._json(404, {"error": f"no route {path}"})
@@ -222,7 +307,22 @@ def parse_args(argv=None):
     p.add_argument("--max-samples", type=int, default=16000 * 60,
                    help="per-request ceiling")
     p.add_argument("--device", default="cuda",
-                   help="cuda (the kernel) or cpu (its plain version)")
+                   help="cuda (the kernels) or cpu (their plain versions)")
+    p.add_argument("--batcher", action="store_true",
+                   help="continuous batching: concurrent requests share one "
+                        "pooled rollout of the batched kernel")
+    p.add_argument("--lanes", type=int, default=128,
+                   help="batcher lane-pool width (streams served at once)")
+    p.add_argument("--batch-chunk", type=int, default=1024,
+                   help="batcher splice granularity in samples (also the "
+                        "time to first audio under load)")
+    p.add_argument("--light-chunk", type=int, default=None,
+                   help="batcher adaptive chunking: this many steps per "
+                        "chunk while the pool is lightly loaded (responses "
+                        "stay bitwise the same)")
+    p.add_argument("--max-pending", type=int, default=None,
+                   help="batcher admission control: requests beyond this "
+                        "queue depth get HTTP 503")
     return p.parse_args(argv)
 
 
@@ -237,7 +337,17 @@ def main(argv=None, on_ready=None):
         blob = load_latest_model_from(args.snapshot_path, args.device)
     if blob["config"] is None:
         raise SystemExit("the checkpoint carries no config")
-    synth = Synthesizer(blob["params"], blob["config"], args.sr, args.device)
+    cfg = blob["config"]
+    batcher_opts = None
+    if args.batcher:
+        batcher_opts = dict(lanes=args.lanes, chunk=args.batch_chunk,
+                            light_chunk=args.light_chunk,
+                            max_pending=args.max_pending, fuse_res=True,
+                            # wide skips: the skip projection as one
+                            # (L*D, S) product after the layer walk
+                            skip_slab=cfg.skip_channels >= 256)
+    synth = Synthesizer(blob["params"], cfg, args.sr, args.device,
+                        batcher_opts=batcher_opts)
     # build the kernel and load it on the card before the first request
     next(synth.stream(1, 1.0, 0, 1))
     server = ThreadingHTTPServer((args.host, args.port),
@@ -253,6 +363,7 @@ def main(argv=None, on_ready=None):
         pass
     finally:
         server.server_close()
+        synth.close()  # finish in-flight clips, then stop the pool
 
 
 if __name__ == "__main__":

@@ -1,10 +1,12 @@
-"""The port's streaming server on the CPU (plain version of the fused
-kernel): health, wav framing, chunked responses equal to one-shot calls,
-prime handling."""
+"""The port's streaming server on the CPU (plain versions of the kernels):
+health, wav framing, chunked responses equal to one-shot calls, prime
+handling; and the --batcher mode: /stats, concurrent requests equal to
+their solo rollouts."""
 
 import json
 import struct
 import threading
+import time
 import urllib.error
 import urllib.request
 
@@ -13,7 +15,7 @@ import pytest
 import torch
 
 import pytorch_wavenet_tpu_torch as pt
-from pytorch_wavenet_tpu_torch.ops.mulaw import quantize_data
+from pytorch_wavenet_tpu_torch.ops.mulaw import dequantize_to_f32, quantize_data
 from pytorch_wavenet_tpu_torch.serving import server as srv
 
 
@@ -148,6 +150,7 @@ def test_bad_requests_get_400(served, body):
 
 def test_unknown_route_is_404(served):
     base, _, _ = served
+    assert _get_json(base + "/stats") == {"backend": "cpu-plain"}
     with pytest.raises(urllib.error.HTTPError) as e:
         urllib.request.urlopen(base + "/nope", timeout=60)
     assert e.value.code == 404
@@ -158,3 +161,165 @@ def test_wav_header_layout():
     assert len(h) == 44
     assert struct.unpack("<IHHIIHH", h[16:36]) == (16, 1, 1, 8000, 16000, 2, 16)
     assert struct.unpack("<I", h[40:44])[0] == 20
+
+
+# ------------------------------------------------------------ --batcher mode
+
+
+@pytest.fixture(scope="module")
+def served_batcher(tmp_path_factory):
+    cfg = pt.get_config("tiny")
+    params = pt.init_wavenet(cfg, torch.Generator().manual_seed(1), "cpu")
+    d = tmp_path_factory.mktemp("serve_batcher")
+    path = pt.save_checkpoint(str(d), "tiny", 5, params, cfg=cfg)
+    box = {}
+    ready = threading.Event()
+
+    def on_ready(server):
+        box["server"] = server
+        ready.set()
+
+    th = threading.Thread(target=srv.main, kwargs=dict(
+        argv=["--snapshot", path, "--port", "0", "--device", "cpu",
+              "--batcher", "--lanes", "3", "--batch-chunk", "16",
+              "--max-samples", "4000"],
+        on_ready=on_ready), daemon=True)
+    th.start()
+    assert ready.wait(60), "server did not start"
+    server = box["server"]
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        yield base, params, cfg
+    finally:
+        server.shutdown()
+        th.join(30)
+        assert not th.is_alive()
+
+
+def _pooled_solo(params, cfg, n, temperature, seed, prime=None):
+    """The solo rollout a pooled request must equal: the pool's flags
+    (fuse_res; tiny's skip width is below the skip_slab threshold) and the
+    request's seed as its lane seed."""
+    first = [cfg.classes // 2] if prime is None else prime
+    _, cls = pt.generate_fast_batched(
+        params, cfg, 0, n, np.asarray(first)[None], temperature=temperature,
+        lane_seed=[seed], fuse_res=True, device="cpu")
+    wav = dequantize_to_f32(cls[0].numpy(), cfg.classes)
+    return np.clip(wav * 32767.0, -32768, 32767).astype("<i2")
+
+
+def test_batcher_health_and_stats(served_batcher):
+    base, params, cfg = served_batcher
+    h = _get_json(base + "/health")
+    assert h["status"] == "ok" and h["backend"] == "cpu-batcher"
+    assert h["parameter_count"] == pt.parameter_count(params)
+    s = _get_json(base + "/stats")
+    assert s["backend"] == "cpu-batcher"
+    assert s["lanes"] == 3 and s["chunk"] == 16 and s["light_chunk"] is None
+
+
+def test_batcher_concurrent_requests_equal_solo(served_batcher):
+    """More concurrent requests than lanes, mixed temperatures and primes:
+    each response equals its solo rollout byte for byte, and /stats counts
+    them all completed."""
+    base, params, cfg = served_batcher
+    before = _get_json(base + "/stats")["completed"]
+    prime = np.random.default_rng(9).integers(0, cfg.classes, 7)
+    reqs = [(50, 0.0, 1, None), (37, 0.9, 2, None), (61, 1.0, 3, prime),
+            (20, 0.0, 4, prime), (45, 0.8, 5, None)]
+    out = [None] * len(reqs)
+
+    def fetch(i, n, temp, seed, pr):
+        body = {"num_samples": n, "temperature": temp, "seed": seed}
+        if pr is not None:
+            body["prime"] = pr.tolist()
+        out[i] = _wav(_post(base, body))
+
+    threads = [threading.Thread(target=fetch, args=(i, *r))
+               for i, r in enumerate(reqs)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(120)
+        assert not t.is_alive()
+    for pcm, (n, temp, seed, pr) in zip(out, reqs):
+        np.testing.assert_array_equal(
+            pcm, _pooled_solo(params, cfg, n, temp, seed, pr))
+    s = _get_json(base + "/stats")
+    assert s["completed"] - before == len(reqs)
+    assert s["failed"] == 0 and s["active"] == 0
+
+
+def test_batcher_get_and_bad_requests(served_batcher):
+    base, params, cfg = served_batcher
+    pcm = _wav(f"{base}/synthesize?num_samples=30&temperature=0.7&seed=8")
+    np.testing.assert_array_equal(pcm, _pooled_solo(params, cfg, 30, 0.7, 8))
+    with pytest.raises(urllib.error.HTTPError) as e:
+        urllib.request.urlopen(_post(base, {"num_samples": 0}), timeout=60)
+    assert e.value.code == 400
+    e.value.close()
+
+
+def test_batcher_needs_a_card_by_default(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    cfg = pt.get_config("tiny")
+    params = pt.init_wavenet(cfg, torch.Generator().manual_seed(1), "cpu")
+    path = pt.save_checkpoint(str(tmp_path), "tiny", 1, params, cfg=cfg)
+    with pytest.raises(RuntimeError, match="cuda"):
+        srv.main(["--snapshot", path, "--port", "0", "--batcher"])
+
+
+def test_batcher_full_queue_gets_503(tmp_path):
+    """With every lane busy and --max-pending requests waiting, a request
+    is answered 503 before any audio; the accepted ones complete."""
+    cfg = pt.get_config("tiny")
+    params = pt.init_wavenet(cfg, torch.Generator().manual_seed(2), "cpu")
+    path = pt.save_checkpoint(str(tmp_path), "tiny", 1, params, cfg=cfg)
+    box, ready = {}, threading.Event()
+
+    def on_ready(server):
+        box["server"] = server
+        ready.set()
+
+    th = threading.Thread(target=srv.main, kwargs=dict(
+        argv=["--snapshot", path, "--port", "0", "--device", "cpu",
+              "--batcher", "--lanes", "1", "--batch-chunk", "8",
+              "--max-pending", "1", "--max-samples", "4000"],
+        on_ready=on_ready), daemon=True)
+    th.start()
+    assert ready.wait(60), "server did not start"
+    server = box["server"]
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+
+    def wait_stats(key, value):
+        deadline = time.time() + 60
+        while _get_json(base + "/stats")[key] != value:
+            assert time.time() < deadline, f"{key} never reached {value}"
+            time.sleep(0.01)
+
+    out = {}
+
+    def fetch(name, n):
+        out[name] = _wav(f"{base}/synthesize?num_samples={n}&temperature=0")
+
+    try:
+        busy = threading.Thread(target=fetch, args=("busy", 4000))
+        busy.start()
+        wait_stats("active", 1)
+        queued = threading.Thread(target=fetch, args=("queued", 20))
+        queued.start()
+        wait_stats("queued", 1)
+        with pytest.raises(urllib.error.HTTPError) as e:
+            urllib.request.urlopen(f"{base}/synthesize?num_samples=5",
+                                   timeout=60)
+        assert e.value.code == 503
+        e.value.close()
+        for t in (busy, queued):
+            t.join(120)
+            assert not t.is_alive()
+        assert out["busy"].size == 4000 and out["queued"].size == 20
+    finally:
+        server.shutdown()
+        th.join(30)
+        assert not th.is_alive()
