@@ -39,7 +39,22 @@ Phases (any failure stops the run with a nonzero exit):
      aggregate samples/s and time to first audio;
   9. times with CUDA events: K4 on a resumed 2048-step chunk at 128, 256
      and 1024 lanes, per tile width at 256 and 1024 lanes; the plain
-     version; the bound from the shapes.
+     version; the bound from the shapes;
+ 10. kernels K2 and K3 (the training trunk's forward and backward) against
+     their plain versions at chaconne_wide, batch 16, output_length 1024,
+     and at batch 3 with kernel_size 3 on a short window, with f32 and bf16
+     saves; two K3 calls bitwise equal;
+ 11. one train step's gradients through K2/K3 against autograd of the
+     plain model (chaconne_wide, batch 16), f32 and bf16 saves;
+ 12. training (the main path of this slice): chaconne_wide, batch 16, 20
+     steps through ``training.train.main`` on the example audio, snapshot
+     at step 10; K2/K3 launch counts read around exactly this run, the
+     plain trunk barred from it; the loss falls; a run resumed from the
+     step-10 snapshot ends at the uninterrupted run's params;
+ 13. times with CUDA events: the train step (and with the plain trunk),
+     K2 and K3 at bf16 and f32 saves beside their bounds, the plain trunk,
+     and the step's split into embed, trunk, skip and head, loss and
+     optimizer.
 
 The line before the last is one JSON object listing the kernels; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -47,7 +62,10 @@ line is ``{"ok": true, "device": {...}}``.
 Tolerances: the kernel and the plain version sum in different orders, so
 a class may differ only where the plain version's top-2 score gap is below
 NEAR_TIE; ring states agree within RING_TOL (f32 rounding of O(1) values
-over a few hundred layer updates).
+over a few hundred layer updates). K2's units agree within U_TOL x max(1,
+|u|); K3's gradients within GRAD_TOL x max(1, scale) of the plain version
+on the same saves and of the exact gradients with f32 saves, and within
+GRAD_TOL_BF16 with bf16 saves (the rule of tests/test_trunk_kernel.py).
 """
 
 import json
@@ -334,9 +352,9 @@ def bound_ms(pt, gk, params, cfg, streams, num_given, total, lane_rows=0):
                                        else "operations")
 
 
-def trunk_bounds(cfg, batch, out_len):
-    """Bounds of the training trunk kernels K2 (forward) and K3 (backward),
-    still to be ported, from their shapes: ``{name: (ms, bound_by)}``.
+def trunk_bounds(cfg, batch, out_len, save_bytes=2):
+    """Bounds of the training trunk kernels K2 (forward) and K3 (backward)
+    from their shapes: ``{name: (ms, bound_by)}``.
     Layer l's gated unit is needed on the output window widened by every
     later layer's lookback (W_l positions per item; the JAX kernel's
     ``_windows`` without its 128-lane rounding). Forward operations per
@@ -358,10 +376,10 @@ def trunk_bounds(cfg, batch, out_len):
     pos = batch * sum(W)
     tap, res = 2 * k * R * 2 * D, 2 * D * R
     w_bytes = 4 * L * (k * R * 2 * D + 2 * D + D * R + R)
-    saves = 2 * R * pos
+    saves = save_bytes * R * pos
     units = 4 * batch * out_len * L * D
     stream = 4 * batch * T * R
-    out = {}
+    out = {}  # saves in bf16 (save_bytes 2) unless said
     for name, flops, nbytes in (
             ("K2", pos * (tap + res), stream + units + saves + w_bytes),
             ("K3", pos * (3 * tap + 2 * res),
@@ -883,11 +901,330 @@ def phase_k4_times(torch, pt, ghbm, dev, card):
         + ", ".join(f"{u:.2f}" for u in us) + f" us/step; {per_layer:.2f} "
         f"us per layer, {us[0] - 10 * per_layer:.2f} us per step outside "
         f"the layers [{card}]")
-    for name, (ms, by) in trunk_bounds(cfg, 16, 1024).items():
-        log(f"[bound] {name} (training trunk, not ported yet), chaconne, "
-            f"batch 16, output_length 1024: {ms:.4f} ms ({by}), from the "
-            f"shapes")
     return dict(out[256], plain_ms=plain)
+
+
+# ------------------------------------------------------------------ K2/K3
+
+GRAD_TOL = 1e-5       # f32 saves: gradients within GRAD_TOL * max(1, scale)
+GRAD_TOL_BF16 = 2e-2  # bf16 saves against the exact gradients
+U_TOL = 1e-5          # units within U_TOL * max(1, |u|)
+
+
+def _trunk_case(torch, pt, dev, name, batch, out_len, **kw):
+    """Random params, an embedded window and a units' cotangent of the size
+    the loss gives (its mean over batch * out targets)."""
+    cfg = pt.get_config(name, **kw)
+    params = pt.init_wavenet(cfg, torch.Generator().manual_seed(SEED), dev)
+    T = cfg.receptive_field + out_len - 1
+    g = torch.Generator().manual_seed(2)
+    h0 = (torch.rand((batch, T, cfg.residual_channels), generator=g) * 2
+          - 1).to(dev)
+    du = ((torch.rand((batch, out_len, cfg.num_layers
+                       * cfg.dilation_channels), generator=g) * 2 - 1)
+          / (batch * out_len)).to(dev)
+    return cfg, params, h0, du
+
+
+def _grad_err(got, ref):
+    """Largest error of each gradient over max(1, its scale)."""
+    return max(float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
+               for a, b in zip(got, ref))
+
+
+def phase_k23_vs_plain(torch, pt, tk, dev):
+    """K2 and K3 against their plain versions: chaconne_wide at batch 16
+    and output_length 1024 (the main path's shapes), and batch 3 with
+    kernel_size 3 at a short window. Returns the largest unit error and
+    the largest f32-save gradient error (absolute)."""
+    u_err, g_err = 0.0, 0.0
+    for name, batch, out_len, kw in (("chaconne_wide", 16, 1024, {}),
+                                     ("chaconne_wide", 3, 64,
+                                      {"kernel_size": 3})):
+        cfg, params, h0, du = _trunk_case(torch, pt, dev, name, batch,
+                                          out_len, **kw)
+        tag = f"K2/K3 {name} batch {batch} out {out_len} k {cfg.kernel_size}"
+        _, exact_saves = tk.trunk_fwd_plain(params, cfg, h0, out_len,
+                                            torch.float32)
+        exact = tk.trunk_bwd_plain(params, cfg, exact_saves, du, out_len)
+        for sd, name_sd in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            uk, sk = tk.trunk_fwd_cuda(params, cfg, h0, out_len, sd)
+            torch.cuda.synchronize()
+            up, _ = tk.trunk_fwd_plain(params, cfg, h0, out_len, sd)
+            eu = float(((uk - up).abs() / up.abs().clamp(min=1.0)).max())
+            check(eu <= U_TOL, f"{tag} {name_sd} saves: u error {eu}")
+            u_err = max(u_err, float((uk - up).abs().max()))
+            gk = tk.trunk_bwd_cuda(params, cfg, sk, du, out_len)
+            again = tk.trunk_bwd_cuda(params, cfg, sk, du, out_len)
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, b) for a, b in zip(gk, again))
+            check(same, f"{tag} {name_sd} saves: two K3 calls differ")
+            gp = tk.trunk_bwd_plain(params, cfg, sk, du, out_len)
+            e_plain = _grad_err(gk, gp)
+            e_exact = _grad_err(gk, exact)
+            tol = GRAD_TOL if sd == torch.float32 else GRAD_TOL_BF16
+            check(e_plain <= GRAD_TOL,
+                  f"{tag} {name_sd} saves: K3 vs plain {e_plain}")
+            check(e_exact <= tol,
+                  f"{tag} {name_sd} saves: K3 vs exact gradients {e_exact}")
+            if sd == torch.float32:
+                g_err = max(g_err, max(float((a - b).abs().max())
+                                       for a, b in zip(gk, gp)))
+            log(f"[{tag}] {name_sd} saves: u within {eu:.3g} x max(1, |u|) "
+                f"(tol {U_TOL}); K3 gradients within {e_plain:.3g} x max(1, "
+                f"scale) of the plain version on the same saves (tol "
+                f"{GRAD_TOL}), {e_exact:.3g} of the exact (f32-save) "
+                f"gradients (tol {tol}); two K3 calls bitwise equal")
+    return u_err, g_err
+
+
+def phase_k23_train_step(torch, pt, tk, dev):
+    """One whole train step's gradients (chaconne_wide, batch 16) through
+    K2/K3 against autograd of the plain model, with f32 and bf16 saves."""
+    import dataclasses
+    import functools
+
+    from pytorch_wavenet_tpu_torch.training.optimizers import _leaves
+
+    cfg = pt.get_config("chaconne_wide")
+    g = torch.Generator().manual_seed(3)
+    x = torch.randint(0, cfg.classes, (16, cfg.item_length), generator=g)
+    y = torch.randint(0, cfg.classes, (16, cfg.output_length), generator=g)
+    x, y = x.to(dev), y.to(dev)
+    params = pt.init_wavenet(cfg, torch.Generator().manual_seed(SEED), dev)
+    leaves = [p.requires_grad_(True) for _, p in _leaves(params)]
+
+    def grads(c):
+        loss = pt.cross_entropy_loss(params, c, x, y)
+        return float(loss), torch.autograd.grad(loss, leaves)
+
+    l_ref, g_ref = grads(dataclasses.replace(cfg, trunk_kernel=False))
+    orig = tk.fused_trunk
+    for sd, tol, name in ((torch.float32, GRAD_TOL, "f32"),
+                          (torch.bfloat16, GRAD_TOL_BF16, "bf16")):
+        before = (tk.fwd_launches, tk.bwd_launches)
+        tk.fused_trunk = functools.partial(orig, save_dtype=sd)
+        try:
+            l_k, g_k = grads(dataclasses.replace(cfg, trunk_kernel=True))
+        finally:
+            tk.fused_trunk = orig
+        check((tk.fwd_launches - before[0], tk.bwd_launches - before[1])
+              == (1, 1), "the train step did not go through K2 and K3")
+        err = _grad_err(g_k, g_ref)
+        check(err <= tol and abs(l_k - l_ref) <= 1e-5 * max(1.0, abs(l_ref)),
+              f"train step, {name} saves: gradients {err}, loss {l_k} vs "
+              f"{l_ref}")
+        log(f"[K2/K3 train step] chaconne_wide batch 16, {name} saves: loss "
+            f"{l_k:.7f} vs autograd of the plain model {l_ref:.7f}; every "
+            f"gradient within {err:.3g} x max(1, scale) (tol {tol})")
+
+
+def phase_training(torch, np, pt, tk, dev):
+    """The main path of this slice: chaconne_wide trained for 20 steps at
+    batch 16 through ``training.train.main`` on the example audio, with a
+    snapshot at step 10; then a run resumed from that snapshot to step 20.
+    Returns the K2/K3 launches counted around the first run."""
+    import glob
+    import shutil
+
+    from pytorch_wavenet_tpu_torch.training import train
+    from pytorch_wavenet_tpu_torch.training.optimizers import _leaves
+    from pytorch_wavenet_tpu_torch.utils.checkpoints import checkpoint_path
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    wavs = sorted(glob.glob(os.path.join(here, "examples", "*.wav")))
+    check(len(wavs) >= 4, f"example audio missing: {wavs}")
+    real = (tk.trunk_fwd_plain, tk.trunk_bwd_plain)
+    plain_calls = []
+
+    def barred(*args, **kwargs):
+        plain_calls.append(1)
+        raise RuntimeError("the plain trunk ran on the card path")
+
+    with tempfile.TemporaryDirectory() as d:
+        data = os.path.join(d, "audio")
+        os.makedirs(data)
+        for w in wavs:
+            shutil.copy(w, data)
+        base = ["--data-dir", data, "--config", "chaconne_wide",
+                "--batch-size", "16", "--epochs", "10", "--max-steps", "20",
+                "--seed", str(SEED), "--lr", "1e-3", "--log-interval", "10",
+                "--validation-interval", "1000", "--device", str(dev)]
+        tk.trunk_fwd_plain = tk.trunk_bwd_plain = barred
+        try:
+            tk.fwd_launches = tk.bwd_launches = 0
+            t = time.time()
+            a = train.main(base + ["--snapshot-path", os.path.join(d, "a"),
+                                   "--snapshot-interval", "10"])
+            torch.cuda.synchronize()
+            wall = time.time() - t
+            launched = (tk.fwd_launches, tk.bwd_launches)
+            snap10 = checkpoint_path(os.path.join(d, "a"),
+                                     "chaconne_wide_model", 10)
+            os.makedirs(os.path.join(d, "b"))
+            shutil.copy(snap10, os.path.join(d, "b"))
+            tk.fwd_launches = tk.bwd_launches = 0
+            b = train.main(base + ["--snapshot-path", os.path.join(d, "b"),
+                                   "--snapshot-interval", "1000", "--resume"])
+            torch.cuda.synchronize()
+            resumed = (tk.fwd_launches, tk.bwd_launches)
+        finally:
+            tk.trunk_fwd_plain, tk.trunk_bwd_plain = real
+        blob = pt.load_checkpoint(snap10, device="cpu")
+        opt = blob["opt_state"]
+        check(opt is not None and int(opt["0"]["count"]) == 10,
+              "the step-10 snapshot has no optimizer state at count 10")
+        # what came out: the loss on the first training batch falls from
+        # the seed's init to the trained params
+        x, y = a.dataset.get_batch(np.arange(16))
+        x, y = torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+        init = pt.init_wavenet(a.cfg, torch.Generator().manual_seed(SEED),
+                               dev)
+        with torch.no_grad():
+            l0 = float(pt.cross_entropy_loss(init, a.cfg, x, y))
+            l1 = float(pt.cross_entropy_loss(a.params, a.cfg, x, y))
+        n_items = len(a.dataset)
+    check(not plain_calls, f"the plain trunk ran {len(plain_calls)} times")
+    check(launched == (20, 20), f"K2/K3 launches {launched}, expected 20 each "
+          f"(one per step)")
+    check(resumed == (10, 10), f"resumed run: K2/K3 launches {resumed}, "
+          f"expected 10 each")
+    check(a.step == 20 and b.step == 20, f"steps {a.step}, {b.step}")
+    check(math.isfinite(l0) and math.isfinite(l1) and l1 < l0,
+          f"loss did not fall: {l0} -> {l1}")
+    diffs = [float((p - q).abs().max()) for (_, p), (_, q)
+             in zip(_leaves(a.params), _leaves(b.params))]
+    bitwise = all(torch.equal(p, q) for (_, p), (_, q)
+                  in zip(_leaves(a.params), _leaves(b.params)))
+    check(max(diffs) <= 1e-6, f"resumed run differs by {max(diffs)}")
+    log(f"[train] chaconne_wide batch 16 on {len(wavs)} example files "
+        f"({n_items} windows): 20 steps in {wall:.1f} s (dataset and "
+        f"snapshots included; avg step {1e3 * a.avg_step_time:.2f} ms host "
+        f"clock); K2/K3 launches {launched[0]}/{launched[1]} (20 steps x 1 "
+        f"wrapper call each, {a.cfg.num_layers} and {3 * a.cfg.num_layers} "
+        f"CUDA kernels per call), plain trunk calls {len(plain_calls)}; "
+        f"loss on the first batch {l0:.4f} at init -> {l1:.4f} at step 20; "
+        f"step-10 snapshot holds opt_state (count 10)")
+    log(f"[train] resumed from the step-10 snapshot to step 20 (K2/K3 "
+        f"launches {resumed[0]}/{resumed[1]}): params "
+        f"{'bitwise equal to' if bitwise else 'within %.3g of' % max(diffs)} "
+        f"the uninterrupted run's")
+    return launched
+
+
+def _time_median(torch, fn, reps):
+    ms = _time(torch, fn, reps)
+    return sorted(ms)[len(ms) // 2], ms
+
+
+def phase_train_times(torch, pt, tk, dev, card):
+    """Times with CUDA events at chaconne_wide, batch 16: the train step,
+    K2 and K3 at both save types beside their bounds, the plain trunk, and
+    the step's split. Returns the figures for the kernels line."""
+    import dataclasses
+
+    from pytorch_wavenet_tpu_torch.training.optimizers import _leaves
+
+    cfg = pt.get_config("chaconne_wide", trunk_kernel=True)
+    B, out = 16, cfg.output_length
+    g = torch.Generator().manual_seed(4)
+    x = torch.randint(0, cfg.classes, (B, cfg.item_length), generator=g)
+    y = torch.randint(0, cfg.classes, (B, out), generator=g)
+    x, y = x.to(dev, torch.int32), y.to(dev, torch.int32)
+    params = pt.init_wavenet(cfg, torch.Generator().manual_seed(SEED), dev)
+    for _, p in _leaves(params):
+        p.requires_grad_(True)
+    tx = pt.reference_adam(1e-4)
+    state = tx.init(params)
+    step_ms, all_ms = _time_median(torch, lambda: pt.train_step(
+        params, state, cfg, tx, x, y), 10)
+    log(f"[time] train step, chaconne_wide batch 16, trunk K2/K3 (bf16 "
+        f"saves): median {step_ms:.3f} ms of 10 warm steps ("
+        + ", ".join(f"{m:.3f}" for m in all_ms) + f"); "
+        f"{B * out / step_ms * 1e3:.0f} targets/s [{card}]")
+    plain_cfg = dataclasses.replace(cfg, trunk_kernel=False)
+    plain_step, _ = _time_median(torch, lambda: pt.train_step(
+        params, state, plain_cfg, tx, x, y), 3)
+    log(f"[time] train step with the plain trunk (--no-trunk-kernel): "
+        f"median {plain_step:.3f} ms of 3 [{card}]")
+
+    # the kernels alone, at the main path's shapes
+    cfg_t, p_t, h0, du = _trunk_case(torch, pt, dev, "chaconne_wide", B, out)
+    out_k = {}
+    for sd, name in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        _, saves = tk.trunk_fwd_cuda(p_t, cfg_t, h0, out, sd)
+        k2 = min(_time(torch, lambda: tk.trunk_fwd_cuda(p_t, cfg_t, h0, out,
+                                                        sd), 5))
+        k3 = min(_time(torch, lambda: tk.trunk_bwd_cuda(p_t, cfg_t, saves,
+                                                        du, out), 5))
+        bounds = trunk_bounds(cfg_t, B, out, 2 if name == "bf16" else 4)
+        for kname, ms in (("K2", k2), ("K3", k3)):
+            b_ms, b_by = bounds[kname]
+            log(f"[time] {kname} chaconne_wide batch 16 out {out}, {name} "
+                f"saves: {ms:.3f} ms (min of 5); bound {b_ms:.4f} ms "
+                f"({b_by}), {100 * b_ms / ms:.2f} % of it [{card}]")
+            out_k[(kname, name)] = (ms, b_ms, b_by)
+    _, saves = tk.trunk_fwd_plain(p_t, cfg_t, h0, out, torch.bfloat16)
+    pf = min(_time(torch, lambda: tk.trunk_fwd_plain(
+        p_t, cfg_t, h0, out, torch.bfloat16), 2))
+    pb = min(_time(torch, lambda: tk.trunk_bwd_plain(
+        p_t, cfg_t, saves, du, out), 2))
+    log(f"[time] plain trunk, same shapes, bf16 saves: forward {pf:.3f} ms, "
+        f"backward {pb:.3f} ms [{card}]")
+    log("[time] library call: none (no single PyTorch call computes the "
+        "dilated trunk)")
+
+    # the step's split: each part timed alone on the step's shapes
+    L, D = cfg.num_layers, cfg.dilation_channels
+    lp = params["layers"]
+    h0e = pt.embed_inputs(params, cfg, x).detach()
+    u = torch.rand((B, out, L * D), generator=g).to(dev).requires_grad_(True)
+    logits = torch.randn((B, out, cfg.classes), generator=g).to(
+        dev).requires_grad_(True)
+    from pytorch_wavenet_tpu_torch.models import wavenet as wm
+
+    def embed():
+        h = pt.embed_inputs(params, cfg, x)
+        torch.autograd.grad(h, [params["start"]["w"]], torch.ones_like(h))
+
+    def trunk():
+        uu = tk.fused_trunk(params, cfg, h0e, out)
+        torch.autograd.grad(uu, [lp["w_in"]], torch.ones_like(uu))
+
+    def skip_head():
+        skip = wm._mm(u, lp["w_skip"].reshape(L * D, -1), cfg.compute_dtype)
+        skip = skip + lp["b_skip"].sum(dim=0)
+        yy = torch.relu(skip)
+        yy = torch.relu(wm._mm(yy, params["end1"]["w"], cfg.compute_dtype)
+                        + params["end1"]["b"])
+        yy = (wm._mm(yy, params["end2"]["w"], cfg.compute_dtype)
+              + params["end2"]["b"])
+        torch.autograd.grad(yy, [u, lp["w_skip"]], torch.ones_like(yy))
+
+    def loss():
+        lz = torch.logsumexp(logits, dim=-1)
+        hit = torch.sum(logits * torch.nn.functional.one_hot(
+            y.long(), cfg.classes).to(torch.float32), dim=-1)
+        torch.autograd.grad(torch.mean(lz - hit), [logits])
+
+    gtree = pt.train_step(params, state, cfg, tx, x, y)[1]
+
+    def opt():
+        tx.step(params, gtree, state)
+
+    parts = {}
+    for name, fn in (("embed fwd+bwd", embed), ("trunk K2+K3", trunk),
+                     ("skip+head fwd+bwd", skip_head),
+                     ("loss fwd+bwd", loss), ("optimizer", opt)):
+        parts[name] = _time_median(torch, fn, 5)[0]
+    total = sum(parts.values())
+    log(f"[time] step split (each part alone, median of 5): "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in parts.items())
+        + f"; sum {total:.3f} ms against the step's {step_ms:.3f} ms "
+        f"[{card}]")
+    return dict(step_ms=step_ms, plain_step_ms=plain_step,
+                targets_per_s=B * out / step_ms * 1e3, parts=parts,
+                k=out_k, plain_fwd_ms=pf, plain_bwd_ms=pb)
 
 
 # -------------------------------------------------------------------- main
@@ -905,6 +1242,7 @@ def main():
     import pytorch_wavenet_tpu_torch as pt
     from pytorch_wavenet_tpu_torch.ops.cuda import gen_kernel as gk
     from pytorch_wavenet_tpu_torch.ops.cuda import gen_kernel_hbm as ghbm
+    from pytorch_wavenet_tpu_torch.ops.cuda import trunk_kernel as tk
 
     t_start = time.time()
     dev = torch.device("cuda")
@@ -924,6 +1262,14 @@ def main():
     log(f"phase K4 serving done at {time.time() - t_start:.0f} s")
     k4_times = phase_k4_times(torch, pt, ghbm, dev, card)
     log(f"phase K4 times done at {time.time() - t_start:.0f} s")
+    u_err, g_err = phase_k23_vs_plain(torch, pt, tk, dev)
+    log(f"phase K2/K3 kernel-vs-plain done at {time.time() - t_start:.0f} s")
+    phase_k23_train_step(torch, pt, tk, dev)
+    log(f"phase K2/K3 train step done at {time.time() - t_start:.0f} s")
+    k2_launched, k3_launched = phase_training(torch, np, pt, tk, dev)
+    log(f"phase training done at {time.time() - t_start:.0f} s")
+    tt = phase_train_times(torch, pt, tk, dev, card)
+    log(f"phase training times done at {time.time() - t_start:.0f} s")
 
     kernels = [{
         "name": "gen_fused (K1, fuse_res)",
@@ -957,6 +1303,29 @@ def main():
         "served_samples_per_s": served["samples_per_s"],
         "ttfa_median_ms": served["ttfa_median_ms"],
     }]
+    for name, src, line, launched, err, plain in (
+            ("trunk_fwd (K2, chaconne_wide, batch 16, out 1024, bf16 saves)",
+             "trunk_fwd.cu", 621, k2_launched, u_err, tt["plain_fwd_ms"]),
+            ("trunk_bwd (K3, chaconne_wide, batch 16, out 1024, bf16 saves)",
+             "trunk_bwd.cu", 729, k3_launched, g_err, tt["plain_bwd_ms"])):
+        key = name[name.index("(") + 1:name.index("(") + 3]
+        ms, b_ms, b_by = tt["k"][(key, "bf16")]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"pytorch_wavenet_tpu_torch/csrc/{src}",
+            "replaces": f"pytorch_wavenet_tpu/ops/pallas/trunk_kernel.py:{line}",
+            "launches": launched,
+            "max_abs_err": err,
+            "ms": ms,
+            "plain_ms": plain,
+            "bound_ms": b_ms,
+            "bound_by": b_by,
+            "library_ms": None,
+            "ms_f32_saves": tt["k"][(key, "f32")][0],
+            "train_step_ms": tt["step_ms"],
+            "train_targets_per_s": tt["targets_per_s"],
+        })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -93,14 +93,35 @@ def params_to(params: Params, device: torch.device) -> Params:
     return params.to(device)
 
 
+class _EmbedRows(torch.autograd.Function):
+    """Row gather ``w[x]`` whose backward is ``one_hot(x)^T @ dh``, as in
+    the JAX package. Autograd's own backward of an index is a scatter with
+    atomics on CUDA, whose sums change order from run to run; this one is
+    a matmul, so a resumed training run can equal an uninterrupted one
+    bitwise."""
+
+    @staticmethod
+    def forward(ctx, w, x):
+        ctx.save_for_backward(x)
+        ctx.classes = w.shape[0]
+        return w[x]
+
+    @staticmethod
+    def backward(ctx, dh):
+        (x,) = ctx.saved_tensors
+        onehot = F.one_hot(x.reshape(-1), ctx.classes).to(dh.dtype)
+        return onehot.T @ dh.reshape(-1, dh.shape[-1]), None
+
+
 def embed_inputs(params: Params, cfg: WaveNetConfig, x: torch.Tensor) -> torch.Tensor:
     """Start conv: integer classes ``(N, T)`` are an exact row gather of
-    ``start.w``; float one-hot ``(N, T, C)`` inputs go through a matmul."""
+    ``start.w`` (a matmul backward, :class:`_EmbedRows`); float one-hot
+    ``(N, T, C)`` inputs go through a matmul."""
     w = params["start"]["w"]
     if x.dtype.is_floating_point:
         h = x.to(cfg.compute_dtype) @ w.to(cfg.compute_dtype)
     else:
-        h = w[x.long()]
+        h = _EmbedRows.apply(w, x.long())
     if "b" in params["start"]:
         h = h + params["start"]["b"]
     return h.to(torch.float32)
@@ -117,7 +138,10 @@ def wavenet_logits(params: Params, cfg: WaveNetConfig, x: torch.Tensor,
     ``x``: int ``(N, T)`` classes or float one-hot ``(N, T, classes)`` with
     ``T >= receptive_field + out_len - 1``. The skip projections run per
     layer below ``out_len`` 128 and as one ``K = L*D`` matmul after the
-    layer walk at 128 and above (``cfg.fuse_skip`` overrides)."""
+    layer walk at 128 and above (``cfg.fuse_skip`` overrides). With
+    ``cfg.trunk_kernel`` the trunk is the fused one (:func:`_logits_fused`);
+    it takes unconditioned models with ``kernel_size >= 2`` and an f32
+    stream, and raises on the rest."""
     if out_len is None:
         out_len = cfg.output_length
     if x.shape[1] < out_len:
@@ -128,6 +152,8 @@ def wavenet_logits(params: Params, cfg: WaveNetConfig, x: torch.Tensor,
         )
     k = cfg.kernel_size
     cdt = cfg.compute_dtype
+    if cfg.trunk_kernel:
+        return _logits_fused(params, cfg, x, out_len)
     h = embed_inputs(params, cfg, x).to(cfg.stream_dtype)
     N, T, _ = h.shape
     lp = params["layers"]
@@ -165,6 +191,30 @@ def wavenet_logits(params: Params, cfg: WaveNetConfig, x: torch.Tensor,
         if "b_skip" in lp:
             skip = skip + lp["b_skip"].sum(dim=0)
 
+    y = torch.relu(skip)
+    y = torch.relu(_mm(y, params["end1"]["w"], cdt) + params["end1"]["b"])
+    return _mm(y, params["end2"]["w"], cdt) + params["end2"]["b"]
+
+
+def _logits_fused(params: Params, cfg: WaveNetConfig, x: torch.Tensor,
+                  out_len: int) -> torch.Tensor:
+    """The ``cfg.trunk_kernel`` path: the embedded window through
+    :func:`~pytorch_wavenet_tpu_torch.ops.cuda.trunk_kernel.fused_trunk`
+    (the kernels K2/K3 on the card, their plain versions on the CPU), then
+    the skip projection as one ``K = L*D`` product and the head. A longer
+    input is cut to its trailing window, as the plain trunk reads it."""
+    from ..ops.cuda.trunk_kernel import fused_trunk
+
+    h0 = embed_inputs(params, cfg, x)
+    win = cfg.receptive_field + out_len - 1
+    if h0.shape[1] > win:
+        h0 = h0[:, h0.shape[1] - win:]
+    lp = params["layers"]
+    L, D, cdt = cfg.num_layers, cfg.dilation_channels, cfg.compute_dtype
+    u = fused_trunk(params, cfg, h0, out_len)  # (N, out, L*D)
+    skip = _mm(u, lp["w_skip"].reshape(L * D, -1), cdt)
+    if "b_skip" in lp:
+        skip = skip + lp["b_skip"].sum(dim=0)
     y = torch.relu(skip)
     y = torch.relu(_mm(y, params["end1"]["w"], cdt) + params["end1"]["b"])
     return _mm(y, params["end2"]["w"], cdt) + params["end2"]["b"]

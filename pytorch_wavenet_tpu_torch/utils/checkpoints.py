@@ -6,9 +6,12 @@ JSON, the params, the optimizer state and the step, written atomically
 reads what the other writes. The codec is the port's own
 (``utils/msgpack_lite.py``): the machine with the card has no ``msgpack``.
 
-The port trains nothing yet, so it writes ``opt_state`` as nil and hands
-back whatever a loaded blob carries there as nested numpy. Sharded
-checkpoint directories (``.ckpt.sharded``) are not read.
+``opt_state`` is the optimizer state in optax's state-dict layout
+(``training/optimizers.py::ReferenceAdam.state_dict``), nil when there is
+none; a loaded blob hands it back as nested numpy, which the JAX package
+reads with ``load_checkpoint(path, opt_state_template=tx.init(params))``
+and the port's optimizer with ``load_state_dict``. Sharded checkpoint
+directories (``.ckpt.sharded``) are not read.
 """
 
 from __future__ import annotations
@@ -33,9 +36,10 @@ def checkpoint_path(directory: str, name: str, step: int) -> str:
 
 def save_checkpoint(directory: str, name: str, step: int, params,
                     cfg: WaveNetConfig | None = None,
-                    extra: dict | None = None) -> str:
+                    extra: dict | None = None, opt_state=None) -> str:
     """Write the params (torch tensors or numpy arrays, nested dicts) with
-    ``cfg`` and ``step``; returns the path."""
+    ``cfg``, ``step`` and ``opt_state`` (optax's state-dict layout, nested
+    dicts of tensors or numpy, or None); returns the path."""
     path = checkpoint_path(directory, name, step)
     os.makedirs(directory, exist_ok=True)
     blob = {
@@ -44,7 +48,8 @@ def save_checkpoint(directory: str, name: str, step: int, params,
         "step": int(step),
         "config": cfg.to_json() if cfg is not None else None,
         "params": to_numpy_params(params),
-        "opt_state": None,
+        "opt_state": (to_numpy_params(opt_state) if opt_state is not None
+                      else None),
         "extra": extra or {},
     }
     tmp = path + f".tmp.{os.getpid()}"

@@ -1,5 +1,5 @@
-"""The CUDA kernels K1 and K4 against their plain versions, on a card
-(marked ``gpu``; each test skips without one).
+"""The CUDA kernels K1, K4, K2 and K3 against their plain versions, on a
+card (marked ``gpu``; each test skips without one).
 
 This file imports neither JAX nor the JAX package, so it also runs on a
 machine that has only PyTorch: ``python -m pytest --noconftest -m gpu
@@ -13,6 +13,7 @@ import torch
 import pytorch_wavenet_tpu_torch as pt
 from pytorch_wavenet_tpu_torch.ops.cuda import gen_kernel as gk
 from pytorch_wavenet_tpu_torch.ops.cuda import gen_kernel_hbm as ghbm
+from pytorch_wavenet_tpu_torch.ops.cuda import trunk_kernel as tk
 
 
 def _prime(cfg, streams, seed, length=None):
@@ -218,3 +219,110 @@ def test_k4_fresh_call_equals_rollout_over_zeroed_history_on_card(
     torch.cuda.synchronize()
     assert torch.equal(c_fresh, c_pool)
     assert torch.equal(_roll_ring(cfg, r_fresh, clock), r_pool)
+
+
+# ------------------------------------------------------------------ K2/K3
+
+TRUNK_CASES = [  # (preset, batch, kernel_size, bias, output_length)
+    ("tiny", 3, 2, True, 1),
+    ("tiny", 2, 3, True, 20),
+    ("tiny", 3, 2, False, 128),
+    ("test_small", 2, 2, False, 20),
+    ("test_small", 3, 3, False, 128),
+    ("test_small", 4, 2, True, 1024),
+    ("chaconne_wide", 3, 2, True, 20),
+    ("chaconne_wide", 2, 3, True, 128),
+    ("chaconne_wide", 4, 2, False, 1024),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,batch,k,bias,out_len", TRUNK_CASES)
+@pytest.mark.parametrize("save_dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_trunk_kernels_match_plain_on_card(card, name, batch, k, bias,
+                                           out_len, save_dtype):
+    """K2's units within 1e-5 x max(1, |u|) of the plain version; its saves
+    agree with the plain version's on each layer's window; K3's gradients within
+    1e-5 x max(1, scale) of the plain version on the same saves, and two K3
+    calls bitwise equal (fixed-order reductions, no atomics)."""
+    cfg = pt.get_config(name, kernel_size=k, bias=bias)
+    params = pt.init_wavenet(cfg, torch.Generator().manual_seed(2), card)
+    T = cfg.receptive_field + out_len - 1
+    rng = np.random.default_rng(5)
+    h0 = torch.from_numpy(rng.uniform(-1, 1, (batch, T, cfg.residual_channels))
+                          .astype(np.float32)).to(card)
+    du = torch.from_numpy(rng.uniform(-1, 1, (batch, out_len, cfg.num_layers
+                                              * cfg.dilation_channels))
+                          .astype(np.float32) / (batch * out_len)).to(card)
+    before = (tk.fwd_launches, tk.bwd_launches)
+    uk, sk = tk.trunk_fwd_cuda(params, cfg, h0, out_len, save_dtype)
+    gk = tk.trunk_bwd_cuda(params, cfg, sk, du, out_len)
+    again = tk.trunk_bwd_cuda(params, cfg, sk, du, out_len)
+    torch.cuda.synchronize()
+    assert (tk.fwd_launches, tk.bwd_launches) == (before[0] + 1,
+                                                  before[1] + 2)
+    up, sp_ = tk.trunk_fwd_plain(params, cfg, h0, out_len, save_dtype)
+    assert float(((uk - up).abs() / up.abs().clamp(min=1.0)).max()) <= 1e-5
+    _, win = tk.windows(cfg, out_len)
+    for l, lo in enumerate(win):
+        # bf16: the two f32 streams differ by rounding, which may move a
+        # save by one bf16 step (2**-8 relative)
+        tol = 1e-2 if save_dtype == torch.bfloat16 else 1e-5
+        torch.testing.assert_close(sk[l][:, lo:].float(),
+                                   sp_[l][:, lo:].float(), atol=tol, rtol=tol)
+    gp = tk.trunk_bwd_plain(params, cfg, sk, du, out_len)  # K2's saves
+    for a, b in zip(gk, gp):
+        assert float((a - b).abs().max()) <= 1e-5 * max(
+            1.0, float(b.abs().max()))
+    assert all(torch.equal(a, b) for a, b in zip(gk, again))
+
+
+@pytest.mark.gpu
+def test_trunk_train_step_on_card_equals_plain_model(card):
+    """Gradients of a whole loss through K2/K3 (f32 saves) equal autograd
+    of the plain model within 1e-5 x max(1, scale)."""
+    import dataclasses
+    import functools
+
+    cfg = pt.get_config("test_small", output_length=64)
+    params = pt.init_wavenet(cfg, torch.Generator().manual_seed(4), card)
+    leaves = [p.requires_grad_(True) for p in
+              (params["start"]["w"], *params["layers"].values())]
+    rng = np.random.default_rng(6)
+    x = torch.from_numpy(rng.integers(0, cfg.classes, (3, cfg.item_length))
+                         ).to(card)
+    y = torch.from_numpy(rng.integers(0, cfg.classes, (3, 64))).to(card)
+
+    def grads(c):
+        return torch.autograd.grad(pt.cross_entropy_loss(params, c, x, y),
+                                   leaves)
+
+    ref = grads(cfg)
+    orig = tk.fused_trunk
+    try:
+        tk.fused_trunk = functools.partial(orig, save_dtype=torch.float32)
+        got = grads(dataclasses.replace(cfg, trunk_kernel=True))
+    finally:
+        tk.fused_trunk = orig
+    for a, b in zip(got, ref):
+        assert float((a - b).abs().max()) <= 1e-5 * max(
+            1.0, float(b.abs().max()))
+
+
+@pytest.mark.gpu
+def test_trunk_launchers_refuse_what_the_kernels_do_not_take(card):
+    cfg = pt.get_config("tiny")
+    params = pt.init_wavenet(cfg, torch.Generator().manual_seed(0), card)
+    T = cfg.receptive_field + 3
+    h0 = torch.zeros((2, T, cfg.residual_channels), device=card)
+    with pytest.raises(ValueError, match="f32 streams"):
+        tk.trunk_fwd_cuda(params, pt.get_config(
+            "tiny", stream_dtype=torch.bfloat16), h0, 4)
+    with pytest.raises(ValueError, match="shape"):
+        tk.trunk_fwd_cuda(params, cfg, h0[:, 1:], 4)
+    with pytest.raises(ValueError, match="contiguous"):
+        tk.trunk_fwd_cuda(params, cfg, h0.transpose(0, 1).contiguous()
+                          .transpose(0, 1), 4)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tk.trunk_fwd_cuda(params, cfg, h0.cpu(), 4)

@@ -64,3 +64,28 @@ def test_batched_path_imports_with_jax_blocked():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+_BLOCKED_TRAINING = _BLOCKED.split("import pytorch_wavenet_tpu_torch.serving")[0] + """
+import pytorch_wavenet_tpu_torch.data.audio_io
+import pytorch_wavenet_tpu_torch.data.dataset as ds
+import pytorch_wavenet_tpu_torch.ops.cuda.trunk_kernel as tk
+import pytorch_wavenet_tpu_torch.training.optimizers
+import pytorch_wavenet_tpu_torch.training.train as cli
+import pytorch_wavenet_tpu_torch.training.trainer as tr
+import pytorch_wavenet_tpu_torch.utils.logging as lg
+from pytorch_wavenet_tpu_torch.ops.cuda import build
+assert tk.fwd_launches == 0 and tk.bwd_launches == 0 and not build._libs
+assert tr.WaveNetTrainer and ds.WaveNetDataset and lg.Logger and cli.main
+print("ok")
+"""
+
+
+def test_training_path_imports_with_jax_blocked():
+    """The training modules (data layer, trunk kernels' module, optimizer,
+    trainer, CLI, logger) import with every import of JAX or of the JAX
+    package made to fail, and build nothing."""
+    out = subprocess.run([sys.executable, "-c", _BLOCKED_TRAINING], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
