@@ -7,12 +7,15 @@ checkout, it exits nonzero and prints no result.
 
 Phases (any failure stops the run with a nonzero exit):
   1. the card: ``nvidia-smi`` name and power limit, torch, device name;
-  2. build: every ``csrc/*.cu`` with ``nvcc`` (``-Xptxas -v`` printed);
+  2. build: every ``csrc/*.cu`` with ``nvcc`` (``-Xptxas -v`` printed:
+     registers, spills); the generation core's shared memory per block and
+     ``cudaOccupancyMaxActiveClusters`` at every compiled width;
   3. kernel K1 (the fused generation loop) against its plain PyTorch
      version at full width, chaconne and saber, exact and ``fuse_res``:
      teacher-forced classes, free-running rollouts at temperature 0 and 1,
      a resumed chunk (t0 = rf, temperature 0.9, the serving call), a
-     3-chunk resumed rollout equal to one shot bitwise;
+     3-chunk resumed rollout equal to one shot bitwise, and chunks resumed
+     at t0 = 0, 1, 2 and 513 equal to one shot bitwise;
   4. serving (the main path): chaconne with random weights from a seed,
      written as a checkpoint, served by ``serving.server.main`` on a free
      port; three /synthesize requests; the kernel's launch count read
@@ -26,8 +29,11 @@ Phases (any failure stops the run with a nonzero exit):
      temperature 0 and hot with per-lane seeds, temperatures and clocks,
      a resumed chunk at the pool's clock, three resumed chunks equal to
      one shot bitwise, NaN-filled fresh rings giving the classes of
-     zeroed ones, and a fresh call equal bitwise (classes and ring) to the
-     same rollout at the pool's clock over zeroed history;
+     zeroed ones, a fresh call equal bitwise (classes and ring) to the
+     same rollout at the pool's clock over zeroed history, chunks resumed
+     at t0 = 0, 1, 2 and 513 equal to one shot bitwise, the same lanes
+     bitwise equal at every width of lanes per cluster, and kernel sizes 1
+     and 3 (K1 and K4) against the plain versions;
   7. the ContinuousBatcher on the card (chaconne, 256 lanes): staggered
      greedy requests and bursts of seeded hot ones, each equal to its solo
      call bitwise;
@@ -38,8 +44,9 @@ Phases (any failure stops the run with a nonzero exit):
      around exactly this phase, and the plain version barred from it;
      aggregate samples/s and time to first audio;
   9. times with CUDA events: K4 on a resumed 2048-step chunk at 128, 256
-     and 1024 lanes, per tile width at 256 and 1024 lanes; the plain
-     version; the bound from the shapes;
+     and 1024 lanes, per width of lanes per cluster at 256 and 1024 lanes,
+     a step's split into phases (the kernel's own timers) and the depth
+     sweep; the plain version; the bound from the shapes;
  10. kernels K2 and K3 (the training trunk's forward and backward) against
      their plain versions at chaconne_wide, batch 16, output_length 1024,
      and at batch 3 with kernel_size 3 on a short window, with f32 and bf16
@@ -83,6 +90,7 @@ NEAR_TIE = 1e-4
 RING_TOL = 1e-4
 SEED = 1234
 F32_PEAK_FLOPS = 67e12   # H100 SXM, f32 outside the tensor cores
+TF32_PEAK_FLOPS = 495e12  # H100 SXM, TF32 on the tensor cores (dense)
 HBM_BYTES_PER_S = 3.35e12
 
 
@@ -130,6 +138,28 @@ def phase_build():
     log(f"build: {sorted(logs)} in {time.time() - t:.1f} s")
 
 
+def phase_clusters(torch, pt, gk, ghbm, card):
+    """cudaOccupancyMaxActiveClusters and the shared memory of the
+    generation core at chaconne, for every compiled width."""
+    cfg = pt.get_config("chaconne")
+    log(f"[clusters] K1 chaconne fuse_res, cluster {gk.CLUSTER}: "
+        f"{gk.shared_bytes(cfg, True)} B shared per block, max "
+        f"active clusters {gk.max_active_clusters(cfg, True)} [{card}]")
+    for tile in ghbm.TILES:
+        n = ghbm.max_active_clusters(cfg, tile, True, True)
+        nbytes, resident = gk.shared_bytes_for(cfg, tile, ghbm.CLUSTER, True)
+        log(f"[clusters] K4 chaconne fuse_res, {tile} lanes per cluster "
+            f"of {ghbm.CLUSTER}: {nbytes} B shared per block (chain weights "
+            f"{'resident' if resident else 'read from L2'}), max active "
+            f"clusters {n} [{card}]")
+
+
+def _flip_gap(miss, gaps):
+    """The largest top-2 gap of the plain version's scores at a class
+    mismatch: the kernel's score error there is at least half of it."""
+    return float(gaps[miss].max()) if bool(miss.any()) else 0.0
+
+
 def _first_mismatch(a, b):
     diff = (a != b).nonzero()
     return int(diff[0, -1]) if diff.numel() else -1
@@ -164,7 +194,8 @@ def phase_kernel_vs_plain(torch, pt, gk, dev):
             bad = int((miss & ~ties).sum())
             err = float((rk - rp).abs().max())
             log(f"[K1 {tag}] teacher-forced {total - 1} steps: "
-                f"{int(miss.sum())} class mismatches ({bad} not at a near-tie), "
+                f"{int(miss.sum())} class mismatches ({bad} not at a near-tie, "
+                f"largest gap at one {_flip_gap(miss, gaps[:, forced]):.3g}), "
                 f"{int(ties.sum())} near-ties (gap < {NEAR_TIE}), "
                 f"ring max abs err {err:.3g}")
             check(bad == 0, f"{tag}: kernel disagrees with plain off a near-tie")
@@ -234,6 +265,32 @@ def phase_kernel_vs_plain(torch, pt, gk, dev):
             check(same, f"{tag}: chunked rollout differs from one shot")
             log(f"[K1 {tag}] 3-chunk resume (1000+1200+800) equals one shot "
                 f"bitwise (classes and rings)")
+
+            # a resumed chunk at clock offsets 0, 1, 2 and 513 (the taps of
+            # a call's first step are issued before its loop)
+            _, c_one, s_one = pt.generate_fast_fused(
+                params, cfg, 5, 700, one[:, :1], temperature=1.0,
+                return_state=True, fuse_res=fuse, device=dev)
+            for off in (0, 1, 2, 513):
+                if off:
+                    _, ca, st = pt.generate_fast_fused(
+                        params, cfg, 5, off, one[:, :1], temperature=1.0,
+                        return_state=True, fuse_res=fuse, device=dev)
+                else:
+                    ca = c_one[:, :0]
+                    st = pt.FusedGenState(
+                        rings=tuple(torch.zeros_like(r) for r in s_one.rings),
+                        t=0, cls=one[:, 0].clone())
+                _, cb, st = pt.generate_fast_fused(
+                    params, cfg, 5, 700 - off, None, state=st,
+                    temperature=1.0, return_state=True, fuse_res=fuse,
+                    device=dev)
+                same = torch.equal(torch.cat([ca, cb], dim=1), c_one) and all(
+                    torch.equal(a, b) for a, b in zip(st.rings, s_one.rings))
+                check(same, f"{tag}: chunk resumed at t0={off} differs from "
+                      f"one shot")
+            log(f"[K1 {tag}] chunks resumed at t0 = 0, 1, 2 and 513 equal "
+                f"one shot bitwise (700 samples, classes and rings)")
     return worst, mismatches, near_ties
 
 
@@ -328,26 +385,30 @@ def phase_serving(torch, np, pt, gk, dev):
 
 
 def _flops_per_step(cfg):
-    """The f32 operations of one step of the function, for either variant:
-    fuse_res reassociates the chain (its wf products replace nothing the
-    function needs), so the exact path's products are what is counted."""
+    """The f32 operations of one step of the function, for either variant,
+    as (chain, head): fuse_res reassociates the chain (its wf products
+    replace nothing the function needs), so the exact path's products are
+    what is counted; the head is the skip row, end1 and end2."""
     k, R, D = cfg.kernel_size, cfg.residual_channels, cfg.dilation_channels
     S, E, C, L = (cfg.skip_channels, cfg.end_channels, cfg.classes,
                   cfg.num_layers)
-    return 2 * (L * (k * R * 2 * D + D * (S + R)) + S * E + E * C)
+    return 2 * L * (k * R * 2 * D + D * R), 2 * (L * D * S + S * E + E * C)
 
 
 def bound_ms(pt, gk, params, cfg, streams, num_given, total, lane_rows=0):
     """Least time for the call: the larger of its bytes (the model's
     parameters, the prime, the rings and ``lane_rows`` per-lane f32/int32
     rows read once, classes and rings written once; no fuse_res products,
-    no stand-in zero biases) over the memory rate and its f32 operations
-    over the f32 peak."""
+    no stand-in zero biases) over the memory rate and its operations at
+    the peak of their type: the chain's f32 products at the f32 rate, the
+    head's as the three TF32 products of 3xTF32 each at the TF32 rate."""
     ring = sum(gk.periods(cfg)) * streams * cfg.residual_channels * 4
     nbytes = (4 * pt.parameter_count(params) + 2 * ring
               + 4 * streams * (num_given + total + lane_rows))
-    flops = _flops_per_step(cfg) * streams * total
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_PEAK_FLOPS
+    chain, head = _flops_per_step(cfg)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = streams * total * (chain / F32_PEAK_FLOPS
+                               + 3 * head / TF32_PEAK_FLOPS)
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops
                                        else "operations")
 
@@ -520,6 +581,21 @@ def _roll_ring(torch, ghbm, cfg, ring, delta):
     return out
 
 
+def gk_fits(ghbm, cfg, tile, fuse):
+    """Whether K4 takes this width of lanes per cluster at cfg."""
+    try:
+        ghbm.k1.cluster_fits(cfg, tile, ghbm.CLUSTER, fuse)
+        return True
+    except ValueError:
+        return False
+
+
+def default_tile(ghbm, cfg, lanes):
+    """The width batched_cuda picks for ``lanes`` (fuse_res+skip_slab)."""
+    return ghbm.default_tile(lanes, cfg, True, lambda t: (
+        ghbm.max_active_clusters(cfg, t, True, True)))
+
+
 def phase_k4_vs_plain(torch, pt, ghbm, dev):
     """K4 against its plain version at chaconne width. Returns the largest
     ring error and the class mismatch and near-tie counts."""
@@ -561,7 +637,8 @@ def phase_k4_vs_plain(torch, pt, ghbm, dev):
             bad = int((miss & ~ties).sum())
             err = float((rk - rp).abs().max())
             log(f"[{tag}] teacher-forced 299 steps: {int(miss.sum())} class "
-                f"mismatches ({bad} not at a near-tie), {int(ties.sum())} "
+                f"mismatches ({bad} not at a near-tie, largest gap at one "
+                f"{_flip_gap(miss, gaps[:, :299]):.3g}), {int(ties.sum())} "
                 f"near-ties (gap < {NEAR_TIE}), ring max abs err {err:.3g}")
             check(bad == 0, f"{tag}: kernel disagrees with plain off a "
                   f"near-tie")
@@ -646,7 +723,125 @@ def phase_k4_vs_plain(torch, pt, ghbm, dev):
                   f"zeroed history")
             log(f"[{tag}] fresh call equals its rollout at t0={clock} over "
                 f"zeroed history bitwise (classes and ring, 600 steps)")
+
+            # a resumed chunk at clock offsets 0, 1, 2 and 513 equals one
+            # shot (the taps of a call's first step are issued before its
+            # loop); at 0 the "first chunk" is empty and the call runs over
+            # a zeroed ring instead of a NaN-filled one
+            r_all = torch.full((rows, lanes), float("nan"), device=dev)
+            c_all = ghbm.batched_cuda(w, cfg, one, r_all, 0, 700, temps,
+                                      seeds, toffs, 0, 0.0, fuse, slab, True)
+            for off in (0, 1, 2, 513):
+                ring = torch.zeros(rows, lanes, device=dev)
+                p, parts = one, []
+                if off:
+                    parts.append(ghbm.batched_cuda(w, cfg, one, ring, 0, off,
+                                                   temps, seeds, toffs, 0,
+                                                   0.0, fuse, slab, True))
+                    p = parts[-1][:, -1:].contiguous()
+                parts.append(ghbm.batched_cuda(w, cfg, p, ring, off,
+                                               700 - off, temps, seeds, toffs,
+                                               0, 0.0, fuse, slab, True))
+                same = (torch.equal(torch.cat(parts, dim=1), c_all)
+                        and torch.equal(ring, r_all))
+                check(same, f"{tag}: chunk resumed at t0={off} differs from "
+                      f"one shot")
+            log(f"[{tag}] chunks resumed at t0 = 0, 1, 2 and 513 equal one "
+                f"shot bitwise (700 steps, classes and ring)")
+
+            # position independence: the same lanes at other tile widths
+            # give bitwise the same classes and ring
+            widths = [t for t in ghbm.TILES if gk_fits(ghbm, cfg, t, fuse)]
+            ref = None
+            for tile in widths:
+                ring = torch.zeros(rows, lanes, device=dev)
+                c = ghbm.batched_cuda(w, cfg, short, ring, 0, 215, temps,
+                                      seeds, toffs, 0, 0.0, fuse, slab, True,
+                                      tile=tile)
+                if ref is None:
+                    ref = (c, ring)
+                check(torch.equal(c, ref[0]) and torch.equal(ring, ref[1]),
+                      f"{tag}: tile {tile} differs from tile {widths[0]}")
+            log(f"[{tag}] the same lanes at {len(widths)} widths of lanes "
+                f"per cluster {widths}: bitwise equal classes and ring over "
+                f"215 steps")
     return worst, mismatches, near_ties
+
+
+def phase_kernel_sizes(torch, pt, gk, ghbm, dev):
+    """K1 and K4 at chaconne widths with kernel_size 1 (no taps) and 3
+    (two tap rows a layer) against their plain versions, teacher-forced.
+    Returns, for K1 and then K4, the largest ring error and the class
+    mismatch and near-tie counts."""
+    stats = {"K1": [0.0, 0, 0], "K4": [0.0, 0, 0]}
+
+    def note(kernel, err, miss, ties):
+        st = stats[kernel]
+        st[0], st[1], st[2] = (max(st[0], err), st[1] + int(miss.sum()),
+                               st[2] + int(ties.sum()))
+
+    for k in (1, 3):
+        cfg = pt.get_config("chaconne", kernel_size=k)
+        params = pt.init_wavenet(cfg, torch.Generator().manual_seed(SEED),
+                                 dev)
+        prime = torch.randint(0, cfg.classes, (40, 200),
+                              generator=torch.Generator().manual_seed(9))
+        prime = prime.to(dev, torch.int32)
+        zeros = torch.zeros(40, dtype=torch.int32, device=dev)
+        greedy = torch.zeros(40, device=dev)
+        for name, fuse, slab in K4_VARIANTS:
+            w = ghbm.prepare_weights(params, cfg, fuse, slab)
+            runs = []
+            for tile in (8, 24):
+                rk = torch.zeros(ghbm.ring_rows(cfg), 40, device=dev)
+                runs.append((ghbm.batched_cuda(
+                    w, cfg, prime, rk, 0, 200, greedy, zeros, zeros, 0, 0.0,
+                    fuse, slab, True, tile=tile), rk))
+            torch.cuda.synchronize()
+            rp = torch.zeros(ghbm.ring_rows(cfg), 40, device=dev)
+            cp, gaps = ghbm.batched_plain(w, cfg, prime, rp, 0, 200, greedy,
+                                          zeros, zeros, 0, 0.0, fuse, slab,
+                                          True, return_gaps=True)
+            ck, rk = runs[0]
+            tag = f"K4 chaconne kernel_size {k} 40 lanes {name}"
+            miss = ck[:, :199] != cp[:, :199]
+            ties = gaps[:, :199] < NEAR_TIE
+            bad = int((miss & ~ties).sum())
+            err = float((rk - rp).abs().max())
+            log(f"[{tag}] teacher-forced 199 steps: {int(miss.sum())} class "
+                f"mismatches ({bad} not at a near-tie, largest gap at one "
+                f"{_flip_gap(miss, gaps[:, :199]):.3g}), ring max abs err "
+                f"{err:.3g}; tiles 8 and 24 bitwise equal: "
+                f"{torch.equal(ck, runs[1][0]) and torch.equal(rk, runs[1][1])}")
+            check(bad == 0 and err <= RING_TOL,
+                  f"{tag}: kernel disagrees with plain")
+            check(torch.equal(ck, runs[1][0]) and torch.equal(rk, runs[1][1]),
+                  f"{tag}: tiles 8 and 24 differ")
+            note("K4", err, miss, ties)
+        for fuse in (False, True):
+            w = gk.prepare_weights(params, cfg, fuse)
+            p3 = prime[:3].contiguous()
+            size = sum(gk.periods(cfg)) * 3 * cfg.residual_channels
+            rk = torch.zeros(size, device=dev)
+            rp = torch.zeros(size, device=dev)
+            ck = gk.fused_cuda(w, cfg, p3, rk, 0, 200, 0.0, 0.0, 0, fuse)
+            torch.cuda.synchronize()
+            cp, gaps = gk.fused_plain(w, cfg, p3, rp, 0, 200, 0.0, 0.0, 0,
+                                      fuse, return_gaps=True)
+            tag = (f"K1 chaconne kernel_size {k} 3 streams "
+                   f"{'fuse_res' if fuse else 'exact'}")
+            miss = ck[:, :199] != cp[:, :199]
+            ties = gaps[:, :199] < NEAR_TIE
+            bad = int((miss & ~ties).sum())
+            err = float((rk - rp).abs().max())
+            log(f"[{tag}] teacher-forced 199 steps: {int(miss.sum())} class "
+                f"mismatches ({bad} not at a near-tie, largest gap at one "
+                f"{_flip_gap(miss, gaps[:, :199]):.3g}), ring max abs err "
+                f"{err:.3g}")
+            check(bad == 0 and err <= RING_TOL,
+                  f"{tag}: kernel disagrees with plain")
+            note("K1", err, miss, ties)
+    return stats["K1"], stats["K4"]
 
 
 def _solo_cls(pt, params, cfg, prime, n, temperature, seed, dev):
@@ -862,22 +1057,33 @@ def phase_k4_times(torch, pt, ghbm, dev, card):
         b_ms, b_by = bound_ms(pt, ghbm, params, cfg, lanes, 1, 2048,
                               lane_rows=3)
         log(f"[time] K4 chaconne fuse_res+skip_slab, {lanes} lanes (tile "
-            f"{ghbm.default_tile(lanes)}), resumed 2048-step chunk, T=0.9 "
+            f"{default_tile(ghbm, cfg, lanes)}, cluster "
+            f"{ghbm.CLUSTER}), resumed 2048-step chunk, T=0.9 "
             f"lane_seed: " + ", ".join(f"{m:.2f}" for m in ms)
             + f" ms; {1e3 * best / 2048:.2f} us/step, "
             f"{lanes * 2048 / best * 1e3:.0f} samples/s; bound {b_ms:.4f} "
             f"ms ({b_by}), {100 * b_ms / best:.2f} % of it [{card}]")
         out[lanes] = dict(ms=best, bound_ms=b_ms, bound_by=b_by)
-    # the tile sweep behind default_tile: each width at both pool sizes
+    # the sweep behind default_tile: lanes per cluster at both pool sizes
+    # (a 512-step chunk each)
     for lanes in (256, 1024):
         ops = setup(cfg, lanes)
         for tile in ghbm.TILES:
-            best = min(_time(torch, call(ghbm.batched_cuda, ops, 2048,
+            best = min(_time(torch, call(ghbm.batched_cuda, ops, 512,
                                          tile=tile), 1))
-            log(f"[time] K4 {lanes} lanes, tile {tile} ({-(-lanes // tile)} "
-                f"blocks, {ghbm.shared_bytes(cfg, tile, True)} B shared): "
-                f"{best:.2f} ms per 2048-step chunk, "
-                f"{1e3 * best / 2048:.2f} us/step [{card}]")
+            log(f"[time] K4 {lanes} lanes, {tile} lanes per cluster of "
+                f"{ghbm.CLUSTER} ({-(-lanes // tile)} clusters, "
+                f"{ghbm.shared_bytes(cfg, tile, True)} B shared): "
+                f"{1e3 * best / 512:.2f} us/step [{card}]")
+    # where a step's time goes at 256 lanes (the first block's clock)
+    ops = setup(cfg, 256)
+    tm = torch.zeros(len(ghbm.PHASES), dtype=torch.int64, device=dev)
+    call(ghbm.batched_cuda, ops, 2048, timers=tm)()
+    torch.cuda.synchronize()
+    log("[time] K4 256 lanes, a 2048-step chunk, per step: "
+        + ", ".join(f"{n} {v / 2048e3:.2f} us"
+                    for n, v in zip(ghbm.PHASES, tm.tolist()))
+        + f" [{card}]")
     ops = setup(cfg, 256)
     cut = _time(torch, call(ghbm.batched_plain, ops, 256), 1,
                 warm=False)[0]
@@ -1248,6 +1454,7 @@ def main():
     dev = torch.device("cuda")
     card = phase_card(torch)
     phase_build()
+    phase_clusters(torch, pt, gk, ghbm, card)
     err, mismatches, near_ties = phase_kernel_vs_plain(torch, pt, gk, dev)
     log(f"phase kernel-vs-plain done at {time.time() - t_start:.0f} s")
     launched = phase_serving(torch, np, pt, gk, dev)
@@ -1256,6 +1463,12 @@ def main():
     log(f"phase times done at {time.time() - t_start:.0f} s")
     k4_err, k4_mm, k4_nt = phase_k4_vs_plain(torch, pt, ghbm, dev)
     log(f"phase K4 kernel-vs-plain done at {time.time() - t_start:.0f} s")
+    ks1, ks4 = phase_kernel_sizes(torch, pt, gk, ghbm, dev)
+    err, mismatches, near_ties = (max(err, ks1[0]), mismatches + ks1[1],
+                                  near_ties + ks1[2])
+    k4_err, k4_mm, k4_nt = (max(k4_err, ks4[0]), k4_mm + ks4[1],
+                            k4_nt + ks4[2])
+    log(f"phase kernel sizes 1 and 3 done at {time.time() - t_start:.0f} s")
     phase_k4_batcher(torch, np, pt, dev)
     log(f"phase K4 batcher done at {time.time() - t_start:.0f} s")
     k4_launched, served = phase_k4_serving(torch, np, pt, gk, ghbm, dev)

@@ -4,8 +4,11 @@ the wrapper that picks between them.
 The kernel (``csrc/gen_kernel.cu``) replaces the JAX package's Pallas TPU
 kernel ``ops/pallas/gen_kernel.py::generate_fast_fused``: the whole
 autoregressive loop (priming, generation, sampling, feedback, ring state)
-runs in ONE launch per call, one thread block per stream. Its source says
-what bounds it on an H100 and what the design does about that.
+runs in ONE launch per call, on one thread block cluster whose 8-lane tile
+holds all streams (``csrc/gen_cluster.cuh``, shared with K4). Its source
+says what bounds it on an H100 and what the design does about that. The
+layer chain's weights are packed per rank of the cluster here
+(:func:`pack_chain`), where the CPU tests reach the layout.
 
 :func:`fused_plain` computes the same function with PyTorch ops, step by
 step, on any device. The wrapper :func:`generate_fast_fused` runs the
@@ -36,7 +39,8 @@ from ...models.wavenet import Params, params_to
 # does not count)
 launches = 0
 
-MAX_STREAMS = 8
+MAX_STREAMS = 8  # the lanes of the kernel's one tile
+CLUSTER = 16     # blocks of K1's one cluster (faster than 8: PERF.md)
 
 
 class FusedGenState(NamedTuple):
@@ -71,7 +75,15 @@ def prepare_weights(params: Params, cfg: WaveNetConfig,
     filter|gate taps, [skip|res] output weights, zero biases where the
     model has none and, under ``fuse_res``, the chain weights
     ``wf[l] = w_res[l] @ w_cur[l+1]`` and ``bf[l] = b_res[l] @ w_cur[l+1]
-    + b_in[l+1]``."""
+    + b_in[l+1]``; ``chain``: those of the layer chain packed per rank of
+    the :data:`CLUSTER`-block cluster, see :func:`pack_chain`."""
+    w = base_weights(params, cfg, fuse_res)
+    w["chain"] = pack_chain(w, cfg, fuse_res, False, CLUSTER)
+    return w
+
+
+def base_weights(params: Params, cfg: WaveNetConfig, fuse_res: bool) -> dict:
+    """:func:`prepare_weights` without the packed chain."""
     L, k = cfg.num_layers, cfg.kernel_size
     R, D, S = cfg.residual_channels, cfg.dilation_channels, cfg.skip_channels
     lp = params["layers"]
@@ -108,6 +120,123 @@ def prepare_weights(params: Params, cfg: WaveNetConfig,
         w["bf"] = (torch.einsum("lr,lrm->lm", b_res[:-1], w_cur[1:])
                    + b_in[1:]).contiguous()
     return w
+
+
+# ------------------------------------------------ the cluster core's layout
+
+SMEM_LIMIT = 232448  # bytes of shared memory an H100 block may use
+PART_ROWS = 15 * 16  # the head's partial sums: 15 warps' 16-column tiles
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def chain_dims(cfg: WaveNetConfig, cluster: int, fuse_res: bool) -> dict:
+    """The per-rank chain layout of ``csrc/gen_cluster.cuh`` (``Chain``):
+    gate column slots ``ndm`` (rank q owns filter and gate channels q +
+    j*cluster), residual slots ``nrm``, tap blocks ``nlt`` (the layers q +
+    m*cluster), tap rows ``KT``, rows ``TS`` of an owned layer's slot in
+    shared memory (its tap rows, then its h until the ring write), floats
+    per layer ``PL`` and per rank ``F``."""
+    L, k = cfg.num_layers, cfg.kernel_size
+    R, D = cfg.residual_channels, cfg.dilation_channels
+    ndm, nrm, nlt = _cdiv(D, cluster), _cdiv(R, cluster), _cdiv(L, cluster)
+    KT = (k - 1) * R
+    PL = R * 2 * ndm + 2 * ndm + D * nrm + nrm + (D * 2 * ndm if fuse_res
+                                                  else 0)
+    base = nlt * KT * 2 * D
+    return dict(ndm=ndm, nrm=nrm, nlt=nlt, KT=KT, TS=max(KT, R), PL=PL,
+                base=base, F=base + L * PL)
+
+
+def pack_chain(w: dict, cfg: WaveNetConfig, fuse_res: bool, skip_slab: bool,
+               cluster: int) -> torch.Tensor:
+    """The chain's weights as ``(cluster, F)`` f32, row q what rank q of
+    the cluster holds in shared memory: the tap rows ``w_tap[l, :k-1]`` of
+    its layers l = q + m*cluster, then per layer its columns of ``w_cur =
+    w_tap[l, k-1]`` and of the gate bias (``b_in[0]``, then ``bf[l-1]``
+    under ``fuse_res``, else ``b_in[l]``), its residual columns of the
+    residual weights and bias (``w_res``/``b_res`` under ``skip_slab``,
+    else the residual part of ``w_out``/``b_out``) and, under
+    ``fuse_res``, its columns of ``wf[l]`` (zeros for the last layer).
+    Slots past a width hold zeros. Reads the operands of
+    :func:`base_weights` (or the K4 ones), which stay as they are."""
+    L, k = cfg.num_layers, cfg.kernel_size
+    R, D, S = cfg.residual_channels, cfg.dilation_channels, cfg.skip_channels
+    fuse_res = fuse_res and L > 1
+    dims = chain_dims(cfg, cluster, fuse_res)
+    ndm, nrm, nlt, KT = dims["ndm"], dims["nrm"], dims["nlt"], dims["KT"]
+    w_tap = w["w_tap"]
+    dev, f32 = w_tap.device, torch.float32
+    if skip_slab:
+        w_res, b_res = w["w_res"], w["b_res"]
+    else:
+        w_res, b_res = w["w_out"][:, :, S:], w["b_out"][:, S:]
+    bz = w["b_in"]
+    if fuse_res:
+        bz = torch.cat([w["b_in"][:1], w["bf"]], dim=0)
+    taps = w_tap[:, :k - 1].reshape(L, KT, 2 * D)
+    rows = []
+    for q in range(cluster):
+        c = q + cluster * torch.arange(ndm, device=dev)
+        cmask = torch.cat([c < D, c < D])
+        cols = torch.cat([c, D + c]).clamp(max=2 * D - 1)
+        r = q + cluster * torch.arange(nrm, device=dev)
+        rmask = r < R
+        r = r.clamp(max=R - 1)
+        lt = q + cluster * torch.arange(nlt, device=dev)
+        tblk = torch.where((lt < L)[:, None, None],
+                           taps[lt.clamp(max=L - 1)], torch.zeros((), dtype=f32,
+                                                                  device=dev))
+        zero = torch.zeros((), dtype=f32, device=dev)
+        parts = [
+            torch.where(cmask, w_tap[:, k - 1][:, :, cols], zero),  # (L, R, 2ndm)
+            torch.where(cmask, bz[:, cols], zero),                  # (L, 2ndm)
+            torch.where(rmask, w_res[:, :, r], zero),               # (L, D, nrm)
+            torch.where(rmask, b_res[:, r], zero),                  # (L, nrm)
+        ]
+        if fuse_res:
+            wf = torch.where(cmask, w["wf"][:, :, cols], zero)
+            parts.append(torch.cat([wf, torch.zeros((1, D, 2 * ndm),
+                                                    dtype=f32, device=dev)]))
+        per_layer = torch.cat([p.reshape(L, -1) for p in parts], dim=1)
+        rows.append(torch.cat([tblk.reshape(-1), per_layer.reshape(-1)]))
+    out = torch.stack(rows).contiguous()
+    assert out.shape == (cluster, dims["F"])
+    return out
+
+
+def _col_block(n: int, cluster: int) -> int:
+    """Head output columns per rank: blocks of 16."""
+    return _cdiv(_cdiv(n, cluster), 16) * 16
+
+
+def shared_bytes_for(cfg: WaveNetConfig, tile: int, cluster: int,
+                     fuse_res: bool) -> tuple[int, bool]:
+    """Dynamic shared memory of one block of the cluster core at ``tile``
+    lanes and ``cluster`` blocks, and whether the chain weights are
+    resident in it (``csrc/gen_cluster.cuh``, ``shared_bytes``): the
+    taps (then h) of the rank's layers, their products for its columns, two
+    h rows, the slab of u (reused for the skip row and y1), a column
+    scratch, the head's partial sums (in the tap products' rows when they
+    are large enough), the argmax table and the next classes, then the
+    per-layer chain weights (the tap weights are read from L2)."""
+    L, R, D = cfg.num_layers, cfg.residual_channels, cfg.dilation_channels
+    S, E, C = cfg.skip_channels, cfg.end_channels, cfg.classes
+    fuse_res = fuse_res and L > 1
+    d = chain_dims(cfg, cluster, fuse_res)
+    srows = max(_col_block(S, cluster), _col_block(E, cluster),
+                _col_block(C, cluster))
+    tz_rows = L * 2 * d["ndm"]
+    nonblob = (d["nlt"] * d["TS"] * tile + tz_rows * tile + 2 * R * tile
+               + max(L * D, S, E) * tile
+               + srows * tile
+               + (0 if PART_ROWS <= tz_rows else PART_ROWS * tile)
+               + 2 * cluster * tile + tile + (4 - tile % 4) % 4)
+    layers = L * d["PL"]
+    resident = (nonblob + layers) * 4 <= SMEM_LIMIT
+    return (nonblob + (layers if resident else 0)) * 4, resident
 
 
 # ------------------------------------------------------- counter-hash noise
@@ -260,10 +389,41 @@ def _bind():
     lib = load("gen_kernel")
     fn = lib.wavenet_gen_fused
     if fn.argtypes is None:
-        fn.argtypes = ([_PTR] * 16 + [_INT] * 11
-                       + [ctypes.c_float, ctypes.c_float, _INT, _INT, _PTR])
+        fn.argtypes = ([_PTR] * 13 + [_INT] * 12
+                       + [ctypes.c_float, ctypes.c_float, _INT, _INT, _INT,
+                          _PTR, _PTR])
         fn.restype = _INT
+        lib.wavenet_gen_fused_smem.argtypes = [_INT] * 9 + [_PTR]
+        lib.wavenet_gen_fused_smem.restype = _INT
     return lib
+
+
+def check_layout(lib, smem_fn, args: tuple, expect: tuple[int, bool]):
+    """Raise unless the library's shared-memory layout (``smem_fn(*args,
+    &resident)``) is the one this module computes (``expect``)."""
+    res = ctypes.c_int(0)
+    got = (getattr(lib, smem_fn)(*args, ctypes.byref(res)), bool(res.value))
+    if got != expect:
+        raise RuntimeError(f"{smem_fn}: the kernel's layout {got} differs "
+                           f"from the wrapper's {expect}")
+
+
+def cluster_fits(cfg: WaveNetConfig, tile: int, cluster: int,
+                 fuse_res: bool) -> int:
+    """The shared bytes of one block; raises ``ValueError`` (naming the
+    limit) for a config whose buffers do not fit a block even with the
+    chain weights read from L2."""
+    nbytes, _ = shared_bytes_for(cfg, tile, cluster, fuse_res)
+    if nbytes > SMEM_LIMIT:
+        raise ValueError(f"{nbytes} bytes of shared memory per block at "
+                         f"{tile} lanes and a cluster of {cluster}: over "
+                         f"the {SMEM_LIMIT} bytes a block may use")
+    return nbytes
+
+
+def shared_bytes(cfg: WaveNetConfig, fuse_res: bool) -> int:
+    """Dynamic shared memory of one block of the kernel's cluster."""
+    return shared_bytes_for(cfg, MAX_STREAMS, CLUSTER, fuse_res)[0]
 
 
 def operand_shapes(cfg: WaveNetConfig, fuse_res: bool) -> dict:
@@ -275,19 +435,69 @@ def operand_shapes(cfg: WaveNetConfig, fuse_res: bool) -> dict:
     shapes = {"w_start": (C, R), "b_start": (R,), "w_tap": (L, k, R, 2 * D),
               "b_in": (L, 2 * D), "w_out": (L, D, S + R), "b_out": (L, S + R),
               "w_end1": (S, E), "b_end1": (E,), "w_end2": (E, C),
-              "b_end2": (C,)}
+              "b_end2": (C,),
+              "chain": (CLUSTER, chain_dims(cfg, CLUSTER,
+                                            fuse_res and L > 1)["F"])}
     if fuse_res:
         shapes.update(wf=(L - 1, D, 2 * D), bf=(L - 1, 2 * D))
     return shapes
+
+
+def _launch_fused(w, cfg, prime, rings, t0, total, temperature, regularize,
+                  seed, fuse_res, max_clusters=None):
+    dev = prime.device
+    streams, num_given = prime.shape
+    per, R = periods(cfg), cfg.residual_channels
+    offs = [0]
+    for P in per[:-1]:
+        offs.append(offs[-1] + P * streams * R)
+    meta = torch.tensor([[d, P, o] for d, P, o in
+                         zip(cfg.dilations, per, offs)],
+                        dtype=torch.int32).to(dev)
+    out = torch.empty((streams, total), dtype=torch.int32, device=dev)
+    lib = _bind()
+    fuse = fuse_res and cfg.num_layers > 1
+    dims = (cfg.num_layers, cfg.kernel_size, R, cfg.dilation_channels,
+            cfg.skip_channels, cfg.end_channels, cfg.classes)
+    check_layout(lib, "wavenet_gen_fused_smem", (CLUSTER, *dims, int(fuse)),
+                 shared_bytes_for(cfg, MAX_STREAMS, CLUSTER, fuse))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.wavenet_gen_fused(
+        w["w_start"].data_ptr(), w["b_start"].data_ptr(),
+        w["chain"].data_ptr(), w["w_out"].data_ptr(), w["b_out"].data_ptr(),
+        w["w_end1"].data_ptr(), w["b_end1"].data_ptr(),
+        w["w_end2"].data_ptr(), w["b_end2"].data_ptr(),
+        prime.data_ptr(), meta.data_ptr(), rings.data_ptr(), out.data_ptr(),
+        streams, num_given, total, t0, *dims, w["chain"].shape[1],
+        float(temperature), float(regularize), int(seed), int(fuse),
+        CLUSTER, stream,
+        None if max_clusters is None else ctypes.byref(max_clusters))
+    if err != 0:
+        raise RuntimeError(f"gen_kernel launch failed: error {err}")
+    return out
+
+
+def max_active_clusters(cfg: WaveNetConfig, fuse_res: bool) -> int:
+    """``cudaOccupancyMaxActiveClusters`` of the kernel's cluster."""
+    dev = torch.device("cuda")
+    w = {"chain": torch.empty((CLUSTER, 1), device=dev)}
+    for name in ("w_start", "b_start", "w_out", "b_out", "w_end1", "b_end1",
+                 "w_end2", "b_end2"):
+        w[name] = w["chain"]
+    n = ctypes.c_int(0)
+    cluster_fits(cfg, MAX_STREAMS, CLUSTER, fuse_res)
+    _launch_fused(w, cfg, torch.zeros((1, 1), dtype=torch.int32, device=dev),
+                  w["chain"], 0, 1, 0.0, 0.0, 0, fuse_res, max_clusters=n)
+    return n.value
 
 
 def fused_cuda(w: dict, cfg: WaveNetConfig, prime: torch.Tensor,
                rings: torch.Tensor, t0: int, total: int, temperature: float,
                regularize: float, seed: int, fuse_res: bool) -> torch.Tensor:
     """Launch the kernel on the current stream with the same contract as
-    :func:`fused_plain` (no gaps). Raises on operands that do not match
-    ``cfg`` (the kernel would read out of bounds) and if the launch
-    fails."""
+    :func:`fused_plain` (no gaps), on one cluster of :data:`CLUSTER`
+    blocks. Raises on operands that do not match ``cfg`` (the kernel
+    would read out of bounds) and if the launch fails."""
     global launches
     if prime.dim() != 2:
         raise ValueError(f"prime must be (streams, num_given), not "
@@ -301,6 +511,7 @@ def fused_cuda(w: dict, cfg: WaveNetConfig, prime: torch.Tensor,
                          f"the kernel needs at least one of each")
     if t0 < 0 or t0 + total >= 2**31:
         raise ValueError("absolute steps must lie in [0, 2**31)")
+    cluster_fits(cfg, MAX_STREAMS, CLUSTER, fuse_res)
     shapes = operand_shapes(cfg, fuse_res)
     for name, shape in shapes.items():
         x = w.get(name)
@@ -323,30 +534,8 @@ def fused_cuda(w: dict, cfg: WaveNetConfig, prime: torch.Tensor,
         raise ValueError(f"rings must be contiguous f32 on {dev}")
     if prime.dtype != torch.int32 or not prime.is_contiguous():
         raise ValueError("prime must be contiguous int32")
-    offs = [0]
-    for P in per[:-1]:
-        offs.append(offs[-1] + P * streams * R)
-    meta = torch.tensor([[d, P, o] for d, P, o in
-                         zip(cfg.dilations, per, offs)],
-                        dtype=torch.int32).to(dev)
-    out = torch.empty((streams, total), dtype=torch.int32, device=dev)
-    lib = _bind()
-    wf = w["wf"] if fuse_res else w["b_in"]  # unread without fuse_res
-    bf = w["bf"] if fuse_res else w["b_in"]
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.wavenet_gen_fused(
-        w["w_start"].data_ptr(), w["b_start"].data_ptr(),
-        w["w_tap"].data_ptr(), w["b_in"].data_ptr(), w["w_out"].data_ptr(),
-        w["b_out"].data_ptr(), w["w_end1"].data_ptr(),
-        w["b_end1"].data_ptr(), w["w_end2"].data_ptr(),
-        w["b_end2"].data_ptr(), wf.data_ptr(), bf.data_ptr(),
-        prime.data_ptr(), meta.data_ptr(), rings.data_ptr(), out.data_ptr(),
-        streams, num_given, total, t0, cfg.num_layers, cfg.kernel_size, R,
-        cfg.dilation_channels, cfg.skip_channels, cfg.end_channels,
-        cfg.classes, float(temperature), float(regularize),
-        int(seed), int(bool(fuse_res)), stream)
-    if err != 0:
-        raise RuntimeError(f"gen_kernel launch failed: cudaError {err}")
+    out = _launch_fused(w, cfg, prime, rings, t0, total, temperature,
+                        regularize, seed, fuse_res)
     launches += 1
     return out
 

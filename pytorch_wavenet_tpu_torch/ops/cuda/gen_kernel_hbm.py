@@ -6,8 +6,12 @@ TPU kernel ``ops/pallas/gen_kernel_hbm.py::generate_fast_batched``: the
 autoregressive loop of many independent streams ("lanes") in ONE launch
 per call, the ring state in device memory in the JAX layout
 ``(sum_l P_l * R, streams)`` (row ``(ring_off[l] + slot) * R + r``), so a
-state compares with the JAX package's as it is. Its source says what
-bounds it on an H100 and what the design does about that.
+state compares with the JAX package's as it is. It runs on the cluster
+core of ``csrc/gen_cluster.cuh``: one thread block cluster of 8 SMs per
+tile of ``tile`` lanes. Its source says what bounds it on an H100 and
+what the design does about that. Every product sums in an order fixed by
+the config alone, so a lane's classes and ring do not depend on the tile
+width, its slot or the pool around it.
 
 Semantics carried over from the TPU kernel:
 
@@ -43,6 +47,7 @@ raises. ``launches`` counts kernel launches.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -59,7 +64,11 @@ from .gen_kernel import _seed_from, counter_uniform, periods
 # does not count)
 launches = 0
 
-TILES = (2, 4)  # lanes per thread block the kernel is compiled for
+TILES = (8, 16, 24)  # lanes per cluster the kernel is compiled for
+CLUSTER = 8          # blocks per cluster (16 lost in every sweep: PERF.md)
+# the phases of a step that ``batched_cuda(timers=...)`` times
+PHASES = ("tap products", "chain work", "chain barriers", "skip row",
+          "ring writes + end1", "end2", "sampling")
 
 
 class HbmGenState(NamedTuple):
@@ -85,15 +94,18 @@ def ring_rows(cfg: WaveNetConfig) -> int:
 def prepare_weights(params: Params, cfg: WaveNetConfig, fuse_res: bool,
                     skip_slab: bool) -> dict:
     """K4's operands, contiguous f32 on the params' device: K1's (see
-    ``gen_kernel.prepare_weights``: fused filter|gate taps, [skip|res]
+    ``gen_kernel.base_weights``: fused filter|gate taps, [skip|res]
     output weights, zero biases where the model has none, the ``fuse_res``
     chain weights) and under ``skip_slab`` the residual-only output weights
     ``w_res``/``b_res``, the concatenated skip weights ``w_skip`` ``(L*D,
     S)`` and the pre-summed skip bias ``b_skip`` ``(S,)`` in place of the
     [skip|res] pair. ``meta`` int32 ``(L, 3)`` holds each layer's dilation,
     period and first ring slot, on the device once rather than per launch
-    (a host-to-device copy from pageable memory waits for the stream)."""
-    w = k1.prepare_weights(params, cfg, fuse_res and cfg.num_layers > 1)
+    (a host-to-device copy from pageable memory waits for the stream).
+    ``chain`` packs the layer chain's weights per rank of the
+    :data:`CLUSTER`-block cluster (``gen_kernel.pack_chain``)."""
+    fuse_res = fuse_res and cfg.num_layers > 1
+    w = k1.base_weights(params, cfg, fuse_res)
     w["meta"] = torch.tensor(
         [[d, P, o] for d, P, o in zip(cfg.dilations, periods(cfg),
                                       ring_offsets(cfg))],
@@ -106,6 +118,7 @@ def prepare_weights(params: Params, cfg: WaveNetConfig, fuse_res: bool,
         w["b_res"] = b_out[:, S:].contiguous()
         w["w_skip"] = w_out[:, :, :S].reshape(L * D, S).contiguous()
         w["b_skip"] = b_out[:, :S].sum(dim=0).contiguous()
+    w["chain"] = k1.pack_chain(w, cfg, fuse_res, skip_slab, CLUSTER)
     return w
 
 
@@ -118,7 +131,9 @@ def operand_shapes(cfg: WaveNetConfig, fuse_res: bool,
     S, E = cfg.skip_channels, cfg.end_channels
     shapes = {"w_start": (C, R), "b_start": (R,), "w_tap": (L, k, R, 2 * D),
               "b_in": (L, 2 * D), "w_end1": (S, E), "b_end1": (E,),
-              "w_end2": (E, C), "b_end2": (C,), "meta": (L, 3)}
+              "w_end2": (E, C), "b_end2": (C,), "meta": (L, 3),
+              "chain": (CLUSTER, k1.chain_dims(cfg, CLUSTER,
+                                               fuse_res and L > 1)["F"])}
     if skip_slab:
         shapes.update(w_res=(L, D, R), b_res=(L, R), w_skip=(L * D, S),
                       b_skip=(S,))
@@ -251,27 +266,93 @@ def _bind():
     lib = load("gen_kernel_hbm")
     fn = lib.wavenet_gen_batched
     if fn.argtypes is None:
-        fn.argtypes = ([_PTR] * 23 + [_INT] * 11
-                       + [ctypes.c_float] + [_INT] * 5 + [_PTR])
+        fn.argtypes = ([_PTR] * 16 + [_INT] * 12
+                       + [ctypes.c_float] + [_INT] * 6 + [_PTR] * 3)
         fn.restype = _INT
-        lib.wavenet_gen_batched_smem.argtypes = [_INT] * 9
+        lib.wavenet_gen_batched_smem.argtypes = [_INT] * 10 + [_PTR]
         lib.wavenet_gen_batched_smem.restype = _INT
     return lib
 
 
-def default_tile(streams: int) -> int:
-    """Lanes per thread block: 4 once that still gives one block per SM of
-    an H100 (132 blocks, from 525 lanes), else 2. Measured at chaconne
-    widths (PERF.md section 5): 2 lanes fastest at 256, 4 at 1024."""
-    return 4 if -(-streams // 4) >= 132 else 2
+def shared_bytes(cfg: WaveNetConfig, tile: int, fuse_res: bool) -> int:
+    """Dynamic shared memory of one block of the kernel at ``tile`` lanes
+    per cluster (the chain's weights included when they fit;
+    ``gen_kernel.shared_bytes_for``)."""
+    return k1.shared_bytes_for(cfg, tile, CLUSTER, fuse_res)[0]
 
 
-def shared_bytes(cfg: WaveNetConfig, tile: int, skip_slab: bool) -> int:
-    """Dynamic shared memory of one block of the kernel."""
-    return _bind().wavenet_gen_batched_smem(
-        tile, cfg.num_layers, cfg.kernel_size, cfg.residual_channels,
-        cfg.dilation_channels, cfg.skip_channels, cfg.end_channels,
-        cfg.classes, int(bool(skip_slab)))
+def default_tile(streams: int, cfg: WaveNetConfig, fuse_res: bool,
+                 active) -> int:
+    """Lanes per cluster: the narrowest compiled width whose clusters all
+    run at once (``active(tile)``: how many clusters of that width the card
+    runs at once, :func:`max_active_clusters` on the card) with the chain's
+    weights resident, else the widest with them resident, else the widest
+    that fits (PERF.md section 5: the width sweep)."""
+    fits = [t for t in TILES
+            if k1.shared_bytes_for(cfg, t, CLUSTER, fuse_res)[0]
+            <= k1.SMEM_LIMIT]
+    if not fits:
+        raise ValueError(f"no tile width of {TILES} fits a block's "
+                         f"{k1.SMEM_LIMIT} bytes of shared memory")
+    resident = [t for t in fits
+                if k1.shared_bytes_for(cfg, t, CLUSTER, fuse_res)[1]]
+    for t in resident:
+        if -(-streams // t) <= active(t):
+            return t
+    return (resident or fits)[-1]
+
+
+def _launch(w, cfg, prime, ring, t0, total, temps, seeds, toffs, seed,
+            regularize, fuse_res, skip_slab, lane_seed, tile,
+            max_clusters=None, timers=None):
+    dev = prime.device
+    streams, num_given = prime.shape
+    out = torch.empty((streams, total), dtype=torch.int32, device=dev)
+    lib = _bind()
+    dims = (cfg.num_layers, cfg.kernel_size, cfg.residual_channels,
+            cfg.dilation_channels, cfg.skip_channels, cfg.end_channels,
+            cfg.classes)
+    k1.check_layout(lib, "wavenet_gen_batched_smem",
+                    (tile, CLUSTER, *dims, int(fuse_res)),
+                    k1.shared_bytes_for(cfg, tile, CLUSTER, fuse_res))
+    skip_w, skip_b = (("w_skip", "b_skip") if skip_slab
+                      else ("w_out", "b_out"))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.wavenet_gen_batched(
+        w["w_start"].data_ptr(), w["b_start"].data_ptr(),
+        w["chain"].data_ptr(), w[skip_w].data_ptr(), w[skip_b].data_ptr(),
+        w["w_end1"].data_ptr(), w["b_end1"].data_ptr(),
+        w["w_end2"].data_ptr(), w["b_end2"].data_ptr(),
+        temps.data_ptr(), seeds.data_ptr(), toffs.data_ptr(),
+        prime.data_ptr(), w["meta"].data_ptr(), ring.data_ptr(),
+        out.data_ptr(), streams, num_given, total, t0, *dims,
+        w["chain"].shape[1], float(regularize), int(seed), int(fuse_res),
+        int(bool(skip_slab)), int(bool(lane_seed)), tile, CLUSTER, stream,
+        None if max_clusters is None else ctypes.byref(max_clusters),
+        None if timers is None else timers.data_ptr())
+    if err != 0:
+        raise RuntimeError(f"gen_kernel_hbm launch failed: error {err}")
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def max_active_clusters(cfg: WaveNetConfig, tile: int, fuse_res: bool,
+                        skip_slab: bool) -> int:
+    """``cudaOccupancyMaxActiveClusters`` of the kernel at ``tile`` lanes
+    per cluster on the current card (nothing is launched; cached)."""
+    fuse_res = fuse_res and cfg.num_layers > 1
+    k1.cluster_fits(cfg, tile, CLUSTER, fuse_res)
+    dev = torch.device("cuda")
+    x = torch.empty((CLUSTER, 1), device=dev)
+    i = torch.zeros((1, 1), dtype=torch.int32, device=dev)
+    w = {name: x for name in ("w_start", "b_start", "chain", "w_skip",
+                              "b_skip", "w_out", "b_out", "w_end1", "b_end1",
+                              "w_end2", "b_end2")}
+    w["meta"] = i
+    n = ctypes.c_int(0)
+    _launch(w, cfg, i, x, 0, 1, x, i, i, 0, 0.0, fuse_res, skip_slab, False,
+            tile, max_clusters=n)
+    return n.value
 
 
 def batched_cuda(w: dict, cfg: WaveNetConfig, prime: torch.Tensor,
@@ -279,13 +360,17 @@ def batched_cuda(w: dict, cfg: WaveNetConfig, prime: torch.Tensor,
                  temps: torch.Tensor, seeds: torch.Tensor,
                  toffs: torch.Tensor, seed: int, regularize: float,
                  fuse_res: bool, skip_slab: bool, lane_seed: bool,
-                 tile: int | None = None) -> torch.Tensor:
+                 tile: int | None = None,
+                 timers: torch.Tensor | None = None) -> torch.Tensor:
     """Launch the kernel on the current stream with the contract of
-    :func:`batched_plain` (no gaps). ``tile`` lanes per block, one of
+    :func:`batched_plain` (no gaps). ``tile`` lanes per cluster, one of
     ``TILES``: callers leave it to :func:`default_tile`; the tests and
-    ``chip_smoke.py``'s tile sweep set it. Raises on operands that do
-    not match ``cfg`` (the kernel would read out of bounds) and if the
-    launch fails."""
+    ``chip_smoke.py``'s sweep set it. Every lane's classes and ring are
+    bitwise the same at any tile width. Raises on operands that do not match ``cfg`` (the kernel would read
+    out of bounds), on a width or config the kernel does not take, and if
+    the launch fails. ``timers``, an int64 ``(len(PHASES),)`` tensor on
+    the device, receives the ns the first block spends in each of
+    ``PHASES`` over the call."""
     global launches
     fuse_res = fuse_res and cfg.num_layers > 1
     if prime.dim() != 2:
@@ -298,9 +383,10 @@ def batched_cuda(w: dict, cfg: WaveNetConfig, prime: torch.Tensor,
                          f"each")
     if t0 < 0 or t0 + total >= 2**31:
         raise ValueError("absolute steps must lie in [0, 2**31)")
-    tile = default_tile(streams) if tile is None else tile
-    if tile not in TILES:
-        raise ValueError(f"tile {tile}: the kernel is compiled for {TILES}")
+    if tile is not None and tile not in TILES:
+        raise ValueError(f"tile {tile}: the kernel is compiled for {TILES} "
+                         f"lanes per cluster")
+    k1.cluster_fits(cfg, tile or TILES[0], CLUSTER, fuse_res)
     shapes = operand_shapes(cfg, fuse_res, skip_slab)
     for name, shape in shapes.items():
         x = w.get(name)
@@ -331,29 +417,16 @@ def batched_cuda(w: dict, cfg: WaveNetConfig, prime: torch.Tensor,
         raise ValueError("ring must be f32")
     if prime.dtype != torch.int32 or not prime.is_contiguous():
         raise ValueError("prime must be contiguous int32")
-    out = torch.empty((streams, total), dtype=torch.int32, device=dev)
-    lib = _bind()
-    unread = w["b_in"]  # pointer for operands of the other variants
-    ptr = {name: w[name].data_ptr() if name in shapes else unread.data_ptr()
-           for name in ("w_out", "b_out", "w_res", "b_res", "w_skip",
-                        "b_skip", "wf", "bf")}
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.wavenet_gen_batched(
-        w["w_start"].data_ptr(), w["b_start"].data_ptr(),
-        w["w_tap"].data_ptr(), w["b_in"].data_ptr(), ptr["w_out"],
-        ptr["b_out"], ptr["w_res"], ptr["b_res"], ptr["w_skip"],
-        ptr["b_skip"], w["w_end1"].data_ptr(), w["b_end1"].data_ptr(),
-        w["w_end2"].data_ptr(), w["b_end2"].data_ptr(), ptr["wf"],
-        ptr["bf"], temps.data_ptr(), seeds.data_ptr(), toffs.data_ptr(),
-        prime.data_ptr(), w["meta"].data_ptr(), ring.data_ptr(),
-        out.data_ptr(),
-        streams, num_given, total, t0, cfg.num_layers, cfg.kernel_size,
-        cfg.residual_channels, cfg.dilation_channels, cfg.skip_channels,
-        cfg.end_channels, cfg.classes, float(regularize), int(seed),
-        int(fuse_res), int(bool(skip_slab)), int(bool(lane_seed)), tile,
-        stream)
-    if err != 0:
-        raise RuntimeError(f"gen_kernel_hbm launch failed: error {err}")
+    if tile is None:
+        tile = default_tile(streams, cfg, fuse_res, lambda t: (
+            max_active_clusters(cfg, t, fuse_res, skip_slab)))
+    if timers is not None and (tuple(timers.shape) != (len(PHASES),)
+                               or timers.device != dev
+                               or timers.dtype != torch.int64):
+        raise ValueError(f"timers must be ({len(PHASES)},) int64 on {dev}")
+    out = _launch(w, cfg, prime, ring, t0, total, temps, seeds, toffs, seed,
+                  regularize, fuse_res, skip_slab, lane_seed, tile,
+                  timers=timers)
     launches += 1
     return out
 

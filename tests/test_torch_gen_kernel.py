@@ -179,12 +179,14 @@ def _bad_operands(cfg, w, prime, rings):
         "empty_prime": (w, prime[:, :0], 5, True),
         "no_steps": (w, prime, 0, True),
         "nine_streams": (w, prime.repeat(9, 1), 5, True),
+        "bad_cluster": ({**w, "chain": torch.zeros((8, w["chain"].shape[1]))},
+                        prime, 5, True),
     }
 
 
 @pytest.mark.parametrize("case", ["w_out_shape", "w_end2_shape", "w_tap_shape",
                                   "missing_wf", "empty_prime", "no_steps",
-                                  "nine_streams"])
+                                  "nine_streams", "bad_cluster"])
 def test_launcher_checks_operands_before_the_device(tiny, case):
     """Operands that disagree with the config raise before any launch,
     whatever their device; the kernel would read out of bounds."""
@@ -200,3 +202,79 @@ def test_launcher_checks_operands_before_the_device(tiny, case):
     with pytest.raises(ValueError, match="CUDA tensors"):
         gk.fused_cuda(w, cfg, prime, rings, 0, 5, 0.0, 0.0, 0, True)
     assert gk.launches == 0
+
+
+@pytest.mark.parametrize("cluster", [8, 16])
+@pytest.mark.parametrize("fuse_res", [False, True])
+def test_chain_packing_round_trips(tiny, cluster, fuse_res):
+    """K1's packed chain: rank q holds the tap rows of layers q + m*cluster
+    and, per layer, its gate columns (channels q + j*cluster) of w_cur and
+    of the gate bias (bf under fuse_res), its residual columns of w_out's
+    residual part and b_out's, and its columns of wf; the rest is 0 (at
+    K1's cluster of 16 and at K4's 8)."""
+    _, _, cfg, tp = tiny
+    L, k, S = cfg.num_layers, cfg.kernel_size, cfg.skip_channels
+    R, D = cfg.residual_channels, cfg.dilation_channels
+    w = gk.prepare_weights(tp, cfg, fuse_res)
+    assert w["chain"].shape[0] == gk.CLUSTER
+    w["chain"] = gk.pack_chain(w, cfg, fuse_res, False, cluster)
+    d = gk.chain_dims(cfg, cluster, fuse_res)
+    assert tuple(w["chain"].shape) == (cluster, d["F"])
+    bz = torch.cat([w["b_in"][:1], w["bf"]]) if fuse_res else w["b_in"]
+    for q in range(cluster):
+        row = w["chain"][q]
+        taps = row[:d["base"]].view(d["nlt"], d["KT"], 2 * D)
+        for m in range(d["nlt"]):
+            l = q + m * cluster
+            want = (w["w_tap"][l, :k - 1].reshape(d["KT"], 2 * D) if l < L
+                    else torch.zeros(d["KT"], 2 * D))
+            assert torch.equal(taps[m], want)
+        layers = row[d["base"]:].view(L, d["PL"])
+        sizes = [R * 2 * d["ndm"], 2 * d["ndm"], D * d["nrm"], d["nrm"]] + (
+            [D * 2 * d["ndm"]] if fuse_res else [])
+        wc, b, wr, br, *wf = torch.split(layers, sizes, dim=1)
+        c = q + cluster * torch.arange(d["ndm"])
+        cols = torch.cat([c, D + c])
+        ok = torch.cat([c < D, c < D])
+        assert torch.equal(wc.view(L, R, -1)[:, :, ok],
+                           w["w_tap"][:, k - 1][:, :, cols[ok]])
+        assert not wc.view(L, R, -1)[:, :, ~ok].any()
+        assert torch.equal(b[:, ok], bz[:, cols[ok]])
+        r = q + cluster * torch.arange(d["nrm"])
+        rk = r < R
+        assert torch.equal(wr.view(L, D, -1)[:, :, rk],
+                           w["w_out"][:, :, S + r[rk]])
+        assert torch.equal(br[:, rk], w["b_out"][:, S + r[rk]])
+        if fuse_res:
+            got = wf[0].view(L, D, -1)
+            assert torch.equal(got[:-1][:, :, ok], w["wf"][:, :, cols[ok]])
+            assert not got[-1].any()
+
+
+@pytest.mark.parametrize("name", ["chaconne", "saber", "test_small"])
+def test_shared_bytes_fit_a_block(name):
+    """K1's one 8-lane tile fits a block's 232,448 bytes, chain weights
+    resident in its cluster of 16."""
+    cfg = pt.get_config(name)
+    for fuse_res in (False, True):
+        assert gk.shared_bytes(cfg, fuse_res) <= 232448
+        assert gk.shared_bytes_for(cfg, gk.MAX_STREAMS, gk.CLUSTER,
+                                   fuse_res)[1]
+
+
+@pytest.mark.parametrize("kernel_size", [1, 2, 3])
+def test_owned_layer_slot_holds_taps_and_h(kernel_size):
+    """A rank's slot per owned layer holds the layer's (k-1)R tap rows and,
+    once they are consumed, its R rows of h until the ring write: at
+    kernel_size 1 there are no taps and the slot is still R rows (the
+    kernel would otherwise keep every layer's h over the tap products)."""
+    cfg = pt.get_config("chaconne", kernel_size=kernel_size)
+    R, tile = cfg.residual_channels, gk.MAX_STREAMS
+    d = gk.chain_dims(cfg, gk.CLUSTER, True)
+    assert d["KT"] == (kernel_size - 1) * R
+    assert d["TS"] == max(d["KT"], R)
+    one = pt.get_config("chaconne", kernel_size=1)
+    two = pt.get_config("chaconne", kernel_size=2)
+    # k = 1 and k = 2 differ only in the tap weights, which stay in L2
+    assert (gk.shared_bytes_for(one, tile, gk.CLUSTER, True)
+            == gk.shared_bytes_for(two, tile, gk.CLUSTER, True))

@@ -300,14 +300,17 @@ def _bad_launches(cfg, w, prime, ring, lanes):
         "seeds_dtype": dict(seeds=lanes[1].long()),
         "empty_prime": dict(prime=prime[:, :0]),
         "no_steps": dict(total=0),
-        "bad_tile": dict(tile=3),
+        "bad_tile": dict(tile=32),
+        "odd_tile": dict(tile=3),
+        "unfittable_tile": dict(tile=24, cfg=pt.get_config(
+            "chaconne", residual_channels=64, dilation_channels=64)),
     }
 
 
 @pytest.mark.parametrize("case", sorted(
     ["w_skip_shape", "w_end1_shape", "missing_wf", "exact_needs_w_out",
      "ring_shape", "temps_shape", "seeds_dtype", "empty_prime", "no_steps",
-     "bad_tile"]))
+     "bad_tile", "odd_tile", "unfittable_tile"]))
 def test_launcher_checks_operands_before_the_device(tiny, case):
     """Operands that disagree with the config raise before any launch,
     whatever their device; the kernel would read out of bounds."""
@@ -318,11 +321,12 @@ def test_launcher_checks_operands_before_the_device(tiny, case):
     lanes = (torch.zeros(2), torch.zeros(2, dtype=torch.int32),
              torch.zeros(2, dtype=torch.int32))
     args = dict(w=w, prime=prime, ring=ring, total=5, temps=lanes[0],
-                seeds=lanes[1], toffs=lanes[2], skip_slab=True, tile=None)
+                seeds=lanes[1], toffs=lanes[2], skip_slab=True, tile=None,
+                cfg=cfg)
     args.update(_bad_launches(cfg, w, prime, ring, lanes)[case])
 
     def launch(a):
-        return ghbm.batched_cuda(a["w"], cfg, a["prime"], a["ring"], 0,
+        return ghbm.batched_cuda(a["w"], a["cfg"], a["prime"], a["ring"], 0,
                                  a["total"], a["temps"], a["seeds"],
                                  a["toffs"], 0, 0.0, True, a["skip_slab"],
                                  True, tile=a["tile"])
@@ -330,8 +334,120 @@ def test_launcher_checks_operands_before_the_device(tiny, case):
     with pytest.raises(ValueError) as err:
         launch(args)
     assert "CUDA tensors" not in str(err.value)
+    if case == "unfittable_tile":
+        assert "232448 bytes" in str(err.value)
     good = dict(w=w, prime=prime, ring=ring, total=5, temps=lanes[0],
-                seeds=lanes[1], toffs=lanes[2], skip_slab=True, tile=None)
+                seeds=lanes[1], toffs=lanes[2], skip_slab=True, tile=None,
+                cfg=cfg)
     with pytest.raises(ValueError, match="CUDA tensors"):
         launch(good)
     assert ghbm.launches == 0
+
+
+def _unpack_chain(chain, cfg, fuse_res, cluster):
+    """The layer chain's weights back from the per-rank packing: the tap
+    rows, w_cur, the gate biases, the residual weights and biases and wf
+    (fuse_res), as full tensors."""
+    L, k = cfg.num_layers, cfg.kernel_size
+    R, D = cfg.residual_channels, cfg.dilation_channels
+    d = ghbm.k1.chain_dims(cfg, cluster, fuse_res)
+    ndm, nrm, nlt, KT = d["ndm"], d["nrm"], d["nlt"], d["KT"]
+    taps = torch.full((L, KT, 2 * D), float("nan"))
+    w_cur = torch.full((L, R, 2 * D), float("nan"))
+    bz = torch.full((L, 2 * D), float("nan"))
+    w_res = torch.full((L, D, R), float("nan"))
+    b_res = torch.full((L, R), float("nan"))
+    wf = torch.full((L, D, 2 * D), float("nan"))
+    for q in range(cluster):
+        row = chain[q]
+        for m in range(nlt):
+            if q + m * cluster < L:
+                taps[q + m * cluster] = row[m * KT * 2 * D:
+                                            (m + 1) * KT * 2 * D].view(KT, 2 * D)
+        layers = row[d["base"]:].view(L, d["PL"])
+        sizes = [R * 2 * ndm, 2 * ndm, D * nrm, nrm] + (
+            [D * 2 * ndm] if fuse_res else [])
+        parts = torch.split(layers, sizes, dim=1)
+        for j in range(ndm):
+            c = q + j * cluster
+            if c < D:
+                for col, slot in ((c, j), (D + c, ndm + j)):
+                    w_cur[:, :, col] = parts[0].view(L, R, 2 * ndm)[:, :, slot]
+                    bz[:, col] = parts[1][:, slot]
+                    if fuse_res:
+                        wf[:, :, col] = parts[4].view(L, D, 2 * ndm)[:, :, slot]
+        for j in range(nrm):
+            r = q + j * cluster
+            if r < R:
+                w_res[:, :, r] = parts[2].view(L, D, nrm)[:, :, j]
+                b_res[:, r] = parts[3][:, j]
+    return taps, w_cur, bz, w_res, b_res, wf
+
+
+@pytest.mark.parametrize("cluster", [8, 16])
+@pytest.mark.parametrize("fuse_res,skip_slab", [(False, False), (True, True),
+                                                (True, False)])
+def test_chain_packing_round_trips(tiny, cluster, fuse_res, skip_slab):
+    """Each rank's packed chain slice holds exactly prepare_weights' tensors
+    for its channels and layers: unpacked, they equal them bitwise (at K4's
+    cluster of 8 and at K1's 16)."""
+    _, _, cfg, tp = tiny
+    L, k, S = cfg.num_layers, cfg.kernel_size, cfg.skip_channels
+    w = ghbm.prepare_weights(tp, cfg, fuse_res, skip_slab)
+    assert tuple(w["chain"].shape) == (
+        ghbm.CLUSTER, ghbm.k1.chain_dims(cfg, ghbm.CLUSTER, fuse_res)["F"])
+    w["chain"] = ghbm.k1.pack_chain(w, cfg, fuse_res, skip_slab, cluster)
+    assert tuple(w["chain"].shape) == (
+        cluster, ghbm.k1.chain_dims(cfg, cluster, fuse_res)["F"])
+    taps, w_cur, bz, w_res, b_res, wf = _unpack_chain(w["chain"], cfg,
+                                                      fuse_res, cluster)
+    R, D = cfg.residual_channels, cfg.dilation_channels
+    assert torch.equal(taps, w["w_tap"][:, :k - 1].reshape(L, -1, 2 * D))
+    assert torch.equal(w_cur, w["w_tap"][:, k - 1])
+    want_bz = (torch.cat([w["b_in"][:1], w["bf"]]) if fuse_res
+               else w["b_in"])
+    assert torch.equal(bz, want_bz)
+    if skip_slab:
+        assert torch.equal(w_res, w["w_res"]) and torch.equal(b_res,
+                                                              w["b_res"])
+    else:
+        assert torch.equal(w_res, w["w_out"][:, :, S:])
+        assert torch.equal(b_res, w["b_out"][:, S:])
+    if fuse_res:
+        assert torch.equal(wf[:-1], w["wf"])
+    # the kernel's own packing is the one at its cluster size
+    if cluster == ghbm.CLUSTER:
+        assert torch.equal(w["chain"], ghbm.prepare_weights(
+            tp, cfg, fuse_res, skip_slab)["chain"])
+
+
+@pytest.mark.parametrize("name,overrides", [
+    ("chaconne", {}), ("saber", {}),
+    ("chaconne", dict(residual_channels=64, dilation_channels=64))],
+    ids=["chaconne", "saber", "R_D_64"])
+@pytest.mark.parametrize("lanes", [1, 200, 256, 1024])
+def test_default_tile_fits_shared_memory(name, overrides, lanes):
+    """The default width fits a block's 232,448 bytes; at chaconne and
+    saber the chain weights are resident in it; at R = D = 64 under
+    fuse_res on 8 SMs they do not fit and are read from L2. ``active`` is
+    what the card reports: 15 clusters of 8 at once on an H100
+    (``max_active_clusters``, PERF.md)."""
+    cfg = pt.get_config(name, **overrides)
+    for fuse_res in (False, True):
+        tile = ghbm.default_tile(lanes, cfg, fuse_res, lambda t: 15)
+        assert tile in ghbm.TILES
+        nbytes = ghbm.shared_bytes(cfg, tile, fuse_res)
+        assert nbytes <= 232448
+        resident = ghbm.k1.shared_bytes_for(cfg, tile, ghbm.CLUSTER,
+                                            fuse_res)[1]
+        assert resident or overrides
+    if overrides:  # about 2.9 MB of chain weights: more than 8 SMs hold
+        tile = ghbm.default_tile(lanes, cfg, True, lambda t: 15)
+        assert not ghbm.k1.shared_bytes_for(cfg, tile, 8, True)[1]
+    # serving's pool: every cluster at once on the card
+    tile = ghbm.default_tile(256, pt.get_config("chaconne"), True,
+                             lambda t: 15)
+    assert -(-256 // tile) <= 15
+    # no width runs 1024 lanes at once: the widest with the chain resident
+    assert ghbm.default_tile(1024, pt.get_config("chaconne"), True,
+                             lambda t: 15) == 24

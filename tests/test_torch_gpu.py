@@ -126,8 +126,8 @@ def test_k4_matches_plain_on_card(card, name, variant, temperature, lanes):
 @pytest.mark.gpu
 @pytest.mark.parametrize("tile", ghbm.TILES)
 def test_k4_tiles_and_one_seed_noise_on_card(card, tile):
-    """Every compiled tile width, with a tail tile (130 lanes), and the
-    one-seed noise keying agree with the plain version."""
+    """Every compiled width of lanes per cluster, with a tail tile (130
+    lanes), and the one-seed noise keying agree with the plain version."""
     cfg, params, temps, seeds, toffs = _k4_case(card, "test_small", 130, 1.0)
     w = ghbm.prepare_weights(params, cfg, True, True)
     prime = torch.from_numpy(_prime(cfg, 130, 2, 48)).to(card, torch.int32)
@@ -326,3 +326,186 @@ def test_trunk_launchers_refuse_what_the_kernels_do_not_take(card):
                           .transpose(0, 1), 4)
     with pytest.raises(ValueError, match="CUDA tensors"):
         tk.trunk_fwd_cuda(params, cfg, h0.cpu(), 4)
+
+
+# ------------------------------------------- the cluster core at chaconne
+
+def _chaconne_k4(card, lanes, fuse_res, skip_slab, **overrides):
+    cfg, params, temps, seeds, toffs = _k4_case(card, "chaconne", lanes, 0.9)
+    if overrides:
+        cfg = pt.get_config("chaconne", **overrides)
+        params = pt.init_wavenet(cfg, torch.Generator().manual_seed(0), card)
+    w = ghbm.prepare_weights(params, cfg, fuse_res, skip_slab)
+    return cfg, params, w, temps, seeds, toffs
+
+
+def _k4_against_plain(card, cfg, w, lanes, fuse_res, skip_slab, temps,
+                      seeds, toffs, n_prime=80, steps=8, **kw):
+    prime = torch.from_numpy(_prime(cfg, lanes, 1, n_prime)).to(card,
+                                                                 torch.int32)
+    total = n_prime - 1 + steps
+    rk = torch.zeros(ghbm.ring_rows(cfg), lanes, device=card)
+    rp = rk.clone()
+    ck = ghbm.batched_cuda(w, cfg, prime, rk, 0, total, temps, seeds, toffs,
+                           4, 0.05, fuse_res, skip_slab, True, **kw)
+    torch.cuda.synchronize()
+    cp, gaps = ghbm.batched_plain(w, cfg, prime, rp, 0, total, temps, seeds,
+                                  toffs, 4, 0.05, fuse_res, skip_slab, True,
+                                  return_gaps=True)
+    forced = slice(0, n_prime - 1)
+    bad = (ck[:, forced] != cp[:, forced]) & (gaps[:, forced] >= 1e-4)
+    assert not bool(bad.any())
+    torch.testing.assert_close(rk, rp, atol=1e-4, rtol=1e-4)
+    return ck, rk
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lanes", [16, 200, 256, 1024])
+@pytest.mark.parametrize("fuse_res,skip_slab", [(False, False), (True, True)],
+                         ids=["exact", "fuse_res_skip_slab"])
+def test_k4_chaconne_matches_plain_on_card(card, lanes, fuse_res, skip_slab):
+    """K4 at chaconne widths and pool sizes (a ragged last cluster at 200
+    lanes): teacher-forced classes off near-ties of 1e-4, rings within
+    1e-4 of the plain version."""
+    cfg, _, w, temps, seeds, toffs = _chaconne_k4(card, lanes, fuse_res,
+                                                  skip_slab)
+    before = ghbm.launches
+    _k4_against_plain(card, cfg, w, lanes, fuse_res, skip_slab, temps,
+                      seeds, toffs)
+    assert ghbm.launches == before + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fuse_res,skip_slab", [(False, False), (True, True)],
+                         ids=["exact", "fuse_res_skip_slab"])
+def test_k4_same_lanes_at_two_widths_bitwise_on_card(card, fuse_res,
+                                                     skip_slab):
+    """A lane's classes and ring do not depend on its tile: the same 200
+    lanes at 8, 16 and 24 lanes per cluster are bitwise equal."""
+    cfg, _, w, temps, seeds, toffs = _chaconne_k4(card, 200, fuse_res,
+                                                  skip_slab)
+    runs = [_k4_against_plain(card, cfg, w, 200, fuse_res, skip_slab, temps,
+                              seeds, toffs, n_prime=40, steps=60, tile=tile)
+            for tile in ghbm.TILES]
+    for c, r in runs[1:]:
+        assert torch.equal(c, runs[0][0]) and torch.equal(r, runs[0][1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offset", [0, 1, 2, 513])
+def test_k4_resumed_chunk_at_offset_bitwise_on_card(card, offset):
+    """A chunk resumed at t0 = offset (the first step's taps are issued
+    before the call's loop) continues a rollout bitwise: classes and ring
+    equal one shot; at 0 over a zeroed ring instead of a NaN-filled one."""
+    cfg, _, w, temps, seeds, toffs = _chaconne_k4(card, 40, True, True)
+    one = torch.from_numpy(_prime(cfg, 40, 3, 1)).to(card, torch.int32)
+    rows = ghbm.ring_rows(cfg)
+    r_all = torch.full((rows, 40), float("nan"), device=card)
+    c_all = ghbm.batched_cuda(w, cfg, one, r_all, 0, 600, temps, seeds, toffs,
+                              0, 0.0, True, True, True)
+    ring = torch.zeros(rows, 40, device=card)
+    parts, p = [], one
+    if offset:
+        parts.append(ghbm.batched_cuda(w, cfg, one, ring, 0, offset, temps,
+                                       seeds, toffs, 0, 0.0, True, True, True))
+        p = parts[-1][:, -1:].contiguous()
+    parts.append(ghbm.batched_cuda(w, cfg, p, ring, offset, 600 - offset,
+                                   temps, seeds, toffs, 0, 0.0, True, True,
+                                   True))
+    torch.cuda.synchronize()
+    assert torch.equal(torch.cat(parts, dim=1), c_all)
+    assert torch.equal(ring, r_all)
+
+
+@pytest.mark.gpu
+def test_k4_streamed_chain_weights_on_card(card):
+    """R = D = 64: the chain's weights (about 2.9 MB) do not fit 8 SMs'
+    shared memory and are read from L2; the kernel still agrees with its
+    plain version."""
+    cfg = pt.get_config("chaconne", residual_channels=64,
+                        dilation_channels=64)
+    tile = ghbm.default_tile(24, cfg, True, lambda t: (
+        ghbm.max_active_clusters(cfg, t, True, True)))
+    assert not ghbm.k1.shared_bytes_for(cfg, tile, ghbm.CLUSTER, True)[1]
+    _, _, w, temps, seeds, toffs = _chaconne_k4(
+        card, 24, True, True, residual_channels=64, dilation_channels=64)
+    _k4_against_plain(card, cfg, w, 24, True, True, temps, seeds, toffs)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel_size", [1, 3])
+@pytest.mark.parametrize("fuse_res,skip_slab", [(False, False), (True, True)],
+                         ids=["exact", "fuse_res_skip_slab"])
+def test_k4_kernel_sizes_match_plain_on_card(card, kernel_size, fuse_res,
+                                             skip_slab):
+    """K4 at chaconne widths with kernel_size 1 (no taps: a rank's slot
+    per owned layer holds only h) and 3 (two tap rows per layer) against
+    its plain version, at two widths, bitwise equal between them."""
+    cfg, _, w, temps, seeds, toffs = _chaconne_k4(
+        card, 40, fuse_res, skip_slab, kernel_size=kernel_size)
+    runs = [_k4_against_plain(card, cfg, w, 40, fuse_res, skip_slab, temps,
+                              seeds, toffs, tile=tile) for tile in (8, 24)]
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert torch.equal(runs[0][1], runs[1][1])
+
+
+def _k1_against_plain(card, cfg, streams, fuse_res):
+    params = pt.init_wavenet(cfg, torch.Generator().manual_seed(0), card)
+    w = gk.prepare_weights(params, cfg, fuse_res)
+    prime = torch.from_numpy(_prime(cfg, streams, 1, 120)).to(card,
+                                                             torch.int32)
+    total = prime.shape[1] - 1 + 8
+    size = sum(gk.periods(cfg)) * streams * cfg.residual_channels
+    rk = torch.zeros(size, device=card)
+    rp = torch.zeros(size, device=card)
+    ck = gk.fused_cuda(w, cfg, prime, rk, 0, total, 0.9, 0.0, 4, fuse_res)
+    torch.cuda.synchronize()
+    cp, gaps = gk.fused_plain(w, cfg, prime, rp, 0, total, 0.9, 0.0, 4,
+                              fuse_res, return_gaps=True)
+    forced = slice(0, prime.shape[1] - 1)
+    bad = (ck[:, forced] != cp[:, forced]) & (gaps[:, forced] >= 1e-4)
+    assert not bool(bad.any())
+    torch.testing.assert_close(rk, rp, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel_size", [1, 3])
+@pytest.mark.parametrize("fuse_res", [False, True])
+def test_k1_kernel_sizes_match_plain_on_card(card, kernel_size, fuse_res):
+    """K1 at chaconne widths with kernel_size 1 and 3, 3 streams:
+    teacher-forced classes off near-ties, rings within 1e-4."""
+    _k1_against_plain(card, pt.get_config("chaconne",
+                                          kernel_size=kernel_size), 3,
+                      fuse_res)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("streams", [1, 3, 8])
+@pytest.mark.parametrize("fuse_res", [False, True])
+def test_k1_chaconne_matches_plain_on_card(card, streams, fuse_res):
+    """K1 at chaconne widths, one cluster holding 1, 3 or 8 streams:
+    teacher-forced classes off near-ties, rings within 1e-4."""
+    _k1_against_plain(card, pt.get_config("chaconne"), streams, fuse_res)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offset", [0, 1, 2, 513])
+def test_k1_resumed_chunk_at_offset_bitwise_on_card(card, offset):
+    """K1: a chunk resumed from the state at t0 = offset equals one shot
+    bitwise, classes and rings."""
+    cfg = pt.get_config("chaconne")
+    params = pt.init_wavenet(cfg, torch.Generator().manual_seed(1), card)
+    one = _prime(cfg, 3, 4, 1)
+    kw = dict(temperature=1.0, fuse_res=True, return_state=True, device=card)
+    _, c_all, s_all = pt.generate_fast_fused(params, cfg, 9, 600, one, **kw)
+    if offset:
+        _, ca, st = pt.generate_fast_fused(params, cfg, 9, offset, one, **kw)
+    else:
+        ca = c_all[:, :0]
+        st = pt.FusedGenState(
+            rings=tuple(torch.zeros_like(r) for r in s_all.rings), t=0,
+            cls=torch.from_numpy(one[:, 0]).to(card, torch.int32))
+    _, cb, st = pt.generate_fast_fused(params, cfg, 9, 600 - offset, None,
+                                       state=st, **kw)
+    assert torch.equal(torch.cat([ca, cb], dim=1), c_all)
+    assert all(torch.equal(a, b) for a, b in zip(st.rings, s_all.rings))
