@@ -59,9 +59,11 @@ Phases (any failure stops the run with a nonzero exit):
      plain trunk barred from it; the loss falls; a run resumed from the
      step-10 snapshot ends at the uninterrupted run's params;
  13. times with CUDA events: the train step (and with the plain trunk),
-     K2 and K3 at bf16 and f32 saves beside their bounds, the plain trunk,
-     and the step's split into embed, trunk, skip and head, loss and
-     optimizer.
+     K2 and K3 at bf16 and f32 saves beside their bounds (3xTF32, and the
+     f32 bound of the FMA kernels they replaced), their device time split
+     by CUDA kernel (``torch.profiler``: K3's layer, dh0 and reduction
+     launches, K2's per layer), the plain trunk, and the step's split into
+     embed, trunk, skip and head, loss and optimizer.
 
 The line before the last is one JSON object listing the kernels; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -413,7 +415,7 @@ def bound_ms(pt, gk, params, cfg, streams, num_given, total, lane_rows=0):
                                        else "operations")
 
 
-def trunk_bounds(cfg, batch, out_len, save_bytes=2):
+def trunk_bounds(cfg, batch, out_len, save_bytes=2, tf32x3=True):
     """Bounds of the training trunk kernels K2 (forward) and K3 (backward)
     from their shapes: ``{name: (ms, bound_by)}``.
     Layer l's gated unit is needed on the output window widened by every
@@ -426,7 +428,10 @@ def trunk_bounds(cfg, batch, out_len, save_bytes=2):
     recomputed and two of its size for the weight and input gradients, two
     of the residual product's size; bytes: the saves and the units'
     gradient read once, the input stream's gradient and the weight
-    gradients written once."""
+    gradients written once. The kernels form every product in 3xTF32, so
+    an operation counts as three TF32 operations on the tensor cores
+    (``tf32x3``); ``tf32x3=False`` gives the f32 bound of the FMA kernels
+    they replaced (67 TFLOP/s outside the tensor cores)."""
     k, R, D, L = (cfg.kernel_size, cfg.residual_channels,
                   cfg.dilation_channels, cfg.num_layers)
     T = cfg.receptive_field + out_len - 1
@@ -440,15 +445,46 @@ def trunk_bounds(cfg, batch, out_len, save_bytes=2):
     saves = save_bytes * R * pos
     units = 4 * batch * out_len * L * D
     stream = 4 * batch * T * R
+    rate = TF32_PEAK_FLOPS / 3 if tf32x3 else F32_PEAK_FLOPS
     out = {}  # saves in bf16 (save_bytes 2) unless said
     for name, flops, nbytes in (
             ("K2", pos * (tap + res), stream + units + saves + w_bytes),
             ("K3", pos * (3 * tap + 2 * res),
              saves + units + stream + 2 * w_bytes)):
-        t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / F32_PEAK_FLOPS
+        t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / rate
         out[name] = (1e3 * max(t_b, t_o),
                      "bytes" if t_b > t_o else "operations")
     return out
+
+
+def kernel_split(torch, fn, reps=3):
+    """Device time by CUDA kernel name over ``reps`` calls of ``fn`` (after
+    a warm call), from ``torch.profiler``: ``{name: (ms per call, launches
+    per call)}``, empty when the profiler saw no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        if us > 0 and not e.key.startswith("cuda"):
+            out[e.key] = (us / 1e3 / reps, e.count / reps)
+    return out
+
+
+def short_kernel_name(name):
+    """``trunk_bwd_gates`` from ``void (anonymous
+    namespace)::trunk_bwd_gates(Layer)``."""
+    s = name.split("namespace)::", 1)[-1]
+    s = s[5:] if s.startswith("void ") else s
+    return s.split("(")[0].split("<")[0].strip() or name
 
 
 def _time(torch, fn, reps, warm=True):
@@ -1307,7 +1343,7 @@ def phase_training(torch, np, pt, tk, dev):
         f"({n_items} windows): 20 steps in {wall:.1f} s (dataset and "
         f"snapshots included; avg step {1e3 * a.avg_step_time:.2f} ms host "
         f"clock); K2/K3 launches {launched[0]}/{launched[1]} (20 steps x 1 "
-        f"wrapper call each, {a.cfg.num_layers} and {3 * a.cfg.num_layers} "
+        f"wrapper call each, {a.cfg.num_layers} and {a.cfg.num_layers + 2} "
         f"CUDA kernels per call), plain trunk calls {len(plain_calls)}; "
         f"loss on the first batch {l0:.4f} at init -> {l1:.4f} at step 20; "
         f"step-10 snapshot holds opt_state (count 10)")
@@ -1364,12 +1400,31 @@ def phase_train_times(torch, pt, tk, dev, card):
         k3 = min(_time(torch, lambda: tk.trunk_bwd_cuda(p_t, cfg_t, saves,
                                                         du, out), 5))
         bounds = trunk_bounds(cfg_t, B, out, 2 if name == "bf16" else 4)
+        old = trunk_bounds(cfg_t, B, out, 2 if name == "bf16" else 4,
+                           tf32x3=False)
         for kname, ms in (("K2", k2), ("K3", k3)):
             b_ms, b_by = bounds[kname]
             log(f"[time] {kname} chaconne_wide batch 16 out {out}, {name} "
                 f"saves: {ms:.3f} ms (min of 5); bound {b_ms:.4f} ms "
-                f"({b_by}), {100 * b_ms / ms:.2f} % of it [{card}]")
+                f"({b_by}, 3xTF32 on the tensor cores), {100 * b_ms / ms:.2f} "
+                f"% of it; the f32 bound of the FMA kernels "
+                f"{old[kname][0]:.4f} ms, {100 * old[kname][0] / ms:.2f} % "
+                f"[{card}]")
             out_k[(kname, name)] = (ms, b_ms, b_by)
+        # the split by CUDA kernel (torch.profiler): K3's launch kinds, K2's
+        # time per layer
+        for kname, fn in (("K2", lambda: tk.trunk_fwd_cuda(
+                p_t, cfg_t, h0, out, sd)), ("K3", lambda: tk.trunk_bwd_cuda(
+                    p_t, cfg_t, saves, du, out))):
+            split = kernel_split(torch, fn)
+            check(split, f"{kname}: the profiler saw no device time")
+            log(f"[time] {kname} split, {name} saves (device time per call, "
+                f"torch.profiler, mean of 3): " + "; ".join(
+                    f"{short_kernel_name(k_)} {ms_:.3f} ms in {n_:g} "
+                    f"launches ({1e3 * ms_ / n_:.1f} us each)"
+                    for k_, (ms_, n_) in sorted(split.items(),
+                                                key=lambda x: -x[1][0]))
+                + f" [{card}]")
     _, saves = tk.trunk_fwd_plain(p_t, cfg_t, h0, out, torch.bfloat16)
     pf = min(_time(torch, lambda: tk.trunk_fwd_plain(
         p_t, cfg_t, h0, out, torch.bfloat16), 2))

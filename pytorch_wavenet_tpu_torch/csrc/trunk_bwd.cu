@@ -14,41 +14,45 @@
 //   dz[t] = [du a' g, du a g(1-g)] with a' = 1 - a^2
 //   dw_in[l] = sum_{n,t} v[t]^T dz[t]   (v[t] the tap rows h(t - m_j))
 //   dw_res[l] = sum u[t]^T dh_next[t], db_in[l] = sum dz, db_res[l] = sum dh_next
-//   dh[t] = dh_next[t] + dz[t] @ w_in[l, k-1]^T
-//           + sum_{j<k-1} dz[t + m_j] @ w_in[l, j]^T
+//   dv[t] = dz[t] @ w_in[l]^T   (k*R columns, one group of R per tap)
+//   dh[t] = dh_next[t] + dv[t, (k-1)R:] + sum_{j<k-1} dv[t + m_j, jR:(j+1)R]
 // dh goes back to [sp_l, T) (the whole window for layer 0: dh0, f32).
 //
 // What bounds it on this card: the arithmetic. The tap product is computed
 // three times (recompute, weight and stream gradients) and the residual
-// product twice: 0.5888 ms at chaconne_wide, batch 16, out 1024, at the
-// card's 67 TFLOP/s outside the tensor cores (chip_smoke.py::trunk_bounds).
+// product twice: 39.45 GFLOP at chaconne_wide, batch 16, out 1024, done as
+// three TF32 products each, 0.2391 ms at the tensor cores' 495 TFLOP/s
+// (chip_smoke.py::trunk_bounds).
 //
 // Design. The TPU kernel walks all layers per item pair with the item's
 // stream in VMEM and sums the weight gradients across its sequential grid in
 // constant-index VMEM blocks. Neither carries over: an item's stream (524 KB
 // at chaconne_wide) is more than a block's 227 KB of shared memory, and
-// Hopper's blocks run in parallel in no order. So each layer is three
-// launches, ordered by the stream:
-//   1. gates: a block per (item, tile of TT positions) recomputes z, writes
-//      dz (N, T, 2D) to device memory and this tile's partial weight and
-//      bias gradients to its own slot of a scratch buffer (each partial a
-//      sum over the tile's positions in order);
-//   2. reduce: one thread per gradient element sums the slots in block
-//      order. No atomics anywhere, so two calls on the same inputs give
-//      bitwise-equal gradients and a resumed run can be held to an
-//      uninterrupted one;
-//   3. stream: a block per tile gathers dh[t] from dz at t and at t + m_j.
-//      A tap's gradient lands m_j positions earlier, in another tile, so
-//      the scatter form would race; the gather form reads dz, which no block
-//      of this launch writes, and writes the other dh buffer of a ping-pong
-//      pair (never the dh_next it reads).
+// Hopper's blocks run in parallel in no order. So the walk is one fused
+// launch per layer, then two light launches:
+//   layer l: a fixed number S of blocks (partial slots, set by the shapes
+//     alone: ops/cuda/trunk_kernel.py::bwd_geometry) each walks a fixed,
+//     contiguous run of tiles of TM positions in order. Per tile it stages
+//     the tap rows from the save with cp.async and gathers dh_next from the
+//     layer above's dv (the stream gradient's gather-add, in the prologue),
+//     forms z and du_out . w_res^T on the tensor cores (trunk_core.cuh,
+//     3xTF32), dz in registers, dv = dz @ w_in^T on the tensor cores while
+//     dz is on chip, and adds the tile's weight and bias gradients (v^T dz
+//     and u^T dh_next, on the tensor cores) to the block's partial sums. dv
+//     goes to device memory with dh_next already added to its own tap's
+//     columns; the layer below gathers it. A tap's gradient lands m_j
+//     positions earlier, in another tile, so the scatter form would race;
+//     the gather reads dv, which no block of that launch writes;
+//   dh0: layer 0's dv gathered over the whole window;
+//   reduce: every layer's S slots summed per gradient element in a fixed
+//     tree (four contiguous runs of slots, then the four in order), spread
+//     over the whole card.
+// No atomics anywhere, so two calls on the same inputs give bitwise-equal
+// gradients and a resumed run can be held to an uninterrupted one.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
+#include "trunk_core.cuh"
 
-#define NT 256  // threads per block
-#define TT 64   // positions per block
+using namespace trunk;
 
 namespace {
 
@@ -56,234 +60,364 @@ struct Layer {
   const float* sf;          // f32 save of the layer's input (N, T, R), or null
   const __nv_bfloat16* sb;  // bf16 save, or null
   const float* du;          // (N, out, L*D)
-  const float* dhn;         // (N, T, R) gradient of the output stream, or null
-  float* dh;                // (N, T, R) gradient of the input stream
-  float* dz;                // (N, T, 2D)
-  float* partial;           // (blocks, P)
-  const float* w;           // (k*R, 2D)
-  const float* wr;          // (D, R)
-  const float* bi;          // (2D)
-  int T, out, LD, k, R, D, d, s, lo, col;
+  const float* dvn;         // (N, T, k*Rp): dv of layer l + 1, or null
+  float* dv;                // (N, T, k*Rp): this layer's
+  const float* w;           // the layer's packed weights
+  float* slots;             // (S, P): this layer's partial slots
+  int T, out, LD, k, R, D, Rp, Dp, d, s, col;
+  int dn, sn;               // layer l + 1's dilation and window start
+  int tpi, ntiles, per, wsm, asm_;
 };
 
-__device__ __forceinline__ float sigmoidf_(float x) {
-  return 1.f / (1.f + expf(-x));
+// Shared memory in floats: biases, tap rows, dh_next, dz (first the
+// staged rows of the layer above's dv), u (first the staged bf16 tap rows),
+// then (wsm) the weights and (asm_) the partial sums.
+int smem_floats(int TM, int k, int Rp, int Dp, int wsm, int asm_) {
+  const int KR = k * Rp, D2 = 2 * Dp;
+  return D2 + TM * (lda(KR) + lda(Rp) + imax(lda(D2), KR) +
+                    imax(lda(Dp), KR / 2)) +
+         (wsm ? KR * ldb(D2) + Dp * lda(Rp) : 0) +
+         (asm_ ? KR * ldb(D2) + Dp * ldb(Rp) + D2 + Rp : 0);
 }
 
-__device__ __forceinline__ float load_save(const Layer& a, size_t at) {
-  return a.sf != nullptr ? a.sf[at] : __bfloat162float(a.sb[at]);
+// dh[t][r] of the layer whose dv (N, T, k*Rp) at item base `dv` is given,
+// with dilation d and window start s: its own tap's columns (which carry
+// dh_next) where t is in the window, plus every other tap's landing at t.
+__device__ __forceinline__ float gather_dh(const float* dv, int t, int r,
+                                           int T, int k, int Rp, int d,
+                                           int s) {
+  const int KR = k * Rp;
+  float x = t >= s ? dv[(size_t)t * KR + (k - 1) * Rp + r] : 0.f;
+  for (int j = 0; j < k - 1; ++j) {
+    const int tau = t + (k - 1 - j) * d;
+    if (tau >= s && tau < T) x += dv[(size_t)tau * KR + j * Rp + r];
+  }
+  return x;
 }
 
-// 1. gates: dz and this tile's partial gradients
-__global__ void __launch_bounds__(NT) trunk_bwd_gates(Layer a) {
-  extern __shared__ float sm[];
-  const int k = a.k, R = a.R, D = a.D, KR = k * R, D2 = 2 * D;
-  float* w = sm;              // KR * D2
-  float* wrt = w + KR * D2;   // R * D: w_res transposed
-  float* bi = wrt + D * R;    // D2
-  float* v = bi + D2;         // TT * KR
-  float* dhn = v + TT * KR;   // TT * R
-  float* dzs = dhn + TT * R;  // TT * D2
-  float* us = dzs + TT * D2;  // TT * D
-  const int n = blockIdx.y;
-  const int t0 = a.s + blockIdx.x * TT;
-  const int tid = threadIdx.x;
-  const size_t base = (size_t)n * a.T * R;
+template <int NB>
+__device__ __forceinline__ void c_load(float (&acc)[NB][4], const float* C,
+                                       int ld, int m0, int n0, int nb) {
+#pragma unroll
+  for (int b = 0; b < NB; ++b)
+    if (b < nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        acc[b][e] = C[(m0 + frag_row(e)) * ld + n0 + 8 * b + frag_col(e)];
+}
 
-  for (int e = tid; e < KR * D2; e += NT) w[e] = a.w[e];
-  for (int e = tid; e < D * R; e += NT) {
-    const int c = e / R, r = e % R;
-    wrt[r * D + c] = a.wr[e];
-  }
-  for (int e = tid; e < D2; e += NT) bi[e] = a.bi[e];
-  for (int e = tid; e < TT * KR; e += NT) {
-    const int i = e / KR, jr = e % KR, j = jr / R, r = jr % R;
-    const int t = t0 + i, src = t - (k - 1 - j) * a.d;
-    v[e] = (t < a.T && src >= 0) ? load_save(a, base + (size_t)src * R + r)
-                                 : 0.f;
-  }
-  for (int e = tid; e < TT * R; e += NT) {
-    const int t = t0 + e / R;
-    dhn[e] = (a.dhn != nullptr && t < a.T)
-                 ? a.dhn[base + (size_t)t * R + e % R] : 0.f;
-  }
-  __syncthreads();
+template <int NB>
+__device__ __forceinline__ void c_store(const float (&acc)[NB][4], float* C,
+                                        int ld, int m0, int n0, int nb) {
+#pragma unroll
+  for (int b = 0; b < NB; ++b)
+    if (b < nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        C[(m0 + frag_row(e)) * ld + n0 + 8 * b + frag_col(e)] = acc[b][e];
+}
 
-  for (int p = tid; p < TT * D; p += NT) {
-    const int i = p / D, c = p % D, t = t0 + i;
-    float df = 0.f, dg = 0.f, u = 0.f;
-    if (t < a.T) {
-      float zf = 0.f, zg = 0.f;
-      const float* vi = v + i * KR;
-      for (int q = 0; q < KR; ++q) {
-        const float x = vi[q];
-        zf = fmaf(x, w[q * D2 + c], zf);
-        zg = fmaf(x, w[q * D2 + D + c], zg);
+template <int TM, bool BF16>
+__global__ void __launch_bounds__(NTHREADS) trunk_bwd_layer(Layer a) {
+  extern __shared__ __align__(16) float sm[];
+  const int k = a.k, Rp = a.Rp, Dp = a.Dp, KR = k * Rp, D2 = 2 * Dp;
+  const int LV = lda(KR), LH = lda(Rp), LZ = lda(D2), LU = lda(Dp);
+  const int LW = ldb(D2), LR = lda(Rp);
+  const int P = KR * D2 + Dp * Rp + D2 + Rp;
+  float* bi = sm;                          // D2, packed
+  float* v = bi + D2;                      // TM x KR: tap rows
+  float* dh = v + TM * LV;                 // TM x Rp: dh_next
+  float* dz = dh + TM * LH;                // TM x D2, packed
+  float* us = dz + TM * imax(LZ, KR);      // TM x Dp: u
+  float* wi = us + TM * imax(LU, KR / 2);  // KR x D2 (wsm)
+  float* wr = wi + (a.wsm ? KR * LW : 0);    // Dp x Rp (wsm)
+  float* acc0 = wr + (a.wsm ? Dp * LR : 0);  // partial sums (asm_)
+  float* pc = dz;  // staged rows of dv above: [TM][KR], before dz
+  __nv_bfloat16* raw = reinterpret_cast<__nv_bfloat16*>(us);  // [TM][KR]
+  const float* wg = a.w;
+  const float* wrg = wg + KR * D2;
+  const float* big = wrg + Dp * Rp;
+  float* slot = a.slots + (size_t)blockIdx.x * P;
+  // the block's partial sums: in shared memory, or in its own slot
+  float* gw = a.asm_ ? acc0 : slot;
+  const int lgw = a.asm_ ? ldb(D2) : D2;
+  float* gr = gw + KR * lgw;
+  const int lgr = a.asm_ ? ldb(Rp) : Rp;
+  float* gbi = gr + Dp * lgr;
+  float* gbr = gbi + D2;
+  const int warp = threadIdx.x >> 5;
+  const bool raw_taps = BF16 && a.R % 8 == 0;
+
+  stage(bi, D2, big, 1, D2);
+  if (a.wsm) {
+    stage(wi, LW, wg, KR, D2);
+    stage(wr, LR, wrg, Dp, Rp);
+  }
+  const int nacc = KR * lgw + Dp * lgr + D2 + Rp;
+  for (int e = threadIdx.x; e < nacc; e += NTHREADS) gw[e] = 0.f;
+
+  const Op V = op(v, LV, 1), VT = op(v, 1, LV);
+  const Op DH = op(dh, LH, 1), DZ = op(dz, LZ, 1);
+  const Op UT = op(us, 1, LU);
+  const Op W = a.wsm ? op(wi, LW, 1) : op(wg, D2, 1);
+  const Op WT = a.wsm ? op(wi, 1, LW) : op(wg, 1, D2);
+  const Op WrT = a.wsm ? op(wr, 1, LR) : op(wrg, 1, Rp);
+  const int MT = TM / 16, G = Dp / 16, GV = (KR + 31) / 32;
+  const int n1 = KR / 16 * (D2 / 32), n2 = Dp / 16 * ((Rp + 31) / 32);
+  const int o0 = a.T - a.out;
+  const int first = blockIdx.x * a.per;
+  const int last = min(a.ntiles, first + a.per);
+
+  for (int tile = first; tile < last; ++tile) {
+    const int n = tile / a.tpi, t0 = a.s + (tile % a.tpi) * TM;
+    const size_t base = (size_t)n * a.T * a.R;
+    if (!BF16)
+      stage_taps_f32(v, LV, a.sf + base, t0, TM, a.T, k, a.R, Rp, a.d);
+    else if (raw_taps)
+      stage_taps_bf16_raw(raw, a.sb + base, t0, TM, a.T, k, a.R, Rp, a.d);
+    else
+      stage_taps_bf16(v, LV, a.sb + base, t0, TM, a.T, k, a.R, Rp, a.d);
+    // the layer above's dv at t (its own tap, which carries its dh_next)
+    // and at t + m_j (tap j), where they lie in its window
+    const float* dvn = a.dvn + (size_t)n * a.T * KR;
+    if (a.dvn != nullptr) {
+      FOR_ROWS(i, TM) {
+        const int t = t0 + i;
+        FOR_COLS(c, KR, 4) {
+          const int j = c / Rp;
+          const int tau = t + (k - 1 - j) * a.dn;
+          const bool ok = t < a.T && tau >= a.sn && tau < a.T;
+          cp16(pc + i * KR + c, ok ? dvn + (size_t)tau * KR + c : dvn, ok);
+        }
       }
-      const float th = tanhf(zf + bi[c]);
-      const float sg = sigmoidf_(zg + bi[D + c]);
-      float g = 0.f;
-      const float* hi = dhn + i * R;
-      for (int r = 0; r < R; ++r) g = fmaf(hi[r], wrt[r * D + c], g);
-      const int o = t - (a.T - a.out);
-      if (o >= 0) g += a.du[((size_t)n * a.out + o) * a.LD + a.col + c];
-      df = g * sg * (1.f - th * th);
-      dg = g * th * (sg * (1.f - sg));
-      u = th * sg;
-      float* dzt = a.dz + ((size_t)n * a.T + t) * D2;
-      dzt[c] = df;
-      dzt[D + c] = dg;
     }
-    dzs[i * D2 + c] = df;
-    dzs[i * D2 + D + c] = dg;
-    us[i * D + c] = u;
+    cp_commit();
+    cp_wait();
+    __syncthreads();
+    if (raw_taps) widen_taps(v, LV, raw, TM, KR);
+    // dh_next: the gather-add of the stream gradient
+    FOR_ROWS(i, TM) {
+      FOR_COLS(r, Rp, 1) {
+        float x = 0.f;
+        if (a.dvn != nullptr) {
+          const float* row = pc + i * KR;
+          x = row[(k - 1) * Rp + r];
+          for (int j = 0; j < k - 1; ++j) x += row[j * Rp + r];
+        }
+        dh[i * LH + r] = x;
+      }
+    }
+    __syncthreads();
+
+    // z = taps @ w_in and g = dh_next @ w_res^T on the tensor cores; the
+    // gate's gradient in registers. An item: an m-tile of 16 positions and
+    // 2 channel tiles.
+    for (int it = warp; it < MT * G; it += NWARP) {
+      const int mt = it % MT, grp = it / MT;
+      float az[4][4], ag[2][4];
+      zero(az);
+      zero(ag);
+      mma3<4, BF16>(az, V, 16 * mt, W, 32 * grp, 4, KR);
+      mma3<2, false>(ag, DH, 16 * mt, WrT, 16 * grp, 2, Rp);
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = 16 * mt + frag_row(e), t = t0 + row;
+          const int ch = 16 * grp + 8 * c + frag_col(e);
+          const int pf = 32 * grp + 16 * c + frag_col(e);
+          float df = 0.f, dg = 0.f, u = 0.f;
+          if (t < a.T) {
+            const float th = gate_tanh(az[2 * c][e] + bi[pf]);
+            const float sg = gate_sigmoid(az[2 * c + 1][e] + bi[pf + 8]);
+            float gv = ag[c][e];
+            if (t >= o0 && ch < a.D)
+              gv += a.du[((size_t)n * a.out + (t - o0)) * a.LD + a.col + ch];
+            df = gv * sg * (1.f - th * th);
+            dg = gv * th * (sg * (1.f - sg));
+            u = th * sg;
+          }
+          dz[row * LZ + pf] = df;
+          dz[row * LZ + pf + 8] = dg;
+          us[row * LU + ch] = u;
+        }
+      }
+    }
+    __syncthreads();
+
+    // dv = dz @ w_in^T, dh_next added to the own tap's columns
+    float* dvo = a.dv + (size_t)n * a.T * KR;
+    for (int it = warp; it < MT * GV; it += NWARP) {
+      const int mt = it % MT, grp = it / MT, nb = min(4, KR / 8 - 4 * grp);
+      float acc[4][4];
+      zero(acc);
+      mma3<4, false>(acc, DZ, 16 * mt, WT, 32 * grp, nb, D2);
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        if (b >= nb) continue;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = 16 * mt + frag_row(2 * h), t = t0 + row;
+          const int q = 32 * grp + 8 * b + frag_col(2 * h);
+          if (t >= a.T) continue;
+          float2 x = make_float2(acc[b][2 * h], acc[b][2 * h + 1]);
+          if (q >= (k - 1) * Rp) {
+            x.x += dh[row * LH + q - (k - 1) * Rp];
+            x.y += dh[row * LH + q + 1 - (k - 1) * Rp];
+          }
+          *reinterpret_cast<float2*>(dvo + (size_t)t * KR + q) = x;
+        }
+      }
+    }
+
+    // the tile's weight gradients added to the block's partial sums:
+    // dw_in += v^T dz, dw_res += u^T dh_next
+    for (int it = warp; it < n1 + n2; it += NWARP) {
+      float acc[4][4];
+      if (it < n1) {
+        const int mt = it % (KR / 16), grp = it / (KR / 16);
+        c_load(acc, gw, lgw, 16 * mt, 32 * grp, 4);
+        mma3<4, BF16>(acc, VT, 16 * mt, DZ, 32 * grp, 4, TM);
+        c_store(acc, gw, lgw, 16 * mt, 32 * grp, 4);
+      } else {
+        const int j = it - n1, mt = j % (Dp / 16), grp = j / (Dp / 16);
+        const int nb = min(4, Rp / 8 - 4 * grp);
+        c_load(acc, gr, lgr, 16 * mt, 32 * grp, nb);
+        mma3<4, false>(acc, UT, 16 * mt, DH, 32 * grp, nb, TM);
+        c_store(acc, gr, lgr, 16 * mt, 32 * grp, nb);
+      }
+    }
+    for (int c = threadIdx.x; c < D2 + Rp; c += NTHREADS) {
+      float x = 0.f;
+      if (c < D2) {
+        for (int i = 0; i < TM; ++i) x += dz[i * LZ + c];
+        gbi[c] += x;
+      } else {
+        for (int i = 0; i < TM; ++i) x += dh[i * LH + c - D2];
+        gbr[c - D2] += x;
+      }
+    }
+    __syncthreads();
   }
+
+  if (!a.asm_) return;
+  // the partial sums to the block's slot: [dw_in | dw_res | db_in | db_res]
   __syncthreads();
-
-  // partials, each a sum over the tile's positions in order; layout
-  // [dw_in (KR*D2) | dw_res (D*R) | db_in (D2) | db_res (R)]
-  const int P = KR * D2 + D * R + D2 + R;
-  float* out = a.partial + (size_t)(blockIdx.y * gridDim.x + blockIdx.x) * P;
-  for (int e = tid; e < P; e += NT) {
-    float acc = 0.f;
-    if (e < KR * D2) {
-      const int q = e / D2, c = e % D2;
-      for (int i = 0; i < TT; ++i) acc = fmaf(v[i * KR + q], dzs[i * D2 + c], acc);
-    } else if (e < KR * D2 + D * R) {
-      const int f = e - KR * D2, c = f / R, r = f % R;
-      for (int i = 0; i < TT; ++i) acc = fmaf(us[i * D + c], dhn[i * R + r], acc);
-    } else if (e < KR * D2 + D * R + D2) {
-      const int c = e - KR * D2 - D * R;
-      for (int i = 0; i < TT; ++i) acc += dzs[i * D2 + c];
-    } else {
-      const int r = e - KR * D2 - D * R - D2;
-      for (int i = 0; i < TT; ++i) acc += dhn[i * R + r];
-    }
-    out[e] = acc;
+  for (int e = threadIdx.x; e < P; e += NTHREADS) {
+    float x;
+    if (e < KR * D2) x = gw[(e / D2) * lgw + e % D2];
+    else if (e < KR * D2 + Dp * Rp) {
+      const int f = e - KR * D2;
+      x = gr[(f / Rp) * lgr + f % Rp];
+    } else x = gbi[e - KR * D2 - Dp * Rp];  // db_in, then db_res
+    slot[e] = x;
   }
 }
 
-// 2. reduce: the partials of `blocks` tiles, summed in block order
-__global__ void __launch_bounds__(NT) trunk_bwd_reduce(
-    const float* partial, int blocks, int P, int nw, int nr, int nb,
-    float* dw_in, float* dw_res, float* db_in, float* db_res) {
-  const int e = blockIdx.x * NT + threadIdx.x;
-  if (e >= P) return;
-  float acc = 0.f;
-  for (int b = 0; b < blocks; ++b) acc += partial[(size_t)b * P + e];
-  if (e < nw) dw_in[e] = acc;
-  else if (e < nw + nr) dw_res[e - nw] = acc;
-  else if (e < nw + nr + nb) db_in[e - nw - nr] = acc;
-  else db_res[e - nw - nr - nb] = acc;
+// dh0 (N, T, R): layer 0's dv gathered over the whole window.
+__global__ void __launch_bounds__(256) trunk_bwd_dh0(
+    const float* dv, float* dh0, int N, int T, int k, int R, int Rp, int d,
+    int s) {
+  const size_t e = (size_t)blockIdx.x * 256 + threadIdx.x;
+  if (e >= (size_t)N * T * R) return;
+  const int r = (int)(e % R), t = (int)((e / R) % T), n = (int)(e / R / T);
+  dh0[e] = gather_dh(dv + (size_t)n * T * k * Rp, t, r, T, k, Rp, d, s);
 }
 
-// 3. stream: dh on [lo, T) gathered from dz
-__global__ void __launch_bounds__(NT) trunk_bwd_stream(Layer a) {
-  extern __shared__ float sm[];
-  const int k = a.k, R = a.R, D2 = 2 * a.D, KR = k * R;
-  float* wt = sm;              // D2 * KR: w_in transposed
-  float* dzs = wt + D2 * KR;   // k * TT * D2: dz at t + m_j
-  const int n = blockIdx.y;
-  const int t0 = a.lo + blockIdx.x * TT;
-  const int tid = threadIdx.x;
-
-  for (int e = tid; e < KR * D2; e += NT) {
-    const int q = e / D2, c = e % D2;
-    wt[c * KR + q] = a.w[e];
+// Every layer's S partial slots summed per element: four contiguous runs
+// of slots (one warp each, 32 elements), then the four runs in order.
+__global__ void __launch_bounds__(128) trunk_bwd_reduce(
+    const float* slots, int S, int P, float* out) {
+  __shared__ float ps[4][32];
+  const int l = blockIdx.y, lane = threadIdx.x & 31, part = threadIdx.x >> 5;
+  const int e = blockIdx.x * 32 + lane, run = (S + 3) / 4;
+  float x = 0.f;
+  if (e < P) {
+    const float* p = slots + (size_t)l * S * P + e;
+    for (int b = part * run; b < min(S, (part + 1) * run); ++b)
+      x += p[(size_t)b * P];
   }
-  for (int e = tid; e < k * TT * D2; e += NT) {
-    const int j = e / (TT * D2), i = (e / D2) % TT, c = e % D2;
-    const int tau = t0 + i + (k - 1 - j) * a.d;
-    dzs[e] = (tau >= a.s && tau < a.T)
-                 ? a.dz[((size_t)n * a.T + tau) * D2 + c] : 0.f;
-  }
+  ps[part][lane] = x;
   __syncthreads();
+  if (part == 0 && e < P)
+    out[(size_t)l * P + e] = ((ps[0][lane] + ps[1][lane]) + ps[2][lane]) +
+                             ps[3][lane];
+}
 
-  for (int p = tid; p < TT * R; p += NT) {
-    const int i = p / R, r = p % R, t = t0 + i;
-    if (t >= a.T) continue;
-    const size_t at = ((size_t)n * a.T + t) * R + r;
-    float acc = (t >= a.s && a.dhn != nullptr) ? a.dhn[at] : 0.f;
-    for (int j = 0; j < k; ++j) {
-      const float* dzi = dzs + (j * TT + i) * D2;
-      const float* wj = wt + j * R + r;
-      for (int c = 0; c < D2; ++c) acc = fmaf(dzi[c], wj[c * KR], acc);
-    }
-    a.dh[at] = acc;
+template <int TM, bool BF16>
+cudaError_t launch(const Layer& a, int S, cudaStream_t st) {
+  const int smem = 4 * smem_floats(TM, a.k, a.Rp, a.Dp, a.wsm, a.asm_);
+  cudaError_t err = cudaFuncSetAttribute(
+      trunk_bwd_layer<TM, BF16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return err;
+  trunk_bwd_layer<TM, BF16><<<S, NTHREADS, smem, st>>>(a);
+  return cudaGetLastError();
+}
+
+template <bool BF16>
+cudaError_t launch_tm(int TM, const Layer& a, int S, cudaStream_t st) {
+  switch (TM) {
+    case 64: return launch<64, BF16>(a, S, st);
+    case 32: return launch<32, BF16>(a, S, st);
+    case 16: return launch<16, BF16>(a, S, st);
+    default: return cudaErrorInvalidValue;
   }
-}
-
-int tiles(int T, int from) { return (T - from + TT - 1) / TT; }
-
-int gates_smem(int k, int R, int D) {
-  return 4 * (k * R * 2 * D + D * R + 2 * D + TT * k * R + TT * R +
-              TT * 2 * D + TT * D);
-}
-
-int stream_smem(int k, int R, int D) {
-  return 4 * (2 * D * k * R + k * TT * 2 * D);
 }
 
 }  // namespace
 
-// Floats of scratch the partial gradients need: one slot per block of the
-// widest layer.
-extern "C" long long wavenet_trunk_bwd_scratch(int N, int T, int k, int R,
-                                               int D) {
-  const long long P = (long long)k * R * 2 * D + D * R + 2 * D + R;
-  return (long long)N * tiles(T, 0) * P;
+// Shared memory per block of the layer launch, in bytes.
+extern "C" int wavenet_trunk_bwd_smem(int TM, int k, int Rp, int Dp, int wsm,
+                                      int asm_) {
+  return 4 * smem_floats(TM, k, Rp, Dp, wsm, asm_);
 }
 
-// Runs the reverse walk on `stream`: three launches per layer. `saves` is
-// (L, N, T, R), f32 or bf16 (save_bf16); dz (N, T, 2D), dh0/dh1 (N, T, R)
-// and `partial` are scratch; dh0 holds the input stream's gradient at the
-// end. Gradients are written in the params' layout: dw_in (L, k, R, 2D),
-// dw_res (L, D, R), db_in (L, 2D), db_res (L, R). Returns the first
-// cudaError_t that is not cudaSuccess, 0 when every launch went out.
+// Runs the reverse walk on `stream`: L layer launches, the dh0 gather and
+// the reduction. `saves` is (L, N, T, R), f32 or bf16 (save_bf16); `w` the
+// packed weights (L, P) (pack_weights); dv0/dv1 (N, T, k*Rp) and `slots`
+// (L, S, P) are scratch. Layer l walks ntiles[l] tiles of TM positions
+// (tpi[l] per item, from s[l]) in S blocks of per[l] tiles each
+// (bwd_geometry). Writes dh0 (N, T, R) and the gradients `grads` (L, P) in
+// the packed layout. Returns the first cudaError_t that is not
+// cudaSuccess, 0 when every launch went out.
 extern "C" int wavenet_trunk_bwd(
-    const void* saves, const float* du, const float* w_in, const float* w_res,
-    const float* b_in, float* dz, float* dh0, float* dh1, float* partial,
-    float* dw_in, float* dw_res, float* db_in, float* db_res, int N, int T,
-    int out, int L, int k, int R, int D, const int* dil, const int* s,
-    const int* sp, int save_bf16, void* stream) {
+    const void* saves, const float* du, const float* w, float* dv0,
+    float* dv1, float* slots, float* grads, float* dh0, int N, int T,
+    int out, int L, int k, int R, int D, int Rp, int Dp, const int* dil,
+    const int* s, const int* tpi, const int* ntiles, const int* per, int S,
+    int TM, int wsm, int asm_, int save_bf16, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int sm_g = gates_smem(k, R, D), sm_s = stream_smem(k, R, D);
-  cudaError_t err = cudaFuncSetAttribute(
-      trunk_bwd_gates, cudaFuncAttributeMaxDynamicSharedMemorySize, sm_g);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(
-      trunk_bwd_stream, cudaFuncAttributeMaxDynamicSharedMemorySize, sm_s);
-  if (err != cudaSuccess) return (int)err;
   const size_t NTR = (size_t)N * T * R;
-  const int nw = k * R * 2 * D, nr = D * R, nb = 2 * D;
-  const int P = nw + nr + nb + R;
-  float* dhs[2] = {dh0, dh1};
+  const size_t P = (size_t)k * Rp * 2 * Dp + Dp * Rp + 2 * Dp + Rp;
+  float* dvs[2] = {dv0, dv1};
+  cudaError_t err;
   for (int l = L - 1; l >= 0; --l) {
     Layer a;
     a.sf = save_bf16 ? nullptr : static_cast<const float*>(saves) + l * NTR;
     a.sb = save_bf16 ? static_cast<const __nv_bfloat16*>(saves) + l * NTR
                      : nullptr;
     a.du = du;
-    a.dhn = l + 1 < L ? dhs[(l + 1) % 2] : nullptr;
-    a.dh = dhs[l % 2];
-    a.dz = dz;
-    a.partial = partial;
-    a.w = w_in + (size_t)l * nw;
-    a.wr = w_res + (size_t)l * nr;
-    a.bi = b_in + (size_t)l * nb;
+    a.dvn = l + 1 < L ? dvs[(l + 1) % 2] : nullptr;
+    a.dv = dvs[l % 2];
+    a.w = w + l * P;
+    a.slots = slots + (size_t)l * S * P;
     a.T = T; a.out = out; a.LD = L * D; a.k = k; a.R = R; a.D = D;
-    a.d = dil[l]; a.s = s[l]; a.lo = l == 0 ? 0 : sp[l]; a.col = l * D;
-    const dim3 g1(tiles(T, s[l]), N);
-    trunk_bwd_gates<<<g1, NT, sm_g, st>>>(a);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    trunk_bwd_reduce<<<(P + NT - 1) / NT, NT, 0, st>>>(
-        partial, (int)(g1.x * g1.y), P, nw, nr, nb, dw_in + (size_t)l * nw,
-        dw_res + (size_t)l * nr, db_in + (size_t)l * nb,
-        db_res + (size_t)l * R);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    const dim3 g3(tiles(T, a.lo), N);
-    trunk_bwd_stream<<<g3, NT, sm_s, st>>>(a);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    a.Rp = Rp; a.Dp = Dp; a.d = dil[l]; a.s = s[l]; a.col = l * D;
+    a.dn = l + 1 < L ? dil[l + 1] : 1;
+    a.sn = l + 1 < L ? s[l + 1] : T;
+    a.tpi = tpi[l]; a.ntiles = ntiles[l]; a.per = per[l];
+    a.wsm = wsm; a.asm_ = asm_;
+    err = save_bf16 ? launch_tm<true>(TM, a, S, st)
+                    : launch_tm<false>(TM, a, S, st);
+    if (err != cudaSuccess) return (int)err;
   }
+  const size_t nel = NTR;
+  trunk_bwd_dh0<<<(unsigned)((nel + 255) / 256), 256, 0, st>>>(
+      dvs[0], dh0, N, T, k, R, Rp, dil[0], s[0]);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  trunk_bwd_reduce<<<dim3((unsigned)((P + 31) / 32), L), 128, 0, st>>>(
+      slots, S, (int)P, grads);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   return 0;
 }

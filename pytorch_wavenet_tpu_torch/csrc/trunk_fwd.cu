@@ -17,136 +17,186 @@
 //
 // What bounds it on this card: the arithmetic. At chaconne_wide, batch 16,
 // out 1024 the layers' windows hold 1,375,872 positions, each 2*(64*64 +
-// 32*32) = 10,240 f32 operations: 14.09 GFLOP, 0.2103 ms at the card's
-// 67 TFLOP/s outside the tensor cores, against 0.048 ms for its bytes
-// (chip_smoke.py::trunk_bounds).
+// 32*32) = 10,240 operations: 14.09 GFLOP, done as three TF32 products
+// each, 0.0854 ms at the tensor cores' 495 TFLOP/s, against 0.048 ms for
+// its bytes (chip_smoke.py::trunk_bounds).
 //
-// Design, and why the layer walk is split: the TPU kernel keeps one item's
-// whole stream in VMEM while all L layers walk over it. Here one item's
-// stream (32 x 4093 x 4 B = 524 KB at chaconne_wide) is more than the
-// 227 KB of shared memory a block can have, so the walk is one launch per
-// layer from the C entry point below: the launch boundary orders the layers,
-// and the stream lives in device memory (at batch 16 the two 8.4 MB
-// ping-pong copies stay in the 50 MB L2). A dilated tap reads up to
-// (k-1)*512 positions back, into another block's tile, so a layer never
-// updates its input in place: it reads one buffer and writes the other.
-// With f32 saves the saves are the stream: layer l reads saves[l] and
-// writes saves[l+1]. A block owns a tile of TT positions of one item; it
-// stages the layer's weights (20 KB at chaconne) and the tile's current and
-// tap rows in shared memory, computes z with plain f32 FMAs (each thread one
-// (position, channel) pair of u at a time), and then the residual update
-// from the tile's u in shared memory. Tensor cores are left for later work.
+// Design. The TPU kernel keeps one item's whole stream in VMEM while all L
+// layers walk over it. Here one item's stream (524 KB at chaconne_wide) is
+// more than the 227 KB of shared memory a block can have, so the walk is
+// one launch per layer: the launch boundary orders the layers, and the
+// stream lives in device memory (at batch 16 the two 8.4 MB ping-pong
+// copies stay in the 50 MB L2). A dilated tap reads up to (k-1)*512
+// positions back, into another block's tile, so a layer never updates its
+// input in place: it reads one buffer and writes the other. With f32 saves
+// the saves are the stream: layer l reads saves[l] and writes saves[l+1].
+// A block owns a tile of TM positions of one item: it stages the layer's
+// packed weights and the tile's k tap rows with cp.async, forms the tap
+// product on the tensor cores (trunk_core.cuh, 3xTF32), runs the gate in
+// registers (with the fast exponential), puts u in shared memory (for the
+// residual product and a coalesced write of u_out), and forms the residual
+// product on the tensor cores.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
+#include "trunk_core.cuh"
 
-#define NT 256  // threads per block
-#define TT 64   // positions per block
+using namespace trunk;
 
 namespace {
 
 struct Layer {
-  const float* hin;   // (N, T, R): this layer's input stream
-  float* hout;        // (N, T, R): its output stream, or null (last layer)
+  const float* hin;     // (N, T, R): this layer's input stream
+  float* hout;          // (N, T, R): its output stream, or null (last layer)
   __nv_bfloat16* save;  // (N, T, R) bf16 save of hin, or null
-  const float* w;     // (k*R, 2D)
-  const float* wr;    // (D, R)
-  const float* bi;    // (2D)
-  const float* br;    // (R)
-  float* u_out;       // (N, out, L*D)
-  int T, out, LD, k, R, D, d, s, sp, col;
+  const float* w;       // the layer's packed weights (pack_weights)
+  float* u_out;         // (N, out, L*D)
+  int T, out, LD, k, R, D, Rp, Dp, d, s, sp, col, wsm;
 };
 
-__device__ __forceinline__ float sigmoidf_(float x) {
-  return 1.f / (1.f + expf(-x));
+// Shared memory in floats: biases, tap rows, u, then (wsm) the weights.
+int smem_floats(int TM, int k, int Rp, int Dp, int wsm) {
+  const int KR = k * Rp, D2 = 2 * Dp;
+  return D2 + Rp + TM * lda(KR) + TM * lda(Dp) +
+         (wsm ? KR * ldb(D2) + Dp * ldb(Rp) : 0);
 }
 
-__global__ void __launch_bounds__(NT) trunk_fwd_layer(Layer a) {
-  extern __shared__ float sm[];
-  const int k = a.k, R = a.R, D = a.D, KR = k * R, D2 = 2 * D;
-  float* w = sm;               // KR * D2
-  float* wr = w + KR * D2;     // D * R
-  float* bi = wr + D * R;      // D2
-  float* br = bi + D2;         // R
-  float* v = br + R;           // TT * KR
-  float* us = v + TT * KR;     // TT * D
-  const int n = blockIdx.y;
-  const int t0 = a.sp + blockIdx.x * TT;
-  const int tid = threadIdx.x;
-  const size_t base = (size_t)n * a.T * R;
+template <int TM>
+__global__ void __launch_bounds__(NTHREADS) trunk_fwd_layer(Layer a) {
+  extern __shared__ __align__(16) float sm[];
+  const int k = a.k, Rp = a.Rp, Dp = a.Dp, KR = k * Rp, D2 = 2 * Dp;
+  const int LW = ldb(D2), LR = ldb(Rp), LV = lda(KR), LU = lda(Dp);
+  float* bi = sm;               // D2, packed (gate halves interleaved)
+  float* br = bi + D2;          // Rp
+  float* v = br + Rp;           // TM x KR: tap rows
+  float* us = v + TM * LV;      // TM x Dp: u
+  float* wi = us + TM * LU;     // KR x D2 (wsm)
+  float* wr = wi + KR * LW;     // Dp x Rp (wsm)
+  const float* wg = a.w;
+  const float* wrg = wg + KR * D2;
+  const float* big = wrg + Dp * Rp;
+  const float* brg = big + D2;
+  const int n = blockIdx.y, t0 = a.sp + blockIdx.x * TM;
+  const int warp = threadIdx.x >> 5;
+  const size_t base = (size_t)n * a.T * a.R;
 
-  for (int e = tid; e < KR * D2; e += NT) w[e] = a.w[e];
-  for (int e = tid; e < D * R; e += NT) wr[e] = a.wr[e];
-  for (int e = tid; e < D2; e += NT) bi[e] = a.bi[e];
-  for (int e = tid; e < R; e += NT) br[e] = a.br[e];
-  // tap rows: v[i][j*R + r] = h(t - m_j)[r], 0.0 before the window
-  for (int e = tid; e < TT * KR; e += NT) {
-    const int i = e / KR, jr = e % KR, j = jr / R, r = jr % R;
-    const int t = t0 + i, src = t - (k - 1 - j) * a.d;
-    float x = 0.f;
-    if (t < a.T && src >= 0) x = a.hin[base + (size_t)src * R + r];
-    v[e] = x;
-    if (a.save != nullptr && j == k - 1 && t < a.T)
-      a.save[base + (size_t)t * R + r] = __float2bfloat16(x);
+  stage(bi, D2, big, 1, D2);
+  stage(br, Rp, brg, 1, Rp);
+  if (a.wsm) {
+    stage(wi, LW, wg, KR, D2);
+    stage(wr, LR, wrg, Dp, Rp);
+  }
+  stage_taps_f32(v, LV, a.hin + base, t0, TM, a.T, k, a.R, Rp, a.d);
+  cp_commit();
+  cp_wait();
+  __syncthreads();
+
+  if (a.save != nullptr) {  // the layer's input on the tile: tap k-1
+    FOR_ROWS(i, TM) {
+      const int t = t0 + i;
+      if (t >= a.T) continue;
+      FOR_COLS(r, a.R, 1)
+        a.save[base + (size_t)t * a.R + r] =
+            __float2bfloat16(v[i * LV + (k - 1) * Rp + r]);
+    }
+  }
+
+  // z = taps @ w_in on the tensor cores, the gate in registers: an item is
+  // an m-tile of 16 positions and 2 channel tiles (4 n-tiles: f, g, f, g)
+  const Op V = op(v, LV, 1);
+  const Op W = a.wsm ? op(wi, LW, 1) : op(wg, D2, 1);
+  const int MT = TM / 16, G = Dp / 16;
+  for (int it = warp; it < MT * G; it += NWARP) {
+    const int mt = it % MT, grp = it / MT;
+    float acc[4][4];
+    zero(acc);
+    mma3<4, false>(acc, V, 16 * mt, W, 32 * grp, 4, KR);
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = 16 * mt + frag_row(e), t = t0 + row;
+        const int pf = 32 * grp + 16 * c + frag_col(e);
+        float u = 0.f;
+        if (t >= a.s && t < a.T)
+          u = gate_tanh(acc[2 * c][e] + bi[pf]) *
+              gate_sigmoid(acc[2 * c + 1][e] + bi[pf + 8]);
+        us[row * LU + 16 * grp + 8 * c + frag_col(e)] = u;
+      }
+    }
   }
   __syncthreads();
 
-  for (int p = tid; p < TT * D; p += NT) {
-    const int i = p / D, c = p % D, t = t0 + i;
-    float u = 0.f;
-    if (t >= a.s && t < a.T) {
-      float zf = 0.f, zg = 0.f;
-      const float* vi = v + i * KR;
-      for (int q = 0; q < KR; ++q) {
-        const float x = vi[q];
-        zf = fmaf(x, w[q * D2 + c], zf);
-        zg = fmaf(x, w[q * D2 + D + c], zg);
-      }
-      u = tanhf(zf + bi[c]) * sigmoidf_(zg + bi[D + c]);
-      const int o = t - (a.T - a.out);
-      if (o >= 0) a.u_out[((size_t)n * a.out + o) * a.LD + a.col + c] = u;
-    }
-    us[p] = u;
+  const int o0 = a.T - a.out;
+  FOR_ROWS(i, TM) {
+    const int t = t0 + i;
+    if (t < o0 || t >= a.T) continue;
+    float* dst = a.u_out + ((size_t)n * a.out + (t - o0)) * a.LD + a.col;
+    FOR_COLS(c, a.D, 1) dst[c] = us[i * LU + c];
   }
   if (a.hout == nullptr) return;
-  __syncthreads();
 
-  for (int p = tid; p < TT * R; p += NT) {
-    const int i = p / R, r = p % R, t = t0 + i;
-    if (t < a.s || t >= a.T) continue;
-    float acc = 0.f;
-    const float* ui = us + i * D;
-    for (int c = 0; c < D; ++c) acc = fmaf(ui[c], wr[c * R + r], acc);
-    const size_t at = base + (size_t)t * R + r;
-    a.hout[at] = a.hin[at] + (acc + br[r]);
+  // h' = h + (u @ w_res + b_res) on the layer's window
+  const Op U = op(us, LU, 1);
+  const Op Wr = a.wsm ? op(wr, LR, 1) : op(wrg, Rp, 1);
+  const int GR = (Rp + 31) / 32;
+  for (int it = warp; it < MT * GR; it += NWARP) {
+    const int mt = it % MT, grp = it / MT, nb = min(4, Rp / 8 - 4 * grp);
+    float acc[4][4];
+    zero(acc);
+    mma3<4, false>(acc, U, 16 * mt, Wr, 32 * grp, nb, Dp);
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      if (b >= nb) continue;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = 16 * mt + frag_row(e), t = t0 + row;
+        const int r = 32 * grp + 8 * b + frag_col(e);
+        if (t >= a.s && t < a.T && r < a.R)
+          a.hout[base + (size_t)t * a.R + r] =
+              v[row * LV + (k - 1) * Rp + r] + (acc[b][e] + br[r]);
+      }
+    }
   }
 }
 
-int smem_bytes(int k, int R, int D) {
-  return 4 * (k * R * 2 * D + D * R + 2 * D + R + TT * k * R + TT * D);
+template <int TM>
+cudaError_t launch(const Layer& a, int N, cudaStream_t st) {
+  const int smem = 4 * smem_floats(TM, a.k, a.Rp, a.Dp, a.wsm);
+  cudaError_t err = cudaFuncSetAttribute(
+      trunk_fwd_layer<TM>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.T - a.sp + TM - 1) / TM, N);
+  trunk_fwd_layer<TM><<<grid, NTHREADS, smem, st>>>(a);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// Runs the layer walk on `stream`: one launch per layer. f32 saves (save_bf16
-// = 0): `saves` is (L, N, T, R) f32 and is the stream itself (h0 is copied
-// into saves[0]; buf0/buf1 are not read). bf16 saves: h0 is layer 0's input,
-// buf0/buf1 (N, T, R) f32 ping-pong, `saves` (L, N, T, R) bf16. Returns the
-// first cudaError_t that is not cudaSuccess, 0 when every launch went out.
+// Shared memory per block, in bytes, for the tile of TM positions.
+extern "C" int wavenet_trunk_fwd_smem(int TM, int k, int Rp, int Dp,
+                                      int wsm) {
+  return 4 * smem_floats(TM, k, Rp, Dp, wsm);
+}
+
+// Runs the layer walk on `stream`: one launch per layer. `w` holds the
+// packed weights, (L, P) with P = k*Rp*2Dp + Dp*Rp + 2Dp + Rp
+// (ops/cuda/trunk_kernel.py::pack_weights). f32 saves (save_bf16 = 0):
+// `saves` is (L, N, T, R) f32 and is the stream itself (h0 is copied into
+// saves[0]; buf0/buf1 are not read). bf16 saves: h0 is layer 0's input,
+// buf0/buf1 (N, T, R) f32 ping-pong, `saves` (L, N, T, R) bf16. TM (16, 32
+// or 64) and wsm (weights in shared memory) come from the wrapper's plan.
+// Returns the first cudaError_t that is not cudaSuccess, 0 when every
+// launch went out.
 extern "C" int wavenet_trunk_fwd(
-    const float* h0, const float* w_in, const float* w_res, const float* b_in,
-    const float* b_res, float* buf0, float* buf1, void* saves, float* u_out,
-    int N, int T, int out, int L, int k, int R, int D, const int* dil,
-    const int* s, const int* sp, int save_bf16, void* stream) {
+    const float* h0, const float* w, float* buf0, float* buf1, void* saves,
+    float* u_out, int N, int T, int out, int L, int k, int R, int D, int Rp,
+    int Dp, const int* dil, const int* s, const int* sp, int save_bf16,
+    int TM, int wsm, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int smem = smem_bytes(k, R, D);
-  cudaError_t err = cudaFuncSetAttribute(
-      trunk_fwd_layer, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
   const size_t NTR = (size_t)N * T * R;
+  const size_t P = (size_t)k * Rp * 2 * Dp + Dp * Rp + 2 * Dp + Rp;
   float* sf = static_cast<float*>(saves);
   __nv_bfloat16* sb = static_cast<__nv_bfloat16*>(saves);
+  cudaError_t err;
   if (!save_bf16) {
     err = cudaMemcpyAsync(sf, h0, NTR * sizeof(float),
                           cudaMemcpyDeviceToDevice, st);
@@ -164,16 +214,17 @@ extern "C" int wavenet_trunk_fwd(
       a.hout = l + 1 < L ? sf + (l + 1) * NTR : nullptr;
       a.save = nullptr;
     }
-    a.w = w_in + (size_t)l * k * R * 2 * D;
-    a.wr = w_res + (size_t)l * D * R;
-    a.bi = b_in + (size_t)l * 2 * D;
-    a.br = b_res + (size_t)l * R;
+    a.w = w + l * P;
     a.u_out = u_out;
     a.T = T; a.out = out; a.LD = L * D; a.k = k; a.R = R; a.D = D;
-    a.d = dil[l]; a.s = s[l]; a.sp = sp[l]; a.col = l * D;
-    const dim3 grid((T - sp[l] + TT - 1) / TT, N);
-    trunk_fwd_layer<<<grid, NT, smem, st>>>(a);
-    err = cudaGetLastError();
+    a.Rp = Rp; a.Dp = Dp; a.d = dil[l]; a.s = s[l]; a.sp = sp[l];
+    a.col = l * D; a.wsm = wsm;
+    switch (TM) {
+      case 64: err = launch<64>(a, N, st); break;
+      case 32: err = launch<32>(a, N, st); break;
+      case 16: err = launch<16>(a, N, st); break;
+      default: return (int)cudaErrorInvalidValue;
+    }
     if (err != cudaSuccess) return (int)err;
   }
   return 0;

@@ -32,13 +32,21 @@ the kernels; :func:`fused_trunk` runs the plain versions only for tensors
 on the CPU and the kernels for CUDA tensors (which raise rather than fall
 back). ``fwd_launches`` and ``bwd_launches`` count wrapper calls that
 launched their kernels (K2 launches L CUDA kernels per call, one per layer;
-K3 3L: per layer the gate gradients, the fixed-order reduction of the
-weight gradients and the stream gradient).
+K3 L + 2: one fused launch per layer, the gather of dh0 and the
+fixed-order reduction of every layer's partial weight gradients).
+
+Both kernels form their products on the tensor cores in 3xTF32 from the
+tile core ``csrc/trunk_core.cuh``. The Python below sets what the kernels
+read: the packed weights (:func:`pack_weights`, widths padded to 16, the
+gate's halves interleaved), the tile of positions a block takes and what
+it keeps in shared memory (:func:`fwd_plan`, :func:`bwd_plan`), and K3's
+partial slots (:func:`bwd_geometry`), which depend on the shapes alone.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -166,6 +174,195 @@ def trunk_bwd_plain(params, cfg: WaveNetConfig, saves: torch.Tensor,
     return (dh_next, dw_in.reshape(L, k, R, 2 * D), dw_res, db_in, db_res)
 
 
+# ------------------------------------------------------ the kernels' layout
+
+SMEM_LIMIT = 232_448  # bytes of shared memory a block can have on an H100
+MAX_SLOTS = 256       # K3's partial slots per layer, at most
+
+
+def _pad16(x: int) -> int:
+    return -(-x // 16) * 16
+
+
+def padded_widths(cfg: WaveNetConfig) -> tuple[int, int]:
+    """``(Rp, Dp)``: R and D padded to whole m-tiles of 16 rows."""
+    return _pad16(cfg.residual_channels), _pad16(cfg.dilation_channels)
+
+
+def layer_size(cfg: WaveNetConfig) -> int:
+    """P, the floats of one layer's packed weights (and of one partial
+    slot): ``[w_in (k*Rp, 2Dp) | w_res (Dp, Rp) | b_in (2Dp) | b_res
+    (Rp)]``."""
+    Rp, Dp = padded_widths(cfg)
+    return cfg.kernel_size * Rp * 2 * Dp + Dp * Rp + 2 * Dp + Rp
+
+
+def _lda(cols: int) -> int:  # csrc/trunk_core.cuh
+    return cols + 4
+
+
+def _ldb(cols: int) -> int:
+    return cols + 8
+
+
+def fwd_smem(tm: int, k: int, Rp: int, Dp: int, wsm: bool) -> int:
+    """K2's shared memory per block in bytes (csrc/trunk_fwd.cu,
+    smem_floats): biases, tap rows, u, and the weights under ``wsm``."""
+    KR, D2 = k * Rp, 2 * Dp
+    f = D2 + Rp + tm * (_lda(KR) + _lda(Dp))
+    if wsm:
+        f += KR * _ldb(D2) + Dp * _ldb(Rp)
+    return 4 * f
+
+
+def bwd_smem(tm: int, k: int, Rp: int, Dp: int, wsm: bool,
+             acc_smem: bool) -> int:
+    """K3's shared memory per block of a layer launch in bytes
+    (csrc/trunk_bwd.cu, smem_floats): biases, tap rows, dh_next, dz (first
+    the staged rows of the layer above's dv), u (first the staged bf16 tap
+    rows), the weights under ``wsm`` and the partial sums under
+    ``acc_smem``."""
+    KR, D2 = k * Rp, 2 * Dp
+    f = D2 + tm * (_lda(KR) + _lda(Rp) + max(_lda(D2), KR)
+                   + max(_lda(Dp), KR // 2))
+    if wsm:
+        f += KR * _ldb(D2) + Dp * _lda(Rp)
+    if acc_smem:
+        f += KR * _ldb(D2) + Dp * _ldb(Rp) + D2 + Rp
+    return 4 * f
+
+
+def fwd_plan(cfg: WaveNetConfig) -> tuple[int, bool]:
+    """``(TM, wsm)`` for K2: the widest tile of positions whose block fits,
+    with the weights in shared memory where they fit, else read from L2."""
+    Rp, Dp = padded_widths(cfg)
+    for wsm in (True, False):
+        for tm in (64, 32, 16):
+            if fwd_smem(tm, cfg.kernel_size, Rp, Dp, wsm) <= SMEM_LIMIT:
+                return tm, wsm
+    raise ValueError("the trunk's widths are too large for the kernels "
+                     f"(kernel_size {cfg.kernel_size}, R {Rp}, D {Dp})")
+
+
+def bwd_plan(cfg: WaveNetConfig) -> tuple[int, bool, bool]:
+    """``(TM, wsm, acc_smem)`` for K3: the widest tile whose block fits,
+    preferring the weights and then the partial sums in shared memory
+    (else the weights are read from L2 and the sums kept in the block's own
+    slot in device memory)."""
+    Rp, Dp = padded_widths(cfg)
+    for wsm, acc in ((True, True), (True, False), (False, False)):
+        for tm in (64, 32, 16):
+            if bwd_smem(tm, cfg.kernel_size, Rp, Dp, wsm, acc) <= SMEM_LIMIT:
+                return tm, wsm, acc
+    raise ValueError("the trunk's widths are too large for the kernels "
+                     f"(kernel_size {cfg.kernel_size}, R {Rp}, D {Dp})")
+
+
+def bwd_geometry(cfg: WaveNetConfig, out_len: int, N: int, tm: int) -> dict:
+    """K3's partial slots, from the shapes alone. Layer l's window ``[s_l,
+    T)`` is cut into ``tpi[l]`` tiles of ``tm`` positions per item, tile
+    ``n * tpi[l] + i`` starting at ``s_l + i * tm`` of item n. The
+    ``slots`` blocks of a layer launch each walk ``per[l]`` consecutive
+    tiles in order (block b: tiles ``[b * per[l], min((b + 1) * per[l],
+    ntiles[l]))``) and write one partial slot, so the sums' order never
+    depends on the card."""
+    T = cfg.receptive_field + out_len - 1
+    s, _ = windows(cfg, out_len)
+    tpi = [-(-(T - sl) // tm) for sl in s]
+    ntiles = [N * x for x in tpi]
+    slots = min(MAX_SLOTS, max(ntiles))
+    per = [-(-nt // slots) for nt in ntiles]
+    return dict(tpi=tpi, ntiles=ntiles, per=per, slots=slots)
+
+
+@functools.lru_cache(maxsize=16)
+def _pack_index(L: int, k: int, R: int, D: int) -> torch.Tensor:
+    """For each float of the packed weights (L, P), its index in the flat
+    ``[w_in | w_res | b_in | b_res | 0]`` of the params' layout (the last
+    index, a zero, for the padding). The gate's halves are interleaved by
+    8-column tiles: packed column ``16c + 8h + i`` is half h of channel
+    ``8c + i``."""
+    Rp, Dp = _pad16(R), _pad16(D)
+    o_wr = L * k * R * 2 * D
+    o_bi = o_wr + L * D * R
+    o_br = o_bi + L * 2 * D
+    zero = o_br + L * R
+    ar = torch.arange
+
+    def pick(valid, idx):
+        return torch.where(valid, idx, torch.full_like(idx, zero))
+
+    l6 = ar(L).view(L, 1, 1, 1, 1, 1)
+    j, r = ar(k).view(1, k, 1, 1, 1, 1), ar(Rp).view(1, 1, Rp, 1, 1, 1)
+    ct = ar(Dp // 8).view(1, 1, 1, Dp // 8, 1, 1)
+    h, i = ar(2).view(1, 1, 1, 1, 2, 1), ar(8).view(1, 1, 1, 1, 1, 8)
+    c = 8 * ct + i
+    w_in = pick((r < R) & (c < D),
+                ((l6 * k + j) * R + r) * 2 * D + h * D + c)
+    l3, c3, r3 = ar(L).view(L, 1, 1), ar(Dp).view(1, Dp, 1), ar(Rp).view(
+        1, 1, Rp)
+    w_res = pick((c3 < D) & (r3 < R), o_wr + (l3 * D + c3) * R + r3)
+    l4 = ar(L).view(L, 1, 1, 1)
+    ct4 = ar(Dp // 8).view(1, Dp // 8, 1, 1)
+    h4, i4 = ar(2).view(1, 1, 2, 1), ar(8).view(1, 1, 1, 8)
+    c4 = 8 * ct4 + i4
+    b_in = pick(c4 < D, o_bi + l4 * 2 * D + h4 * D + c4)
+    l2, r2 = ar(L).view(L, 1), ar(Rp).view(1, Rp)
+    b_res = pick(r2 < R, o_br + l2 * R + r2)
+    return torch.cat([x.reshape(L, -1) for x in (w_in, w_res, b_in, b_res)],
+                     dim=1).reshape(-1)
+
+
+@functools.lru_cache(maxsize=16)
+def _unpack_index(L: int, k: int, R: int, D: int) -> torch.Tensor:
+    """The inverse of :func:`_pack_index`: for each float of the params'
+    flat ``[w_in | w_res | b_in | b_res]``, its index in (L, P)."""
+    idx = _pack_index(L, k, R, D)
+    n_src = L * (k * R * 2 * D + D * R + 2 * D + R)
+    inv = torch.empty(n_src, dtype=torch.int64)
+    real = idx < n_src
+    inv[idx[real]] = torch.arange(idx.numel())[real]
+    return inv
+
+
+_dev_index: dict = {}
+
+
+def _index(which, cfg: WaveNetConfig, dev: torch.device) -> torch.Tensor:
+    key = (which.__name__, cfg.num_layers, cfg.kernel_size,
+           cfg.residual_channels, cfg.dilation_channels, str(dev))
+    x = _dev_index.get(key)
+    if x is None:
+        x = _dev_index[key] = which(*key[1:5]).to(dev)
+    return x
+
+
+def pack_weights(w: dict, cfg: WaveNetConfig) -> torch.Tensor:
+    """The kernels' weight operand, (L, P) f32 (:func:`layer_size`): per
+    layer ``[w_in | w_res | b_in | b_res]``, R and D padded with zeros to
+    multiples of 16, w_in as (k*Rp, 2Dp) and b_in with the gate's halves
+    interleaved by 8-column tiles. ``w`` in the params' layout (biases
+    present, zero where the model has none). One gather."""
+    flat = torch.cat([w["w_in"].reshape(-1), w["w_res"].reshape(-1),
+                      w["b_in"].reshape(-1), w["b_res"].reshape(-1),
+                      w["w_in"].new_zeros(1)])
+    return flat[_index(_pack_index, cfg, flat.device)].view(
+        cfg.num_layers, layer_size(cfg))
+
+
+def unpack_grads(g: torch.Tensor, cfg: WaveNetConfig):
+    """``(dw_in (L, k, R, 2D), dw_res (L, D, R), db_in (L, 2D), db_res (L,
+    R))`` from gradients in the packed layout (L, P): the inverse of
+    :func:`pack_weights`. One gather; the four are views of its result."""
+    L, k = cfg.num_layers, cfg.kernel_size
+    R, D = cfg.residual_channels, cfg.dilation_channels
+    flat = g.reshape(-1)[_index(_unpack_index, cfg, g.device)]
+    sizes = (L * k * R * 2 * D, L * D * R, L * 2 * D, L * R)
+    dw_in, dw_res, db_in, db_res = torch.split(flat, sizes)
+    return (dw_in.view(L, k, R, 2 * D), dw_res.view(L, D, R),
+            db_in.view(L, 2 * D), db_res.view(L, R))
+
+
 # ------------------------------------------------------------------ kernels
 
 _PTR = ctypes.c_void_p
@@ -180,16 +377,19 @@ def _bind(name: str):
     if name == "trunk_fwd":
         fn = lib.wavenet_trunk_fwd
         if fn.argtypes is None:
-            fn.argtypes = [_PTR] * 9 + [_INT] * 7 + [_INTS] * 3 + [_INT, _PTR]
+            fn.argtypes = [_PTR] * 6 + [_INT] * 9 + [_INTS] * 3 + [_INT] * 3 \
+                + [_PTR]
             fn.restype = _INT
+            lib.wavenet_trunk_fwd_smem.argtypes = [_INT] * 5
+            lib.wavenet_trunk_fwd_smem.restype = _INT
     else:
         fn = lib.wavenet_trunk_bwd
         if fn.argtypes is None:
-            fn.argtypes = ([_PTR] * 13 + [_INT] * 7 + [_INTS] * 3
-                           + [_INT, _PTR])
+            fn.argtypes = ([_PTR] * 8 + [_INT] * 9 + [_INTS] * 5 + [_INT] * 5
+                           + [_PTR])
             fn.restype = _INT
-            lib.wavenet_trunk_bwd_scratch.argtypes = [_INT] * 5
-            lib.wavenet_trunk_bwd_scratch.restype = ctypes.c_longlong
+            lib.wavenet_trunk_bwd_smem.argtypes = [_INT] * 6
+            lib.wavenet_trunk_bwd_smem.restype = _INT
     return lib
 
 
@@ -268,12 +468,14 @@ def trunk_fwd_cuda(params, cfg: WaveNetConfig, h0: torch.Tensor,
     # ping-pong pair beside them
     bufs = (torch.empty((2, N, T, R), dtype=torch.float32, device=dev)
             if bf16 else saves)
+    Rp, Dp = padded_widths(cfg)
+    tm, wsm = fwd_plan(cfg)
+    packed = pack_weights(w, cfg)
     err = _bind("trunk_fwd").wavenet_trunk_fwd(
-        h0.data_ptr(), w["w_in"].data_ptr(), w["w_res"].data_ptr(),
-        w["b_in"].data_ptr(), w["b_res"].data_ptr(), bufs[0].data_ptr(),
+        h0.data_ptr(), packed.data_ptr(), bufs[0].data_ptr(),
         bufs[min(1, bufs.shape[0] - 1)].data_ptr(), saves.data_ptr(),
-        u.data_ptr(), N, T, out_len, L, cfg.kernel_size, R, D,
-        _ints(cfg.dilations), _ints(s), _ints(sp), int(bf16),
+        u.data_ptr(), N, T, out_len, L, cfg.kernel_size, R, D, Rp, Dp,
+        _ints(cfg.dilations), _ints(s), _ints(sp), int(bf16), tm, int(wsm),
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"trunk_fwd launch failed: error {err}")
@@ -302,30 +504,29 @@ def trunk_bwd_cuda(params, cfg: WaveNetConfig, saves: torch.Tensor,
                   (torch.float32, torch.bfloat16), dev)
     _check_stream("du", du, (N, out_len, L * D), (torch.float32,), dev)
     w = _weights(params, cfg, dev)
-    s, sp = windows(cfg, out_len)
+    s, _ = windows(cfg, out_len)
     f32 = dict(dtype=torch.float32, device=dev)
-    lib = _bind("trunk_bwd")
-    dz = torch.empty((N, T, 2 * D), **f32)
-    dh = torch.empty((2, N, T, R), **f32)
-    partial = torch.empty(
-        (lib.wavenet_trunk_bwd_scratch(N, T, k, R, D),), **f32)
-    dw_in = torch.empty((L, k, R, 2 * D), **f32)
-    dw_res = torch.empty((L, D, R), **f32)
-    db_in = torch.empty((L, 2 * D), **f32)
-    db_res = torch.empty((L, R), **f32)
-    err = lib.wavenet_trunk_bwd(
-        saves.data_ptr(), du.data_ptr(), w["w_in"].data_ptr(),
-        w["w_res"].data_ptr(), w["b_in"].data_ptr(), dz.data_ptr(),
-        dh[0].data_ptr(), dh[1].data_ptr(), partial.data_ptr(),
-        dw_in.data_ptr(), dw_res.data_ptr(), db_in.data_ptr(),
-        db_res.data_ptr(), N, T, out_len, L, k, R, D,
-        _ints(cfg.dilations), _ints(s), _ints(sp),
-        int(saves.dtype == torch.bfloat16),
+    Rp, Dp = padded_widths(cfg)
+    tm, wsm, acc_smem = bwd_plan(cfg)
+    geo = bwd_geometry(cfg, out_len, N, tm)
+    P, S = layer_size(cfg), geo["slots"]
+    dv = torch.empty((2, N, T, k * Rp), **f32)
+    slots = torch.empty((L, S, P), **f32)
+    grads = torch.empty((L, P), **f32)
+    dh0 = torch.empty((N, T, R), **f32)
+    packed = pack_weights(w, cfg)
+    err = _bind("trunk_bwd").wavenet_trunk_bwd(
+        saves.data_ptr(), du.data_ptr(), packed.data_ptr(),
+        dv[0].data_ptr(), dv[1].data_ptr(), slots.data_ptr(),
+        grads.data_ptr(), dh0.data_ptr(), N, T, out_len, L, k, R, D, Rp, Dp,
+        _ints(cfg.dilations), _ints(s), _ints(geo["tpi"]),
+        _ints(geo["ntiles"]), _ints(geo["per"]), S, tm, int(wsm),
+        int(acc_smem), int(saves.dtype == torch.bfloat16),
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"trunk_bwd launch failed: error {err}")
     bwd_launches += 1
-    return dh[0], dw_in, dw_res, db_in, db_res
+    return (dh0, *unpack_grads(grads, cfg))
 
 
 def run_fwd(params, cfg, h0, out_len, save_dtype):

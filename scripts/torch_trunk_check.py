@@ -1,30 +1,43 @@
 #!/usr/bin/env python3
 """Quick check of the port's training-trunk kernels K2 and K3 on one CUDA
-card: build them with ``-Xptxas -v`` (registers, spills), hold each
-against its plain PyTorch version at a few shapes with f32 and bf16 saves
-(units, saves on each layer's window, gradients, two K3 calls bitwise
-equal), and time 5 back-to-back calls at chaconne_wide, batch 16.
-``chip_smoke.py`` runs the full checks; this takes about 20 s.
+card: build them with ``-Xptxas -v`` (registers, spills, shared memory),
+hold each against its plain PyTorch version at a few shapes with f32 and
+bf16 saves (units, saves on each layer's window, gradients, two K3 calls
+bitwise equal), then time K2 and K3 at chaconne_wide, batch 16, out 1024
+with bf16 saves (CUDA events) and split their device time by CUDA kernel
+(``torch.profiler``). ``chip_smoke.py`` runs the full checks.
 
-  python3 scripts/torch_trunk_check.py
+  python3 scripts/torch_trunk_check.py               # checks, times, split
+  python3 scripts/torch_trunk_check.py --times-only  # times and split
+  python3 scripts/torch_trunk_check.py --times-only --root _checkout/parent
+
+``--root`` takes the package from another checkout (for example an older
+commit unpacked with ``git archive`` under the ignored ``_checkout/``), so
+two versions are timed with the same script in one call on one card.
 """
 
+import argparse
+import importlib.util
 import os
 import subprocess
 import sys
 import time
 
-sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                                ".."))
-
-import torch  # noqa: E402
-
-import pytorch_wavenet_tpu_torch as pt  # noqa: E402
-from pytorch_wavenet_tpu_torch.ops.cuda import build  # noqa: E402
-from pytorch_wavenet_tpu_torch.ops.cuda import trunk_kernel as tk  # noqa: E402
+HERE = os.path.dirname(os.path.abspath(__file__))
+REPO = os.path.dirname(HERE)
 
 
-def case(dev, name, N, out, **kw):
+def _smoke():
+    """This checkout's ``chip_smoke.py`` (its bounds and profiler split),
+    loaded by path so that ``--root`` cannot shadow it."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_here", os.path.join(REPO, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def case(torch, pt, tk, dev, name, N, out, **kw):
     cfg = pt.get_config(name, **kw)
     p = pt.init_wavenet(cfg, torch.Generator().manual_seed(0), dev)
     T = cfg.receptive_field + out - 1
@@ -54,45 +67,99 @@ def case(dev, name, N, out, **kw):
               flush=True)
         if not (eu <= 1e-5 and eg <= 1e-5 and rep):
             raise SystemExit("K2/K3 disagree with their plain versions")
-        if N == 16:
-            for fn, lab in ((lambda: tk.trunk_fwd_cuda(p, cfg, h0, out, sd),
-                             "K2"),
-                            (lambda: tk.trunk_bwd_cuda(p, cfg, sk, du, out),
-                             "K3")):
-                fn()
-                torch.cuda.synchronize()
-                a = torch.cuda.Event(enable_timing=True)
-                b = torch.cuda.Event(enable_timing=True)
-                a.record()
-                for _ in range(5):
-                    fn()
-                b.record()
-                torch.cuda.synchronize()
-                print(f"{lab} {sd}: {a.elapsed_time(b) / 5:.3f} ms per call",
-                      flush=True)
+
+
+def times(torch, pt, tk, smoke, dev, card, tag):
+    """K2 and K3 at chaconne_wide, batch 16, out 1024, bf16 saves: CUDA
+    events (min of 5 warm calls) and the profiler's split by kernel."""
+    cfg, p, h0, du = smoke._trunk_case(torch, pt, dev, "chaconne_wide", 16,
+                                       1024)
+    out = cfg.output_length
+    _, saves = tk.trunk_fwd_cuda(p, cfg, h0, out, torch.bfloat16)
+    bounds = smoke.trunk_bounds(cfg, 16, out)
+    fns = {"K2": lambda: tk.trunk_fwd_cuda(p, cfg, h0, out, torch.bfloat16),
+           "K3": lambda: tk.trunk_bwd_cuda(p, cfg, saves, du, out)}
+    for lab, fn in fns.items():
+        ms = min(smoke._time(torch, fn, 5))
+        b_ms, b_by = bounds[lab]
+        print(f"[{tag}] {lab} chaconne_wide batch 16 out 1024 bf16 saves: "
+              f"{ms:.3f} ms (min of 5); bound {b_ms:.4f} ms ({b_by}), "
+              f"{100 * b_ms / ms:.2f} % of it [{card}]", flush=True)
+        split = smoke.kernel_split(torch, fn)
+        if not split:
+            print(f"[{tag}] {lab} split: the profiler saw no device time",
+                  flush=True)
+        for name, (k_ms, n) in sorted(split.items(), key=lambda x: -x[1][0]):
+            print(f"[{tag}] {lab} split: {smoke.short_kernel_name(name)} "
+                  f"{k_ms:.3f} ms in {n:g} launches per call "
+                  f"({k_ms / n * 1e3:.1f} us each) [{card}]", flush=True)
 
 
 def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--root", default=REPO,
+                    help="checkout whose pytorch_wavenet_tpu_torch to test")
+    ap.add_argument("--times-only", action="store_true",
+                    help="skip the checks against the plain versions")
+    args = ap.parse_args()
+    import torch
+
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
         return 2
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True).stdout.strip())
+    smoke = _smoke()
+    root = os.path.abspath(args.root)
+    sys.path.insert(0, root)
+    import pytorch_wavenet_tpu_torch as pt
+    from pytorch_wavenet_tpu_torch.ops.cuda import build
+    from pytorch_wavenet_tpu_torch.ops.cuda import trunk_kernel as tk
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True).stdout.strip()
+    print(card)
+    tag = os.path.relpath(root, REPO)
+    tag = "this tree" if tag == "." else tag
+    print(f"package from {tag}: {os.path.dirname(pt.__file__)}")
     torch.backends.cuda.matmul.allow_tf32 = False
     t = time.time()
     for n, out in build.build(["trunk_fwd", "trunk_bwd"],
                               verbose=True).items():
         for line in out.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "error" in line:
                 print(n, line.strip())
-    print(f"build {time.time() - t:.1f} s")
+    print(f"build {time.time() - t:.1f} s", flush=True)
+    if hasattr(tk, "bwd_plan"):  # the kernels' shared memory, both sides
+        fl, bl = tk._bind("trunk_fwd"), tk._bind("trunk_bwd")
+        for name, kw in (("chaconne_wide", {}),
+                         ("chaconne_wide", {"residual_channels": 64,
+                                            "dilation_channels": 64})):
+            c = pt.get_config(name, **kw)
+            Rp, Dp, k = *tk.padded_widths(c), c.kernel_size
+            f, b = tk.fwd_plan(c), tk.bwd_plan(c)
+            pf, pb = tk.fwd_smem(f[0], k, Rp, Dp, f[1]), tk.bwd_smem(
+                b[0], k, Rp, Dp, *b[1:])
+            cf = fl.wavenet_trunk_fwd_smem(f[0], k, Rp, Dp, int(f[1]))
+            cb = bl.wavenet_trunk_bwd_smem(b[0], k, Rp, Dp, *map(int, b[1:]))
+            print(f"{name} {kw}: K2 plan {f} {cf} B of shared memory, K3 "
+                  f"plan {b} {cb} B", flush=True)
+            if (pf, pb) != (cf, cb):
+                raise SystemExit(f"shared memory: Python {pf}, {pb}, "
+                                 f"the kernels {cf}, {cb}")
     dev = torch.device("cuda")
-    case(dev, "tiny", 3, 20)
-    case(dev, "tiny", 2, 20, kernel_size=3, bias=False)
-    case(dev, "test_small", 3, 128)
-    case(dev, "chaconne_wide", 3, 64, kernel_size=3)
-    case(dev, "chaconne_wide", 16, 1024)
+    if not args.times_only:
+        for name, N, out, kw in (
+                ("tiny", 3, 20, {}),
+                ("tiny", 2, 20, {"kernel_size": 3, "bias": False}),
+                ("test_small", 3, 128, {}),
+                ("test_small", 2, 64, {"residual_channels": 12,
+                                       "dilation_channels": 20}),
+                ("chaconne_wide", 2, 64, {"residual_channels": 64,
+                                          "dilation_channels": 64}),
+                ("chaconne_wide", 3, 64, {"kernel_size": 3}),
+                ("chaconne_wide", 16, 1024, {})):
+            case(torch, pt, tk, dev, name, N, out, **kw)
+    times(torch, pt, tk, smoke, dev, card, tag)
     return 0
 
 

@@ -223,7 +223,7 @@ def test_k4_fresh_call_equals_rollout_over_zeroed_history_on_card(
 
 # ------------------------------------------------------------------ K2/K3
 
-TRUNK_CASES = [  # (preset, batch, kernel_size, bias, output_length)
+TRUNK_CASES = [  # (preset[:RxD], batch, kernel_size, bias, output_length)
     ("tiny", 3, 2, True, 1),
     ("tiny", 2, 3, True, 20),
     ("tiny", 3, 2, False, 128),
@@ -233,7 +233,28 @@ TRUNK_CASES = [  # (preset, batch, kernel_size, bias, output_length)
     ("chaconne_wide", 3, 2, True, 20),
     ("chaconne_wide", 2, 3, True, 128),
     ("chaconne_wide", 4, 2, False, 1024),
+    # widths the tile core pads to multiples of 16 (10: 4-byte copies)
+    ("test_small:12x20", 2, 2, True, 64),
+    ("test_small:12x20", 3, 3, False, 20),
+    ("test_small:10x14", 2, 2, True, 20),
+    # R = D = 64: four times the shared weights (a 32-position K3 tile)
+    ("chaconne_wide:64x64", 2, 2, True, 64),
+    ("chaconne_wide:64x64", 3, 3, False, 128),
+    # wider still: K3's partial sums in its slot in device memory (80),
+    # both kernels' weights read from L2 (128)
+    ("test_small:80x80", 2, 2, True, 64),
+    ("test_small:128x128", 2, 2, True, 20),
 ]
+
+
+def _trunk_config(name, **kw):
+    """A preset, with ``name:RxD`` overriding its residual and dilation
+    widths."""
+    name, _, widths = name.partition(":")
+    if widths:
+        r, d = map(int, widths.split("x"))
+        kw.update(residual_channels=r, dilation_channels=d)
+    return pt.get_config(name, **kw)
 
 
 @pytest.mark.gpu
@@ -246,7 +267,7 @@ def test_trunk_kernels_match_plain_on_card(card, name, batch, k, bias,
     agree with the plain version's on each layer's window; K3's gradients within
     1e-5 x max(1, scale) of the plain version on the same saves, and two K3
     calls bitwise equal (fixed-order reductions, no atomics)."""
-    cfg = pt.get_config(name, kernel_size=k, bias=bias)
+    cfg = _trunk_config(name, kernel_size=k, bias=bias)
     params = pt.init_wavenet(cfg, torch.Generator().manual_seed(2), card)
     T = cfg.receptive_field + out_len - 1
     rng = np.random.default_rng(5)
@@ -276,6 +297,35 @@ def test_trunk_kernels_match_plain_on_card(card, name, batch, k, bias,
         assert float((a - b).abs().max()) <= 1e-5 * max(
             1.0, float(b.abs().max()))
     assert all(torch.equal(a, b) for a, b in zip(gk, again))
+
+
+@pytest.mark.gpu
+def test_trunk_bwd_repeats_bitwise_at_the_main_path_shapes(card):
+    """Three K3 calls at chaconne_wide, batch 16, out 1024 (bf16 saves, the
+    train step's) give bitwise-equal gradients: the partial slots and their
+    reduction are fixed by the shapes, with no atomics."""
+    cfg = pt.get_config("chaconne_wide")
+    out_len, batch = 1024, 16
+    params = pt.init_wavenet(cfg, torch.Generator().manual_seed(3), card)
+    T = cfg.receptive_field + out_len - 1
+    rng = np.random.default_rng(9)
+    h0 = torch.from_numpy(rng.uniform(-1, 1, (batch, T, cfg.residual_channels))
+                          .astype(np.float32)).to(card)
+    du = torch.from_numpy(rng.uniform(-1, 1, (batch, out_len, cfg.num_layers
+                                              * cfg.dilation_channels))
+                          .astype(np.float32) / (batch * out_len)).to(card)
+    _, saves = tk.trunk_fwd_cuda(params, cfg, h0, out_len)
+    before = tk.bwd_launches
+    runs = [tk.trunk_bwd_cuda(params, cfg, saves, du, out_len)
+            for _ in range(3)]
+    torch.cuda.synchronize()
+    assert tk.bwd_launches == before + 3
+    for other in runs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(runs[0], other))
+    gp = tk.trunk_bwd_plain(params, cfg, saves, du, out_len)
+    for a, b in zip(runs[0], gp):
+        assert float((a - b).abs().max()) <= 1e-5 * max(
+            1.0, float(b.abs().max()))
 
 
 @pytest.mark.gpu

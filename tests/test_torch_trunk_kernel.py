@@ -200,3 +200,211 @@ def test_raw_view_and_longer_window():
     h0 = pt.embed_inputs(params, cfg, x[:, 5:])
     raw = tk.fused_trunk(params, cfg, h0, 12, raw=True)
     assert raw.shape == (2, 12, cfg.num_layers, cfg.dilation_channels)
+
+
+# ------------------------------------------- the CUDA kernels' Python side
+
+LAYOUT_CASES = [  # (preset, overrides)
+    ("tiny", {}),
+    ("tiny", {"kernel_size": 3, "bias": False}),
+    ("test_small", {"residual_channels": 12, "dilation_channels": 20}),
+    ("chaconne_wide", {}),
+    ("chaconne_wide", {"residual_channels": 64, "dilation_channels": 64}),
+    ("chaconne_wide", {"kernel_size": 3}),
+]
+
+
+@pytest.mark.parametrize("name,kw", LAYOUT_CASES)
+def test_pack_weights_pads_interleaves_and_round_trips(name, kw):
+    """The kernels' packed weights: R and D padded with zeros to multiples
+    of 16, w_in as (k*Rp, 2Dp) with the gate's halves interleaved by
+    8-column tiles, per layer [w_in | w_res | b_in | b_res]; unpacking
+    gives the params back exactly."""
+    cfg = pt.get_config(name, **kw)
+    params = pt.init_wavenet(cfg, torch.Generator().manual_seed(3), "cpu")
+    w = tk._weights(params, cfg, torch.device("cpu"))
+    L, k = cfg.num_layers, cfg.kernel_size
+    R, D = cfg.residual_channels, cfg.dilation_channels
+    Rp, Dp = tk.padded_widths(cfg)
+    assert Rp % 16 == 0 and Dp % 16 == 0 and Rp - R < 16 and Dp - D < 16
+    packed = tk.pack_weights(w, cfg)
+    assert packed.shape == (L, tk.layer_size(cfg))
+    KR = k * Rp
+    w_in = packed[:, :KR * 2 * Dp].view(L, k, Rp, Dp // 8, 2, 8)
+    w_res = packed[:, KR * 2 * Dp:KR * 2 * Dp + Dp * Rp].view(L, Dp, Rp)
+    rest = packed[:, KR * 2 * Dp + Dp * Rp:]
+    b_in, b_res = rest[:, :2 * Dp].view(L, Dp // 8, 2, 8), rest[:, 2 * Dp:]
+    # un-interleave: (L, k, Rp, 2, Dp)
+    w_in = w_in.permute(0, 1, 2, 4, 3, 5).reshape(L, k, Rp, 2, Dp)
+    b_in = b_in.permute(0, 2, 1, 3).reshape(L, 2, Dp)
+    assert torch.equal(w_in[:, :, :R, 0, :D], w["w_in"][..., :D])
+    assert torch.equal(w_in[:, :, :R, 1, :D], w["w_in"][..., D:])
+    assert torch.equal(w_res[:, :D, :R], w["w_res"])
+    assert torch.equal(b_in[:, 0, :D], w["b_in"][:, :D])
+    assert torch.equal(b_in[:, 1, :D], w["b_in"][:, D:])
+    assert torch.equal(b_res[:, :R], w["b_res"])
+    pad = (w_in[:, :, R:].abs().sum() + w_in[..., D:].abs().sum()
+           + w_res[:, D:].abs().sum() + w_res[:, :, R:].abs().sum()
+           + b_in[..., D:].abs().sum() + b_res[:, R:].abs().sum())
+    assert float(pad) == 0.0
+    back = tk.unpack_grads(packed, cfg)
+    for got, n in zip(back, ("w_in", "w_res", "b_in", "b_res")):
+        assert torch.equal(got, w[n]), n
+
+
+def _slot_tiles(geo, l, slot):
+    """The tiles layer l's block ``slot`` walks, in order (the loop bounds
+    of csrc/trunk_bwd.cu's layer launch)."""
+    per, nt = geo["per"][l], geo["ntiles"][l]
+    return range(min(slot * per, nt), min((slot + 1) * per, nt))
+
+
+@pytest.mark.parametrize("name,kw", LAYOUT_CASES)
+@pytest.mark.parametrize("N,out_len", [(1, 1), (3, 20), (16, 1024)])
+def test_slot_geometry_covers_each_window_once_in_order(name, kw, N,
+                                                        out_len):
+    """K3's partial slots: every position of every layer's window lies in
+    exactly one tile of exactly one slot, a slot's tiles are consecutive
+    and in order, and the slot count depends only on the shapes."""
+    cfg = pt.get_config(name, **kw)
+    tm = tk.bwd_plan(cfg)[0]
+    geo = tk.bwd_geometry(cfg, out_len, N, tm)
+    assert geo == tk.bwd_geometry(cfg, out_len, N, tm)
+    S = geo["slots"]
+    assert 1 <= S <= tk.MAX_SLOTS
+    s, _ = tk.windows(cfg, out_len)
+    T = cfg.receptive_field + out_len - 1
+    for l in range(cfg.num_layers):
+        tiles = [t for b in range(S) for t in _slot_tiles(geo, l, b)]
+        assert tiles == list(range(geo["ntiles"][l]))
+        assert all(len(_slot_tiles(geo, l, b)) <= geo["per"][l]
+                   for b in range(S))
+        tpi = geo["tpi"][l]
+        seen = torch.zeros((N, T), dtype=torch.int64)
+        for tile in tiles:
+            n, t0 = tile // tpi, s[l] + (tile % tpi) * tm
+            seen[n, t0:min(t0 + tm, T)] += 1
+        assert int(seen[:, s[l]:].min()) == 1
+        assert int(seen[:, s[l]:].max()) == 1
+        assert int(seen[:, :s[l]].sum()) == 0
+
+
+@pytest.mark.parametrize("name,kw", LAYOUT_CASES + [
+    ("chaconne_wide", {"residual_channels": 64, "dilation_channels": 64,
+                       "kernel_size": 3}),
+    ("chaconne_wide", {"residual_channels": 100, "dilation_channels": 90})])
+def test_tile_plans_fit_a_block(name, kw):
+    """Every width gets a tile of 16, 32 or 64 positions whose block fits
+    the card's shared memory; at chaconne_wide both kernels hold a 64-wide
+    tile, the weights and (K3) the partial sums on chip."""
+    cfg = pt.get_config(name, **kw)
+    Rp, Dp = tk.padded_widths(cfg)
+    k = cfg.kernel_size
+    tm, wsm = tk.fwd_plan(cfg)
+    assert tm in (16, 32, 64) and tk.fwd_smem(tm, k, Rp, Dp,
+                                              wsm) <= tk.SMEM_LIMIT
+    tm, wsm, acc = tk.bwd_plan(cfg)
+    assert tm in (16, 32, 64) and tk.bwd_smem(tm, k, Rp, Dp, wsm,
+                                              acc) <= tk.SMEM_LIMIT
+    if (name, kw) == ("chaconne_wide", {}):
+        assert tk.fwd_plan(cfg) == (64, True)
+        assert tk.bwd_plan(cfg) == (64, True, True)
+
+
+def _tf32_split(x):
+    """The kernels' split (csrc/tf32.cuh): hi rounded to TF32 by integer
+    rounding, lo = x - hi, of which the tensor cores read the TF32 top
+    bits (modelled as truncation)."""
+    bits = x.contiguous().view(torch.int32)
+    hi = ((bits + 0x1000) & -8192).view(torch.float32)
+    lo = ((x - hi).contiguous().view(torch.int32) & -8192).view(torch.float32)
+    return hi, lo
+
+
+def _mm3(a, b):
+    """a @ b as the kernels form it: a_lo b_hi + a_hi b_lo + a_hi b_hi,
+    accumulated (here in f64) and rounded to f32."""
+    ah, al = _tf32_split(a)
+    bh, bl = _tf32_split(b)
+    d = torch.float64
+    return (al.to(d) @ bh.to(d) + ah.to(d) @ bl.to(d)
+            + ah.to(d) @ bh.to(d)).to(torch.float32)
+
+
+def _fwd_3xtf32(params, cfg, h0, out_len):
+    """trunk_fwd_plain with every product in 3xTF32."""
+    N, T, R = h0.shape
+    L, D = cfg.num_layers, cfg.dilation_channels
+    h, us = h0, []
+    for l, d in enumerate(cfg.dilations):
+        w, w_res, b_in, b_res = tk._layer_weights(params, cfg, l)
+        z = _mm3(tk._taps(h, cfg, d), w) + b_in
+        u = torch.tanh(z[..., :D]) * torch.sigmoid(z[..., D:])
+        us.append(u[:, T - out_len:])
+        h = h + (_mm3(u, w_res) + b_res)
+    return torch.cat(us, dim=-1)
+
+
+def _bwd_3xtf32(params, cfg, saves, du, out_len):
+    """trunk_bwd_plain with every product in 3xTF32."""
+    L, N, T, R = saves.shape
+    k, D = cfg.kernel_size, cfg.dilation_channels
+    s, _ = tk.windows(cfg, out_len)
+    o, grads = T - out_len, []
+    dh_next = torch.zeros((N, T, R))
+    for l in range(L - 1, -1, -1):
+        d, sl = cfg.dilations[l], s[l]
+        w, w_res, b_in, _ = tk._layer_weights(params, cfg, l)
+        v = tk._taps(saves[l].float(), cfg, d)[:, sl:]
+        z = _mm3(v, w) + b_in
+        a, sg = torch.tanh(z[..., :D]), torch.sigmoid(z[..., D:])
+        dhn = dh_next[:, sl:]
+        g = _mm3(dhn, w_res.T)
+        g[:, o - sl:] += du[:, :, l * D:(l + 1) * D]
+        dz = torch.cat([g * sg * (1.0 - a * a), g * a * (sg * (1.0 - sg))],
+                       dim=-1)
+        flat = lambda x: x.reshape(-1, x.shape[-1])  # noqa: E731
+        grads.append((_mm3(flat(v).T, flat(dz)).reshape(k, R, 2 * D),
+                      _mm3(flat(a * sg).T, flat(dhn)), dz.sum(dim=(0, 1)),
+                      dhn.sum(dim=(0, 1))))
+        dv = _mm3(dz, w.T)
+        dh = torch.zeros_like(dh_next)
+        dh[:, sl:] = dhn + dv[..., (k - 1) * R:]
+        for j in range(k - 1):
+            m = (k - 1 - j) * d
+            lo = max(sl - m, 0)
+            dh[:, lo:T - m] += dv[:, lo + m - sl:, j * R:(j + 1) * R]
+        dh_next = dh
+    grads.reverse()
+    return (dh_next, *(torch.stack(x) for x in zip(*grads)))
+
+
+@pytest.mark.parametrize("save_dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_3xtf32_products_stay_within_the_trunk_tolerances(save_dtype):
+    """The kernels' arithmetic, emulated: with every product of the trunk
+    in 3xTF32 (tf32.cuh's split) at chaconne_wide widths, the units stay
+    within 1e-5 x max(1, |u|) of the f32 plain version and the gradients
+    (on the same saves) within 1e-5 x max(1, scale): the tolerances the
+    card's checks hold K2 and K3 to."""
+    cfg = pt.get_config("chaconne_wide")
+    out_len, N = 16, 2
+    params = pt.init_wavenet(cfg, torch.Generator().manual_seed(7), "cpu")
+    T = cfg.receptive_field + out_len - 1
+    rng = np.random.default_rng(8)
+    h0 = torch.from_numpy(rng.uniform(-1, 1, (N, T, cfg.residual_channels))
+                          .astype(np.float32))
+    du = torch.from_numpy((rng.uniform(-1, 1, (N, out_len, cfg.num_layers
+                                               * cfg.dilation_channels))
+                           / (N * out_len)).astype(np.float32))
+    u_ref, saves = tk.trunk_fwd_plain(params, cfg, h0, out_len, save_dtype)
+    with torch.no_grad():
+        u = _fwd_3xtf32(params, cfg, h0, out_len)
+        got = _bwd_3xtf32(params, cfg, saves, du, out_len)
+    assert float(((u - u_ref).abs() / u_ref.abs().clamp(min=1.0)).max()) \
+        <= 1e-5
+    ref = tk.trunk_bwd_plain(params, cfg, saves, du, out_len)
+    for a, b in zip(got, ref):
+        assert a.shape == b.shape
+        assert float((a - b).abs().max()) <= 1e-5 * max(
+            1.0, float(b.abs().max()))
