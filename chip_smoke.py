@@ -63,7 +63,30 @@ Phases (any failure stops the run with a nonzero exit):
      f32 bound of the FMA kernels they replaced), their device time split
      by CUDA kernel (``torch.profiler``: K3's layer, dh0 and reduction
      launches, K2's per layer), the plain trunk, and the step's split into
-     embed, trunk, skip and head, loss and optimizer.
+     embed, trunk, skip and head, loss and optimizer;
+ 14. kernel K1 at the vocoder preset (R = D = 64: the chain read from L2,
+     80 mel channels, plus 16 global ones) against its plain version,
+     without and with projected cond and gcond rows, exact and fuse_res:
+     teacher-forced, a resumed chunk; a chunked conditioned rollout equal
+     to one shot bitwise;
+ 15. kernel K4 at the vocoder, 256 and 200 lanes, exact and fuse_res +
+     skip_slab, without and with cond rows (the product with w_cond in the
+     kernel) and gcond: teacher-forced, a resumed chunk at the pool's
+     clock (t0 = 513); the same 200 lanes at every width that fits bitwise
+     equal, chunks resumed at t0 = 513 and a fresh call over zeroed
+     history equal to one shot bitwise;
+ 16. /vocode (the main path of this slice): the vocoder preset served by
+     ``serving.server.main`` on ``examples/generated_t1.0.wav``: two
+     single-stream requests (K1 through ``synthesize``), each byte-equal to
+     ``synthesize`` on the same mel, then ``--batcher --lanes 256
+     --batch-chunk 2048 --cond-hop 256`` with 16 concurrent requests (K4,
+     mel frames expanded on the card), each byte-equal to its solo
+     rollout of the same frames; launches counted around each, the plain
+     versions barred;
+ 17. times with CUDA events at the vocoder: K1 (one stream) and K4 (256
+     lanes) on a resumed 2048-step chunk without conditioning, with cond
+     rows and with cond and gcond, the cost of each, bounds, a K4 step's
+     phase split, and the plain versions on the conditioned chunk.
 
 The line before the last is one JSON object listing the kernels; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -397,20 +420,24 @@ def _flops_per_step(cfg):
     return 2 * L * (k * R * 2 * D + D * R), 2 * (L * D * S + S * E + E * C)
 
 
-def bound_ms(pt, gk, params, cfg, streams, num_given, total, lane_rows=0):
+def bound_ms(pt, gk, params, cfg, streams, num_given, total, lane_rows=0,
+             extra_bytes=0, extra_flops=0):
     """Least time for the call: the larger of its bytes (the model's
     parameters, the prime, the rings and ``lane_rows`` per-lane f32/int32
     rows read once, classes and rings written once; no fuse_res products,
-    no stand-in zero biases) over the memory rate and its operations at
-    the peak of their type: the chain's f32 products at the f32 rate, the
-    head's as the three TF32 products of 3xTF32 each at the TF32 rate."""
+    no stand-in zero biases; plus ``extra_bytes``, the conditioning rows)
+    over the memory rate and its operations at the peak of their type: the
+    chain's f32 products (plus ``extra_flops``, K4's cond product) at the
+    f32 rate, the head's as the three TF32 products of 3xTF32 each at the
+    TF32 rate."""
     ring = sum(gk.periods(cfg)) * streams * cfg.residual_channels * 4
     nbytes = (4 * pt.parameter_count(params) + 2 * ring
-              + 4 * streams * (num_given + total + lane_rows))
+              + 4 * streams * (num_given + total + lane_rows) + extra_bytes)
     chain, head = _flops_per_step(cfg)
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = streams * total * (chain / F32_PEAK_FLOPS
-                               + 3 * head / TF32_PEAK_FLOPS)
+    t_ops = (streams * total * (chain / F32_PEAK_FLOPS
+                                + 3 * head / TF32_PEAK_FLOPS)
+             + extra_flops / F32_PEAK_FLOPS)
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops
                                        else "operations")
 
@@ -617,10 +644,11 @@ def _roll_ring(torch, ghbm, cfg, ring, delta):
     return out
 
 
-def gk_fits(ghbm, cfg, tile, fuse):
-    """Whether K4 takes this width of lanes per cluster at cfg."""
+def gk_fits(ghbm, cfg, tile, fuse, cond_rows=0):
+    """Whether K4 takes this width of lanes per cluster at cfg (with a cond
+    slab of ``cond_rows`` rows)."""
     try:
-        ghbm.k1.cluster_fits(cfg, tile, ghbm.CLUSTER, fuse)
+        ghbm.k1.cluster_fits(cfg, tile, ghbm.CLUSTER, fuse, cond_rows)
         return True
     except ValueError:
         return False
@@ -1488,6 +1516,551 @@ def phase_train_times(torch, pt, tk, dev, card):
                 k=out_k, plain_fwd_ms=pf, plain_bwd_ms=pb)
 
 
+# ------------------------------------------------------------- the vocoder
+
+VOCODER_WAV = "examples/generated_t1.0.wav"
+GCOND = 16  # global channels given the vocoder preset for the kernel checks
+
+
+def _vocoder(torch, pt, dev, gcond=0):
+    """The vocoder preset (10x3, R = D = 64, skip 1024, end 512, 80 mel
+    channels), with ``gcond`` global channels when asked, random weights
+    from SEED."""
+    cfg = pt.get_config("vocoder", **({"gcond_channels": gcond}
+                                      if gcond else {}))
+    return cfg, pt.init_wavenet(cfg, torch.Generator().manual_seed(SEED), dev)
+
+
+def _normal(torch, shape, seed, dev, scale=0.5):
+    g = torch.Generator().manual_seed(seed)
+    return (scale * torch.randn(shape, generator=g)).to(dev)
+
+
+def _forced_check(torch, ck, cp, gaps, rk, rp, steps, tag, what):
+    """Teacher-forced classes off near-ties, rings within RING_TOL.
+    Returns (ring error, mismatches, near-ties)."""
+    miss = ck[:, :steps] != cp[:, :steps]
+    ties = gaps[:, :steps] < NEAR_TIE
+    bad = int((miss & ~ties).sum())
+    err = float((rk - rp).abs().max())
+    log(f"[{tag}] {what + ' ' if what else ''}teacher-forced {steps} "
+        f"steps: {int(miss.sum())} "
+        f"class mismatches ({bad} not at a near-tie, largest gap at one "
+        f"{_flip_gap(miss, gaps[:, :steps]):.3g}), {int(ties.sum())} "
+        f"near-ties (gap < {NEAR_TIE}), ring max abs err {err:.3g}")
+    check(bad == 0, f"{tag} {what}: kernel disagrees with plain off a "
+          f"near-tie")
+    check(err <= RING_TOL, f"{tag} {what}: ring error {err} > {RING_TOL}")
+    return err, int(miss.sum()), int(ties.sum())
+
+
+def phase_cond_k1_vs_plain(torch, pt, gk, dev):
+    """K1 at the vocoder's widths (the chain read from L2) against its plain
+    version, without and with cond and gcond, exact and fuse_res:
+    teacher-forced, then a resumed chunk; a chunked conditioned rollout
+    equals one shot. Returns the largest ring error and the mismatch and
+    near-tie counts of the conditioned checks."""
+    cfg, params = _vocoder(torch, pt, dev, GCOND)
+    C, M = cfg.classes, cfg.cond_channels
+    ring_size = sum(gk.periods(cfg)) * cfg.residual_channels
+    worst, mismatches, near_ties = 0.0, 0, 0
+    prime = torch.randint(0, C, (1, 160),
+                          generator=torch.Generator().manual_seed(7))
+    prime = prime.to(dev, torch.int32)
+    g = _normal(torch, (1, GCOND), 8, dev, 1.0)
+    for fuse in (False, True):
+        w = gk.prepare_weights(params, cfg, fuse)
+        for conditioned in (False, True):
+            tag = (f"K1 vocoder {'fuse_res' if fuse else 'exact'} "
+                   f"{'cond + gcond' if conditioned else 'unconditioned'}")
+            kw = {}
+            if conditioned:
+                kw = dict(zip(("cond", "gcond"), gk.project_cond(
+                    params, cfg, _normal(torch, (1, 160, M), 9, dev), g, 1,
+                    160)))
+            rk = torch.zeros(ring_size, device=dev)
+            rp = rk.clone()
+            ck = gk.fused_cuda(w, cfg, prime, rk, 0, 160, 0.0, 0.0, 0, fuse,
+                               **kw)
+            torch.cuda.synchronize()
+            cp, gaps = gk.fused_plain(w, cfg, prime, rp, 0, 160, 0.0, 0.0, 0,
+                                      fuse, return_gaps=True, **kw)
+            err, mm, nt = _forced_check(torch, ck, cp, gaps, rk, rp, 159,
+                                        tag, "")
+            if not conditioned:
+                continue
+            worst, mismatches, near_ties = (max(worst, err), mismatches + mm,
+                                            near_ties + nt)
+            # a resumed chunk (the serving call): 128 steps from the
+            # kernel's rings at t0 = 160, T = 0.9, its own cond rows
+            kw = dict(zip(("cond", "gcond"), gk.project_cond(
+                params, cfg, _normal(torch, (1, 128, M), 10, dev), g, 1,
+                128)))
+            rp = rk.clone()
+            p = ck[:, -1:].contiguous()
+            ck = gk.fused_cuda(w, cfg, p, rk, 160, 128, 0.9, 0.0, 21, fuse,
+                               **kw)
+            torch.cuda.synchronize()
+            cp, gaps = gk.fused_plain(w, cfg, p, rp, 160, 128, 0.9, 0.0, 21,
+                                      fuse, return_gaps=True, **kw)
+            first = _first_mismatch(ck, cp)
+            if first >= 0:
+                gap = float(gaps[0, first])
+                check(gap < NEAR_TIE, f"{tag} resumed chunk: rollouts part "
+                      f"at step {first} where the plain gap is {gap}")
+                log(f"[{tag}] resumed chunk t0=160 T=0.9: identical up to "
+                    f"step {first}, a near-tie (gap {gap:.2g})")
+                mismatches, near_ties = mismatches + 1, near_ties + 1
+            else:
+                err = float((rk - rp).abs().max())
+                check(err <= RING_TOL, f"{tag} resumed chunk: ring error "
+                      f"{err}")
+                worst = max(worst, err)
+                log(f"[{tag}] resumed chunk t0=160 T=0.9: identical over 128 "
+                    f"steps, ring max abs err {err:.3g}")
+    # a chunked conditioned rollout equals one shot, bitwise
+    cond = _normal(torch, (1, 1000, M), 11, dev)
+    kw = dict(temperature=1.0, fuse_res=True, return_state=True, device=dev,
+              global_cond=g)
+    one = prime[:, :1]
+    _, c_all, s_all = pt.generate_fast_fused(params, cfg, 5, 1000, one,
+                                             cond=cond, **kw)
+    parts, st, pos = [], None, 0
+    for m in (300, 400, 300):
+        _, c, st = pt.generate_fast_fused(
+            params, cfg, 5, m, one if st is None else None, state=st,
+            cond=cond[:, pos:pos + m], **kw)
+        pos += m
+        parts.append(c)
+    same = torch.equal(torch.cat(parts, dim=1), c_all) and all(
+        torch.equal(a, b) for a, b in zip(st.rings, s_all.rings))
+    check(same, "K1 vocoder: chunked conditioned rollout differs from one "
+          "shot")
+    log("[K1 vocoder fuse_res cond + gcond] 3-chunk resume (300+400+300, "
+        "each with its own rows) equals one shot bitwise (classes and rings)")
+    return worst, mismatches, near_ties
+
+
+def phase_cond_k4_vs_plain(torch, pt, ghbm, dev):
+    """K4 at the vocoder's widths against its plain version, 256 and 200
+    lanes, exact and fuse_res + skip_slab, without and with cond rows and
+    gcond: teacher-forced, then a resumed chunk at the pool's clock (t0 =
+    513); the same 200 lanes at 8 and 16 lanes per cluster bitwise equal;
+    a fresh call equal to its rollout over zeroed history; chunks resumed
+    at t0 = 513 equal to one shot. Returns the largest ring error and the
+    mismatch and near-tie counts of the conditioned checks."""
+    cfg, params = _vocoder(torch, pt, dev, GCOND)
+    C, M, rows = cfg.classes, cfg.cond_channels, ghbm.ring_rows(cfg)
+    clock = max(ghbm.periods(cfg))
+    worst, mismatches, near_ties = 0.0, 0, 0
+    for lanes in (256, 200):
+        zeros = torch.zeros(lanes, dtype=torch.int32, device=dev)
+        greedy = torch.zeros(lanes, device=dev)
+        temps, seeds, toffs = _lane_rows(torch, dev, lanes)
+        prime = torch.randint(0, C, (lanes, 64),
+                              generator=torch.Generator().manual_seed(7))
+        prime = prime.to(dev, torch.int32)
+        cond = _normal(torch, (700, M, lanes), 12, dev)
+        for name, fuse, slab in K4_VARIANTS:
+            w = ghbm.prepare_weights(params, cfg, fuse, slab)
+            gcond = ghbm.project_gcond(
+                w, cfg, _normal(torch, (lanes, GCOND), 13, dev, 1.0), lanes)
+
+            def both(p, ring, t0, total, lane_rows, **kw):
+                rp = ring.clone()
+                ck = ghbm.batched_cuda(w, cfg, p, ring, t0, total,
+                                       *lane_rows, 0, 0.0, fuse, slab, True,
+                                       **kw)
+                torch.cuda.synchronize()
+                cp, gaps = ghbm.batched_plain(w, cfg, p, rp, t0, total,
+                                              *lane_rows, 0, 0.0, fuse, slab,
+                                              True, return_gaps=True, **kw)
+                return ck, cp, gaps, ring, rp
+
+            for conditioned in (False, True):
+                tag = (f"K4 vocoder {lanes} lanes {name} "
+                       f"{'cond + gcond' if conditioned else 'unconditioned'}")
+                kw = (dict(cond=cond[:64].contiguous(), gcond=gcond)
+                      if conditioned else {})
+                ck, cp, gaps, rk, rp = both(
+                    prime, torch.zeros(rows, lanes, device=dev), 0, 64,
+                    (greedy, zeros, zeros), **kw)
+                err, mm, nt = _forced_check(torch, ck, cp, gaps, rk, rp, 63,
+                                            tag, "")
+                if not conditioned:
+                    continue
+                worst, mismatches, near_ties = (
+                    max(worst, err), mismatches + mm, near_ties + nt)
+                # the pool's call: a chunk resumed at t0 = 513, hot lanes
+                # with per-lane seeds and clocks, the chunk's own rows
+                n, e = _rollout_check(
+                    torch, *both(ck[:, -1:].contiguous(), rk, clock, 128,
+                                 (temps, seeds, toffs),
+                                 cond=cond[64:192].contiguous(),
+                                 gcond=gcond),
+                    tag, f"resumed chunk t0={clock} hot lane_seed")
+                mismatches, near_ties = mismatches + n, near_ties + n
+                worst = max(worst, e)
+            if lanes != 200:
+                continue
+            tag = f"K4 vocoder 200 lanes {name} cond + gcond"
+            one = prime[:, :1].contiguous()
+            kw = dict(cond=cond[:600].contiguous(), gcond=gcond)
+            widths = [t for t in ghbm.TILES
+                      if gk_fits(ghbm, cfg, t, fuse, M)]
+            ref = None
+            for tile in widths:
+                ring = torch.zeros(rows, lanes, device=dev)
+                c = ghbm.batched_cuda(w, cfg, one, ring, clock, 600, temps,
+                                      seeds, toffs, 0, 0.0, fuse, slab, True,
+                                      tile=tile, **kw)
+                if ref is None:
+                    ref = (c, ring)
+                check(torch.equal(c, ref[0]) and torch.equal(ring, ref[1]),
+                      f"{tag}: tile {tile} differs from tile {widths[0]}")
+            log(f"[{tag}] the same lanes at widths {widths} of lanes per "
+                f"cluster: bitwise equal classes and ring over 600 steps at "
+                f"t0={clock}")
+            check(len(widths) >= 2, f"{tag}: fewer than two widths fit")
+            # chunks resumed at the pool's clock equal one shot
+            ring = torch.zeros(rows, lanes, device=dev)
+            parts, p, t0 = [], one, clock
+            for m in (1, 250, 349):
+                at = t0 - clock
+                parts.append(ghbm.batched_cuda(
+                    w, cfg, p, ring, t0, m, temps, seeds, toffs, 0, 0.0, fuse,
+                    slab, True, cond=cond[at:at + m].contiguous(),
+                    gcond=gcond))
+                p = parts[-1][:, -1:].contiguous()
+                t0 += m
+            check(torch.equal(torch.cat(parts, dim=1), ref[0])
+                  and torch.equal(ring, ref[1]),
+                  f"{tag}: chunks resumed at t0={clock} differ from one shot")
+            log(f"[{tag}] chunks resumed at t0 = {clock} (1+250+349, each "
+                f"with its own rows) equal one shot bitwise")
+            # the pool's admission: a fresh call equals its rollout at the
+            # pool's clock over zeroed history
+            r_fresh = torch.full((rows, lanes), float("nan"), device=dev)
+            c_fresh = ghbm.batched_cuda(w, cfg, one, r_fresh, 0, 600, temps,
+                                        seeds, toffs + clock, 0, 0.0, fuse,
+                                        slab, True, **kw)
+            same = (torch.equal(c_fresh, ref[0]) and torch.equal(
+                _roll_ring(torch, ghbm, cfg, r_fresh, clock), ref[1]))
+            check(same, f"{tag}: a fresh call differs from its rollout over "
+                  f"zeroed history")
+            log(f"[{tag}] fresh call equals its rollout at t0={clock} over "
+                f"zeroed history bitwise (classes and ring, 600 steps)")
+    return worst, mismatches, near_ties
+
+
+def _vocoder_mel(pt, blob, cfg, hop=256, n_fft=1024):
+    """The log-mel frames the server computes for an uploaded wav."""
+    from pytorch_wavenet_tpu_torch.ops.mel import log_mel_spectrogram
+
+    with tempfile.NamedTemporaryFile(suffix=".wav") as f:
+        f.write(blob)
+        f.flush()
+        wav, sr = pt.load_audio(f.name)
+    return log_mel_spectrogram(wav, num_mels=cfg.cond_channels, n_fft=n_fft,
+                               hop_length=hop, sampling_rate=sr)
+
+
+def _serve_vocoder(path, extra, timeout=600):
+    """Start ``serving.server.main`` on the checkpoint; returns (server,
+    thread, base url)."""
+    from pytorch_wavenet_tpu_torch.serving import server as srv
+
+    box, ready = {}, threading.Event()
+
+    def on_ready(server):
+        box["server"] = server
+        ready.set()
+
+    th = threading.Thread(target=srv.main, kwargs=dict(
+        argv=["--snapshot", path, "--port", "0"] + extra, on_ready=on_ready),
+        daemon=True)
+    t0 = time.time()
+    th.start()
+    while not ready.wait(1):
+        check(th.is_alive() and time.time() - t0 < timeout,
+              "vocoder server did not come up")
+    server = box["server"]
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    log(f"[vocode] {' '.join(extra) or 'single stream'}: up in "
+        f"{time.time() - t0:.1f} s at {base}")
+    return server, th, base
+
+
+def _post_vocode(base, blob, query):
+    req = urllib.request.Request(f"{base}/vocode?{query}", data=blob,
+                                 method="POST")
+    t = time.time()
+    with urllib.request.urlopen(req, timeout=900) as r:
+        check(r.headers["Content-Type"] == "audio/wav", "not audio/wav")
+        out = r.read()
+    return out, time.time() - t
+
+
+def phase_vocode_serving(torch, np, pt, gk, ghbm, dev):
+    """The main path of this slice: POST /vocode at the vocoder preset,
+    single stream (K1 through ``synthesize``) and pooled (``--batcher
+    --lanes 256 --batch-chunk 2048 --cond-hop 256``: K4 in frames mode),
+    each response byte-equal to its solo rollout of the same mel, the
+    launches counted around each and the plain versions barred. Returns
+    (K1 launches, K4 launches, the served figures)."""
+    from pytorch_wavenet_tpu_torch.ops.mel import (expand_frames_window,
+                                                   frames_window_len)
+    from pytorch_wavenet_tpu_torch.ops.mulaw import dequantize_to_f32
+    from pytorch_wavenet_tpu_torch.serving import server as srv
+
+    cfg, params = _vocoder(torch, pt, dev)
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, VOCODER_WAV), "rb") as f:
+        blob = f.read()
+    mel = _vocoder_mel(pt, blob, cfg)
+    n = mel.shape[0] * 256
+    log(f"[vocode] {VOCODER_WAV}: {len(blob)} bytes, {mel.shape[0]} mel "
+        f"frames of {mel.shape[1]} -> {n} samples a response")
+    barred_calls = []
+
+    def barred(*args, **kwargs):
+        barred_calls.append(1)
+        raise RuntimeError("the plain version ran on the card path")
+
+    real = (gk.fused_plain, ghbm.batched_plain)
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        path = pt.save_checkpoint(d, "vocoder", 0, params, cfg=cfg)
+        # single stream: two requests through K1
+        single = [(0.9, 11), (1.0, 12)]
+        gk.fused_plain, ghbm.batched_plain = barred, barred
+        gk.launches = ghbm.launches = 0
+        try:
+            server, th, base = _serve_vocoder(path, [])
+            try:
+                got = [_post_vocode(base, blob, f"temperature={t}&seed={s}")
+                       for t, s in single]
+            finally:
+                server.shutdown()
+                th.join(120)
+        finally:
+            gk.fused_plain, ghbm.batched_plain = real
+        k1_launched, k4_single = gk.launches, ghbm.launches
+        check(not th.is_alive(), "vocoder server thread did not stop")
+        check(not barred_calls and k4_single == 0,
+              f"plain calls {len(barred_calls)}, K4 launches {k4_single} on "
+              f"the single-stream path")
+        check(k1_launched == 1 + len(single),
+              f"{k1_launched} K1 launches, expected {1 + len(single)} (1 "
+              f"warm-up + one per request)")
+        for (temp, seed), (body, dt) in zip(single, got):
+            pcm = np.frombuffer(_read_wav(body, n), "<i2")
+            wav, _ = pt.synthesize(params, cfg, srv.Synthesizer.kernel_seed(
+                seed), mel, 256, temperature=temp,
+                backend=pt.generate_fast_fused, fuse_res=True, device=dev)
+            wav = wav[0].cpu().numpy()
+            check(np.isfinite(wav).all(), "non-finite waveform")
+            solo = np.clip(wav * 32767.0, -32768, 32767).astype("<i2")
+            check(np.array_equal(pcm, solo), f"single-stream /vocode T={temp} "
+                  f"differs from synthesize on the same mel")
+            log(f"[vocode] single stream T={temp} seed {seed}: {dt:.2f} s, "
+                f"{n / dt:.0f} samples/s; equals synthesize on the same mel "
+                f"byte for byte")
+        out["single_s"] = [dt for _, dt in got]
+        log(f"[vocode] K1 launches during single-stream serving: "
+            f"{k1_launched} (1 warm-up + {len(single)} requests); plain "
+            f"calls 0")
+
+        # pooled: 16 concurrent requests through the batcher's frames mode
+        n_req = 16
+        temps = [(0.9, 1.0, 0.0, 0.9)[i % 4] for i in range(n_req)]
+        gk.fused_plain, ghbm.batched_plain = barred, barred
+        gk.launches = ghbm.launches = 0
+        try:
+            server, th, base = _serve_vocoder(path, [
+                "--batcher", "--lanes", "256", "--batch-chunk", "2048",
+                "--cond-hop", "256"])
+            try:
+                res = [None] * n_req
+
+                def fetch(i):
+                    res[i] = _post_vocode(
+                        base, blob, f"temperature={temps[i]}&seed={600 + i}")
+
+                threads = [threading.Thread(target=fetch, args=(i,))
+                           for i in range(n_req)]
+                t = time.time()
+                for th_ in threads:
+                    th_.start()
+                for th_ in threads:
+                    th_.join(900)
+                wall = time.time() - t
+                with urllib.request.urlopen(base + "/stats", timeout=60) as r:
+                    stats = json.loads(r.read())
+            finally:
+                server.shutdown()
+                th.join(120)
+        finally:
+            gk.fused_plain, ghbm.batched_plain = real
+        k4_launched, k1_pool = ghbm.launches, gk.launches
+    check(not th.is_alive(), "vocoder batcher thread did not stop")
+    check(all(r is not None for r in res), "a /vocode request did not finish")
+    check(not barred_calls and k1_pool == 0,
+          f"plain calls {len(barred_calls)}, K1 launches {k1_pool} on the "
+          f"pooled path")
+    expect = stats["pool_steps"] + stats["prime_calls"] + 2  # 2 prewarm steps
+    log(f"[vocode] K4 launches during pooled serving: {k4_launched} "
+        f"(expected {expect}: {stats['pool_steps']} pool steps + "
+        f"{stats['prime_calls']} prime calls + 2 prewarm steps, with and "
+        f"without cond); K1 launches {k1_pool}; plain calls 0; bytes up "
+        f"{stats['bytes_up']}, down {stats['bytes_down']}")
+    check(k4_launched == expect, f"{k4_launched} K4 launches, expected "
+          f"{expect}")
+    check(stats["completed"] >= n_req and stats["failed"] == 0,
+          f"/stats: {stats}")
+    # the solo rollouts: the whole timeline's rows expanded in one shot (the
+    # last frame replicated past the end), one call with every request's
+    # seed and temperature as its own lane
+    need = frames_window_len(n, 256)
+    idx = np.minimum(np.arange(max(mel.shape[0], need)), mel.shape[0] - 1)
+    rows = expand_frames_window(
+        None, torch.from_numpy(mel[idx])[None].to(dev), 256,
+        torch.zeros(1, dtype=torch.long, device=dev), n)
+    _, cls = pt.generate_fast_batched(
+        params, cfg, 0, n, [[cfg.classes // 2]] * n_req,
+        temperature=np.asarray(temps, np.float32),
+        lane_seed=[600 + i for i in range(n_req)],
+        cond=rows.expand(n_req, -1, -1), fuse_res=True, skip_slab=True,
+        device=dev)
+    cls = cls.cpu().numpy()
+    for i, (body, _) in enumerate(res):
+        pcm = np.frombuffer(_read_wav(body, n), "<i2")
+        wav = dequantize_to_f32(cls[i], cfg.classes)
+        solo = np.clip(wav * 32767.0, -32768, 32767).astype("<i2")
+        check(np.array_equal(pcm, solo), f"pooled /vocode request {i} "
+              f"(T={temps[i]}) differs from its solo rollout")
+    lat = sorted(dt for _, dt in res)
+    served = n_req * n / wall
+    log(f"[vocode] {n_req} concurrent /vocode requests of {n} samples in "
+        f"{wall:.2f} s: {served:.0f} samples/s served, request time median "
+        f"{lat[n_req // 2]:.2f} s, max {lat[-1]:.2f} s; all equal their solo "
+        f"rollouts of the same frames byte for byte; {stats['pool_steps']} "
+        f"pool steps of 2048")
+    out.update(pooled_samples_per_s=served, pooled_wall_s=wall,
+               pooled_median_s=lat[n_req // 2])
+    return k1_launched, k4_launched, out
+
+
+def phase_vocoder_times(torch, pt, gk, ghbm, dev, card):
+    """K1 (one stream) and K4 (256 lanes) on a resumed 2048-step chunk at
+    the vocoder, without conditioning, with cond rows, and with cond and
+    gcond; the plain versions on the conditioned chunk; bounds. Returns
+    the conditioned measurements for the kernels line."""
+    cfg, params = _vocoder(torch, pt, dev, GCOND)
+    M, L, D = cfg.cond_channels, cfg.num_layers, cfg.dilation_channels
+    steps, clock = 2048, max(gk.periods(cfg))
+    out = {}
+    # K1: one stream, fuse_res (the serving call), resumed at t0 = clock
+    w = gk.prepare_weights(params, cfg, True)
+    prime = torch.full((1, 1), cfg.classes // 2, dtype=torch.int32,
+                       device=dev)
+    ring = torch.zeros(sum(gk.periods(cfg)) * cfg.residual_channels,
+                       device=dev)
+    cond, gcond = gk.project_cond(
+        params, cfg, _normal(torch, (1, steps, M), 14, dev),
+        _normal(torch, (1, GCOND), 15, dev, 1.0), 1, steps)
+    us = {}
+    for what, kw in (("no cond", {}), ("cond", dict(cond=cond)),
+                     ("cond + gcond", dict(cond=cond, gcond=gcond))):
+        ms = _time(torch, lambda: gk.fused_cuda(
+            w, cfg, prime, ring, clock, steps, 0.9, 0.0, 1, True, **kw), 3)
+        us[what] = 1e3 * min(ms) / steps
+        extra_b = 4 * steps * L * 2 * D * (("cond" in kw) + ("gcond" in kw))
+        b_ms, b_by = bound_ms(pt, gk, params, cfg, 1, 1, steps,
+                              extra_bytes=extra_b)
+        log(f"[time] K1 vocoder fuse_res, one stream, resumed 2048-step "
+            f"chunk, {what}: " + ", ".join(f"{m:.2f}" for m in ms)
+            + f" ms; {us[what]:.2f} us/step; bound {b_ms:.4f} ms ({b_by}) "
+            f"[{card}]")
+        if what == "cond + gcond":
+            out["K1"] = dict(ms=min(ms), bound_ms=b_ms, bound_by=b_by)
+    log(f"[time] K1 vocoder: cond costs {us['cond'] - us['no cond']:.2f} "
+        f"us/step, cond + gcond {us['cond + gcond'] - us['no cond']:.2f} "
+        f"[{card}]")
+    out["K1"]["us"] = us
+    plain = _time(torch, lambda: gk.fused_plain(
+        w, cfg, prime, ring, clock, steps, 0.9, 0.0, 1, True, cond=cond,
+        gcond=gcond), 1, warm=False)[0]
+    out["K1"]["plain_ms"] = plain
+    log(f"[time] plain version, the same K1 chunk with cond + gcond: "
+        f"{plain:.1f} ms, {1e3 * plain / steps:.1f} us/step [{card}]")
+    # K4: 256 lanes, fuse_res + skip_slab, resumed at the pool's clock
+    lanes = 256
+    w = ghbm.prepare_weights(params, cfg, True, True)
+    prime = torch.randint(0, cfg.classes, (lanes, 1),
+                          generator=torch.Generator().manual_seed(3))
+    prime = prime.to(dev, torch.int32)
+    ring = torch.zeros(ghbm.ring_rows(cfg), lanes, device=dev)
+    temps = torch.full((lanes,), 0.9, device=dev)
+    _, seeds, toffs = _lane_rows(torch, dev, lanes)
+    cond = _normal(torch, (steps, M, lanes), 16, dev)
+    gcond = ghbm.project_gcond(
+        w, cfg, _normal(torch, (lanes, GCOND), 17, dev, 1.0), lanes)
+    tile = ghbm.default_tile(lanes, cfg, True, lambda t: (
+        ghbm.max_active_clusters(cfg, t, True, True, M)), M)
+    act = {t: ghbm.max_active_clusters(cfg, t, True, True, M)
+           for t in ghbm.TILES if gk_fits(ghbm, cfg, t, True, M)}
+    log(f"[time] K4 vocoder, 256 lanes with cond: default tile {tile} lanes "
+        f"per cluster of {ghbm.CLUSTER} ({-(-lanes // tile)} clusters); max "
+        f"active clusters by width {act}; shared bytes by width "
+        + str({t: ghbm.shared_bytes(cfg, t, True, cond=True) for t in act})
+        + f" [{card}]")
+    us = {}
+    for what, kw in (("no cond", {}), ("cond", dict(cond=cond)),
+                     ("cond + gcond", dict(cond=cond, gcond=gcond))):
+        ms = _time(torch, lambda: ghbm.batched_cuda(
+            w, cfg, prime, ring, clock, steps, temps, seeds, toffs, 0, 0.0,
+            True, True, True, **kw), 2)
+        us[what] = 1e3 * min(ms) / steps
+        has_c, has_g = "cond" in kw, "gcond" in kw
+        b_ms, b_by = bound_ms(
+            pt, ghbm, params, cfg, lanes, 1, steps, lane_rows=3,
+            extra_bytes=4 * (steps * M * lanes * has_c
+                             + L * 2 * D * lanes * has_g),
+            extra_flops=lanes * steps * 2 * M * 2 * D * L * has_c)
+        log(f"[time] K4 vocoder fuse_res+skip_slab, 256 lanes, resumed "
+            f"2048-step chunk, T=0.9 lane_seed, {what}: "
+            + ", ".join(f"{m:.2f}" for m in ms)
+            + f" ms; {us[what]:.2f} us/step, "
+            f"{lanes * steps / min(ms) * 1e3:.0f} samples/s; bound "
+            f"{b_ms:.4f} ms ({b_by}), {100 * b_ms / min(ms):.2f} % of it "
+            f"[{card}]")
+        if what == "cond + gcond":
+            out["K4"] = dict(ms=min(ms), bound_ms=b_ms, bound_by=b_by)
+    log(f"[time] K4 vocoder: cond costs {us['cond'] - us['no cond']:.2f} "
+        f"us/step, cond + gcond {us['cond + gcond'] - us['no cond']:.2f} "
+        f"[{card}]")
+    out["K4"]["us"] = us
+    tm = torch.zeros(len(ghbm.PHASES), dtype=torch.int64, device=dev)
+    ghbm.batched_cuda(w, cfg, prime, ring, clock, steps, temps, seeds, toffs,
+                      0, 0.0, True, True, True, timers=tm, cond=cond,
+                      gcond=gcond)
+    torch.cuda.synchronize()
+    log("[time] K4 vocoder 256 lanes cond + gcond, per step: "
+        + ", ".join(f"{n} {v / 2048e3:.2f} us"
+                    for n, v in zip(ghbm.PHASES, tm.tolist()))
+        + f" [{card}]")
+    plain = _time(torch, lambda: ghbm.batched_plain(
+        w, cfg, prime, ring, clock, steps, temps, seeds, toffs, 0, 0.0, True,
+        True, True, cond=cond, gcond=gcond), 1, warm=False)[0]
+    out["K4"]["plain_ms"] = plain
+    log(f"[time] plain version, the same K4 chunk with cond + gcond: "
+        f"{plain:.1f} ms, {1e3 * plain / steps:.1f} us/step [{card}]")
+    log("[time] library call: none (no single PyTorch call computes either "
+        "loop)")
+    return out
+
+
 # -------------------------------------------------------------------- main
 
 
@@ -1538,6 +2111,15 @@ def main():
     log(f"phase training done at {time.time() - t_start:.0f} s")
     tt = phase_train_times(torch, pt, tk, dev, card)
     log(f"phase training times done at {time.time() - t_start:.0f} s")
+    c1 = phase_cond_k1_vs_plain(torch, pt, gk, dev)
+    log(f"phase K1 vocoder cond-vs-plain done at {time.time() - t_start:.0f} s")
+    c4 = phase_cond_k4_vs_plain(torch, pt, ghbm, dev)
+    log(f"phase K4 vocoder cond-vs-plain done at {time.time() - t_start:.0f} s")
+    v1_launched, v4_launched, vocoded = phase_vocode_serving(
+        torch, np, pt, gk, ghbm, dev)
+    log(f"phase /vocode serving done at {time.time() - t_start:.0f} s")
+    vt = phase_vocoder_times(torch, pt, gk, ghbm, dev, card)
+    log(f"phase vocoder times done at {time.time() - t_start:.0f} s")
 
     kernels = [{
         "name": "gen_fused (K1, fuse_res)",
@@ -1594,6 +2176,31 @@ def main():
             "train_step_ms": tt["step_ms"],
             "train_targets_per_s": tt["targets_per_s"],
         })
+    for name, src, line, launched, (err, mm, nt), t in (
+            ("gen_fused (K1, vocoder, cond + gcond)", "gen_kernel.cu",
+             "gen_kernel.py:558", v1_launched, c1, vt["K1"]),
+            ("gen_batched (K4, vocoder, cond + gcond, 256 lanes)",
+             "gen_kernel_hbm.cu", "gen_kernel_hbm.py:1037", v4_launched, c4,
+             vt["K4"])):
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"pytorch_wavenet_tpu_torch/csrc/{src}",
+            "replaces": f"pytorch_wavenet_tpu/ops/pallas/{line}",
+            "launches": launched,
+            "max_abs_err": err,
+            "ms": t["ms"],
+            "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"],
+            "library_ms": None,
+            "class_mismatches": mm,
+            "near_ties": nt,
+            "us_per_step": t["us"],
+        })
+    kernels[-2]["vocode_single_s"] = vocoded["single_s"]
+    kernels[-1]["vocode_served_samples_per_s"] = vocoded[
+        "pooled_samples_per_s"]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

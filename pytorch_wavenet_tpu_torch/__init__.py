@@ -1,7 +1,9 @@
 """pytorch_wavenet_tpu_torch: the PyTorch/CUDA port of pytorch_wavenet_tpu.
 
 WaveNet for one NVIDIA H100: the plain PyTorch model, Fast-WaveNet
-generation, checkpoints in the JAX package's format, single-stream serving
+generation, the mel-conditioned vocoder (``ops/mel.py``,
+``models.generate.synthesize``), checkpoints in the JAX package's format,
+single-stream serving
 through a hand-written CUDA kernel for the fused generation loop
 (``ops/cuda/gen_kernel.py``), and continuous-batching serving of many
 streams (``serving/batcher.py``) through a hand-written CUDA kernel for
@@ -27,12 +29,14 @@ from .models.generate import (
     generate,
     generate_fast,
     init_gen_state,
+    synthesize,
 )
 from .models.wavenet import (
     embed_inputs,
     forward,
     init_wavenet,
     parameter_count,
+    upsample_cond,
     wavenet_logits,
 )
 from .ops.cuda.gen_kernel import FusedGenState, generate_fast_fused
@@ -67,9 +71,9 @@ __all__ = [
     "WaveNetDataset",
     "from_jax_params", "to_numpy_params",
     "GenState", "StreamState", "buffer_length", "gen_step", "generate",
-    "generate_fast", "init_gen_state",
+    "generate_fast", "init_gen_state", "synthesize",
     "embed_inputs", "forward", "init_wavenet", "parameter_count",
-    "wavenet_logits",
+    "upsample_cond", "wavenet_logits",
     "FusedGenState", "generate_fast_fused",
     "HbmGenState", "generate_fast_batched", "ContinuousBatcher",
     "fused_trunk", "reference_adam", "WaveNetTrainer", "cross_entropy_loss",

@@ -16,6 +16,10 @@
 //   argmax(logits), first index on ties; fed back unless the prime runs.
 // fuse_res walks the chain with wf[l] = w_res[l] @ w_cur[l+1]:
 //   z[l+1] = taps[l+1] + h[l] @ w_cur[l+1] + bf[l] + u[l] @ wf[l].
+// Conditioning adds to z[l] beside the taps: local conditioning, in K1 a
+// row cond[t][l][s] (2D) projected by the wrapper, in K4 the product
+// cond_t[s] @ w_cond[l] (M x 2D) computed here; global conditioning a
+// per-(layer, lane) row projected by the wrapper (gcond).
 //
 // The design, against what bounds a step on this card (a serial chain of
 // L small products, then ~6.5 MB of skip and head weights at chaconne):
@@ -39,6 +43,14 @@
 //    writes of layer l are made by the same rank, so one block barrier
 //    orders them before the next prefetch (a d = 1 layer reads at t+1 the
 //    slot it wrote at t).
+//  * Conditioning rides with the taps, off the chain: the step's rows are
+//    copied with cp.async beside the tap rows (K1: the projected rows of
+//    the rank's layers, nlt x 2D x TL; K4: the step's M x TL cond slab,
+//    the same in every rank), into a slab of their own that is idle from
+//    the tap products until the next prefetch, so one buffer suffices. The
+//    tap products then add them: K1 the projected rows, K4 the product
+//    with w_cond[l] (from L2) as M more rows after the taps, summed lane
+//    by lane in row order; then the global rows (from L2).
 //  * The skip row and the head are off the chain and split by output
 //    columns across the cluster (blocks of 16 columns per rank); each
 //    product's input row is gathered in every rank through distributed
@@ -96,6 +108,12 @@ struct Args {
   const float* b_end1;   // (E)
   const float* w_end2;   // (E, C)
   const float* b_end2;   // (C)
+  // conditioning, each null when absent: K1 cond (total, L, streams, 2D)
+  // projected rows; K4 cond (total, M, streams) rows and w_cond (L, M,
+  // 2D); gcond K1 (L, streams, 2D), K4 (L, 2D, streams)
+  const float* cond;
+  const float* w_cond;
+  const float* gcond;
   const float* temps;    // (streams), or null: `temperature` for every lane
   const int* seeds;      // lane_seed: (streams)
   const int* toffs;      // lane_seed: (streams)
@@ -106,6 +124,7 @@ struct Args {
   unsigned long long* timers;  // null, or (NPHASE,): ns per phase
   int streams, num_given, total, t0;
   int L, k, R, D, S, E, C;
+  int M, cond_rows;      // cond channels (K4); rows of the cond slab
   int CS, F, resident;
   float temperature, regularize;
   unsigned seed;
@@ -157,18 +176,20 @@ struct Chain {
 
 // Shared memory of one block, in floats. The head's partial sums (part,
 // PART_ROWS rows) share the tz rows when they are large enough (tz is idle
-// during the head).
+// during the head). `cond_rows` rows of TL lanes hold the step's
+// conditioning (0 without it).
 struct Layout {
-  int taps, tz, hbuf, H, scratch, part, tab_v, tab_i, cur, blob, nonblob;
+  int taps, cs, tz, hbuf, H, scratch, part, tab_v, tab_i, cur, blob, nonblob;
 };
 
 __host__ __device__ inline Layout layout(int TL, int CS, int L, int k, int R,
                                          int D, int S, int E, int C,
-                                         int fuse) {
+                                         int fuse, int cond_rows) {
   const Chain ch(L, k, R, D, CS, fuse);
   Layout s;
   s.taps = 0;
-  s.tz = s.taps + ch.nlt * ch.TS * TL;
+  s.cs = s.taps + ch.nlt * ch.TS * TL;
+  s.tz = s.cs + cond_rows * TL;
   s.hbuf = s.tz + L * 2 * ch.ndm * TL;
   s.H = s.hbuf + 2 * R * TL;
   int hrows = L * D;
@@ -243,6 +264,40 @@ __device__ void prefetch_taps(const Args& a, const Chain& ch, int q, int ta,
     }
   }
   cp_async_commit();
+}
+
+// Issue the copies of step t's conditioning rows (t counts from the
+// call's start): K1 the projected rows of this rank's layers into
+// cs[(m * 2D + c) * TL + lane], K4 the M x TL slab into cs[m * TL + lane];
+// 0.0 for lanes past the streams. Committed with the taps.
+template <int TL, bool K1RING>
+__device__ void prefetch_cond(const Args& a, const Chain& ch, int q, int t,
+                              int lane0, float* cs) {
+  if constexpr (K1RING) {
+    const int n2 = 2 * a.D, n = n2 * TL;
+    for (int m = 0; m < ch.nlt; ++m) {
+      const int l = q + m * a.CS;
+      if (l >= a.L) break;
+      for (int idx = threadIdx.x; idx < n; idx += NT) {
+        const int lane = idx / n2, c = idx - lane * n2;
+        const int s = lane0 + lane;
+        const bool valid = s < a.streams;
+        const float* src =
+            valid ? a.cond + (((size_t)t * a.L + l) * a.streams + s) * n2 + c
+                  : a.cond;
+        cp_async4(cs + ((size_t)m * n2 + c) * TL + lane, src, valid);
+      }
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < a.M * TL; idx += NT) {
+      const int m = idx / TL, lane = idx - m * TL;
+      const int s = lane0 + lane;
+      const bool valid = s < a.streams;
+      const float* src =
+          valid ? a.cond + ((size_t)t * a.M + m) * a.streams + s : a.cond;
+      cp_async4(cs + idx, src, valid);
+    }
+  }
 }
 
 __device__ __forceinline__ unsigned long long now_ns() {
@@ -504,7 +559,10 @@ __device__ __forceinline__ void chain_rows(const float* W, int n2, int cs,
   }
 }
 
-template <int TL, bool K1RING>
+// COND: the call has conditioning inputs (cond or gcond). The kernel
+// without them is compiled apart, so their code costs the unconditioned
+// paths no registers.
+template <int TL, bool K1RING, bool COND>
 __global__ void __launch_bounds__(NT, 1) gen_cluster_kernel(Args a) {
   extern __shared__ __align__(16) float sm[];
   cg::cluster_group cl = cg::this_cluster();
@@ -516,8 +574,10 @@ __global__ void __launch_bounds__(NT, 1) gen_cluster_kernel(Args a) {
   const int ndm = ch.ndm, nrm = ch.nrm, n2 = 2 * ndm;
   constexpr int LQ = TL >= 16 ? 8 : 4;  // lanes per thread in the chain
   constexpr int NQ = TL / LQ;
-  const Layout lay = layout(TL, CS, L, a.k, R, D, S, E, C, a.fuse_res);
+  const Layout lay = layout(TL, CS, L, a.k, R, D, S, E, C, a.fuse_res,
+                            a.cond_rows);
   float* taps = sm + lay.taps;
+  float* cs = sm + lay.cs;
   float* tz = sm + lay.tz;
   float* hbuf = sm + lay.hbuf;
   float* H = sm + lay.H;  // the slab of u, then the skip row, then y1
@@ -537,8 +597,10 @@ __global__ void __launch_bounds__(NT, 1) gen_cluster_kernel(Args a) {
     const int s = lane0 + lane;
     cur[lane] = s < a.streams ? a.prime[(size_t)s * a.num_given] : 0;
   }
-  // the first step's taps, issued before the loop (a resumed call reads
-  // its history from the first step on)
+  // the first step's taps (and conditioning), issued before the loop (a
+  // resumed call reads its history from the first step on)
+  if (COND && a.cond != nullptr)
+    prefetch_cond<TL, K1RING>(a, ch, q, 0, lane0, cs);
   prefetch_taps<TL, K1RING>(a, ch, q, a.t0, lane0, taps);
   cl.sync();
 
@@ -589,6 +651,44 @@ __global__ void __launch_bounds__(NT, 1) gen_cluster_kernel(Args a) {
           acc[jj + 1] = fmaf(v.y, w, acc[jj + 1]);
           acc[jj + 2] = fmaf(v.z, w, acc[jj + 2]);
           acc[jj + 3] = fmaf(v.w, w, acc[jj + 3]);
+        }
+      }
+      if (COND && a.cond != nullptr) {
+        if constexpr (K1RING) {  // the projected rows
+          const float4* cv = reinterpret_cast<const float4*>(
+              cs + ((size_t)m * 2 * D + col) * TL + quad * LQ);
+#pragma unroll
+          for (int jj = 0; jj < LQ; jj += 4) {
+            const float4 v = cv[jj / 4];
+            acc[jj] += v.x;
+            acc[jj + 1] += v.y;
+            acc[jj + 2] += v.z;
+            acc[jj + 3] += v.w;
+          }
+        } else {  // cond_t @ w_cond[l]: M more rows, in order
+          const float* wc = a.w_cond + (size_t)l * a.M * 2 * D;
+#pragma unroll 8
+          for (int i = 0; i < a.M; ++i) {
+            const float w = __ldg(wc + i * 2 * D + col);
+#pragma unroll
+            for (int jj = 0; jj < LQ; jj += 4) {
+              const float4 v = ld4(cs + i * TL + quad * LQ + jj);
+              acc[jj] = fmaf(v.x, w, acc[jj]);
+              acc[jj + 1] = fmaf(v.y, w, acc[jj + 1]);
+              acc[jj + 2] = fmaf(v.z, w, acc[jj + 2]);
+              acc[jj + 3] = fmaf(v.w, w, acc[jj + 3]);
+            }
+          }
+        }
+      }
+      if (COND && a.gcond != nullptr) {
+#pragma unroll
+        for (int jj = 0; jj < LQ; ++jj) {
+          const int s = lane0 + quad * LQ + jj;
+          if (s < a.streams)
+            acc[jj] += K1RING
+                ? __ldg(a.gcond + ((size_t)l * a.streams + s) * 2 * D + col)
+                : __ldg(a.gcond + ((size_t)l * 2 * D + col) * a.streams + s);
         }
       }
       const int c = col < D ? col : col - D;
@@ -748,7 +848,11 @@ __global__ void __launch_bounds__(NT, 1) gen_cluster_kernel(Args a) {
       }
     }
     __syncthreads();  // a d = 1 layer's taps read the slot just written
-    if (t + 1 < a.total) prefetch_taps<TL, K1RING>(a, ch, q, ta + 1, lane0, taps);
+    if (t + 1 < a.total) {
+      if (COND && a.cond != nullptr)
+        prefetch_cond<TL, K1RING>(a, ch, q, t + 1, lane0, cs);
+      prefetch_taps<TL, K1RING>(a, ch, q, ta + 1, lane0, taps);
+    }
     all_gather<TL>(cl, CS, scratch, H, s0, s1 - s0);
     cl.sync();
     head_cols<TL, true, true, false>(a.w_end1, a.b_end1, E, S, L, H, e0, e1,
@@ -829,9 +933,10 @@ __global__ void __launch_bounds__(NT, 1) gen_cluster_kernel(Args a) {
 // Bytes of dynamic shared memory at tile width TL and cluster size CS,
 // with the chain weights resident when they fit (*resident says so).
 inline int shared_bytes(int TL, int CS, int L, int k, int R, int D, int S,
-                        int E, int C, int fuse, int* resident) {
+                        int E, int C, int fuse, int cond_rows,
+                        int* resident) {
   const Chain ch(L, k, R, D, CS, fuse);
-  const Layout s = layout(TL, CS, L, k, R, D, S, E, C, fuse);
+  const Layout s = layout(TL, CS, L, k, R, D, S, E, C, fuse, cond_rows);
   *resident = (s.nonblob + ch.layers(L)) * 4 <= SMEM_LIMIT;
   return (s.nonblob + (*resident ? ch.layers(L) : 0)) * 4;
 }
@@ -842,10 +947,12 @@ template <int TL, bool K1RING>
 int launch(Args a, int tiles, cudaStream_t st, int* max_clusters) {
   int resident = 0;
   const int smem = shared_bytes(TL, a.CS, a.L, a.k, a.R, a.D, a.S, a.E, a.C,
-                                a.fuse_res, &resident);
+                                a.fuse_res, a.cond_rows, &resident);
   if (smem > SMEM_LIMIT) return -2;
   a.resident = resident;
-  auto kern = gen_cluster_kernel<TL, K1RING>;
+  auto kern = (a.cond != nullptr || a.gcond != nullptr)
+                  ? gen_cluster_kernel<TL, K1RING, true>
+                  : gen_cluster_kernel<TL, K1RING, false>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;

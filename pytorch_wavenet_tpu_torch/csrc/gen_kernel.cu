@@ -24,22 +24,30 @@
 // the chain's weights stay in the cluster's shared memory, a layer costs
 // one cluster barrier (fuse_res) and about 2 us, a step's taps arrive with
 // one wait, and the head's weights are read by 16 SMs, each its own
-// columns, on the tensor cores in 3xTF32.
+// columns, on the tensor cores in 3xTF32. Local conditioning arrives as
+// rows projected outside the kernel (as the TPU kernel takes it: one
+// product over every step of the call), copied with the taps, a step
+// ahead, and added to the tap products; it moves L*2D*4 bytes per stream
+// and step and adds nothing to the chain.
 
 #include "gen_cluster.cuh"
 
 using gen_cluster::Args;
 
-// Dynamic shared memory (bytes) of one block of the cluster;
-// *resident says whether the chain weights are in it.
+// Dynamic shared memory (bytes) of one block of the cluster with a cond
+// slab of `cond_rows` rows (0 without local conditioning); *resident says
+// whether the chain weights are in it.
 extern "C" int wavenet_gen_fused_smem(int cluster, int L, int k, int R, int D,
                                       int S, int E, int C, int fuse_res,
-                                      int* resident) {
+                                      int cond_rows, int* resident) {
   return gen_cluster::shared_bytes(8, cluster, L, k, R, D, S, E, C, fuse_res,
-                                   resident);
+                                   cond_rows, resident);
 }
 
-// Launch on `stream`; returns the cudaError_t of the launch (0 = success),
+// Launch on `stream`; `cond` (total, L, streams, 2D) and `gcond` (L,
+// streams, 2D) are the projected conditioning rows, each null when absent
+// (`cond_rows`, the slab's rows, 0 then). Returns the cudaError_t of the
+// launch (0 = success),
 // -1 for a cluster size other than 16 or more than 8 streams, -2 for
 // a config whose buffers exceed a block's shared memory. With
 // `max_clusters` non-null it launches nothing and stores
@@ -48,6 +56,7 @@ extern "C" int wavenet_gen_fused(
     const float* w_start, const float* b_start, const float* chain,
     const float* w_out, const float* b_out, const float* w_end1,
     const float* b_end1, const float* w_end2, const float* b_end2,
+    const float* cond, const float* gcond, int cond_rows,
     const int* prime, const int* meta, float* rings, int* out_cls,
     int streams, int num_given, int total, int t0, int L, int k, int R, int D,
     int S, int E, int C, int chain_floats, float temperature,
@@ -57,6 +66,8 @@ extern "C" int wavenet_gen_fused(
   a.w_start = w_start; a.b_start = b_start; a.chain = chain;
   a.w_skip = w_out; a.b_skip = b_out; a.w_end1 = w_end1; a.b_end1 = b_end1;
   a.w_end2 = w_end2; a.b_end2 = b_end2;
+  a.cond = cond; a.w_cond = nullptr; a.gcond = gcond;
+  a.M = 0; a.cond_rows = cond_rows;  // 0 without cond
   a.temps = nullptr; a.seeds = nullptr; a.toffs = nullptr;
   a.prime = prime; a.meta = meta; a.ring = rings; a.out_cls = out_cls;
   a.streams = streams; a.num_given = num_given; a.total = total; a.t0 = t0;

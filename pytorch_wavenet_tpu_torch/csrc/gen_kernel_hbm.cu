@@ -26,7 +26,13 @@
 // shared memory with one cluster barrier per layer (fuse_res), prefetches
 // a step's taps at once with cp.async, and splits the skip row and head
 // over its SMs by columns, on the tensor cores in 3xTF32, so each SM reads
-// 1/8 of the head weights per step.
+// 1/8 of the head weights per step. Local conditioning is a product in
+// the kernel, as in the TPU kernel (projecting outside would write
+// total*L*lanes*2D floats, 8 GB per 2048-step chunk at 256 lanes of the
+// vocoder): each cluster copies the step's M x tile cond rows with the
+// taps, a step ahead, and each rank adds cond_t @ w_cond[l] (w_cond from
+// L2) to its layers' tap products, M*2D*L FMAs per lane and step off
+// the chain, summed in an order fixed by M alone.
 
 #include "gen_cluster.cuh"
 
@@ -47,15 +53,20 @@ int launch_tile(const Args& a, int tile, int tiles, cudaStream_t st,
 }  // namespace
 
 // Dynamic shared memory (bytes) of one block at `tile` lanes per cluster
-// of `cluster` blocks; *resident says whether the chain weights are in it.
+// of `cluster` blocks with a cond slab of `cond_rows` rows (M, or 0
+// without local conditioning); *resident says whether the chain weights
+// are in it.
 extern "C" int wavenet_gen_batched_smem(int tile, int cluster, int L, int k,
                                         int R, int D, int S, int E, int C,
-                                        int fuse_res, int* resident) {
+                                        int fuse_res, int cond_rows,
+                                        int* resident) {
   return gen_cluster::shared_bytes(tile, cluster, L, k, R, D, S, E, C,
-                                   fuse_res, resident);
+                                   fuse_res, cond_rows, resident);
 }
 
-// Launch on `stream`; returns the cudaError_t of the launch (0 = success),
+// Launch on `stream`; `cond` (total, M, streams) rows with `w_cond` (L, M,
+// 2D), and `gcond` (L, 2D, streams) projected rows, each null when absent.
+// Returns the cudaError_t of the launch (0 = success),
 // -1 for a tile width without a compiled kernel or a cluster size other
 // than 8, -2 for a config whose
 // buffers exceed a block's shared memory. With `max_clusters` non-null it
@@ -66,6 +77,7 @@ extern "C" int wavenet_gen_batched(
     const float* w_start, const float* b_start, const float* chain,
     const float* w_skip, const float* b_skip, const float* w_end1,
     const float* b_end1, const float* w_end2, const float* b_end2,
+    const float* cond, const float* w_cond, const float* gcond, int M,
     const float* temps, const int* seeds, const int* toffs, const int* prime,
     const int* meta, float* ring, int* out_cls, int streams, int num_given,
     int total, int t0, int L, int k, int R, int D, int S, int E, int C,
@@ -76,6 +88,8 @@ extern "C" int wavenet_gen_batched(
   a.w_start = w_start; a.b_start = b_start; a.chain = chain;
   a.w_skip = w_skip; a.b_skip = b_skip; a.w_end1 = w_end1;
   a.b_end1 = b_end1; a.w_end2 = w_end2; a.b_end2 = b_end2;
+  a.cond = cond; a.w_cond = w_cond; a.gcond = gcond;
+  a.M = M; a.cond_rows = M;  // 0 without cond
   a.temps = temps; a.seeds = seeds; a.toffs = toffs; a.prime = prime;
   a.meta = meta; a.ring = ring; a.out_cls = out_cls; a.timers = timers;
   a.streams = streams; a.num_given = num_given; a.total = total; a.t0 = t0;

@@ -1,12 +1,19 @@
 """Autoregressive generation in plain PyTorch.
 
-The counterpart of the JAX package's ``models/generate.py`` for
-unconditioned models:
+The counterpart of the JAX package's ``models/generate.py``:
 
 * :func:`generate` — the naive O(receptive_field)-per-sample path, kept as
   the correctness oracle;
 * :func:`generate_fast` — Fast-WaveNet generation over exactly-sized ring
-  buffers, one :func:`gen_step` per sample.
+  buffers, one :func:`gen_step` per sample;
+* :func:`synthesize` — the vocoder: mel frames upsampled to per-sample
+  conditioning rows, then a conditioned rollout of any of the backends.
+
+Conditioning follows the JAX package's timeline: ``cond`` ``(S, total,
+M)`` with ``total = num_given - 1 + num_samples``, row t conditioning the
+step that consumes input sample t (the prime consumes rows ``[0,
+num_given)``; a call resumed from a state consumes its own ``num_samples``
+rows); ``global_cond`` ``(S, G)`` conditions every step.
 
 The serving path runs the fused kernel instead
 (``ops/cuda/gen_kernel.py``); this module is its reference and the home of
@@ -27,7 +34,8 @@ import torch
 from ..config import WaveNetConfig
 from ..device import resolve_device
 from ..ops.mulaw import mu_law_expansion_torch
-from .wavenet import Params, _mm, params_to, wavenet_logits
+from .wavenet import (Params, _mm, check_cond, params_to, upsample_cond,
+                      wavenet_logits)
 
 
 class GenState(NamedTuple):
@@ -71,9 +79,12 @@ def init_gen_state(cfg: WaveNetConfig, num_streams: int = 1,
 
 
 def gen_step(params: Params, cfg: WaveNetConfig, state: GenState,
-             cur_class: torch.Tensor) -> tuple[torch.Tensor, GenState]:
+             cur_class: torch.Tensor, cond: torch.Tensor | None = None,
+             global_cond: torch.Tensor | None = None
+             ) -> tuple[torch.Tensor, GenState]:
     """One autoregressive step for all streams: logits ``(S, classes)``
-    and the advanced state.
+    and the advanced state. ``cond``: this step's local conditioning ``(S,
+    cond_channels)``; ``global_cond``: ``(S, gcond_channels)``.
 
     The ring slot of this step is written IN PLACE (the returned state
     shares the buffers of ``state``); the tap slots read here never equal
@@ -98,6 +109,10 @@ def gen_step(params: Params, cfg: WaveNetConfig, state: GenState,
             idx = (t - (k - 1 - j) * d) % P
             z = z + _mm(buf[:, idx].to(torch.float32), lp["w_in"][l, j], cdt)
         buf[:, t % P] = h.to(buf.dtype)
+        if cond is not None:
+            z = z + _mm(cond, lp["w_cond"][l], cdt)
+        if global_cond is not None:
+            z = z + _mm(global_cond, lp["w_gcond"][l], cdt)
         if "b_in" in lp:
             z = z + lp["b_in"][l]
         f, g = z.chunk(2, dim=-1)
@@ -162,7 +177,9 @@ def generate_fast(params: Params, cfg: WaveNetConfig,
                   first_samples=None, temperature: float = 1.0,
                   regularize: float = 0.0, state: StreamState | None = None,
                   return_state: bool = False,
-                  device: str | torch.device = "cuda"):
+                  device: str | torch.device = "cuda",
+                  cond: torch.Tensor | None = None,
+                  global_cond: torch.Tensor | None = None):
     """Fast-WaveNet generation.
 
     ``first_samples``: int ``(S, num_given)`` prime per stream (or
@@ -170,6 +187,9 @@ def generate_fast(params: Params, cfg: WaveNetConfig,
     are pushed through the rings one step at a time and the last one is
     the first generation input. ``generator`` (a CPU ``torch.Generator``)
     draws the sampling uniforms; it may be None at temperature 0.
+    ``cond`` ``(S, num_given - 1 + num_samples, cond_channels)`` and
+    ``global_cond`` ``(S, gcond_channels)``: the module docstring's
+    timeline (a resumed call takes ``num_samples`` rows).
 
     Returns ``(waveform (S, num_samples) float32, classes (S, num_samples)
     int64)``, plus the new :class:`StreamState` with ``return_state``."""
@@ -187,12 +207,15 @@ def generate_fast(params: Params, cfg: WaveNetConfig,
         gstate = init_gen_state(cfg, given.shape[0], dev)
     S, num_given = given.shape
     total = num_given - 1 + num_samples
+    cond, global_cond = _cond_to(cfg, S, total, cond, global_cond, dev)
     uniforms = _uniforms(generator, total, S, dev)
 
     cur = given[:, 0]
     samples = []
     for i in range(total):
-        logits, gstate = gen_step(params, cfg, gstate, cur)
+        logits, gstate = gen_step(
+            params, cfg, gstate, cur,
+            None if cond is None else cond[:, i], global_cond)
         sampled = _sample(logits, uniforms[i], cfg.classes, temperature,
                           regularize)
         samples.append(sampled)
@@ -204,15 +227,33 @@ def generate_fast(params: Params, cfg: WaveNetConfig,
     return wav, out, StreamState(gen=gstate, cls=cur)
 
 
+def _cond_to(cfg: WaveNetConfig, streams: int, total: int, cond,
+             global_cond, device):
+    """``cond`` and ``global_cond`` as f32 tensors on ``device``, checked
+    against ``(streams, total, cond_channels)`` and ``(streams,
+    gcond_channels)``."""
+    def conv(x):
+        return None if x is None else torch.as_tensor(x).to(
+            device=device, dtype=torch.float32)
+
+    cond, global_cond = conv(cond), conv(global_cond)
+    check_cond(cfg, (streams, total), cond, global_cond)
+    return cond, global_cond
+
+
 @torch.no_grad()
 def generate(params: Params, cfg: WaveNetConfig,
              generator: torch.Generator | None, num_samples: int,
              first_samples=None, temperature: float = 1.0,
-             regularize: float = 0.0, device: str | torch.device = "cuda"):
+             regularize: float = 0.0, device: str | torch.device = "cuda",
+             cond: torch.Tensor | None = None,
+             global_cond: torch.Tensor | None = None):
     """Naive generation: the full receptive-field window through the
     teacher-forced trunk per sample. O(rf) per step; the oracle for
-    :func:`generate_fast`. Short primes are left-padded with class 0 (and
-    the default prime is class 0, as in the JAX package)."""
+    :func:`generate_fast`, conditioned ones included (``cond`` on the same
+    ``(S, num_given - 1 + num_samples, M)`` timeline). Short primes are
+    left-padded with class 0 (and the default prime is class 0, as in the
+    JAX package)."""
     dev = resolve_device(device)
     params = params_to(params, dev)
     rf = cfg.receptive_field
@@ -225,13 +266,68 @@ def generate(params: Params, cfg: WaveNetConfig,
     ng = min(num_given, rf)
     window[:, rf - ng:] = given[:, num_given - ng:]
     uniforms = _uniforms(generator, num_samples, S, dev)
+    cond, global_cond = _cond_to(cfg, S, num_given - 1 + num_samples, cond,
+                                 global_cond, dev)
+    if cond is not None:
+        # cond_pad[k] = cond[k - rf] (zero before the timeline): step i's
+        # window covers samples [num_given + i - rf, num_given + i)
+        cond_pad = torch.nn.functional.pad(cond, (0, 0, rf, 0))
 
     samples = []
     for i in range(num_samples):
-        logits = wavenet_logits(params, cfg, window, out_len=1)[:, 0, :]
+        cw = (None if cond is None
+              else cond_pad[:, num_given + i:num_given + i + rf])
+        logits = wavenet_logits(params, cfg, window, out_len=1, cond=cw,
+                                global_cond=global_cond)[:, 0, :]
         sampled = _sample(logits, uniforms[i], cfg.classes, temperature,
                           regularize)
         samples.append(sampled)
         window = torch.cat([window[:, 1:], sampled[:, None]], dim=1)
     out = torch.stack(samples, dim=1)
     return classes_to_waveform(out, cfg.classes), out
+
+
+def synthesize(params: Params, cfg: WaveNetConfig, generator_or_seed,
+               mel, hop_length: int, first_samples=None,
+               temperature: float = 1.0, regularize: float = 0.0,
+               global_cond=None, num_samples: int | None = None,
+               backend=None, device: str | torch.device = "cuda", **kw):
+    """Mel frames -> audio: the vocoder's entry point.
+
+    ``mel`` ``(S, F, cond_channels)`` (or ``(F, cond_channels)``) log-mel
+    frames at ``hop_length`` samples (``ops.mel.log_mel_spectrogram``) are
+    upsampled to per-sample rows by :func:`models.wavenet.upsample_cond`
+    and drive a conditioned rollout of ``backend``: :func:`generate_fast`
+    (the default; ``generator_or_seed`` a ``torch.Generator`` or None) or
+    the fused kernel's ``generate_fast_fused`` (an int seed), both with the
+    ``cond=(S, total, M)`` contract; ``kw`` goes to the backend (e.g.
+    ``fuse_res``). ``num_samples`` defaults to ``F * hop_length -
+    num_given + 1``, so the rollout consumes exactly the conditioned
+    timeline. Returns ``(waveform (S, num_samples) f32, classes)``."""
+    if backend is None:
+        backend = generate_fast
+    dev = resolve_device(device)
+    mel = torch.as_tensor(mel).to(device=dev, dtype=torch.float32)
+    if mel.dim() == 2:
+        mel = mel[None]
+    S, F, M = mel.shape
+    if cfg.cond_channels != M:
+        raise ValueError(f"mel has {M} channels but cfg.cond_channels is "
+                         f"{cfg.cond_channels}")
+    if first_samples is None:
+        first = torch.full((S, 1), cfg.classes // 2, dtype=torch.long)
+    else:
+        first = torch.as_tensor(first_samples).to(torch.long)
+        if first.dim() == 1:
+            first = first.reshape(1, -1)
+        if first.shape[0] == 1 and S > 1:
+            first = first.expand(S, -1)
+    num_given = first.shape[1]
+    if num_samples is None:
+        num_samples = F * hop_length - num_given + 1
+    total = num_given - 1 + num_samples
+    cond = upsample_cond(params_to(params, dev), cfg, mel, hop_length, total)
+    return backend(params, cfg, generator_or_seed, num_samples,
+                   first.contiguous(), temperature=temperature,
+                   regularize=regularize, cond=cond, global_cond=global_cond,
+                   device=dev, **kw)

@@ -1,8 +1,7 @@
 """WaveNet trunk in plain PyTorch.
 
-The counterpart of the JAX package's ``models/wavenet.py`` for
-unconditioned models. Params keep its stacked layout, as torch tensors, so
-weights map across 1:1:
+The counterpart of the JAX package's ``models/wavenet.py``. Params keep
+its stacked layout, as torch tensors, so weights map across 1:1:
 
 - ``start.w (classes, R)``, optional ``start.b (R,)``
 - ``layers.w_in (L, k, R, 2*D)``  fused filter+gate dilated-conv taps
@@ -11,6 +10,10 @@ weights map across 1:1:
   ``layers.b_skip (L, S)``
 - ``end1.w (S, E)``, ``end1.b (E,)``, ``end2.w (E, classes)``,
   ``end2.b (classes,)``
+- conditioned models: ``layers.w_cond (L, M, 2*D)`` (local conditioning,
+  ``M = cond_channels``), ``layers.w_gcond (L, G, 2*D)`` (global), and
+  ``cond_up.s{i} (2, r_i, M, M)``, the learnable upsampler of
+  ``cond_upsample``
 
 Activations are channels-last ``(N, T, C)``, so every 1x1 conv is a plain
 ``(..., C_in) @ (C_in, C_out)`` matmul. Tap j of a layer with dilation d
@@ -39,13 +42,12 @@ def _conv_init(gen: torch.Generator, shape, fan_in: int, device) -> torch.Tensor
 
 def init_wavenet(cfg: WaveNetConfig, generator: torch.Generator,
                  device: str | torch.device = "cuda") -> Params:
-    """Random params in the stacked layout (unconditioned models).
+    """Random params in the stacked layout.
 
     ``generator`` is a CPU ``torch.Generator``: draws happen on the host
     and the result moves to ``device``, so one seed gives the same weights
-    on every device."""
-    if cfg.cond_channels or cfg.gcond_channels:
-        raise NotImplementedError("conditioned models are not ported yet")
+    on every device. The learnable upsampler starts as linear
+    interpolation (``ops.mel.linear_init_upsampler``)."""
     dev = resolve_device(device)
     L, k = cfg.num_layers, cfg.kernel_size
     R, D, S, E, C = (
@@ -70,7 +72,39 @@ def init_wavenet(cfg: WaveNetConfig, generator: torch.Generator,
         params["layers"]["b_in"] = _conv_init(g, (L, 2 * D), R * k, dev)
         params["layers"]["b_res"] = _conv_init(g, (L, R), D, dev)
         params["layers"]["b_skip"] = _conv_init(g, (L, S), D, dev)
+    M, G = cfg.cond_channels, cfg.gcond_channels
+    if M:
+        params["layers"]["w_cond"] = _conv_init(g, (L, M, 2 * D), M, dev)
+    if G:
+        params["layers"]["w_gcond"] = _conv_init(g, (L, G, 2 * D), G, dev)
+    if M and cfg.cond_upsample:
+        from ..ops.mel import linear_init_upsampler
+
+        params["cond_up"] = {
+            k: torch.from_numpy(v).to(dev)
+            for k, v in linear_init_upsampler(cfg.cond_upsample, M).items()}
     return params
+
+
+def upsample_cond(params: Params, cfg: WaveNetConfig, frames: torch.Tensor,
+                  hop_length: int, length: int) -> torch.Tensor:
+    """Frame-rate conditioning ``(..., F, M)`` -> sample-rate ``(...,
+    length, M)``: through the learnable upsampler when the config has one
+    (its factors must multiply to ``hop_length``, so frame i lands on
+    sample ``i * hop``), else by linear interpolation."""
+    from ..ops import mel
+
+    if cfg.cond_upsample and "cond_up" in params:
+        total = 1
+        for r in cfg.cond_upsample:
+            total *= r
+        if total != hop_length:
+            raise ValueError(
+                f"cond_upsample factors {cfg.cond_upsample} multiply to "
+                f"{total} but the conditioning hop is {hop_length}")
+        return mel.upsample_frames_conv(params["cond_up"], frames,
+                                        cfg.cond_upsample, length)
+    return mel.upsample_frames(frames, hop_length, length)
 
 
 def _leaves(tree):
@@ -119,7 +153,7 @@ def embed_inputs(params: Params, cfg: WaveNetConfig, x: torch.Tensor) -> torch.T
     ``(N, T, C)`` inputs go through a matmul."""
     w = params["start"]["w"]
     if x.dtype.is_floating_point:
-        h = x.to(cfg.compute_dtype) @ w.to(cfg.compute_dtype)
+        h = _mm(x, w, cfg.compute_dtype)
     else:
         h = _EmbedRows.apply(w, x.long())
     if "b" in params["start"]:
@@ -128,20 +162,47 @@ def embed_inputs(params: Params, cfg: WaveNetConfig, x: torch.Tensor) -> torch.T
 
 
 def _mm(a: torch.Tensor, w: torch.Tensor, dtype) -> torch.Tensor:
-    return (a.to(dtype) @ w.to(dtype)).to(torch.float32)
+    """``a @ w`` with both inputs rounded to ``dtype`` and the product kept
+    in f32, as the JAX package's ``preferred_element_type=float32``
+    (products of bf16 values are exact in f32)."""
+    f32 = torch.float32
+    return a.to(dtype).to(f32) @ w.to(dtype).to(f32)
+
+
+def check_cond(cfg: WaveNetConfig, lead: tuple, cond, global_cond) -> None:
+    """Raise unless ``cond`` is ``(*lead, cond_channels)`` and
+    ``global_cond`` ``(lead[0], gcond_channels)`` (either may be None)."""
+    if cond is not None:
+        if cfg.cond_channels == 0:
+            raise ValueError("cond given but cfg.cond_channels == 0")
+        want = tuple(lead) + (cfg.cond_channels,)
+        if tuple(cond.shape) != want:
+            raise ValueError(f"cond shape {tuple(cond.shape)} must be "
+                             f"{want} (..., cond_channels)")
+    if global_cond is not None:
+        if cfg.gcond_channels == 0:
+            raise ValueError("global_cond given but cfg.gcond_channels == 0")
+        want = (lead[0], cfg.gcond_channels)
+        if tuple(global_cond.shape) != want:
+            raise ValueError(f"global_cond shape {tuple(global_cond.shape)} "
+                             f"must be {want} (streams, gcond_channels)")
 
 
 def wavenet_logits(params: Params, cfg: WaveNetConfig, x: torch.Tensor,
-                   out_len: int | None = None) -> torch.Tensor:
+                   out_len: int | None = None, cond: torch.Tensor | None = None,
+                   global_cond: torch.Tensor | None = None) -> torch.Tensor:
     """Teacher-forced trunk; logits ``(N, out_len, classes)``.
 
     ``x``: int ``(N, T)`` classes or float one-hot ``(N, T, classes)`` with
-    ``T >= receptive_field + out_len - 1``. The skip projections run per
-    layer below ``out_len`` 128 and as one ``K = L*D`` matmul after the
-    layer walk at 128 and above (``cfg.fuse_skip`` overrides). With
-    ``cfg.trunk_kernel`` the trunk is the fused one (:func:`_logits_fused`);
-    it takes unconditioned models with ``kernel_size >= 2`` and an f32
-    stream, and raises on the rest."""
+    ``T >= receptive_field + out_len - 1``. ``cond``: local conditioning
+    ``(N, T, cond_channels)`` aligned with ``x``; ``global_cond``: ``(N,
+    gcond_channels)``, the same for every position. Each enters every
+    layer's gate input through its own product (``w_cond``, ``w_gcond``).
+    The skip projections run per layer below ``out_len`` 128 and as one
+    ``K = L*D`` matmul after the layer walk at 128 and above
+    (``cfg.fuse_skip`` overrides). With ``cfg.trunk_kernel`` the trunk is
+    the fused one (:func:`_logits_fused`); it takes unconditioned models
+    with ``kernel_size >= 2`` and an f32 stream, and raises on the rest."""
     if out_len is None:
         out_len = cfg.output_length
     if x.shape[1] < out_len:
@@ -150,9 +211,15 @@ def wavenet_logits(params: Params, cfg: WaveNetConfig, x: torch.Tensor,
             f"windows need item_length = receptive_field + output_length - 1 "
             f"= {cfg.item_length}"
         )
+    check_cond(cfg, tuple(x.shape[:2]), cond, global_cond)
     k = cfg.kernel_size
     cdt = cfg.compute_dtype
     if cfg.trunk_kernel:
+        if cond is not None or global_cond is not None:
+            raise ValueError(
+                "cfg.trunk_kernel takes unconditioned models: conditioning "
+                "in the training trunk (K2/K3) is the next slice of the "
+                "port; use cfg.trunk_kernel=False for conditioned models")
         return _logits_fused(params, cfg, x, out_len)
     h = embed_inputs(params, cfg, x).to(cfg.stream_dtype)
     N, T, _ = h.shape
@@ -168,6 +235,10 @@ def wavenet_logits(params: Params, cfg: WaveNetConfig, x: torch.Tensor,
             shift = (k - 1 - j) * d
             tap = F.pad(h, (0, 0, shift, 0))[:, :T, :]
             z = z + _mm(tap, lp["w_in"][l, j], cdt)
+        if cond is not None:
+            z = z + _mm(cond, lp["w_cond"][l], cdt)
+        if global_cond is not None:
+            z = z + _mm(global_cond, lp["w_gcond"][l], cdt)[:, None, :]
         if "b_in" in lp:
             z = z + lp["b_in"][l]
         f, g = z.chunk(2, dim=-1)

@@ -15,6 +15,12 @@ step, on any device. The wrapper :func:`generate_fast_fused` runs the
 plain version only for tensors on the CPU; for CUDA tensors it launches
 the kernel or raises. ``launches`` counts kernel launches.
 
+Conditioning (the vocoder) follows the TPU kernel: local conditioning
+``cond`` ``(S, total, M)`` and global ``global_cond`` ``(S, G)`` are
+projected to per-layer gate inputs outside the kernel, in one full-f32
+product over the call's steps (:func:`project_cond`), and the kernel adds
+them beside the tap products.
+
 Sampling at temperature > 0 adds counter-hash Gumbel noise (the int32 hash
 of the JAX package's HBM kernel, keyed by class, stream, absolute step and
 seed), so the kernel and the plain version draw the same noise, and a
@@ -25,6 +31,7 @@ temperature > 0 rollouts differ from the JAX package's.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 from typing import NamedTuple
 
@@ -213,11 +220,12 @@ def _col_block(n: int, cluster: int) -> int:
 
 
 def shared_bytes_for(cfg: WaveNetConfig, tile: int, cluster: int,
-                     fuse_res: bool) -> tuple[int, bool]:
+                     fuse_res: bool, cond_rows: int = 0) -> tuple[int, bool]:
     """Dynamic shared memory of one block of the cluster core at ``tile``
     lanes and ``cluster`` blocks, and whether the chain weights are
     resident in it (``csrc/gen_cluster.cuh``, ``shared_bytes``): the
-    taps (then h) of the rank's layers, their products for its columns, two
+    taps (then h) of the rank's layers, ``cond_rows`` rows of the step's
+    conditioning (:func:`cond_rows`), their products for its columns, two
     h rows, the slab of u (reused for the skip row and y1), a column
     scratch, the head's partial sums (in the tap products' rows when they
     are large enough), the argmax table and the next classes, then the
@@ -229,7 +237,8 @@ def shared_bytes_for(cfg: WaveNetConfig, tile: int, cluster: int,
     srows = max(_col_block(S, cluster), _col_block(E, cluster),
                 _col_block(C, cluster))
     tz_rows = L * 2 * d["ndm"]
-    nonblob = (d["nlt"] * d["TS"] * tile + tz_rows * tile + 2 * R * tile
+    nonblob = (d["nlt"] * d["TS"] * tile + cond_rows * tile
+               + tz_rows * tile + 2 * R * tile
                + max(L * D, S, E) * tile
                + srows * tile
                + (0 if PART_ROWS <= tz_rows else PART_ROWS * tile)
@@ -237,6 +246,57 @@ def shared_bytes_for(cfg: WaveNetConfig, tile: int, cluster: int,
     layers = L * d["PL"]
     resident = (nonblob + layers) * 4 <= SMEM_LIMIT
     return (nonblob + (layers if resident else 0)) * 4, resident
+
+
+def cond_rows(cfg: WaveNetConfig, cluster: int, fuse_res: bool) -> int:
+    """Rows of K1's conditioning slab: the projected rows (2D each) of a
+    rank's ``nlt`` layers."""
+    return (chain_dims(cfg, cluster, fuse_res and cfg.num_layers > 1)["nlt"]
+            * 2 * cfg.dilation_channels)
+
+
+@contextlib.contextmanager
+def full_f32():
+    """CUDA f32 products in full f32 inside the block (TF32 off), as the
+    JAX package's f32 einsums; the previous setting is restored."""
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
+
+
+def project_cond(params: Params, cfg: WaveNetConfig, cond, global_cond,
+                 streams: int, total: int):
+    """The kernel's conditioning operands, as the TPU kernel projects them
+    outside its loop, in full f32: ``cond`` ``(streams, total, M)`` ->
+    ``(total, L, streams, 2D)`` (step t, layer l, stream s: ``cond[s, t]
+    @ w_cond[l]``) and ``global_cond`` ``(streams, G)`` -> ``(L, streams,
+    2D)``; None stays None. Raises on shapes other than those. The cond
+    rows take ``total * L * streams * 2D * 4`` bytes: 31.5 MB per
+    2048-step chunk of one stream at the vocoder preset (30 layers, D =
+    64), 246 MB for a one-shot 16000-sample clip."""
+    from ...models.wavenet import check_cond
+
+    lp = params["layers"]
+    dev = lp["w_in"].device
+
+    def conv(x):
+        return None if x is None else torch.as_tensor(x).to(
+            device=dev, dtype=torch.float32)
+
+    cond, global_cond = conv(cond), conv(global_cond)
+    check_cond(cfg, (streams, total), cond, global_cond)
+    with full_f32():
+        if cond is not None:
+            cond = torch.einsum("stm,lmd->tlsd", cond,
+                                lp["w_cond"].to(torch.float32)).contiguous()
+        if global_cond is not None:
+            global_cond = torch.einsum(
+                "sg,lgd->lsd", global_cond,
+                lp["w_gcond"].to(torch.float32)).contiguous()
+    return cond, global_cond
 
 
 # ------------------------------------------------------- counter-hash noise
@@ -298,12 +358,16 @@ def hash_gumbel(ta: int, seed: int, streams: int, classes: int,
 def fused_plain(w: dict, cfg: WaveNetConfig, prime: torch.Tensor,
                 rings: torch.Tensor, t0: int, total: int, temperature: float,
                 regularize: float, seed: int, fuse_res: bool,
-                return_gaps: bool = False):
+                return_gaps: bool = False, cond: torch.Tensor | None = None,
+                gcond: torch.Tensor | None = None):
     """The kernel's function in PyTorch ops: ``total`` steps for every
     stream of ``prime`` (int32 ``(streams, num_given)``), updating the flat
-    ``rings`` in place. Returns the sampled classes ``(streams, total)``
-    int32, and with ``return_gaps`` also the per-step gap between the two
-    best sampling scores ``(streams, total)`` (what decides whether a
+    ``rings`` in place. ``cond`` ``(total, L, streams, 2D)`` and ``gcond``
+    ``(L, streams, 2D)``: the projected conditioning of
+    :func:`project_cond`, added to each layer's gate input after the taps.
+    Returns the sampled classes ``(streams, total)`` int32, and with
+    ``return_gaps`` also the per-step gap between the two best sampling
+    scores ``(streams, total)`` (what decides whether a
     differently-rounded version may pick another class)."""
     L, k = cfg.num_layers, cfg.kernel_size
     D, S, C = cfg.dilation_channels, cfg.skip_channels, cfg.classes
@@ -336,6 +400,10 @@ def fused_plain(w: dict, cfg: WaveNetConfig, prime: torch.Tensor,
         def extras(l, z):
             for j in range(k - 1):
                 z = z + tap_dots[l][j]
+            if cond is not None:
+                z = z + cond[t, l]
+            if gcond is not None:
+                z = z + gcond[l]
             return z
 
         if not fuse_res:
@@ -389,11 +457,11 @@ def _bind():
     lib = load("gen_kernel")
     fn = lib.wavenet_gen_fused
     if fn.argtypes is None:
-        fn.argtypes = ([_PTR] * 13 + [_INT] * 12
+        fn.argtypes = ([_PTR] * 11 + [_INT] + [_PTR] * 4 + [_INT] * 12
                        + [ctypes.c_float, ctypes.c_float, _INT, _INT, _INT,
                           _PTR, _PTR])
         fn.restype = _INT
-        lib.wavenet_gen_fused_smem.argtypes = [_INT] * 9 + [_PTR]
+        lib.wavenet_gen_fused_smem.argtypes = [_INT] * 10 + [_PTR]
         lib.wavenet_gen_fused_smem.restype = _INT
     return lib
 
@@ -409,11 +477,11 @@ def check_layout(lib, smem_fn, args: tuple, expect: tuple[int, bool]):
 
 
 def cluster_fits(cfg: WaveNetConfig, tile: int, cluster: int,
-                 fuse_res: bool) -> int:
+                 fuse_res: bool, cond_rows: int = 0) -> int:
     """The shared bytes of one block; raises ``ValueError`` (naming the
     limit) for a config whose buffers do not fit a block even with the
     chain weights read from L2."""
-    nbytes, _ = shared_bytes_for(cfg, tile, cluster, fuse_res)
+    nbytes, _ = shared_bytes_for(cfg, tile, cluster, fuse_res, cond_rows)
     if nbytes > SMEM_LIMIT:
         raise ValueError(f"{nbytes} bytes of shared memory per block at "
                          f"{tile} lanes and a cluster of {cluster}: over "
@@ -421,9 +489,12 @@ def cluster_fits(cfg: WaveNetConfig, tile: int, cluster: int,
     return nbytes
 
 
-def shared_bytes(cfg: WaveNetConfig, fuse_res: bool) -> int:
-    """Dynamic shared memory of one block of the kernel's cluster."""
-    return shared_bytes_for(cfg, MAX_STREAMS, CLUSTER, fuse_res)[0]
+def shared_bytes(cfg: WaveNetConfig, fuse_res: bool,
+                 cond: bool = False) -> int:
+    """Dynamic shared memory of one block of the kernel's cluster, with a
+    conditioning slab under ``cond``."""
+    rows = cond_rows(cfg, CLUSTER, fuse_res) if cond else 0
+    return shared_bytes_for(cfg, MAX_STREAMS, CLUSTER, fuse_res, rows)[0]
 
 
 def operand_shapes(cfg: WaveNetConfig, fuse_res: bool) -> dict:
@@ -444,7 +515,7 @@ def operand_shapes(cfg: WaveNetConfig, fuse_res: bool) -> dict:
 
 
 def _launch_fused(w, cfg, prime, rings, t0, total, temperature, regularize,
-                  seed, fuse_res, max_clusters=None):
+                  seed, fuse_res, max_clusters=None, cond=None, gcond=None):
     dev = prime.device
     streams, num_given = prime.shape
     per, R = periods(cfg), cfg.residual_channels
@@ -459,14 +530,18 @@ def _launch_fused(w, cfg, prime, rings, t0, total, temperature, regularize,
     fuse = fuse_res and cfg.num_layers > 1
     dims = (cfg.num_layers, cfg.kernel_size, R, cfg.dilation_channels,
             cfg.skip_channels, cfg.end_channels, cfg.classes)
-    check_layout(lib, "wavenet_gen_fused_smem", (CLUSTER, *dims, int(fuse)),
-                 shared_bytes_for(cfg, MAX_STREAMS, CLUSTER, fuse))
+    rows = 0 if cond is None else cond_rows(cfg, CLUSTER, fuse)
+    check_layout(lib, "wavenet_gen_fused_smem",
+                 (CLUSTER, *dims, int(fuse), rows),
+                 shared_bytes_for(cfg, MAX_STREAMS, CLUSTER, fuse, rows))
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.wavenet_gen_fused(
         w["w_start"].data_ptr(), w["b_start"].data_ptr(),
         w["chain"].data_ptr(), w["w_out"].data_ptr(), w["b_out"].data_ptr(),
         w["w_end1"].data_ptr(), w["b_end1"].data_ptr(),
         w["w_end2"].data_ptr(), w["b_end2"].data_ptr(),
+        None if cond is None else cond.data_ptr(),
+        None if gcond is None else gcond.data_ptr(), rows,
         prime.data_ptr(), meta.data_ptr(), rings.data_ptr(), out.data_ptr(),
         streams, num_given, total, t0, *dims, w["chain"].shape[1],
         float(temperature), float(regularize), int(seed), int(fuse),
@@ -493,7 +568,9 @@ def max_active_clusters(cfg: WaveNetConfig, fuse_res: bool) -> int:
 
 def fused_cuda(w: dict, cfg: WaveNetConfig, prime: torch.Tensor,
                rings: torch.Tensor, t0: int, total: int, temperature: float,
-               regularize: float, seed: int, fuse_res: bool) -> torch.Tensor:
+               regularize: float, seed: int, fuse_res: bool,
+               cond: torch.Tensor | None = None,
+               gcond: torch.Tensor | None = None) -> torch.Tensor:
     """Launch the kernel on the current stream with the same contract as
     :func:`fused_plain` (no gaps), on one cluster of :data:`CLUSTER`
     blocks. Raises on operands that do not match ``cfg`` (the kernel
@@ -511,8 +588,16 @@ def fused_cuda(w: dict, cfg: WaveNetConfig, prime: torch.Tensor,
                          f"the kernel needs at least one of each")
     if t0 < 0 or t0 + total >= 2**31:
         raise ValueError("absolute steps must lie in [0, 2**31)")
-    cluster_fits(cfg, MAX_STREAMS, CLUSTER, fuse_res)
+    rows = 0 if cond is None else cond_rows(cfg, CLUSTER, fuse_res)
+    cluster_fits(cfg, MAX_STREAMS, CLUSTER, fuse_res, rows)
     shapes = operand_shapes(cfg, fuse_res)
+    L, D = cfg.num_layers, cfg.dilation_channels
+    extra = {"cond": (cond, (total, L, streams, 2 * D)),
+             "gcond": (gcond, (L, streams, 2 * D))}
+    for name, (x, shape) in extra.items():
+        if x is not None and tuple(x.shape) != shape:
+            raise ValueError(f"{name} must have shape {shape}, not "
+                             f"{tuple(x.shape)}")
     for name, shape in shapes.items():
         x = w.get(name)
         if x is None or tuple(x.shape) != shape:
@@ -525,17 +610,17 @@ def fused_cuda(w: dict, cfg: WaveNetConfig, prime: torch.Tensor,
     dev = prime.device
     if dev.type != "cuda":
         raise ValueError(f"the kernel runs on CUDA tensors, not {dev}")
-    for name in shapes:
-        x = w[name]
+    for name, x in [(n, w[n]) for n in shapes] + [
+            (n, x) for n, (x, _) in extra.items() if x is not None]:
         if x.device != dev or x.dtype != torch.float32 or not x.is_contiguous():
-            raise ValueError(f"weight {name} must be contiguous f32 on {dev}")
+            raise ValueError(f"operand {name} must be contiguous f32 on {dev}")
     if (rings.device != dev or rings.dtype != torch.float32
             or not rings.is_contiguous()):
         raise ValueError(f"rings must be contiguous f32 on {dev}")
     if prime.dtype != torch.int32 or not prime.is_contiguous():
         raise ValueError("prime must be contiguous int32")
     out = _launch_fused(w, cfg, prime, rings, t0, total, temperature,
-                        regularize, seed, fuse_res)
+                        regularize, seed, fuse_res, cond=cond, gcond=gcond)
     launches += 1
     return out
 
@@ -559,10 +644,15 @@ def generate_fast_fused(params: Params, cfg: WaveNetConfig,
                         regularize: float = 0.0,
                         state: FusedGenState | None = None,
                         return_state: bool = False, fuse_res: bool = False,
-                        device: str | torch.device = "cuda"):
+                        device: str | torch.device = "cuda",
+                        cond=None, global_cond=None):
     """Fused generation for up to 8 streams, the same contract as
     ``models.generate.generate_fast``: ``first_samples`` int ``(S,
-    num_given)`` (or ``(num_given,)``, default one mid-class sample).
+    num_given)`` (or ``(num_given,)``, default one mid-class sample);
+    ``cond`` ``(S, num_given - 1 + num_samples, M)`` (row t conditions the
+    step that consumes input sample t; a resumed call takes its own
+    ``num_samples`` rows) and ``global_cond`` ``(S, G)``, projected by
+    :func:`project_cond` (whose docstring gives the bytes).
     Returns ``(waveform (S, num_samples) f32, classes (S, num_samples)
     int32)``, plus a :class:`FusedGenState` with ``return_state``; passing
     that state back (``first_samples=None``) continues the rollout.
@@ -613,11 +703,13 @@ def generate_fast_fused(params: Params, cfg: WaveNetConfig,
     else:
         rings = torch.zeros(sum(per) * streams * R, dtype=torch.float32,
                             device=dev)
+    cproj, gproj = project_cond(params, cfg, cond, global_cond, streams,
+                                total)
     w = prepare_weights(params, cfg, fuse_res)
     seed = _seed_from(generator_or_seed)
     run = fused_plain if dev.type == "cpu" else fused_cuda
     all_cls = run(w, cfg, prime, rings, t0, total, temperature, regularize,
-                  seed, fuse_res)
+                  seed, fuse_res, cond=cproj, gcond=gproj)
 
     cls = all_cls[:, num_given - 1:total]
     wav = classes_to_waveform(cls, C)

@@ -36,7 +36,13 @@ Differences from the JAX package: a scalar temperature > 0 without
 from the TPU's own PRNG there, which has no counter-part), so such
 rollouts differ from the JAX package's; any stream count >= 1 runs as it
 is (the TPU kernel pads to 128 lanes); rings are f32 (bf16 and int8 rings
-are not ported yet); no conditioning inputs.
+are not ported yet).
+
+Conditioning, as in the TPU kernel: local conditioning ``cond`` ``(S,
+total, M)`` enters the kernel as raw rows ``(total, M, S)`` and each layer
+adds ``cond_t @ w_cond[l]`` inside the loop (projecting outside would
+write ``total * L * S * 2D`` floats); global conditioning ``(S, G)`` is
+projected outside to an ``(L, 2D, S)`` table (:func:`project_gcond`).
 
 :func:`batched_plain` computes the function with PyTorch ops, one step at
 a time, on any device. :func:`run_batched` runs it only for tensors on the
@@ -58,7 +64,7 @@ from ...device import resolve_device
 from ...models.generate import classes_to_waveform
 from ...models.wavenet import Params, params_to
 from . import gen_kernel as k1
-from .gen_kernel import _seed_from, counter_uniform, periods
+from .gen_kernel import _seed_from, counter_uniform, full_f32, periods
 
 # kernel launches since the count was last set to 0 (the plain version
 # does not count)
@@ -103,9 +109,14 @@ def prepare_weights(params: Params, cfg: WaveNetConfig, fuse_res: bool,
     period and first ring slot, on the device once rather than per launch
     (a host-to-device copy from pageable memory waits for the stream).
     ``chain`` packs the layer chain's weights per rank of the
-    :data:`CLUSTER`-block cluster (``gen_kernel.pack_chain``)."""
+    :data:`CLUSTER`-block cluster (``gen_kernel.pack_chain``). A
+    conditioned model adds ``w_cond`` ``(L, M, 2D)``, which the kernel
+    reads from L2 (and ``w_gcond``, for :func:`project_gcond`)."""
     fuse_res = fuse_res and cfg.num_layers > 1
     w = k1.base_weights(params, cfg, fuse_res)
+    for name in ("w_cond", "w_gcond"):
+        if name in params["layers"]:
+            w[name] = params["layers"][name].to(torch.float32).contiguous()
     w["meta"] = torch.tensor(
         [[d, P, o] for d, P, o in zip(cfg.dilations, periods(cfg),
                                       ring_offsets(cfg))],
@@ -144,6 +155,22 @@ def operand_shapes(cfg: WaveNetConfig, fuse_res: bool,
     return shapes
 
 
+def project_gcond(w: dict, cfg: WaveNetConfig, global_cond,
+                  streams: int) -> torch.Tensor | None:
+    """Global conditioning ``(streams, G)`` -> the kernel's ``(L, 2D,
+    streams)`` table (``global_cond[s] @ w_gcond[l]``, full f32); None
+    stays None."""
+    if global_cond is None:
+        return None
+    from ...models.wavenet import check_cond
+
+    g = torch.as_tensor(global_cond).to(device=w["w_tap"].device,
+                                        dtype=torch.float32)
+    check_cond(cfg, (streams,), None, g)
+    with full_f32():
+        return torch.einsum("sg,lgd->lds", g, w["w_gcond"]).contiguous()
+
+
 # ------------------------------------------------------------ plain version
 
 
@@ -153,12 +180,17 @@ def batched_plain(w: dict, cfg: WaveNetConfig, prime: torch.Tensor,
                   temps: torch.Tensor, seeds: torch.Tensor,
                   toffs: torch.Tensor, seed: int, regularize: float,
                   fuse_res: bool, skip_slab: bool, lane_seed: bool,
-                  return_gaps: bool = False):
+                  return_gaps: bool = False,
+                  cond: torch.Tensor | None = None,
+                  gcond: torch.Tensor | None = None):
     """The kernel's function in PyTorch ops: ``total`` steps from absolute
     step ``t0`` for every lane of ``prime`` (int32 ``(streams,
     num_given)``), updating ``ring`` ``(sum P * R, streams)`` in place.
     ``temps`` ``(streams,)`` f32, ``seeds``/``toffs`` ``(streams,)`` int32
-    (read under ``lane_seed``), ``seed`` the one seed otherwise. Returns
+    (read under ``lane_seed``), ``seed`` the one seed otherwise. ``cond``
+    ``(total, M, streams)`` rows (step t's at ``cond[t]``, times
+    ``w["w_cond"][l]`` in each layer) and ``gcond`` ``(L, 2D, streams)``
+    (:func:`project_gcond`) add to the gate inputs after the taps. Returns
     the sampled classes ``(streams, total)`` int32 and, with
     ``return_gaps``, the per-step gap between the two best sampling scores
     ``(streams, total)`` (what decides whether a differently-rounded
@@ -197,6 +229,10 @@ def batched_plain(w: dict, cfg: WaveNetConfig, prime: torch.Tensor,
                 m = (k - 1 - j) * d
                 if ta >= m:
                     z = z + slots[first[l] + (ta - m) % P].T @ w["w_tap"][l, j]
+            if cond is not None:
+                z = z + cond[t].T @ w["w_cond"][l]
+            if gcond is not None:
+                z = z + gcond[l].T
             return z
 
         def write(l, h):
@@ -266,36 +302,40 @@ def _bind():
     lib = load("gen_kernel_hbm")
     fn = lib.wavenet_gen_batched
     if fn.argtypes is None:
-        fn.argtypes = ([_PTR] * 16 + [_INT] * 12
+        fn.argtypes = ([_PTR] * 12 + [_INT] + [_PTR] * 7 + [_INT] * 12
                        + [ctypes.c_float] + [_INT] * 6 + [_PTR] * 3)
         fn.restype = _INT
-        lib.wavenet_gen_batched_smem.argtypes = [_INT] * 10 + [_PTR]
+        lib.wavenet_gen_batched_smem.argtypes = [_INT] * 11 + [_PTR]
         lib.wavenet_gen_batched_smem.restype = _INT
     return lib
 
 
-def shared_bytes(cfg: WaveNetConfig, tile: int, fuse_res: bool) -> int:
+def shared_bytes(cfg: WaveNetConfig, tile: int, fuse_res: bool,
+                 cond: bool = False) -> int:
     """Dynamic shared memory of one block of the kernel at ``tile`` lanes
     per cluster (the chain's weights included when they fit;
-    ``gen_kernel.shared_bytes_for``)."""
-    return k1.shared_bytes_for(cfg, tile, CLUSTER, fuse_res)[0]
+    ``gen_kernel.shared_bytes_for``), with the conditioning slab (M rows)
+    under ``cond``."""
+    rows = cfg.cond_channels if cond else 0
+    return k1.shared_bytes_for(cfg, tile, CLUSTER, fuse_res, rows)[0]
 
 
 def default_tile(streams: int, cfg: WaveNetConfig, fuse_res: bool,
-                 active) -> int:
+                 active, cond_rows: int = 0) -> int:
     """Lanes per cluster: the narrowest compiled width whose clusters all
     run at once (``active(tile)``: how many clusters of that width the card
     runs at once, :func:`max_active_clusters` on the card) with the chain's
     weights resident, else the widest with them resident, else the widest
-    that fits (PERF.md section 5: the width sweep)."""
-    fits = [t for t in TILES
-            if k1.shared_bytes_for(cfg, t, CLUSTER, fuse_res)[0]
-            <= k1.SMEM_LIMIT]
+    that fits (PERF.md section 5: the width sweep). ``cond_rows``: the
+    conditioning slab's rows (M with local conditioning, else 0)."""
+    def smem(t):
+        return k1.shared_bytes_for(cfg, t, CLUSTER, fuse_res, cond_rows)
+
+    fits = [t for t in TILES if smem(t)[0] <= k1.SMEM_LIMIT]
     if not fits:
         raise ValueError(f"no tile width of {TILES} fits a block's "
                          f"{k1.SMEM_LIMIT} bytes of shared memory")
-    resident = [t for t in fits
-                if k1.shared_bytes_for(cfg, t, CLUSTER, fuse_res)[1]]
+    resident = [t for t in fits if smem(t)[1]]
     for t in resident:
         if -(-streams // t) <= active(t):
             return t
@@ -304,7 +344,8 @@ def default_tile(streams: int, cfg: WaveNetConfig, fuse_res: bool,
 
 def _launch(w, cfg, prime, ring, t0, total, temps, seeds, toffs, seed,
             regularize, fuse_res, skip_slab, lane_seed, tile,
-            max_clusters=None, timers=None):
+            max_clusters=None, timers=None, cond=None, gcond=None,
+            cond_rows=None):
     dev = prime.device
     streams, num_given = prime.shape
     out = torch.empty((streams, total), dtype=torch.int32, device=dev)
@@ -312,9 +353,12 @@ def _launch(w, cfg, prime, ring, t0, total, temps, seeds, toffs, seed,
     dims = (cfg.num_layers, cfg.kernel_size, cfg.residual_channels,
             cfg.dilation_channels, cfg.skip_channels, cfg.end_channels,
             cfg.classes)
+    rows = cond_rows
+    if rows is None:  # the slab's rows: M with local conditioning
+        rows = 0 if cond is None else cfg.cond_channels
     k1.check_layout(lib, "wavenet_gen_batched_smem",
-                    (tile, CLUSTER, *dims, int(fuse_res)),
-                    k1.shared_bytes_for(cfg, tile, CLUSTER, fuse_res))
+                    (tile, CLUSTER, *dims, int(fuse_res), rows),
+                    k1.shared_bytes_for(cfg, tile, CLUSTER, fuse_res, rows))
     skip_w, skip_b = (("w_skip", "b_skip") if skip_slab
                       else ("w_out", "b_out"))
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -323,6 +367,9 @@ def _launch(w, cfg, prime, ring, t0, total, temps, seeds, toffs, seed,
         w["chain"].data_ptr(), w[skip_w].data_ptr(), w[skip_b].data_ptr(),
         w["w_end1"].data_ptr(), w["b_end1"].data_ptr(),
         w["w_end2"].data_ptr(), w["b_end2"].data_ptr(),
+        None if cond is None else cond.data_ptr(),
+        None if cond is None else w["w_cond"].data_ptr(),
+        None if gcond is None else gcond.data_ptr(), rows,
         temps.data_ptr(), seeds.data_ptr(), toffs.data_ptr(),
         prime.data_ptr(), w["meta"].data_ptr(), ring.data_ptr(),
         out.data_ptr(), streams, num_given, total, t0, *dims,
@@ -337,11 +384,12 @@ def _launch(w, cfg, prime, ring, t0, total, temps, seeds, toffs, seed,
 
 @functools.lru_cache(maxsize=None)
 def max_active_clusters(cfg: WaveNetConfig, tile: int, fuse_res: bool,
-                        skip_slab: bool) -> int:
+                        skip_slab: bool, cond_rows: int = 0) -> int:
     """``cudaOccupancyMaxActiveClusters`` of the kernel at ``tile`` lanes
-    per cluster on the current card (nothing is launched; cached)."""
+    per cluster (with a conditioning slab of ``cond_rows`` rows) on the
+    current card (nothing is launched; cached)."""
     fuse_res = fuse_res and cfg.num_layers > 1
-    k1.cluster_fits(cfg, tile, CLUSTER, fuse_res)
+    k1.cluster_fits(cfg, tile, CLUSTER, fuse_res, cond_rows)
     dev = torch.device("cuda")
     x = torch.empty((CLUSTER, 1), device=dev)
     i = torch.zeros((1, 1), dtype=torch.int32, device=dev)
@@ -351,7 +399,7 @@ def max_active_clusters(cfg: WaveNetConfig, tile: int, fuse_res: bool,
     w["meta"] = i
     n = ctypes.c_int(0)
     _launch(w, cfg, i, x, 0, 1, x, i, i, 0, 0.0, fuse_res, skip_slab, False,
-            tile, max_clusters=n)
+            tile, max_clusters=n, cond_rows=cond_rows)
     return n.value
 
 
@@ -361,7 +409,9 @@ def batched_cuda(w: dict, cfg: WaveNetConfig, prime: torch.Tensor,
                  toffs: torch.Tensor, seed: int, regularize: float,
                  fuse_res: bool, skip_slab: bool, lane_seed: bool,
                  tile: int | None = None,
-                 timers: torch.Tensor | None = None) -> torch.Tensor:
+                 timers: torch.Tensor | None = None,
+                 cond: torch.Tensor | None = None,
+                 gcond: torch.Tensor | None = None) -> torch.Tensor:
     """Launch the kernel on the current stream with the contract of
     :func:`batched_plain` (no gaps). ``tile`` lanes per cluster, one of
     ``TILES``: callers leave it to :func:`default_tile`; the tests and
@@ -386,8 +436,22 @@ def batched_cuda(w: dict, cfg: WaveNetConfig, prime: torch.Tensor,
     if tile is not None and tile not in TILES:
         raise ValueError(f"tile {tile}: the kernel is compiled for {TILES} "
                          f"lanes per cluster")
-    k1.cluster_fits(cfg, tile or TILES[0], CLUSTER, fuse_res)
+    rows = 0 if cond is None else cfg.cond_channels
+    k1.cluster_fits(cfg, tile or TILES[0], CLUSTER, fuse_res, rows)
     shapes = operand_shapes(cfg, fuse_res, skip_slab)
+    L, D, M = cfg.num_layers, cfg.dilation_channels, cfg.cond_channels
+    extra = {}
+    if cond is not None:
+        if M == 0:
+            raise ValueError("cond given but cfg.cond_channels == 0")
+        shapes["w_cond"] = (L, M, 2 * D)
+        extra["cond"] = (cond, (total, M, streams))
+    if gcond is not None:
+        extra["gcond"] = (gcond, (L, 2 * D, streams))
+    for name, (x, shape) in extra.items():
+        if tuple(x.shape) != shape:
+            raise ValueError(f"{name} must have shape {shape}, not "
+                             f"{tuple(x.shape)}")
     for name, shape in shapes.items():
         x = w.get(name)
         if x is None or tuple(x.shape) != shape:
@@ -409,24 +473,28 @@ def batched_cuda(w: dict, cfg: WaveNetConfig, prime: torch.Tensor,
         dt = torch.int32 if name == "meta" else torch.float32
         if x.device != dev or x.dtype != dt or not x.is_contiguous():
             raise ValueError(f"weight {name} must be contiguous {dt} on {dev}")
-    for name, x in (("ring", ring), ("temps", temps), ("seeds", seeds),
-                    ("toffs", toffs)):
+    for name, x in [("ring", ring), ("temps", temps), ("seeds", seeds),
+                    ("toffs", toffs)] + [(n, x) for n, (x, _) in
+                                         extra.items()]:
         if x.device != dev or not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous on {dev}")
+    for name, (x, _) in extra.items():
+        if x.dtype != torch.float32:
+            raise ValueError(f"{name} must be f32")
     if ring.dtype != torch.float32:
         raise ValueError("ring must be f32")
     if prime.dtype != torch.int32 or not prime.is_contiguous():
         raise ValueError("prime must be contiguous int32")
     if tile is None:
         tile = default_tile(streams, cfg, fuse_res, lambda t: (
-            max_active_clusters(cfg, t, fuse_res, skip_slab)))
+            max_active_clusters(cfg, t, fuse_res, skip_slab, rows)), rows)
     if timers is not None and (tuple(timers.shape) != (len(PHASES),)
                                or timers.device != dev
                                or timers.dtype != torch.int64):
         raise ValueError(f"timers must be ({len(PHASES)},) int64 on {dev}")
     out = _launch(w, cfg, prime, ring, t0, total, temps, seeds, toffs, seed,
                   regularize, fuse_res, skip_slab, lane_seed, tile,
-                  timers=timers)
+                  timers=timers, cond=cond, gcond=gcond)
     launches += 1
     return out
 
@@ -435,12 +503,14 @@ def run_batched(w: dict, cfg: WaveNetConfig, prime: torch.Tensor,
                 ring: torch.Tensor, t0: int, total: int, temps: torch.Tensor,
                 seeds: torch.Tensor, toffs: torch.Tensor, seed: int,
                 regularize: float, fuse_res: bool, skip_slab: bool,
-                lane_seed: bool) -> torch.Tensor:
+                lane_seed: bool, cond: torch.Tensor | None = None,
+                gcond: torch.Tensor | None = None) -> torch.Tensor:
     """The plain version for tensors on the CPU, the kernel for CUDA
     tensors (which raises rather than fall back)."""
     run = batched_plain if prime.device.type == "cpu" else batched_cuda
     return run(w, cfg, prime, ring, t0, total, temps, seeds, toffs, seed,
-               regularize, fuse_res, skip_slab, lane_seed)
+               regularize, fuse_res, skip_slab, lane_seed, cond=cond,
+               gcond=gcond)
 
 
 # ----------------------------------------------------------------- wrapper
@@ -474,9 +544,14 @@ def generate_fast_batched(params: Params, cfg: WaveNetConfig,
                           return_state: bool = False, fuse_res: bool = False,
                           skip_slab: bool = False, lane_seed=None,
                           lane_clock=None,
-                          device: str | torch.device = "cuda"):
+                          device: str | torch.device = "cuda",
+                          cond=None, global_cond=None):
     """Batched generation for any number of streams, the contract of the
-    JAX package's ``generate_fast_batched`` (f32 rings, unconditioned).
+    JAX package's ``generate_fast_batched`` (f32 rings).
+
+    ``cond`` ``(streams, num_given - 1 + num_samples, M)``: row t
+    conditions the step that consumes input sample t (a resumed call takes
+    its own ``num_samples`` rows); ``global_cond`` ``(streams, G)``.
 
     ``first_samples`` int ``(streams, num_given)`` (or ``(num_given,)``,
     default one mid-class sample). Returns ``(waveform (streams,
@@ -550,9 +625,17 @@ def generate_fast_batched(params: Params, cfg: WaveNetConfig,
         seeds = toffs = torch.zeros((streams,), dtype=torch.int32,
                                     device=dev)
     w = prepare_weights(params, cfg, fuse_res, skip_slab)
+    if cond is not None:
+        from ...models.wavenet import check_cond
+
+        cond = torch.as_tensor(cond).to(device=dev, dtype=torch.float32)
+        check_cond(cfg, (streams, total), cond, None)
+        cond = cond.permute(1, 2, 0).contiguous()  # (total, M, streams)
+    gcond = project_gcond(w, cfg, global_cond, streams)
     all_cls = run_batched(w, cfg, prime, ring, t0, total, temps, seeds,
                           toffs, _seed_from(generator_or_seed), regularize,
-                          fuse_res, skip_slab, lane_seed is not None)
+                          fuse_res, skip_slab, lane_seed is not None,
+                          cond=cond, gcond=gcond)
 
     cls = all_cls[:, num_given - 1:total]
     wav = classes_to_waveform(cls, C)

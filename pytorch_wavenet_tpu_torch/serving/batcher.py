@@ -1,7 +1,7 @@
 """Continuous batching for autoregressive generation.
 
-The counterpart of the JAX package's ``serving/batcher.py`` for
-unconditioned models. ONE persistent multi-stream rollout stays alive on
+The counterpart of the JAX package's ``serving/batcher.py``. ONE
+persistent multi-stream rollout stays alive on
 the device, a lane pool over :func:`ops.cuda.gen_kernel_hbm.
 generate_fast_batched`'s streaming state (the kernel K4 on a card, its
 plain version on the CPU), and requests are spliced in and out at chunk
@@ -18,7 +18,14 @@ boundaries:
   its OWN step clock (the kernel's ``lane_seed``/``lane_clock``), so even
   hot rollouts are reproducible;
 * outputs are handed out per chunk, so callers stream audio while later
-  requests keep joining.
+  requests keep joining;
+* each lane carries its own conditioning timeline (the vocoder), in one of
+  two modes: per-sample rows (``submit(cond=)``), or, on a pool built with
+  ``cond_hop``, mel frames (``submit(cond_frames=)``) of which each chunk
+  ships only the lane's window, expanded to sample rate on the device
+  (``ops.mel.expand_frames_window``, bitwise the same for every chunking),
+  at ``cond_wire_dtype`` (f32, or bf16 to halve the upload). Unconditioned
+  requests on a conditioned pool ride zero rows.
 
 Admission is exact at every temperature: a request's rollout is bitwise
 identical to a solo ``generate_fast_batched`` call with ``lane_seed=[seed]``
@@ -34,11 +41,9 @@ samples of an admission are copied and awaited the same way. Uploads go
 through pinned memory without blocking, and the kernel's weight operands
 are prepared once per parameter version.
 
-Not ported yet: local conditioning (``cond``, ``cond_frames``,
-``cond_hop``, ``cond_wire_dtype``), ``mesh`` and ring dtypes other than
-f32. The TPU's width bucketing, its multiple-of-128 lane checks and the
-compiles ``prewarm`` existed for have no counterpart: a prime runs a
-group at its own size.
+Not ported yet: ``mesh`` and ring dtypes other than f32. The TPU's width
+bucketing, its multiple-of-128 lane checks and the compiles ``prewarm``
+existed for have no counterpart: a prime runs a group at its own size.
 """
 
 from __future__ import annotations
@@ -63,6 +68,7 @@ from ..ops.cuda.gen_kernel_hbm import (
     ring_rows,
     run_batched,
 )
+from ..ops.mel import expand_frames_window, frames_window_len
 from ..ops.mulaw import dequantize_to_f32
 
 
@@ -133,6 +139,11 @@ class _Active:
     handle: GenerationHandle
     lane: int
     remaining: int
+    # rows mode: the per-sample rows not consumed yet (k, M); frames mode
+    # (pool cond_hop set): the request's whole frame timeline (F, M), with
+    # cond_off the next sample-rate row to consume
+    cond: np.ndarray | None = None
+    cond_off: int = 0
 
 
 @dataclass
@@ -141,6 +152,7 @@ class _Pending:
     prime: np.ndarray
     temperature: float
     seed: int = 0
+    cond: np.ndarray | None = None  # rows, or frames on a cond_hop pool
 
 
 def _leaves(tree, prefix=""):
@@ -175,7 +187,14 @@ class ContinuousBatcher:
                  max_pending: int | None = None,
                  light_chunk: int | None = None,
                  light_threshold: float = 0.25,
+                 cond_hop: int | None = None,
+                 cond_wire_dtype: torch.dtype = torch.float32,
                  device: str | torch.device = "cuda"):
+        """``cond_hop``: the pool takes mel frames at this hop
+        (``submit(cond_frames=)``); with the model's learnable upsampler
+        its factors must multiply to it. ``cond_wire_dtype``: f32, or
+        bf16, which halves the frames' upload and makes a response equal
+        the solo rollout of bf16-rounded frames."""
         self.device = resolve_device(device)
         if self.device.type == "cuda" and self.device.index is None:
             self.device = torch.device("cuda", torch.cuda.current_device())
@@ -184,6 +203,25 @@ class ContinuousBatcher:
         if light_chunk is not None and not (1 <= light_chunk < chunk):
             raise ValueError(
                 f"light_chunk={light_chunk} must be in [1, chunk={chunk})")
+        self.cond_hop = cond_hop
+        self._factors: tuple[int, ...] = ()
+        if cond_hop is not None:
+            if cfg.cond_channels == 0:
+                raise ValueError("cond_hop needs cfg.cond_channels > 0")
+            if cond_hop < 1:
+                raise ValueError(f"cond_hop must be >= 1, got {cond_hop}")
+            if cfg.cond_upsample and "cond_up" in params:
+                total = int(np.prod(cfg.cond_upsample))
+                if total != cond_hop:
+                    raise ValueError(
+                        f"cond_upsample factors {cfg.cond_upsample} "
+                        f"multiply to {total} != cond_hop {cond_hop}")
+                self._factors = tuple(cfg.cond_upsample)
+        if cond_wire_dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"cond_wire_dtype must be float32 or bfloat16, "
+                             f"not {cond_wire_dtype}")
+        self._cond_wire = cond_wire_dtype
+        self._cond_up = None  # the upsampler's weights on the device
         self.cfg = cfg
         self.params = params  # installed on the device by the worker
         self.lanes = lanes
@@ -248,11 +286,20 @@ class ContinuousBatcher:
     # ------------------------------------------------------------- client
 
     def submit(self, prime, num_samples: int, temperature: float = 1.0,
-               on_chunk=None, seed: int | None = None) -> GenerationHandle:
+               on_chunk=None, seed: int | None = None, cond=None,
+               cond_frames=None) -> GenerationHandle:
         """Queue a request. ``prime`` is an int class sequence
         ``(num_given,)`` (at least 1 sample; ``classes // 2`` for an
         unprimed stream). ``on_chunk(cls_chunk)`` fires from the batcher
         thread as samples appear.
+
+        ``cond``: per-sample conditioning rows ``(num_given - 1 +
+        num_samples, cond_channels)`` (row t conditions the step that
+        consumes input sample t), on pools without ``cond_hop``.
+        ``cond_frames``: frames ``(F, cond_channels)`` with ``F >=
+        ceil((num_given - 1 + num_samples) / cond_hop)``, on pools with
+        ``cond_hop``; the response equals a solo rollout whose rows are
+        the frames expanded over the whole timeline.
 
         ``seed``: per-request sampling seed. The noise is counted off
         (class, request-local step, seed), so resubmitting the same
@@ -271,6 +318,8 @@ class ContinuousBatcher:
         prime = prime.astype(np.int32)
         if num_samples < 1:
             raise ValueError("num_samples must be >= 1")
+        cond = self._check_cond(prime.size - 1 + num_samples, cond,
+                                cond_frames)
         h = GenerationHandle(num_samples, on_chunk)
         h._classes = self.cfg.classes
         h.timing["t_submit"] = time.perf_counter()
@@ -292,9 +341,40 @@ class ContinuousBatcher:
             with self._count_lock:
                 self._outstanding += 1
             h._on_done = self._request_done
-            self._submit_q.put(_Pending(h, prime, float(temperature), seed))
+            self._submit_q.put(_Pending(h, prime, float(temperature), seed,
+                                        cond))
         self._wake.set()
         return h
+
+    def _check_cond(self, total: int, cond, cond_frames):
+        """The request's conditioning (rows or frames, f32), checked
+        against the pool's mode and the timeline's ``total`` rows."""
+        M = self.cfg.cond_channels
+        if cond is not None and cond_frames is not None:
+            raise ValueError("pass cond OR cond_frames, not both")
+        if cond is not None:
+            if self.cond_hop is not None:
+                raise ValueError(
+                    "this pool ships conditioning as frames "
+                    f"(cond_hop={self.cond_hop}); pass cond_frames=")
+            if M == 0:
+                raise ValueError("cond given but cfg.cond_channels == 0")
+            cond = np.asarray(cond, np.float32)
+            if cond.shape != (total, M):
+                raise ValueError(f"cond shape {cond.shape} != {(total, M)}")
+            return cond
+        if cond_frames is not None:
+            if self.cond_hop is None:
+                raise ValueError(
+                    "cond_frames needs a pool constructed with cond_hop=")
+            frames = np.asarray(cond_frames, np.float32)
+            need = -(-total // self.cond_hop)
+            if frames.ndim != 2 or frames.shape[1] != M \
+                    or frames.shape[0] < need:
+                raise ValueError(f"cond_frames shape {frames.shape} must be "
+                                 f"(F >= {need}, {M})")
+            return frames
+        return None
 
     def update_params(self, params):
         """Swap the model weights at the next chunk boundary WITHOUT
@@ -430,13 +510,67 @@ class ContinuousBatcher:
         """Move ``params`` to the device and prepare the kernel's operands
         (once per parameter version)."""
         self.params = params
-        self._w = prepare_weights(params_to(params, self.device), self.cfg,
+        dev_params = params_to(params, self.device)
+        self._w = prepare_weights(dev_params, self.cfg,
                                   self._kw["fuse_res"], self._kw["skip_slab"])
+        if self._factors:
+            self._cond_up = {"cond_up": dev_params["cond_up"]}
 
-    def _step(self, prime, ring, t0, total, temps, seeds, toffs):
+    def _step(self, prime, ring, t0, total, temps, seeds, toffs, cond=None):
+        """One kernel call; ``cond`` ``(lanes, total, M)`` rows or None."""
+        if cond is not None:
+            cond = cond.permute(1, 2, 0).contiguous()  # (total, M, lanes)
         return run_batched(self._w, self.cfg, prime, ring, t0, total, temps,
                            seeds, toffs, 0, self._kw["regularize"],
-                           self._kw["fuse_res"], self._kw["skip_slab"], True)
+                           self._kw["fuse_res"], self._kw["skip_slab"], True,
+                           cond=cond)
+
+    def _frame_window(self, frames: np.ndarray, off: int, count: int):
+        """The frame slab and phase that expand a timeline's rows ``[off,
+        off + count)``: frames from ``off // hop`` on, the last one
+        replicated past the timeline's end."""
+        hop = self.cond_hop
+        Fs = frames_window_len(count, hop, self._factors)
+        fs = off // hop
+        idx = np.minimum(fs + np.arange(Fs), frames.shape[0] - 1)
+        return frames[idx], off - fs * hop
+
+    def _expand(self, slabs: list, phases: list, count: int) -> torch.Tensor:
+        """Upload frame slabs at the wire dtype and expand them to
+        ``(len(slabs), count, M)`` f32 rows on the device."""
+        wire = torch.from_numpy(np.ascontiguousarray(np.stack(slabs)))
+        wire = wire.to(self._cond_wire)
+        self._n["bytes_up"] += wire.numel() * wire.element_size()
+        dev = (wire.clone() if self.device.type == "cpu"
+               else wire.pin_memory().to(self.device, non_blocking=True))
+        phase = self._upload(np.asarray(phases, np.int64))
+        return expand_frames_window(self._cond_up, dev.to(torch.float32),
+                                    self.cond_hop, phase, count,
+                                    self._factors)
+
+    def _chunk_cond(self, lanes: int, count: int, riders) -> torch.Tensor:
+        """``(lanes, count, M)`` conditioning rows of one call: each
+        conditioned rider's next ``count`` rows at its row (``riders``:
+        ``(row, _Active)``), zeros elsewhere; advances the riders."""
+        M = self.cfg.cond_channels
+        if self.cond_hop is None:
+            rows = np.zeros((lanes, count, M), np.float32)
+            for row, act in riders:
+                k = min(count, act.cond.shape[0])
+                rows[row, :k] = act.cond[:k]
+                act.cond = act.cond[k:]
+            self._n["bytes_up"] += rows.nbytes
+            return self._upload(rows)
+        windows = [self._frame_window(act.cond, act.cond_off, count)
+                   for _, act in riders]
+        for _, act in riders:
+            act.cond_off += count
+        rows = self._expand([w for w, _ in windows], [p for _, p in windows],
+                            count)
+        full = torch.zeros((lanes, count, M), dtype=torch.float32,
+                           device=self.device)
+        idx = self._upload(np.asarray([row for row, _ in riders], np.int64))
+        return full.index_copy_(0, idx, rows)
 
     def _prime_states(self, pends: list[_Pending]):
         """Prime a group of equal-length requests in ONE kernel call at the
@@ -451,10 +585,15 @@ class ContinuousBatcher:
         toffs = torch.zeros(len(pends), dtype=torch.int32, device=self.device)
         ring = torch.empty((ring_rows(self.cfg), len(pends)),
                            dtype=torch.float32, device=self.device)
+        cond = None
+        riders = [(i, _Active(None, 0, 0, p.cond)) for i, p in
+                  enumerate(pends) if p.cond is not None]
+        if riders:  # the prime consumes rows [0, ng) of each timeline
+            cond = self._chunk_cond(len(pends), ng, riders)
         self._n["prime_calls"] += 1
         self._n["bytes_up"] += prime.numel() * 4
         t0 = time.perf_counter()
-        cls = self._step(prime, ring, 0, ng, temps, seeds, toffs)
+        cls = self._step(prime, ring, 0, ng, temps, seeds, toffs, cond)
         self._t["t_prime_dispatch"] += time.perf_counter() - t0
         # the local clock is deterministic (ng - 1 ingested + 1 generated):
         # nothing here waits for the device
@@ -569,6 +708,11 @@ class ContinuousBatcher:
                 tm["splice_s"] = splice_s
                 tm["group"] = len(group)
                 act = _Active(pend.handle, lane, pend.handle.num_samples - 1)
+                if pend.cond is not None:
+                    if self.cond_hop is not None:  # the whole timeline
+                        act.cond, act.cond_off = pend.cond, pend.prime.size
+                    else:  # the rows the prime did not consume
+                        act.cond = pend.cond[pend.prime.size:]
                 if act.remaining <= 0:
                     # single-sample request: the lane frees right away (its
                     # one sample is the prime's output); it completes when
@@ -673,13 +817,14 @@ class ContinuousBatcher:
         self._state = None
         self._dev_args = self._host_args = None
 
-    def _step_pool(self, n: int, temps, seeds, toffs) -> torch.Tensor:
+    def _step_pool(self, n: int, temps, seeds, toffs,
+                   cond=None) -> torch.Tensor:
         """One pool step of ``n`` samples on the shared state, in place;
         advances the host clock mirror. Returns the classes (lanes, n) on
         the device."""
         st = self._state
         cls = self._step(st.cls.view(-1, 1), st.ring, st.t, n, temps, seeds,
-                         toffs)
+                         toffs, cond)
         self._state = HbmGenState(st.ring, st.t + n,
                                   cls[:, n - 1].contiguous())
         self._clock += n  # admissions after this launch rebase against it
@@ -729,7 +874,10 @@ class ContinuousBatcher:
         chunk width."""
         n = self._pick_chunk()
         self._n["pool_steps"] += 1
-        cls = self._step_pool(n, *self._lane_args())
+        riders_c = [(a.lane, a) for a in self._active if a.cond is not None]
+        cond = (self._chunk_cond(self.lanes, n, riders_c) if riders_c
+                else None)
+        cls = self._step_pool(n, *self._lane_args(), cond=cond)
         riders = list(self._active)
         rows = None
         if riders and len(riders) * 2 <= self.lanes:
@@ -793,8 +941,23 @@ class ContinuousBatcher:
             try:
                 self._take_params()
                 self._ensure_state()
-                cls = self._step_pool(self.chunk, *self._lane_args())
-                self._wait(self._download(cls[:, -1]))
+                # both kernel variants: with and without conditioning
+                conds = [None]
+                if self.cfg.cond_channels:
+                    conds.append(torch.zeros(
+                        (self.lanes, self.chunk, self.cfg.cond_channels),
+                        device=self.device))
+                    if self.cond_hop is not None:  # the expansion too
+                        frames = np.zeros((self.chunk // self.cond_hop + 1,
+                                           self.cfg.cond_channels),
+                                          np.float32)
+                        self._expand([self._frame_window(frames, 0,
+                                                         self.chunk)[0]],
+                                     [0], self.chunk)
+                for cond in conds:
+                    cls = self._step_pool(self.chunk, *self._lane_args(),
+                                          cond=cond)
+                    self._wait(self._download(cls[:, -1]))
                 # warm-up work is not serving work
                 self._n["prime_calls"] = 0
                 self._n["pool_steps"] = 0

@@ -24,6 +24,14 @@ Endpoints
   POST /synthesize   -> the same, parameters as a JSON body, plus "prime"
                         (mu-law class ids) or "prime_audio" (float samples
                         in [-1, 1]), cut to the last receptive_field samples
+  POST /vocode       -> audio/wav: copy-synthesis of the uploaded wav on a
+                        conditioned model (400 on an unconditional one):
+                        its log-mel frames drive a conditioned rollout of
+                        F * hop samples; query params hop_length (256),
+                        n_fft (1024), temperature (1.0), seed (0). Single
+                        stream through K1 (``synthesize``); with --batcher
+                        the request rides the pool as mel frames at the
+                        pool's --cond-hop (503 when the pool is full)
 
 A request's seed keys its sampling noise for every chunk, so a response
 does not depend on the chunk size at any temperature; with --batcher it
@@ -34,6 +42,7 @@ Run:
   python -m pytorch_wavenet_tpu_torch.serving.server --snapshot model.ckpt --port 8765
   python -m pytorch_wavenet_tpu_torch.serving.server --snapshot model.ckpt --batcher --lanes 256 --batch-chunk 2048
   curl -sN 'localhost:8765/synthesize?num_samples=16000&temperature=0.9' > x.wav
+  curl -s --data-binary @in.wav 'localhost:8765/vocode?seed=1' > out.wav
 """
 
 from __future__ import annotations
@@ -41,9 +50,11 @@ from __future__ import annotations
 import argparse
 import itertools
 import json
+import os
 import queue
 import struct
 import sys
+import tempfile
 import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from urllib.parse import parse_qs, urlparse
@@ -51,9 +62,12 @@ from urllib.parse import parse_qs, urlparse
 import numpy as np
 import torch
 
+from ..data.audio_io import load_audio
 from ..device import resolve_device
+from ..models.generate import synthesize
 from ..models.wavenet import params_to
 from ..ops.cuda.gen_kernel import generate_fast_fused
+from ..ops.mel import log_mel_spectrogram
 from ..ops.mulaw import dequantize_to_f32, quantize_data
 from ..utils.checkpoints import load_checkpoint, load_latest_model_from
 from .batcher import ContinuousBatcher, PoolOverloaded
@@ -138,6 +152,61 @@ class Synthesizer:
         finally:
             handle.cancel()  # no-op if complete; frees the lane otherwise
 
+    @staticmethod
+    def kernel_seed(seed: int) -> int:
+        """The fused kernel's noise seed for a request's ``seed``."""
+        return int(torch.randint(
+            0, 2**31 - 1, (1,), generator=torch.Generator().manual_seed(seed)))
+
+    def mel_of(self, wav_bytes: bytes, hop_length: int,
+               n_fft: int) -> np.ndarray:
+        """Log-mel frames ``(F, cond_channels)`` of an uploaded wav,
+        resampled to the server's rate."""
+        fd, path = tempfile.mkstemp(suffix=".wav")
+        try:
+            with os.fdopen(fd, "wb") as f:
+                f.write(wav_bytes)
+            wav, sr = load_audio(path, sampling_rate=self.sr)
+        finally:
+            os.unlink(path)
+        return log_mel_spectrogram(wav, num_mels=self.cfg.cond_channels,
+                                   n_fft=n_fft, hop_length=hop_length,
+                                   sampling_rate=sr)
+
+    def vocode(self, wav_bytes: bytes, hop_length: int, n_fft: int,
+               temperature: float, seed: int,
+               max_samples: int | None = None) -> np.ndarray:
+        """Copy-synthesis: wav bytes -> log-mel frames -> a conditioned
+        rollout of ``F * hop`` samples (one mid-class prime sample);
+        ``ValueError`` when that exceeds ``max_samples``.
+        Single stream: ``models.generate.synthesize`` on the fused kernel
+        (fuse_res); with the batcher, the frames ride the pool
+        (``cond_frames``) and the request's seed keys its lane's noise.
+        Returns float32 ``(F * hop,)``."""
+        mel = self.mel_of(wav_bytes, hop_length, n_fft)
+        n = mel.shape[0] * hop_length
+        if max_samples is not None and n > max_samples:
+            raise ValueError(f"the upload makes {n} samples, more than the "
+                             f"server's {max_samples}")
+        if self.batcher is not None:
+            if self.batcher.cond_hop != hop_length:
+                raise ValueError(
+                    f"this pool expands conditioning at hop "
+                    f"{self.batcher.cond_hop}; request used hop_length="
+                    f"{hop_length}")
+            h = self.batcher.submit(
+                np.asarray([self.cfg.classes // 2], np.int32), n,
+                temperature=temperature, cond_frames=mel, seed=seed)
+            wav, _ = h.result(timeout=3600)
+            return wav
+        with self.lock:
+            wav, _ = synthesize(
+                self.params, self.cfg, self.kernel_seed(seed), mel,
+                hop_length, temperature=temperature,
+                backend=generate_fast_fused, fuse_res=True,
+                device=self.device)
+            return wav[0].cpu().numpy()
+
     def stream(self, num_samples: int, temperature: float, seed: int,
                chunk: int, prime=None):
         """Yield float32 waveform chunks (of at most ``chunk`` samples on
@@ -152,8 +221,7 @@ class Synthesizer:
         first = (torch.full((1, 1), cfg.classes // 2, dtype=torch.int32)
                  if prime is None
                  else torch.as_tensor(np.asarray(prime, np.int32))[None])
-        kernel_seed = int(torch.randint(
-            0, 2**31 - 1, (1,), generator=torch.Generator().manual_seed(seed)))
+        kernel_seed = self.kernel_seed(seed)
         state = None
         done = 0
         while done < num_samples:
@@ -277,8 +345,43 @@ def make_handler(synth: Synthesizer, max_samples: int):
                 return self._synthesize({})
             self._json(404, {"error": f"no route {path}"})
 
+        def _vocode(self):
+            if synth.cfg.cond_channels == 0:
+                return self._json(400, {"error": "this model is "
+                                        "unconditional (cfg.cond_channels "
+                                        "== 0)"})
+            length = int(self.headers.get("Content-Length", 0) or 0)
+            if not 44 <= length <= 64 * 1024 * 1024:
+                return self._json(
+                    400, {"error": "body must be a wav upload (<= 64 MB)"})
+            blob = self.rfile.read(length)
+            q = parse_qs(urlparse(self.path).query)
+
+            def qp(name, cast, default):
+                return cast(q[name][0]) if name in q else default
+
+            try:
+                wav = synth.vocode(
+                    blob, hop_length=qp("hop_length", int, 256),
+                    n_fft=qp("n_fft", int, 1024),
+                    temperature=qp("temperature", float, 1.0),
+                    seed=qp("seed", int, 0), max_samples=max_samples)
+            except PoolOverloaded as e:
+                return self._json(503, {"error": str(e)})
+            except (ValueError, TypeError, EOFError) as e:
+                return self._json(400, {"error": str(e)})
+            pcm = np.clip(wav * 32767.0, -32768, 32767).astype("<i2")
+            self.send_response(200)
+            self.send_header("Content-Type", "audio/wav")
+            self.send_header("Content-Length", str(44 + pcm.size * 2))
+            self.end_headers()
+            self.wfile.write(wav_header(pcm.size, synth.sr))
+            self.wfile.write(pcm.tobytes())
+
         def do_POST(self):
             path = urlparse(self.path).path
+            if path == "/vocode":
+                return self._vocode()
             if path != "/synthesize":
                 return self._json(404, {"error": f"no route {path}"})
             length = int(self.headers.get("Content-Length", 0) or 0)
@@ -323,6 +426,14 @@ def parse_args(argv=None):
     p.add_argument("--max-pending", type=int, default=None,
                    help="batcher admission control: requests beyond this "
                         "queue depth get HTTP 503")
+    p.add_argument("--cond-hop", type=int, default=256,
+                   help="batcher pools on conditioned models: the mel hop "
+                        "the pool expands frames at (/vocode requests' "
+                        "hop_length must match)")
+    p.add_argument("--cond-wire", choices=("f32", "bf16"), default="f32",
+                   help="mel-frame upload dtype of the batcher (bf16 halves "
+                        "it; responses equal the solo rollout of "
+                        "bf16-rounded frames)")
     return p.parse_args(argv)
 
 
@@ -346,6 +457,12 @@ def main(argv=None, on_ready=None):
                             # wide skips: the skip projection as one
                             # (L*D, S) product after the layer walk
                             skip_slab=cfg.skip_channels >= 256)
+        if cfg.cond_channels:
+            # conditioned pools take mel frames and expand them on the
+            # device; the hop is the server's, /vocode requests must use it
+            batcher_opts["cond_hop"] = args.cond_hop
+            batcher_opts["cond_wire_dtype"] = (
+                torch.bfloat16 if args.cond_wire == "bf16" else torch.float32)
     synth = Synthesizer(blob["params"], cfg, args.sr, args.device,
                         batcher_opts=batcher_opts)
     # build the kernel and load it on the card before the first request

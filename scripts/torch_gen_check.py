@@ -7,10 +7,16 @@ version at a few shapes (classes off near-ties of 1e-4, rings within
 1e-4) at kernel sizes 1, 2 and 3, check that the same lanes give bitwise
 the same classes and ring at every tile width, and time one chaconne
 chunk of each with the split of a step from the kernel's own timers. ``chip_smoke.py`` runs the full checks; this takes about a minute.
+``--vocoder`` runs the conditioned cases alone: K1 and K4 with cond and
+gcond rows against their plain versions at the ``tiny_vocoder`` and
+``vocoder`` widths, the same lanes at 8 and 16 lanes per cluster, and a
+2048-step vocoder chunk of each without and with conditioning, with the
+split of a K4 step.
 
-  python3 scripts/torch_gen_check.py
+  python3 scripts/torch_gen_check.py [--vocoder]
 """
 
+import argparse
 import os
 import subprocess
 import sys
@@ -37,10 +43,22 @@ def expect(cond, msg):
         failures.append(msg)
 
 
-def k4_case(dev, name, lanes, fuse, slab, n_prime, steps, tiles, **kw):
+def cond_rows(dev, shape, seed, scale=0.5):
+    g = torch.Generator().manual_seed(seed)
+    return (scale * torch.randn(shape, generator=g)).to(dev)
+
+
+def k4_case(dev, name, lanes, fuse, slab, n_prime, steps, tiles, cond=False,
+            **kw):
     cfg = pt.get_config(name, **kw)
     params = pt.init_wavenet(cfg, torch.Generator().manual_seed(0), dev)
     w = ghbm.prepare_weights(params, cfg, fuse, slab)
+    ckw = {}
+    if cond:  # cond rows (total, M, lanes) and the projected gcond table
+        ckw = dict(cond=cond_rows(dev, (n_prime - 1 + steps,
+                                        cfg.cond_channels, lanes), 5),
+                   gcond=ghbm.project_gcond(w, cfg, cond_rows(
+                       dev, (lanes, cfg.gcond_channels), 6, 1.0), lanes))
     rng = np.random.default_rng(1)
     prime = torch.from_numpy(rng.integers(0, cfg.classes, (lanes, n_prime))
                              ).to(dev, torch.int32)
@@ -53,14 +71,14 @@ def k4_case(dev, name, lanes, fuse, slab, n_prime, steps, tiles, **kw):
     rp = torch.zeros(rows, lanes, device=dev)
     cp, gaps = ghbm.batched_plain(w, cfg, prime, rp, 0, total, temps, seeds,
                                   toffs, 4, 0.05, fuse, slab, True,
-                                  return_gaps=True)
+                                  return_gaps=True, **ckw)
     ref = None
     for tile in tiles:
         rk = torch.zeros(rows, lanes, device=dev)
         try:
             ck = ghbm.batched_cuda(w, cfg, prime, rk, 0, total, temps,
                                    seeds, toffs, 4, 0.05, fuse, slab,
-                                   True, tile=tile)
+                                   True, tile=tile, **ckw)
             torch.cuda.synchronize()
         except Exception as e:  # report and go on to the next case
             expect(False, f"K4 {name} {kw} tile {tile}: {e}")
@@ -70,7 +88,8 @@ def k4_case(dev, name, lanes, fuse, slab, n_prime, steps, tiles, **kw):
                    & (gaps[:, forced] >= NEAR_TIE)).sum())
         err = float((rk - rp).abs().max())
         tag = (f"K4 {name} {kw} {lanes} lanes {'fuse' if fuse else 'exact'}"
-               f"{'+slab' if slab else ''} tile {tile}")
+               f"{'+slab' if slab else ''}{' cond+gcond' if cond else ''} "
+               f"tile {tile}")
         expect(bad == 0 and err <= RING_TOL,
                f"{tag}: {bad} mismatches off a near-tie, ring err {err:.3g}")
         if ref is None:
@@ -80,7 +99,8 @@ def k4_case(dev, name, lanes, fuse, slab, n_prime, steps, tiles, **kw):
                    f"{tag}: bitwise equal to the first width")
 
 
-def k1_case(dev, name, streams, fuse, n_prime, steps, temp, **kw):
+def k1_case(dev, name, streams, fuse, n_prime, steps, temp, cond=False,
+            **kw):
     cfg = pt.get_config(name, **kw)
     params = pt.init_wavenet(cfg, torch.Generator().manual_seed(0), dev)
     w = gk.prepare_weights(params, cfg, fuse)
@@ -88,23 +108,32 @@ def k1_case(dev, name, streams, fuse, n_prime, steps, temp, **kw):
     prime = torch.from_numpy(rng.integers(0, cfg.classes, (streams, n_prime))
                              ).to(dev, torch.int32)
     total = n_prime - 1 + steps
+    ckw = {}
+    if cond:  # the projected cond and gcond rows
+        ckw = dict(zip(("cond", "gcond"), gk.project_cond(
+            params, cfg, cond_rows(dev, (streams, total, cfg.cond_channels),
+                                   7),
+            cond_rows(dev, (streams, cfg.gcond_channels), 8, 1.0), streams,
+            total)))
     size = sum(gk.periods(cfg)) * streams * cfg.residual_channels
     rk, rp = torch.zeros(size, device=dev), torch.zeros(size, device=dev)
     try:
-        ck = gk.fused_cuda(w, cfg, prime, rk, 0, total, temp, 0.05, 4, fuse)
+        ck = gk.fused_cuda(w, cfg, prime, rk, 0, total, temp, 0.05, 4, fuse,
+                           **ckw)
         torch.cuda.synchronize()
     except Exception as e:
         expect(False, f"K1 {name} {kw}: {e}")
         return
     cp, gaps = gk.fused_plain(w, cfg, prime, rp, 0, total, temp, 0.05, 4,
-                              fuse, return_gaps=True)
+                              fuse, return_gaps=True, **ckw)
     forced = slice(0, n_prime - 1)
     bad = int(((ck[:, forced] != cp[:, forced])
                & (gaps[:, forced] >= NEAR_TIE)).sum())
     err = float((rk - rp).abs().max())
     expect(bad == 0 and err <= RING_TOL,
-           f"K1 {name} {kw} {streams} streams {'fuse' if fuse else 'exact'} "
-           f"T={temp}: {bad} mismatches off a near-tie, ring err {err:.3g}")
+           f"K1 {name} {kw} {streams} streams {'fuse' if fuse else 'exact'}"
+           f"{' cond+gcond' if cond else ''} T={temp}: {bad} mismatches off "
+           f"a near-tie, ring err {err:.3g}")
 
 
 def timed(fn, reps=3):
@@ -120,7 +149,64 @@ def timed(fn, reps=3):
     return a.elapsed_time(b) / reps
 
 
+def vocoder(dev):
+    """The conditioned cases: checks, then a 2048-step chunk of each kernel
+    at the vocoder without and with conditioning."""
+    g3 = dict(gcond_channels=3)
+    for fuse in (False, True):
+        k1_case(dev, "tiny_vocoder", 3, fuse, 30, 8, 0.9, cond=True, **g3)
+        k1_case(dev, "vocoder", 1, fuse, 120, 8, 0.9, cond=True, **g3)
+        k1_case(dev, "vocoder", 1, fuse, 120, 8, 0.9)
+        k4_case(dev, "tiny_vocoder", 19, fuse, fuse, 40, 8, (8, 16),
+                cond=True, **g3)
+        k4_case(dev, "vocoder", 40, fuse, fuse, 60, 8, (8, 16), cond=True,
+                **g3)
+        k4_case(dev, "vocoder", 40, fuse, fuse, 60, 8, (8, 16))
+    cfg = pt.get_config("vocoder", **g3)
+    params = pt.init_wavenet(cfg, torch.Generator().manual_seed(0), dev)
+    M, steps = cfg.cond_channels, 2048
+    w = gk.prepare_weights(params, cfg, True)
+    prime = torch.zeros((1, 1), dtype=torch.int32, device=dev)
+    rings = torch.zeros(sum(gk.periods(cfg)) * cfg.residual_channels,
+                        device=dev)
+    cond, gcond = gk.project_cond(
+        params, cfg, cond_rows(dev, (1, steps, M), 9),
+        cond_rows(dev, (1, 3), 10, 1.0), 1, steps)
+    for what, kw in (("no cond", {}), ("cond", dict(cond=cond)),
+                     ("cond+gcond", dict(cond=cond, gcond=gcond))):
+        ms = timed(lambda: gk.fused_cuda(w, cfg, prime, rings, 513, steps,
+                                         0.9, 0.0, 1, True, **kw), 2)
+        print(f"K1 vocoder {what}: {1e3 * ms / steps:.2f} us/step",
+              flush=True)
+    w = ghbm.prepare_weights(params, cfg, True, True)
+    for lanes in (256,):
+        prime = torch.zeros((lanes, 1), dtype=torch.int32, device=dev)
+        ring = torch.zeros(ghbm.ring_rows(cfg), lanes, device=dev)
+        temps = torch.full((lanes,), 0.9, device=dev)
+        ids = torch.arange(lanes, dtype=torch.int32, device=dev)
+        cond = cond_rows(dev, (steps, M, lanes), 11)
+        gcond = ghbm.project_gcond(w, cfg, cond_rows(dev, (lanes, 3), 12),
+                                   lanes)
+        for what, kw in (("no cond", {}), ("cond", dict(cond=cond)),
+                         ("cond+gcond", dict(cond=cond, gcond=gcond))):
+            tm = torch.zeros(len(ghbm.PHASES), dtype=torch.int64, device=dev)
+            ms = timed(lambda: ghbm.batched_cuda(
+                w, cfg, prime, ring, 513, steps, temps, ids, ids, 0, 0.0,
+                True, True, True, **kw), 2)
+            ghbm.batched_cuda(w, cfg, prime, ring, 513, steps, temps, ids,
+                              ids, 0, 0.0, True, True, True, timers=tm, **kw)
+            torch.cuda.synchronize()
+            split = ", ".join(f"{n} {v / (steps * 1e3):.2f}"
+                              for n, v in zip(ghbm.PHASES, tm.tolist()))
+            print(f"K4 vocoder {lanes} lanes {what}: "
+                  f"{1e3 * ms / steps:.2f} us/step ({split} us)", flush=True)
+
+
 def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--vocoder", action="store_true",
+                    help="the conditioned cases alone")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
         return 2
@@ -136,6 +222,10 @@ def main():
                 print(n, line.strip())
     print(f"build {time.time() - t:.1f} s", flush=True)
     dev = torch.device("cuda")
+    if args.vocoder:
+        vocoder(dev)
+        print(f"{len(failures)} failures")
+        return 1 if failures else 0
     chaconne = pt.get_config("chaconne")
     for tile in ghbm.TILES:
         try:

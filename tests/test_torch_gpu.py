@@ -559,3 +559,165 @@ def test_k1_resumed_chunk_at_offset_bitwise_on_card(card, offset):
                                        state=st, **kw)
     assert torch.equal(torch.cat([ca, cb], dim=1), c_all)
     assert all(torch.equal(a, b) for a, b in zip(st.rings, s_all.rings))
+
+
+# ------------------------------- conditioning in K1 and K4 (the vocoder)
+
+COND_MODELS = {  # the vocoder's widths (R = D = 64, 80 mel channels) and
+    # the unit-test vocoder, each with 3 global channels
+    "tiny_vocoder": dict(gcond_channels=3),
+    "vocoder": dict(gcond_channels=3),
+}
+
+
+def _cond_model(card, name):
+    cfg = pt.get_config(name, **COND_MODELS[name])
+    params = pt.init_wavenet(cfg, torch.Generator().manual_seed(2), card)
+    return cfg, params
+
+
+def _cond_rows(card, shape, seed, scale=0.5):
+    g = torch.Generator().manual_seed(seed)
+    return (scale * torch.randn(shape, generator=g)).to(card)
+
+
+def _k1_cond_against_plain(card, cfg, params, streams, fuse_res, n_prime=80,
+                           steps=8):
+    w = gk.prepare_weights(params, cfg, fuse_res)
+    prime = torch.from_numpy(_prime(cfg, streams, 1, n_prime)).to(
+        card, torch.int32)
+    total = n_prime - 1 + steps
+    cond, gcond = gk.project_cond(
+        params, cfg, _cond_rows(card, (streams, total, cfg.cond_channels), 3),
+        _cond_rows(card, (streams, cfg.gcond_channels), 4, 1.0), streams,
+        total)
+    size = sum(gk.periods(cfg)) * streams * cfg.residual_channels
+    rk = torch.zeros(size, device=card)
+    rp = torch.zeros(size, device=card)
+    before = gk.launches
+    ck = gk.fused_cuda(w, cfg, prime, rk, 0, total, 0.9, 0.0, 4, fuse_res,
+                       cond=cond, gcond=gcond)
+    torch.cuda.synchronize()
+    assert gk.launches == before + 1
+    cp, gaps = gk.fused_plain(w, cfg, prime, rp, 0, total, 0.9, 0.0, 4,
+                              fuse_res, return_gaps=True, cond=cond,
+                              gcond=gcond)
+    forced = slice(0, n_prime - 1)
+    bad = (ck[:, forced] != cp[:, forced]) & (gaps[:, forced] >= 1e-4)
+    assert not bool(bad.any())
+    torch.testing.assert_close(rk, rp, atol=1e-4, rtol=1e-4)
+    # the conditioning reaches the classes
+    cu = gk.fused_plain(w, cfg, prime, torch.zeros_like(rp), 0, total, 0.9,
+                        0.0, 4, fuse_res)
+    assert not torch.equal(cu, cp)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(COND_MODELS))
+@pytest.mark.parametrize("streams", [1, 3])
+@pytest.mark.parametrize("fuse_res", [False, True])
+def test_k1_conditioned_matches_plain_on_card(card, name, streams, fuse_res):
+    """K1 with projected cond and gcond rows: teacher-forced classes off
+    near-ties of 1e-4, rings within 1e-4 of the plain version."""
+    cfg, params = _cond_model(card, name)
+    _k1_cond_against_plain(card, cfg, params, streams, fuse_res)
+
+
+@pytest.mark.gpu
+def test_k1_conditioned_chunks_bitwise_on_card(card):
+    """At the vocoder's widths a rollout in resumed chunks, each with its
+    own cond rows, equals one shot bitwise, classes and rings."""
+    cfg, params = _cond_model(card, "vocoder")
+    one = _prime(cfg, 2, 4, 1)
+    cond = _cond_rows(card, (2, 300, cfg.cond_channels), 5)
+    g = _cond_rows(card, (2, cfg.gcond_channels), 6, 1.0)
+    kw = dict(temperature=1.0, fuse_res=True, return_state=True, device=card,
+              global_cond=g)
+    _, c_all, s_all = pt.generate_fast_fused(params, cfg, 9, 300, one,
+                                             cond=cond, **kw)
+    parts, st, pos = [], None, 0
+    for m in (1, 120, 179):
+        _, c, st = pt.generate_fast_fused(
+            params, cfg, 9, m, one if st is None else None, state=st,
+            cond=cond[:, pos:pos + m], **kw)
+        pos += m
+        parts.append(c)
+    assert torch.equal(torch.cat(parts, dim=1), c_all)
+    assert all(torch.equal(a, b) for a, b in zip(st.rings, s_all.rings))
+
+
+def _k4_cond_case(card, name, lanes, total, fuse_res, skip_slab):
+    cfg, params = _cond_model(card, name)
+    _, _, temps, seeds, toffs = _k4_case(card, "tiny", lanes, 0.9)
+    w = ghbm.prepare_weights(params, cfg, fuse_res, skip_slab)
+    cond = _cond_rows(card, (total, cfg.cond_channels, lanes), 7)
+    gcond = ghbm.project_gcond(
+        w, cfg, _cond_rows(card, (lanes, cfg.gcond_channels), 8, 1.0), lanes)
+    return cfg, w, temps, seeds, toffs, cond, gcond
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(COND_MODELS))
+@pytest.mark.parametrize("lanes", [3, 200])
+@pytest.mark.parametrize("fuse_res,skip_slab", [(False, False), (True, True)],
+                         ids=["exact", "fuse_res_skip_slab"])
+def test_k4_conditioned_matches_plain_on_card(card, name, lanes, fuse_res,
+                                              skip_slab):
+    """K4 with cond rows (the product with w_cond in the kernel) and gcond
+    rows: teacher-forced classes off near-ties of 1e-4, rings within 1e-4
+    of the plain version."""
+    n_prime, steps = 60, 8
+    total = n_prime - 1 + steps
+    cfg, w, temps, seeds, toffs, cond, gcond = _k4_cond_case(
+        card, name, lanes, total, fuse_res, skip_slab)
+    prime = torch.from_numpy(_prime(cfg, lanes, 1, n_prime)).to(
+        card, torch.int32)
+    rk = torch.zeros(ghbm.ring_rows(cfg), lanes, device=card)
+    rp = rk.clone()
+    before = ghbm.launches
+    ck = ghbm.batched_cuda(w, cfg, prime, rk, 0, total, temps, seeds, toffs,
+                           4, 0.05, fuse_res, skip_slab, True, cond=cond,
+                           gcond=gcond)
+    torch.cuda.synchronize()
+    assert ghbm.launches == before + 1
+    cp, gaps = ghbm.batched_plain(w, cfg, prime, rp, 0, total, temps, seeds,
+                                  toffs, 4, 0.05, fuse_res, skip_slab, True,
+                                  return_gaps=True, cond=cond, gcond=gcond)
+    forced = slice(0, n_prime - 1)
+    bad = (ck[:, forced] != cp[:, forced]) & (gaps[:, forced] >= 1e-4)
+    assert not bool(bad.any())
+    torch.testing.assert_close(rk, rp, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offset", [0, 1, 2, 513])
+def test_k4_conditioned_chunks_at_offset_bitwise_on_card(card, offset):
+    """At the vocoder's widths: the same 40 lanes at 8 and 16 lanes per
+    cluster are bitwise equal, and a rollout resumed at t0 = offset, each
+    chunk with its own cond rows, equals one shot bitwise."""
+    cfg, w, temps, seeds, toffs, cond, gcond = _k4_cond_case(
+        card, "vocoder", 40, 600, True, True)
+    one = torch.from_numpy(_prime(cfg, 40, 3, 1)).to(card, torch.int32)
+    rows = ghbm.ring_rows(cfg)
+    runs = []
+    for tile in (8, 16):
+        r = torch.zeros(rows, 40, device=card)
+        c = ghbm.batched_cuda(w, cfg, one, r, 0, 600, temps, seeds, toffs, 0,
+                              0.0, True, True, True, tile=tile, cond=cond,
+                              gcond=gcond)
+        runs.append((c, r))
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert torch.equal(runs[0][1], runs[1][1])
+    ring = torch.zeros(rows, 40, device=card)
+    parts, p = [], one
+    if offset:
+        parts.append(ghbm.batched_cuda(
+            w, cfg, one, ring, 0, offset, temps, seeds, toffs, 0, 0.0, True,
+            True, True, cond=cond[:offset].contiguous(), gcond=gcond))
+        p = parts[-1][:, -1:].contiguous()
+    parts.append(ghbm.batched_cuda(
+        w, cfg, p, ring, offset, 600 - offset, temps, seeds, toffs, 0, 0.0,
+        True, True, True, cond=cond[offset:].contiguous(), gcond=gcond))
+    torch.cuda.synchronize()
+    assert torch.equal(torch.cat(parts, dim=1), runs[0][0])
+    assert torch.equal(ring, runs[0][1])

@@ -89,3 +89,42 @@ def test_training_path_imports_with_jax_blocked():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+_BLOCKED_VOCODER = _BLOCKED.split("import pytorch_wavenet_tpu_torch.serving")[0] + """
+import numpy as np
+import torch
+import pytorch_wavenet_tpu_torch as pt
+import pytorch_wavenet_tpu_torch.ops.mel as mel
+import pytorch_wavenet_tpu_torch.serving.server as srv
+from pytorch_wavenet_tpu_torch.ops.cuda import build, gen_kernel, gen_kernel_hbm
+cfg = pt.get_config("tiny_vocoder", cond_upsample=(2, 2))
+params = pt.init_wavenet(cfg, torch.Generator().manual_seed(0), "cpu")
+frames = mel.log_mel_spectrogram(np.sin(np.arange(300) / 7.0), num_mels=8,
+                                 n_fft=64, hop_length=4)
+_, a = pt.synthesize(params, cfg, None, frames[:6], 4, temperature=0.0,
+                     device="cpu")
+_, b = pt.synthesize(params, cfg, 0, frames[:6], 4, temperature=0.0,
+                     backend=pt.generate_fast_fused, device="cpu")
+pool = pt.ContinuousBatcher(params, cfg, lanes=2, chunk=8, cond_hop=4,
+                            device="cpu")
+_, c = pool.submit([cfg.classes // 2], 24, temperature=0.0,
+                   cond_frames=frames[:6], seed=0).result(timeout=60)
+pool.close()
+assert a.shape == (1, 24) and np.array_equal(a.numpy(), b.numpy())
+assert c.shape == (24,) and srv.Synthesizer.vocode
+assert gen_kernel.launches == 0 and gen_kernel_hbm.launches == 0
+assert not build._libs
+print("ok")
+"""
+
+
+def test_conditioned_paths_run_with_jax_blocked():
+    """The vocoder's modules (log-mel features and upsamplers, synthesize,
+    K1's and K4's conditioned plain versions, the batcher's frames mode,
+    the server's /vocode) import and run on the CPU with every import of
+    JAX or of the JAX package made to fail, and build nothing."""
+    out = subprocess.run([sys.executable, "-c", _BLOCKED_VOCODER], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
