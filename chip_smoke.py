@@ -86,7 +86,23 @@ Phases (any failure stops the run with a nonzero exit):
  17. times with CUDA events at the vocoder: K1 (one stream) and K4 (256
      lanes) on a resumed 2048-step chunk without conditioning, with cond
      rows and with cond and gcond, the cost of each, bounds, a K4 step's
-     phase split, and the plain versions on the conditioned chunk.
+     phase split, and the plain versions on the conditioned chunk;
+ 18. kernels K2 and K3 with local conditioning (80 mel channels) against
+     their plain versions at the vocoder, batch 4, out 1024, f32 and bf16
+     saves: u, every gradient, dW_cond and dcond; two conditioned K3 calls
+     bitwise equal;
+ 19. vocoder training (the main path of this slice): ``training.train.main
+     --config vocoder --cond-upsample 16,16 --batch-size 16`` on the
+     example audio, 10 steps with a snapshot at step 5 (mel frames on the
+     host, the learnable upsampler on the card, K2/K3 with cond); K2/K3
+     launch counts read around exactly this run, the plain trunk barred;
+     the loss on the first batch falls; a run resumed from the step-5
+     snapshot ends at the uninterrupted run's params;
+ 20. times with CUDA events at the vocoder, batch 16, out 1024: K2 and K3
+     without and with cond beside their bounds, their plain versions, K3's
+     device time by CUDA kernel (its reduction apart), the conditioned
+     train step, its split (upsampler, trunk, skip and head, optimizer)
+     and training targets per second.
 
 The line before the last is one JSON object listing the kernels; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -158,7 +174,8 @@ def phase_build():
     logs = build.build(verbose=True)
     for name, out in logs.items():
         for line in out.splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
+            if ("registers" in line or "spill" in line or "error" in line
+                    or "entry function" in line):
                 log(f"[nvcc {name}] {line.strip()}")
     log(f"build: {sorted(logs)} in {time.time() - t:.1f} s")
 
@@ -442,7 +459,8 @@ def bound_ms(pt, gk, params, cfg, streams, num_given, total, lane_rows=0,
                                        else "operations")
 
 
-def trunk_bounds(cfg, batch, out_len, save_bytes=2, tf32x3=True):
+def trunk_bounds(cfg, batch, out_len, save_bytes=2, tf32x3=True,
+                 cond_channels=0):
     """Bounds of the training trunk kernels K2 (forward) and K3 (backward)
     from their shapes: ``{name: (ms, bound_by)}``.
     Layer l's gated unit is needed on the output window widened by every
@@ -458,26 +476,33 @@ def trunk_bounds(cfg, batch, out_len, save_bytes=2, tf32x3=True):
     gradients written once. The kernels form every product in 3xTF32, so
     an operation counts as three TF32 operations on the tensor cores
     (``tf32x3``); ``tf32x3=False`` gives the f32 bound of the FMA kernels
-    they replaced (67 TFLOP/s outside the tensor cores)."""
+    they replaced (67 TFLOP/s outside the tensor cores). With
+    ``cond_channels`` M the cond product adds 2*M*2D operations a position
+    forward and three times that backward (recompute, dW_cond, dcond), and
+    its bytes: w_cond, the cond rows (f32, read once by each kernel) and
+    dcond (written once by K3)."""
     k, R, D, L = (cfg.kernel_size, cfg.residual_channels,
                   cfg.dilation_channels, cfg.num_layers)
+    M = cond_channels
     T = cfg.receptive_field + out_len - 1
     W, reach = [], 0
     for d in reversed(cfg.dilations):
         W.append(min(T, out_len + reach))
         reach += (k - 1) * d
     pos = batch * sum(W)
-    tap, res = 2 * k * R * 2 * D, 2 * D * R
-    w_bytes = 4 * L * (k * R * 2 * D + 2 * D + D * R + R)
+    tap, res, cnd = 2 * k * R * 2 * D, 2 * D * R, 2 * M * 2 * D
+    w_bytes = 4 * L * (k * R * 2 * D + 2 * D + D * R + R + M * 2 * D)
+    cond = 4 * batch * T * M
     saves = save_bytes * R * pos
     units = 4 * batch * out_len * L * D
     stream = 4 * batch * T * R
     rate = TF32_PEAK_FLOPS / 3 if tf32x3 else F32_PEAK_FLOPS
     out = {}  # saves in bf16 (save_bytes 2) unless said
     for name, flops, nbytes in (
-            ("K2", pos * (tap + res), stream + units + saves + w_bytes),
-            ("K3", pos * (3 * tap + 2 * res),
-             saves + units + stream + 2 * w_bytes)):
+            ("K2", pos * (tap + res + cnd),
+             stream + units + saves + w_bytes + cond),
+            ("K3", pos * (3 * tap + 2 * res + 3 * cnd),
+             saves + units + stream + 2 * w_bytes + 2 * cond)):
         t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / rate
         out[name] = (1e3 * max(t_b, t_o),
                      "bytes" if t_b > t_o else "operations")
@@ -1202,6 +1227,51 @@ def _grad_err(got, ref):
                for a, b in zip(got, ref))
 
 
+def _k23_check(torch, tk, tag, cfg, params, h0, du, out_len, cond=None):
+    """K2 and K3 (with cond, when given) against their plain versions at
+    f32 and bf16 saves: units within U_TOL x max(1, |u|), gradients within
+    GRAD_TOL x max(1, scale) of the plain version on the same saves and of
+    the exact (f32-save) gradients (GRAD_TOL_BF16 with bf16 saves), two K3
+    calls bitwise equal. Returns the largest unit error and the largest
+    f32-save gradient error (absolute)."""
+    u_err = g_err = 0.0
+    _, exact_saves = tk.trunk_fwd_plain(params, cfg, h0, out_len,
+                                        torch.float32, cond)
+    exact = tk.trunk_bwd_plain(params, cfg, exact_saves, du, out_len, cond)
+    for sd, name_sd in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        uk, sk = tk.trunk_fwd_cuda(params, cfg, h0, out_len, sd, cond)
+        torch.cuda.synchronize()
+        up, _ = tk.trunk_fwd_plain(params, cfg, h0, out_len, sd, cond)
+        eu = float(((uk - up).abs() / up.abs().clamp(min=1.0)).max())
+        check(eu <= U_TOL, f"{tag} {name_sd} saves: u error {eu}")
+        u_err = max(u_err, float((uk - up).abs().max()))
+        gk = tk.trunk_bwd_cuda(params, cfg, sk, du, out_len, cond)
+        again = tk.trunk_bwd_cuda(params, cfg, sk, du, out_len, cond)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(gk, again))
+        check(same, f"{tag} {name_sd} saves: two K3 calls differ")
+        gp = tk.trunk_bwd_plain(params, cfg, sk, du, out_len, cond)
+        check(len(gk) == len(gp), f"{tag}: K3 gave {len(gk)} gradients")
+        e_plain = _grad_err(gk, gp)
+        e_exact = _grad_err(gk, exact)
+        tol = GRAD_TOL if sd == torch.float32 else GRAD_TOL_BF16
+        check(e_plain <= GRAD_TOL,
+              f"{tag} {name_sd} saves: K3 vs plain {e_plain}")
+        check(e_exact <= tol,
+              f"{tag} {name_sd} saves: K3 vs exact gradients {e_exact}")
+        if sd == torch.float32:
+            g_err = max(g_err, max(float((a - b).abs().max())
+                                   for a, b in zip(gk, gp)))
+        of_cond = ("" if cond is None else
+                   f" (dW_cond and dcond {_grad_err(gk[5:], gp[5:]):.3g})")
+        log(f"[{tag}] {name_sd} saves: u within {eu:.3g} x max(1, |u|) "
+            f"(tol {U_TOL}); K3 gradients within {e_plain:.3g} x max(1, "
+            f"scale) of the plain version on the same saves{of_cond} (tol "
+            f"{GRAD_TOL}), {e_exact:.3g} of the exact (f32-save) "
+            f"gradients (tol {tol}); two K3 calls bitwise equal")
+    return u_err, g_err
+
+
 def phase_k23_vs_plain(torch, pt, tk, dev):
     """K2 and K3 against their plain versions: chaconne_wide at batch 16
     and output_length 1024 (the main path's shapes), and batch 3 with
@@ -1214,37 +1284,8 @@ def phase_k23_vs_plain(torch, pt, tk, dev):
         cfg, params, h0, du = _trunk_case(torch, pt, dev, name, batch,
                                           out_len, **kw)
         tag = f"K2/K3 {name} batch {batch} out {out_len} k {cfg.kernel_size}"
-        _, exact_saves = tk.trunk_fwd_plain(params, cfg, h0, out_len,
-                                            torch.float32)
-        exact = tk.trunk_bwd_plain(params, cfg, exact_saves, du, out_len)
-        for sd, name_sd in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
-            uk, sk = tk.trunk_fwd_cuda(params, cfg, h0, out_len, sd)
-            torch.cuda.synchronize()
-            up, _ = tk.trunk_fwd_plain(params, cfg, h0, out_len, sd)
-            eu = float(((uk - up).abs() / up.abs().clamp(min=1.0)).max())
-            check(eu <= U_TOL, f"{tag} {name_sd} saves: u error {eu}")
-            u_err = max(u_err, float((uk - up).abs().max()))
-            gk = tk.trunk_bwd_cuda(params, cfg, sk, du, out_len)
-            again = tk.trunk_bwd_cuda(params, cfg, sk, du, out_len)
-            torch.cuda.synchronize()
-            same = all(torch.equal(a, b) for a, b in zip(gk, again))
-            check(same, f"{tag} {name_sd} saves: two K3 calls differ")
-            gp = tk.trunk_bwd_plain(params, cfg, sk, du, out_len)
-            e_plain = _grad_err(gk, gp)
-            e_exact = _grad_err(gk, exact)
-            tol = GRAD_TOL if sd == torch.float32 else GRAD_TOL_BF16
-            check(e_plain <= GRAD_TOL,
-                  f"{tag} {name_sd} saves: K3 vs plain {e_plain}")
-            check(e_exact <= tol,
-                  f"{tag} {name_sd} saves: K3 vs exact gradients {e_exact}")
-            if sd == torch.float32:
-                g_err = max(g_err, max(float((a - b).abs().max())
-                                       for a, b in zip(gk, gp)))
-            log(f"[{tag}] {name_sd} saves: u within {eu:.3g} x max(1, |u|) "
-                f"(tol {U_TOL}); K3 gradients within {e_plain:.3g} x max(1, "
-                f"scale) of the plain version on the same saves (tol "
-                f"{GRAD_TOL}), {e_exact:.3g} of the exact (f32-save) "
-                f"gradients (tol {tol}); two K3 calls bitwise equal")
+        eu, eg = _k23_check(torch, tk, tag, cfg, params, h0, du, out_len)
+        u_err, g_err = max(u_err, eu), max(g_err, eg)
     return u_err, g_err
 
 
@@ -1289,11 +1330,18 @@ def phase_k23_train_step(torch, pt, tk, dev):
             f"gradient within {err:.3g} x max(1, scale) (tol {tol})")
 
 
-def phase_training(torch, np, pt, tk, dev):
-    """The main path of this slice: chaconne_wide trained for 20 steps at
-    batch 16 through ``training.train.main`` on the example audio, with a
-    snapshot at step 10; then a run resumed from that snapshot to step 20.
-    Returns the K2/K3 launches counted around the first run."""
+def phase_training(torch, np, pt, tk, dev, config="chaconne_wide", steps=20,
+                   extra=()):
+    """A main path: ``config`` trained for ``steps`` steps at batch 16
+    through ``training.train.main`` on the example audio (``extra`` more
+    flags), with a snapshot halfway; then a run resumed from that snapshot
+    to the end. Phase 12 trains chaconne_wide for 20 steps; phase 19 the
+    vocoder for 10 with ``--cond-upsample 16,16`` (mel frames on the host,
+    the learnable upsampler on the card, K2/K3 with cond). K2/K3 launches
+    are counted around exactly these runs, the plain trunk is barred, the
+    loss on the first batch must fall and the resumed run must end at the
+    uninterrupted run's params. Returns the launches counted around the
+    first run."""
     import glob
     import shutil
 
@@ -1306,6 +1354,7 @@ def phase_training(torch, np, pt, tk, dev):
     check(len(wavs) >= 4, f"example audio missing: {wavs}")
     real = (tk.trunk_fwd_plain, tk.trunk_bwd_plain)
     plain_calls = []
+    half = steps // 2
 
     def barred(*args, **kwargs):
         plain_calls.append(1)
@@ -1316,23 +1365,24 @@ def phase_training(torch, np, pt, tk, dev):
         os.makedirs(data)
         for w in wavs:
             shutil.copy(w, data)
-        base = ["--data-dir", data, "--config", "chaconne_wide",
-                "--batch-size", "16", "--epochs", "10", "--max-steps", "20",
-                "--seed", str(SEED), "--lr", "1e-3", "--log-interval", "10",
-                "--validation-interval", "1000", "--device", str(dev)]
+        base = ["--data-dir", data, "--config", config, *extra,
+                "--batch-size", "16", "--epochs", "10", "--max-steps",
+                str(steps), "--seed", str(SEED), "--lr", "1e-3",
+                "--log-interval", str(half), "--validation-interval", "1000",
+                "--device", str(dev)]
         tk.trunk_fwd_plain = tk.trunk_bwd_plain = barred
         try:
             tk.fwd_launches = tk.bwd_launches = 0
             t = time.time()
             a = train.main(base + ["--snapshot-path", os.path.join(d, "a"),
-                                   "--snapshot-interval", "10"])
+                                   "--snapshot-interval", str(half)])
             torch.cuda.synchronize()
             wall = time.time() - t
             launched = (tk.fwd_launches, tk.bwd_launches)
-            snap10 = checkpoint_path(os.path.join(d, "a"),
-                                     "chaconne_wide_model", 10)
+            snap = checkpoint_path(os.path.join(d, "a"), f"{config}_model",
+                                   half)
             os.makedirs(os.path.join(d, "b"))
-            shutil.copy(snap10, os.path.join(d, "b"))
+            shutil.copy(snap, os.path.join(d, "b"))
             tk.fwd_launches = tk.bwd_launches = 0
             b = train.main(base + ["--snapshot-path", os.path.join(d, "b"),
                                    "--snapshot-interval", "1000", "--resume"])
@@ -1340,43 +1390,59 @@ def phase_training(torch, np, pt, tk, dev):
             resumed = (tk.fwd_launches, tk.bwd_launches)
         finally:
             tk.trunk_fwd_plain, tk.trunk_bwd_plain = real
-        blob = pt.load_checkpoint(snap10, device="cpu")
+        blob = pt.load_checkpoint(snap, device="cpu")
         opt = blob["opt_state"]
-        check(opt is not None and int(opt["0"]["count"]) == 10,
-              "the step-10 snapshot has no optimizer state at count 10")
-        # what came out: the loss on the first training batch falls from
-        # the seed's init to the trained params
-        x, y = a.dataset.get_batch(np.arange(16))
-        x, y = torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+        check(opt is not None and int(opt["0"]["count"]) == half,
+              f"the step-{half} snapshot has no optimizer state at count "
+              f"{half}")
+        # what came out: the loss on the first training batch (with its mel
+        # frames, for a conditioned config) falls from the seed's init to
+        # the trained params
+        batch = [torch.from_numpy(v).to(dev)
+                 for v in a.dataset.get_batch(np.arange(16))]
+        cond = (batch[2], a._cond_hop) if len(batch) > 2 else ()
         init = pt.init_wavenet(a.cfg, torch.Generator().manual_seed(SEED),
                                dev)
         with torch.no_grad():
-            l0 = float(pt.cross_entropy_loss(init, a.cfg, x, y))
-            l1 = float(pt.cross_entropy_loss(a.params, a.cfg, x, y))
+            l0 = float(pt.cross_entropy_loss(init, a.cfg, *batch[:2], *cond))
+            l1 = float(pt.cross_entropy_loss(a.params, a.cfg, *batch[:2],
+                                             *cond))
         n_items = len(a.dataset)
+    what = ""
+    if cond:
+        want = (16, 1 + a.cfg.item_length // a._cond_hop,
+                a.cfg.cond_channels)
+        check(tuple(cond[0].shape) == want,
+              f"mel frames {tuple(cond[0].shape)}, expected {want}")
+        check(sorted(blob["params"].get("cond_up", {})) == ["s0", "s1"],
+              "the snapshot has no learnable upsampler")
+        what = (f", mel frames {want} a batch through the learnable "
+                f"upsampler {a.cfg.cond_upsample}, K2/K3 with cond")
     check(not plain_calls, f"the plain trunk ran {len(plain_calls)} times")
-    check(launched == (20, 20), f"K2/K3 launches {launched}, expected 20 each "
-          f"(one per step)")
-    check(resumed == (10, 10), f"resumed run: K2/K3 launches {resumed}, "
-          f"expected 10 each")
-    check(a.step == 20 and b.step == 20, f"steps {a.step}, {b.step}")
+    check(launched == (steps, steps), f"K2/K3 launches {launched}, expected "
+          f"{steps} each (one per step)")
+    check(resumed == (steps - half,) * 2, f"resumed run: K2/K3 launches "
+          f"{resumed}, expected {steps - half} each")
+    check(a.step == steps and b.step == steps, f"steps {a.step}, {b.step}")
     check(math.isfinite(l0) and math.isfinite(l1) and l1 < l0,
           f"loss did not fall: {l0} -> {l1}")
-    diffs = [float((p - q).abs().max()) for (_, p), (_, q)
-             in zip(_leaves(a.params), _leaves(b.params))]
+    with torch.no_grad():
+        diffs = [float((p - q).abs().max()) for (_, p), (_, q)
+                 in zip(_leaves(a.params), _leaves(b.params))]
     bitwise = all(torch.equal(p, q) for (_, p), (_, q)
                   in zip(_leaves(a.params), _leaves(b.params)))
     check(max(diffs) <= 1e-6, f"resumed run differs by {max(diffs)}")
-    log(f"[train] chaconne_wide batch 16 on {len(wavs)} example files "
-        f"({n_items} windows): 20 steps in {wall:.1f} s (dataset and "
-        f"snapshots included; avg step {1e3 * a.avg_step_time:.2f} ms host "
-        f"clock); K2/K3 launches {launched[0]}/{launched[1]} (20 steps x 1 "
-        f"wrapper call each, {a.cfg.num_layers} and {a.cfg.num_layers + 2} "
-        f"CUDA kernels per call), plain trunk calls {len(plain_calls)}; "
-        f"loss on the first batch {l0:.4f} at init -> {l1:.4f} at step 20; "
-        f"step-10 snapshot holds opt_state (count 10)")
-    log(f"[train] resumed from the step-10 snapshot to step 20 (K2/K3 "
-        f"launches {resumed[0]}/{resumed[1]}): params "
+    log(f"[train] {config} batch 16 on {len(wavs)} example files "
+        f"({n_items} windows{what}): {steps} steps in {wall:.1f} s (dataset "
+        f"and snapshots included; avg step {1e3 * a.avg_step_time:.2f} ms "
+        f"host clock); K2/K3 launches {launched[0]}/{launched[1]} ({steps} "
+        f"steps x 1 wrapper call each, {a.cfg.num_layers} and "
+        f"{a.cfg.num_layers + 2} CUDA kernels per call), plain trunk calls "
+        f"{len(plain_calls)}; loss on the first batch {l0:.4f} at init -> "
+        f"{l1:.4f} at step {steps}; step-{half} snapshot holds opt_state "
+        f"(count {half})")
+    log(f"[train] {config} resumed from the step-{half} snapshot to step "
+        f"{steps} (K2/K3 launches {resumed[0]}/{resumed[1]}): params "
         f"{'bitwise equal to' if bitwise else 'within %.3g of' % max(diffs)} "
         f"the uninterrupted run's")
     return launched
@@ -1387,79 +1453,113 @@ def _time_median(torch, fn, reps):
     return sorted(ms)[len(ms) // 2], ms
 
 
-def phase_train_times(torch, pt, tk, dev, card):
-    """Times with CUDA events at chaconne_wide, batch 16: the train step,
-    K2 and K3 at both save types beside their bounds, the plain trunk, and
-    the step's split. Returns the figures for the kernels line."""
+def phase_train_times(torch, pt, tk, dev, card, config="chaconne_wide",
+                      cond_upsample=None, hop=256):
+    """Times with CUDA events at ``config``, batch 16: the train step and
+    the step with the plain trunk, K2 and K3 beside their bounds, the plain
+    trunk, K2's and K3's device time by CUDA kernel (``torch.profiler``)
+    and the step's split. Phase 13 times chaconne_wide with K2/K3 at bf16
+    and f32 saves; phase 20 the vocoder with ``cond_upsample`` (mel-like
+    frames of ``hop`` samples through the learnable upsampler) and K2/K3 at
+    bf16 saves without and with its cond rows. Returns the figures for the
+    kernels line, ``k[(kernel, variant)] = (ms, bound ms, bound by)``."""
     import dataclasses
 
+    from pytorch_wavenet_tpu_torch.models.wavenet import skip_head
     from pytorch_wavenet_tpu_torch.training.optimizers import _leaves
+    from pytorch_wavenet_tpu_torch.training.trainer import _expand_cond
 
-    cfg = pt.get_config("chaconne_wide", trunk_kernel=True)
+    kw = {"cond_upsample": tuple(cond_upsample)} if cond_upsample else {}
+    cfg = pt.get_config(config, trunk_kernel=True, **kw)
+    what = config + (" --cond-upsample " + ",".join(map(str, cond_upsample))
+                     if cond_upsample else "")
     B, out = 16, cfg.output_length
     g = torch.Generator().manual_seed(4)
     x = torch.randint(0, cfg.classes, (B, cfg.item_length), generator=g)
     y = torch.randint(0, cfg.classes, (B, out), generator=g)
     x, y = x.to(dev, torch.int32), y.to(dev, torch.int32)
+    frames = (_normal(torch, (B, 1 + cfg.item_length // hop,
+                              cfg.cond_channels), 6, dev, 2.0)
+              if cond_upsample else None)
+    cargs = (frames, hop) if cond_upsample else ()
     params = pt.init_wavenet(cfg, torch.Generator().manual_seed(SEED), dev)
     for _, p in _leaves(params):
         p.requires_grad_(True)
     tx = pt.reference_adam(1e-4)
     state = tx.init(params)
     step_ms, all_ms = _time_median(torch, lambda: pt.train_step(
-        params, state, cfg, tx, x, y), 10)
-    log(f"[time] train step, chaconne_wide batch 16, trunk K2/K3 (bf16 "
-        f"saves): median {step_ms:.3f} ms of 10 warm steps ("
+        params, state, cfg, tx, x, y, *cargs), 10)
+    log(f"[time] train step, {what} batch 16, trunk K2/K3"
+        f"{' with cond' if cond_upsample else ''} (bf16 saves): median "
+        f"{step_ms:.3f} ms of 10 warm steps ("
         + ", ".join(f"{m:.3f}" for m in all_ms) + f"); "
         f"{B * out / step_ms * 1e3:.0f} targets/s [{card}]")
     plain_cfg = dataclasses.replace(cfg, trunk_kernel=False)
     plain_step, _ = _time_median(torch, lambda: pt.train_step(
-        params, state, plain_cfg, tx, x, y), 3)
-    log(f"[time] train step with the plain trunk (--no-trunk-kernel): "
-        f"median {plain_step:.3f} ms of 3 [{card}]")
+        params, state, plain_cfg, tx, x, y, *cargs), 3)
+    log(f"[time] {config} train step with the plain trunk "
+        f"(--no-trunk-kernel): median {plain_step:.3f} ms of 3 [{card}]")
 
     # the kernels alone, at the main path's shapes
-    cfg_t, p_t, h0, du = _trunk_case(torch, pt, dev, "chaconne_wide", B, out)
-    out_k = {}
-    for sd, name in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
-        _, saves = tk.trunk_fwd_cuda(p_t, cfg_t, h0, out, sd)
-        k2 = min(_time(torch, lambda: tk.trunk_fwd_cuda(p_t, cfg_t, h0, out,
-                                                        sd), 5))
-        k3 = min(_time(torch, lambda: tk.trunk_bwd_cuda(p_t, cfg_t, saves,
-                                                        du, out), 5))
-        bounds = trunk_bounds(cfg_t, B, out, 2 if name == "bf16" else 4)
-        old = trunk_bounds(cfg_t, B, out, 2 if name == "bf16" else 4,
-                           tf32x3=False)
-        for kname, ms in (("K2", k2), ("K3", k3)):
+    cfg_t, p_t, h0, du = _trunk_case(torch, pt, dev, config, B, out)
+    if cond_upsample:
+        variants = (("without cond", " without cond", torch.bfloat16, None),
+                    ("cond", " with cond", torch.bfloat16,
+                     _cond_rows(torch, cfg_t, B, out, dev)))
+    else:
+        variants = (("bf16", "", torch.bfloat16, None),
+                    ("f32", "", torch.float32, None))
+    out_k, reduce_ms = {}, 0.0
+    for name, label, sd, c in variants:
+        _, saves = tk.trunk_fwd_cuda(p_t, cfg_t, h0, out, sd, c)
+        fns = (("K2", lambda: tk.trunk_fwd_cuda(p_t, cfg_t, h0, out, sd, c)),
+               ("K3", lambda: tk.trunk_bwd_cuda(p_t, cfg_t, saves, du, out,
+                                                c)))
+        sb, M = (2 if sd == torch.bfloat16 else 4,
+                 0 if c is None else cfg_t.cond_channels)
+        bounds = trunk_bounds(cfg_t, B, out, sb, cond_channels=M)
+        old = trunk_bounds(cfg_t, B, out, sb, tf32x3=False, cond_channels=M)
+        for kname, fn in fns:
+            ms = min(_time(torch, fn, 5))
             b_ms, b_by = bounds[kname]
-            log(f"[time] {kname} chaconne_wide batch 16 out {out}, {name} "
-                f"saves: {ms:.3f} ms (min of 5); bound {b_ms:.4f} ms "
-                f"({b_by}, 3xTF32 on the tensor cores), {100 * b_ms / ms:.2f} "
-                f"% of it; the f32 bound of the FMA kernels "
-                f"{old[kname][0]:.4f} ms, {100 * old[kname][0] / ms:.2f} % "
-                f"[{card}]")
+            log(f"[time] {kname} {config}{label}, batch 16 out {out}, "
+                f"{'bf16' if sb == 2 else 'f32'} saves: {ms:.3f} ms (min of "
+                f"5); bound {b_ms:.4f} ms ({b_by}, 3xTF32 on the tensor "
+                f"cores), {100 * b_ms / ms:.2f} % of it; the f32 bound of the "
+                f"FMA kernels {old[kname][0]:.4f} ms, "
+                f"{100 * old[kname][0] / ms:.2f} % [{card}]")
             out_k[(kname, name)] = (ms, b_ms, b_by)
-        # the split by CUDA kernel (torch.profiler): K3's launch kinds, K2's
-        # time per layer
-        for kname, fn in (("K2", lambda: tk.trunk_fwd_cuda(
-                p_t, cfg_t, h0, out, sd)), ("K3", lambda: tk.trunk_bwd_cuda(
-                    p_t, cfg_t, saves, du, out))):
+        # the split by CUDA kernel (torch.profiler): K3's launch kinds with
+        # its reduction of the partial slots, K2's time per layer
+        for kname, fn in fns:
             split = kernel_split(torch, fn)
-            check(split, f"{kname}: the profiler saw no device time")
-            log(f"[time] {kname} split, {name} saves (device time per call, "
-                f"torch.profiler, mean of 3): " + "; ".join(
+            check(split, f"{kname} {name}: the profiler saw no device time")
+            if kname == "K3":
+                reduce_ms = sum(ms_ for k_, (ms_, _) in split.items()
+                                if "reduce" in short_kernel_name(k_))
+            log(f"[time] {kname} {config}{label}, "
+                f"{'bf16' if sb == 2 else 'f32'} saves, split (device time "
+                f"per call, torch.profiler, mean of 3): " + "; ".join(
                     f"{short_kernel_name(k_)} {ms_:.3f} ms in {n_:g} "
                     f"launches ({1e3 * ms_ / n_:.1f} us each)"
                     for k_, (ms_, n_) in sorted(split.items(),
                                                 key=lambda x: -x[1][0]))
                 + f" [{card}]")
-    _, saves = tk.trunk_fwd_plain(p_t, cfg_t, h0, out, torch.bfloat16)
+    if cond_upsample:
+        for kname in ("K2", "K3"):
+            extra = out_k[(kname, "cond")][0] - out_k[(kname,
+                                                      "without cond")][0]
+            log(f"[time] {kname} {config}: cond costs {extra:.3f} ms a call "
+                f"[{card}]")
+    c = variants[-1][3]
+    _, saves = tk.trunk_fwd_plain(p_t, cfg_t, h0, out, torch.bfloat16, c)
     pf = min(_time(torch, lambda: tk.trunk_fwd_plain(
-        p_t, cfg_t, h0, out, torch.bfloat16), 2))
+        p_t, cfg_t, h0, out, torch.bfloat16, c), 2))
     pb = min(_time(torch, lambda: tk.trunk_bwd_plain(
-        p_t, cfg_t, saves, du, out), 2))
-    log(f"[time] plain trunk, same shapes, bf16 saves: forward {pf:.3f} ms, "
-        f"backward {pb:.3f} ms [{card}]")
+        p_t, cfg_t, saves, du, out, c), 2))
+    log(f"[time] plain trunk{'' if c is None else ' with cond'}, same "
+        f"shapes, bf16 saves: forward {pf:.3f} ms, backward {pb:.3f} ms "
+        f"[{card}]")
     log("[time] library call: none (no single PyTorch call computes the "
         "dilated trunk)")
 
@@ -1467,27 +1567,28 @@ def phase_train_times(torch, pt, tk, dev, card):
     L, D = cfg.num_layers, cfg.dilation_channels
     lp = params["layers"]
     h0e = pt.embed_inputs(params, cfg, x).detach()
+    ce = (_expand_cond(params, cfg, frames, hop, x.shape[1]).detach()
+          .requires_grad_(True) if cond_upsample else None)
     u = torch.rand((B, out, L * D), generator=g).to(dev).requires_grad_(True)
     logits = torch.randn((B, out, cfg.classes), generator=g).to(
         dev).requires_grad_(True)
-    from pytorch_wavenet_tpu_torch.models import wavenet as wm
 
     def embed():
         h = pt.embed_inputs(params, cfg, x)
         torch.autograd.grad(h, [params["start"]["w"]], torch.ones_like(h))
 
-    def trunk():
-        uu = tk.fused_trunk(params, cfg, h0e, out)
-        torch.autograd.grad(uu, [lp["w_in"]], torch.ones_like(uu))
+    def upsample():
+        c = _expand_cond(params, cfg, frames, hop, x.shape[1])
+        torch.autograd.grad(c, list(params["cond_up"].values()),
+                            torch.ones_like(c))
 
-    def skip_head():
-        skip = wm._mm(u, lp["w_skip"].reshape(L * D, -1), cfg.compute_dtype)
-        skip = skip + lp["b_skip"].sum(dim=0)
-        yy = torch.relu(skip)
-        yy = torch.relu(wm._mm(yy, params["end1"]["w"], cfg.compute_dtype)
-                        + params["end1"]["b"])
-        yy = (wm._mm(yy, params["end2"]["w"], cfg.compute_dtype)
-              + params["end2"]["b"])
+    def trunk():
+        uu = tk.fused_trunk(params, cfg, h0e, out, cond=ce)
+        wrt = [lp["w_in"]] + ([] if ce is None else [lp["w_cond"], ce])
+        torch.autograd.grad(uu, wrt, torch.ones_like(uu))
+
+    def head():
+        yy = skip_head(params, cfg, u)
         torch.autograd.grad(yy, [u, lp["w_skip"]], torch.ones_like(yy))
 
     def loss():
@@ -1496,24 +1597,30 @@ def phase_train_times(torch, pt, tk, dev, card):
             y.long(), cfg.classes).to(torch.float32), dim=-1)
         torch.autograd.grad(torch.mean(lz - hit), [logits])
 
-    gtree = pt.train_step(params, state, cfg, tx, x, y)[1]
+    gtree = pt.train_step(params, state, cfg, tx, x, y, *cargs)[1]
 
     def opt():
         tx.step(params, gtree, state)
 
     parts = {}
-    for name, fn in (("embed fwd+bwd", embed), ("trunk K2+K3", trunk),
-                     ("skip+head fwd+bwd", skip_head),
+    for name, fn in (("embed fwd+bwd", embed),
+                     *((("upsampler fwd+bwd", upsample),)
+                       if cond_upsample else ()),
+                     ("trunk K2+K3" + (" with cond" if cond_upsample else ""),
+                      trunk),
+                     ("skip+head fwd+bwd", head),
                      ("loss fwd+bwd", loss), ("optimizer", opt)):
         parts[name] = _time_median(torch, fn, 5)[0]
     total = sum(parts.values())
-    log(f"[time] step split (each part alone, median of 5): "
+    log(f"[time] {config} step split (each part alone, median of 5): "
         + ", ".join(f"{k} {v:.3f} ms" for k, v in parts.items())
-        + f"; sum {total:.3f} ms against the step's {step_ms:.3f} ms "
-        f"[{card}]")
+        + f"; of the trunk, K3's reduction of the partial slots "
+          f"{reduce_ms:.3f} ms (profiler); sum {total:.3f} ms against the "
+          f"step's {step_ms:.3f} ms [{card}]")
     return dict(step_ms=step_ms, plain_step_ms=plain_step,
                 targets_per_s=B * out / step_ms * 1e3, parts=parts,
-                k=out_k, plain_fwd_ms=pf, plain_bwd_ms=pb)
+                k=out_k, plain_fwd_ms=pf, plain_bwd_ms=pb,
+                reduce_ms=reduce_ms)
 
 
 # ------------------------------------------------------------- the vocoder
@@ -2061,6 +2168,35 @@ def phase_vocoder_times(torch, pt, gk, ghbm, dev, card):
     return out
 
 
+# --------------------------------------------- conditioned training (K2/K3)
+
+VOCODER_UPSAMPLE = (16, 16)  # the learnable upsampler's factors (hop 256)
+
+
+def _cond_rows(torch, cfg, batch, out_len, dev, seed=5):
+    """Random cond rows (batch, T, M), about the spread of log-mel
+    features."""
+    T = cfg.receptive_field + out_len - 1
+    return _normal(torch, (batch, T, cfg.cond_channels), seed, dev, 2.0)
+
+
+def phase_cond_k23_vs_plain(torch, pt, tk, dev):
+    """K2 and K3 with cond against their plain versions at the vocoder (R =
+    D = 64, 80 mel channels), out 1024, f32 and bf16 saves: u, every
+    gradient, dW_cond and dcond; two conditioned K3 calls bitwise equal.
+    Batch 16 is the main path's (phase 19; K3's slot geometry depends on
+    the batch), batch 4 a second geometry. Returns the largest unit error
+    and the largest f32-save gradient error (absolute) at batch 16."""
+    errs = []
+    for batch in (16, 4):
+        cfg, params, h0, du = _trunk_case(torch, pt, dev, "vocoder", batch,
+                                          1024)
+        cond = _cond_rows(torch, cfg, batch, 1024, dev)
+        errs.append(_k23_check(torch, tk, f"K2/K3 vocoder cond batch {batch} "
+                               "out 1024", cfg, params, h0, du, 1024, cond))
+    return errs[0]
+
+
 # -------------------------------------------------------------------- main
 
 
@@ -2120,6 +2256,19 @@ def main():
     log(f"phase /vocode serving done at {time.time() - t_start:.0f} s")
     vt = phase_vocoder_times(torch, pt, gk, ghbm, dev, card)
     log(f"phase vocoder times done at {time.time() - t_start:.0f} s")
+    cu_err, cg_err = phase_cond_k23_vs_plain(torch, pt, tk, dev)
+    log(f"phase K2/K3 vocoder cond-vs-plain done at "
+        f"{time.time() - t_start:.0f} s")
+    vk2_launched, vk3_launched = phase_training(
+        torch, np, pt, tk, dev, "vocoder", 10,
+        ("--cond-upsample", ",".join(map(str, VOCODER_UPSAMPLE)),
+         "--hop-length", "256",
+         "--n-fft", "1024"))
+    log(f"phase vocoder training done at {time.time() - t_start:.0f} s")
+    vtt = phase_train_times(torch, pt, tk, dev, card, "vocoder",
+                            VOCODER_UPSAMPLE)
+    log(f"phase vocoder training times done at "
+        f"{time.time() - t_start:.0f} s")
 
     kernels = [{
         "name": "gen_fused (K1, fuse_res)",
@@ -2201,6 +2350,32 @@ def main():
     kernels[-2]["vocode_single_s"] = vocoded["single_s"]
     kernels[-1]["vocode_served_samples_per_s"] = vocoded[
         "pooled_samples_per_s"]
+    for name, src, line, launched, err, plain in (
+            ("trunk_fwd (K2, vocoder, cond, batch 16, out 1024, bf16 saves)",
+             "trunk_fwd.cu", 621, vk2_launched, cu_err, vtt["plain_fwd_ms"]),
+            ("trunk_bwd (K3, vocoder, cond, batch 16, out 1024, bf16 saves)",
+             "trunk_bwd.cu", 729, vk3_launched, cg_err,
+             vtt["plain_bwd_ms"])):
+        key = name[name.index("(") + 1:name.index("(") + 3]
+        ms, b_ms, b_by = vtt["k"][(key, "cond")]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"pytorch_wavenet_tpu_torch/csrc/{src}",
+            "replaces": f"pytorch_wavenet_tpu/ops/pallas/trunk_kernel.py:{line}",
+            "launches": launched,
+            "max_abs_err": err,
+            "ms": ms,
+            "plain_ms": plain,
+            "bound_ms": b_ms,
+            "bound_by": b_by,
+            "library_ms": None,
+            "ms_without_cond": vtt["k"][(key, "without cond")][0],
+            "bound_ms_without_cond": vtt["k"][(key, "without cond")][1],
+            "train_step_ms": vtt["step_ms"],
+            "train_targets_per_s": vtt["targets_per_s"],
+        })
+    kernels[-1]["k3_reduce_ms"] = vtt["reduce_ms"]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

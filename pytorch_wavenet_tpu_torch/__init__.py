@@ -8,8 +8,8 @@ through a hand-written CUDA kernel for the fused generation loop
 (``ops/cuda/gen_kernel.py``), and continuous-batching serving of many
 streams (``serving/batcher.py``) through a hand-written CUDA kernel for
 batched generation (``ops/cuda/gen_kernel_hbm.py``), and training
-(``training/``: the numpy data layer, the reference Adam, the trainer and
-its CLI) with the trunk through hand-written CUDA kernels for its forward
+(``training/``: the numpy data layer with the vocoder's mel features, the
+reference Adam, the trainer and its CLI) with the trunk through hand-written CUDA kernels for its forward
 and backward (``ops/cuda/trunk_kernel.py``); the kernel sources are in
 ``csrc/``. Importing the package
 builds nothing and touches no device; kernels build with ``nvcc`` at first
@@ -20,6 +20,7 @@ card is present); ``device="cpu"`` runs the plain PyTorch versions.
 from .config import PRESETS, WaveNetConfig, get_config
 from .data.audio_io import load_audio, write_wav
 from .data.dataset import BatchIterator, PrefetchBatchIterator, WaveNetDataset
+from .data.mel_dataset import MelWaveNetDataset
 from .models.convert import from_jax_params, to_numpy_params
 from .models.generate import (
     GenState,
@@ -68,7 +69,7 @@ from .utils.checkpoints import (
 __all__ = [
     "PRESETS", "WaveNetConfig", "get_config",
     "load_audio", "write_wav", "BatchIterator", "PrefetchBatchIterator",
-    "WaveNetDataset",
+    "WaveNetDataset", "MelWaveNetDataset",
     "from_jax_params", "to_numpy_params",
     "GenState", "StreamState", "buffer_length", "gen_step", "generate",
     "generate_fast", "init_gen_state", "synthesize",

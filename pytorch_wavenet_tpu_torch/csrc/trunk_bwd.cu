@@ -17,12 +17,17 @@
 //   dv[t] = dz[t] @ w_in[l]^T   (k*R columns, one group of R per tap)
 //   dh[t] = dh_next[t] + dv[t, (k-1)R:] + sum_{j<k-1} dv[t + m_j, jR:(j+1)R]
 // dh goes back to [sp_l, T) (the whole window for layer 0: dh0, f32).
+// With local conditioning cond (N, T, M) f32, z also takes cond[t] @
+// w_cond[l], and
+//   dw_cond[l] = sum_{n,t} cond[t]^T dz[t]
+//   dcond[t] += dz[t] @ w_cond[l]^T   (on [s_l, T), from the top layer down)
 //
 // What bounds it on this card: the arithmetic. The tap product is computed
 // three times (recompute, weight and stream gradients) and the residual
 // product twice: 39.45 GFLOP at chaconne_wide, batch 16, out 1024, done as
 // three TF32 products each, 0.2391 ms at the tensor cores' 495 TFLOP/s
-// (chip_smoke.py::trunk_bounds).
+// (chip_smoke.py::trunk_bounds). The vocoder's cond product adds three
+// products of 2*80*128 operations a position.
 //
 // Design. The TPU kernel walks all layers per item pair with the item's
 // stream in VMEM and sums the weight gradients across its sequential grid in
@@ -49,6 +54,15 @@
 //     over the whole card.
 // No atomics anywhere, so two calls on the same inputs give bitwise-equal
 // gradients and a resumed run can be held to an uninterrupted one.
+// Conditioning (the COND instantiation) extends the three tap products'
+// depth or width by the cond rows: the tile's cond rows are staged beside
+// its tap rows and w_cond's rows below w_in's, so the recompute's depth is
+// k*Rp + Mp, the weight gradient v^T dz gains dw_cond's Mp rows (the
+// partial slots grow by Mp*2Dp floats and the same reduction sums them),
+// and dv = dz @ w_in^T gains Mp columns, dz @ w_cond^T, which the tile adds
+// to dcond (N, T, M) in place: a position belongs to one tile of a layer
+// launch and the launches run in order, so the sum's order is the layers'
+// from the top, with no atomics.
 
 #include "trunk_core.cuh"
 
@@ -67,17 +81,22 @@ struct Layer {
   int T, out, LD, k, R, D, Rp, Dp, d, s, col;
   int dn, sn;               // layer l + 1's dilation and window start
   int tpi, ntiles, per, wsm, asm_;
+  // local conditioning (COND), last, so that the unconditioned kernels
+  // read their parameters where they always did
+  const float* cond;        // (N, T, M) f32
+  float* dcond;             // (N, T, M) f32, accumulated, or null
+  int M, Mp;
 };
 
-// Shared memory in floats: biases, tap rows, dh_next, dz (first the
-// staged rows of the layer above's dv), u (first the staged bf16 tap rows),
-// then (wsm) the weights and (asm_) the partial sums.
-int smem_floats(int TM, int k, int Rp, int Dp, int wsm, int asm_) {
-  const int KR = k * Rp, D2 = 2 * Dp;
-  return D2 + TM * (lda(KR) + lda(Rp) + imax(lda(D2), KR) +
+// Shared memory in floats: biases, tap (and cond) rows, dh_next, dz (first
+// the staged rows of the layer above's dv), u (first the staged bf16 tap
+// rows), then (wsm) the weights and (asm_) the partial sums.
+int smem_floats(int TM, int k, int Rp, int Dp, int Mp, int wsm, int asm_) {
+  const int KR = k * Rp, KC = KR + Mp, D2 = 2 * Dp;
+  return D2 + TM * (lda(KC) + lda(Rp) + imax(lda(D2), KR) +
                     imax(lda(Dp), KR / 2)) +
-         (wsm ? KR * ldb(D2) + Dp * lda(Rp) : 0) +
-         (asm_ ? KR * ldb(D2) + Dp * ldb(Rp) + D2 + Rp : 0);
+         (wsm ? KC * ldb(D2) + Dp * lda(Rp) : 0) +
+         (asm_ ? KC * ldb(D2) + Dp * ldb(Rp) + D2 + Rp : 0);
 }
 
 // dh[t][r] of the layer whose dv (N, T, k*Rp) at item base `dv` is given,
@@ -117,31 +136,33 @@ __device__ __forceinline__ void c_store(const float (&acc)[NB][4], float* C,
         C[(m0 + frag_row(e)) * ld + n0 + 8 * b + frag_col(e)] = acc[b][e];
 }
 
-template <int TM, bool BF16>
+template <int TM, bool BF16, bool COND>
 __global__ void __launch_bounds__(NTHREADS) trunk_bwd_layer(Layer a) {
   extern __shared__ __align__(16) float sm[];
   const int k = a.k, Rp = a.Rp, Dp = a.Dp, KR = k * Rp, D2 = 2 * Dp;
-  const int LV = lda(KR), LH = lda(Rp), LZ = lda(D2), LU = lda(Dp);
+  const int Mp = COND ? a.Mp : 0, KC = KR + Mp;
+  const int LV = lda(KC), LH = lda(Rp), LZ = lda(D2), LU = lda(Dp);
   const int LW = ldb(D2), LR = lda(Rp);
-  const int P = KR * D2 + Dp * Rp + D2 + Rp;
+  const int P = KC * D2 + Dp * Rp + D2 + Rp;
   float* bi = sm;                          // D2, packed
-  float* v = bi + D2;                      // TM x KR: tap rows
+  float* v = bi + D2;                      // TM x KC: tap rows, cond rows
   float* dh = v + TM * LV;                 // TM x Rp: dh_next
   float* dz = dh + TM * LH;                // TM x D2, packed
   float* us = dz + TM * imax(LZ, KR);      // TM x Dp: u
-  float* wi = us + TM * imax(LU, KR / 2);  // KR x D2 (wsm)
-  float* wr = wi + (a.wsm ? KR * LW : 0);    // Dp x Rp (wsm)
+  float* wi = us + TM * imax(LU, KR / 2);  // KC x D2 (wsm): w_in, w_cond
+  float* wr = wi + (a.wsm ? KC * LW : 0);    // Dp x Rp (wsm)
   float* acc0 = wr + (a.wsm ? Dp * LR : 0);  // partial sums (asm_)
   float* pc = dz;  // staged rows of dv above: [TM][KR], before dz
   __nv_bfloat16* raw = reinterpret_cast<__nv_bfloat16*>(us);  // [TM][KR]
   const float* wg = a.w;
-  const float* wrg = wg + KR * D2;
+  const float* wrg = wg + KC * D2;
   const float* big = wrg + Dp * Rp;
   float* slot = a.slots + (size_t)blockIdx.x * P;
   // the block's partial sums: in shared memory, or in its own slot
+  // (dw_in's KR rows, then dw_cond's Mp)
   float* gw = a.asm_ ? acc0 : slot;
   const int lgw = a.asm_ ? ldb(D2) : D2;
-  float* gr = gw + KR * lgw;
+  float* gr = gw + KC * lgw;
   const int lgr = a.asm_ ? ldb(Rp) : Rp;
   float* gbi = gr + Dp * lgr;
   float* gbr = gbi + D2;
@@ -150,10 +171,10 @@ __global__ void __launch_bounds__(NTHREADS) trunk_bwd_layer(Layer a) {
 
   stage(bi, D2, big, 1, D2);
   if (a.wsm) {
-    stage(wi, LW, wg, KR, D2);
+    stage(wi, LW, wg, KC, D2);
     stage(wr, LR, wrg, Dp, Rp);
   }
-  const int nacc = KR * lgw + Dp * lgr + D2 + Rp;
+  const int nacc = KC * lgw + Dp * lgr + D2 + Rp;
   for (int e = threadIdx.x; e < nacc; e += NTHREADS) gw[e] = 0.f;
 
   const Op V = op(v, LV, 1), VT = op(v, 1, LV);
@@ -162,8 +183,13 @@ __global__ void __launch_bounds__(NTHREADS) trunk_bwd_layer(Layer a) {
   const Op W = a.wsm ? op(wi, LW, 1) : op(wg, D2, 1);
   const Op WT = a.wsm ? op(wi, 1, LW) : op(wg, 1, D2);
   const Op WrT = a.wsm ? op(wr, 1, LR) : op(wrg, 1, Rp);
-  const int MT = TM / 16, G = Dp / 16, GV = (KR + 31) / 32;
-  const int n1 = KR / 16 * (D2 / 32), n2 = Dp / 16 * ((Rp + 31) / 32);
+  // the cond part of the recompute: cond rows by w_cond, both f32
+  const Op VC = op(v + KR, LV, 1);
+  const Op WC = a.wsm ? op(wi + KR * LW, LW, 1) : op(wg + KR * D2, D2, 1);
+  // dv's columns: k*Rp, and Mp more (dz @ w_cond^T) when dcond is wanted
+  const int NV = KR + (COND && a.dcond != nullptr ? Mp : 0);
+  const int MT = TM / 16, G = Dp / 16, GV = (NV + 31) / 32;
+  const int n1 = KC / 16 * (D2 / 32), n2 = Dp / 16 * ((Rp + 31) / 32);
   const int o0 = a.T - a.out;
   const int first = blockIdx.x * a.per;
   const int last = min(a.ntiles, first + a.per);
@@ -177,6 +203,9 @@ __global__ void __launch_bounds__(NTHREADS) trunk_bwd_layer(Layer a) {
       stage_taps_bf16_raw(raw, a.sb + base, t0, TM, a.T, k, a.R, Rp, a.d);
     else
       stage_taps_bf16(v, LV, a.sb + base, t0, TM, a.T, k, a.R, Rp, a.d);
+    if (COND)
+      stage_cond_f32(v + KR, LV, a.cond + (size_t)n * a.T * a.M, t0, TM, a.T,
+                     a.M, Mp);
     // the layer above's dv at t (its own tap, which carries its dh_next)
     // and at t + m_j (tap j), where they lie in its window
     const float* dvn = a.dvn + (size_t)n * a.T * KR;
@@ -218,6 +247,7 @@ __global__ void __launch_bounds__(NTHREADS) trunk_bwd_layer(Layer a) {
       zero(az);
       zero(ag);
       mma3<4, BF16>(az, V, 16 * mt, W, 32 * grp, 4, KR);
+      if (COND) mma3<4, false>(az, VC, 16 * mt, WC, 32 * grp, 4, Mp);
       mma3<2, false>(ag, DH, 16 * mt, WrT, 16 * grp, 2, Rp);
 #pragma unroll
       for (int c = 0; c < 2; ++c) {
@@ -245,10 +275,11 @@ __global__ void __launch_bounds__(NTHREADS) trunk_bwd_layer(Layer a) {
     }
     __syncthreads();
 
-    // dv = dz @ w_in^T, dh_next added to the own tap's columns
+    // dv = dz @ w_in^T, dh_next added to the own tap's columns; with
+    // dcond its columns past k*Rp are dz @ w_cond^T, added to dcond
     float* dvo = a.dv + (size_t)n * a.T * KR;
     for (int it = warp; it < MT * GV; it += NWARP) {
-      const int mt = it % MT, grp = it / MT, nb = min(4, KR / 8 - 4 * grp);
+      const int mt = it % MT, grp = it / MT, nb = min(4, NV / 8 - 4 * grp);
       float acc[4][4];
       zero(acc);
       mma3<4, false>(acc, DZ, 16 * mt, WT, 32 * grp, nb, D2);
@@ -260,6 +291,12 @@ __global__ void __launch_bounds__(NTHREADS) trunk_bwd_layer(Layer a) {
           const int row = 16 * mt + frag_row(2 * h), t = t0 + row;
           const int q = 32 * grp + 8 * b + frag_col(2 * h);
           if (t >= a.T) continue;
+          if (COND && q >= KR) {  // a pair never straddles KR (16 | KR)
+            float* dc = a.dcond + ((size_t)n * a.T + t) * a.M + (q - KR);
+            if (q - KR < a.M) dc[0] += acc[b][2 * h];
+            if (q + 1 - KR < a.M) dc[1] += acc[b][2 * h + 1];
+            continue;
+          }
           float2 x = make_float2(acc[b][2 * h], acc[b][2 * h + 1]);
           if (q >= (k - 1) * Rp) {
             x.x += dh[row * LH + q - (k - 1) * Rp];
@@ -271,13 +308,16 @@ __global__ void __launch_bounds__(NTHREADS) trunk_bwd_layer(Layer a) {
     }
 
     // the tile's weight gradients added to the block's partial sums:
-    // dw_in += v^T dz, dw_res += u^T dh_next
+    // dw_in (and dw_cond) += v^T dz, dw_res += u^T dh_next
     for (int it = warp; it < n1 + n2; it += NWARP) {
       float acc[4][4];
       if (it < n1) {
-        const int mt = it % (KR / 16), grp = it / (KR / 16);
+        const int mt = it % (KC / 16), grp = it / (KC / 16);
         c_load(acc, gw, lgw, 16 * mt, 32 * grp, 4);
-        mma3<4, BF16>(acc, VT, 16 * mt, DZ, 32 * grp, 4, TM);
+        if (!COND || 16 * mt < KR)  // tap rows (exact TF32 from bf16 saves)
+          mma3<4, BF16>(acc, VT, 16 * mt, DZ, 32 * grp, 4, TM);
+        else  // cond rows, f32
+          mma3<4, false>(acc, VT, 16 * mt, DZ, 32 * grp, 4, TM);
         c_store(acc, gw, lgw, 16 * mt, 32 * grp, 4);
       } else {
         const int j = it - n1, mt = j % (Dp / 16), grp = j / (Dp / 16);
@@ -301,15 +341,16 @@ __global__ void __launch_bounds__(NTHREADS) trunk_bwd_layer(Layer a) {
   }
 
   if (!a.asm_) return;
-  // the partial sums to the block's slot: [dw_in | dw_res | db_in | db_res]
+  // the partial sums to the block's slot: [dw_in | dw_cond | dw_res | db_in
+  // | db_res]
   __syncthreads();
   for (int e = threadIdx.x; e < P; e += NTHREADS) {
     float x;
-    if (e < KR * D2) x = gw[(e / D2) * lgw + e % D2];
-    else if (e < KR * D2 + Dp * Rp) {
-      const int f = e - KR * D2;
+    if (e < KC * D2) x = gw[(e / D2) * lgw + e % D2];
+    else if (e < KC * D2 + Dp * Rp) {
+      const int f = e - KC * D2;
       x = gr[(f / Rp) * lgr + f % Rp];
-    } else x = gbi[e - KR * D2 - Dp * Rp];  // db_in, then db_res
+    } else x = gbi[e - KC * D2 - Dp * Rp];  // db_in, then db_res
     slot[e] = x;
   }
 }
@@ -344,52 +385,60 @@ __global__ void __launch_bounds__(128) trunk_bwd_reduce(
                              ps[3][lane];
 }
 
-template <int TM, bool BF16>
+template <int TM, bool BF16, bool COND>
 cudaError_t launch(const Layer& a, int S, cudaStream_t st) {
-  const int smem = 4 * smem_floats(TM, a.k, a.Rp, a.Dp, a.wsm, a.asm_);
+  const int smem = 4 * smem_floats(TM, a.k, a.Rp, a.Dp, a.Mp, a.wsm, a.asm_);
   cudaError_t err = cudaFuncSetAttribute(
-      trunk_bwd_layer<TM, BF16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      trunk_bwd_layer<TM, BF16, COND>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  trunk_bwd_layer<TM, BF16><<<S, NTHREADS, smem, st>>>(a);
+  trunk_bwd_layer<TM, BF16, COND><<<S, NTHREADS, smem, st>>>(a);
   return cudaGetLastError();
 }
 
-template <bool BF16>
+template <bool BF16, bool COND>
 cudaError_t launch_tm(int TM, const Layer& a, int S, cudaStream_t st) {
   switch (TM) {
-    case 64: return launch<64, BF16>(a, S, st);
-    case 32: return launch<32, BF16>(a, S, st);
-    case 16: return launch<16, BF16>(a, S, st);
+    case 64: return launch<64, BF16, COND>(a, S, st);
+    case 32: return launch<32, BF16, COND>(a, S, st);
+    case 16: return launch<16, BF16, COND>(a, S, st);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// Shared memory per block of the layer launch, in bytes.
-extern "C" int wavenet_trunk_bwd_smem(int TM, int k, int Rp, int Dp, int wsm,
-                                      int asm_) {
-  return 4 * smem_floats(TM, k, Rp, Dp, wsm, asm_);
+// Shared memory per block of the layer launch, in bytes (Mp padded cond
+// channels, 0 without cond).
+extern "C" int wavenet_trunk_bwd_smem(int TM, int k, int Rp, int Dp, int Mp,
+                                      int wsm, int asm_) {
+  return 4 * smem_floats(TM, k, Rp, Dp, Mp, wsm, asm_);
 }
 
 // Runs the reverse walk on `stream`: L layer launches, the dh0 gather and
 // the reduction. `saves` is (L, N, T, R), f32 or bf16 (save_bf16); `w` the
 // packed weights (L, P) (pack_weights); dv0/dv1 (N, T, k*Rp) and `slots`
-// (L, S, P) are scratch. Layer l walks ntiles[l] tiles of TM positions
+// (L, S, P) are scratch. `cond` (N, T, M) f32, or null (then M and Mp are
+// 0); `dcond` (N, T, M) f32, zero on entry, receives d cond (null: not
+// wanted). Layer l walks ntiles[l] tiles of TM positions
 // (tpi[l] per item, from s[l]) in S blocks of per[l] tiles each
 // (bwd_geometry). Writes dh0 (N, T, R) and the gradients `grads` (L, P) in
 // the packed layout. Returns the first cudaError_t that is not
 // cudaSuccess, 0 when every launch went out.
 extern "C" int wavenet_trunk_bwd(
     const void* saves, const float* du, const float* w, float* dv0,
-    float* dv1, float* slots, float* grads, float* dh0, int N, int T,
-    int out, int L, int k, int R, int D, int Rp, int Dp, const int* dil,
-    const int* s, const int* tpi, const int* ntiles, const int* per, int S,
-    int TM, int wsm, int asm_, int save_bf16, void* stream) {
+    float* dv1, float* slots, float* grads, float* dh0, const float* cond,
+    float* dcond, int N, int T, int out, int L, int k, int R, int D, int Rp,
+    int Dp, int M, int Mp, const int* dil, const int* s, const int* tpi,
+    const int* ntiles, const int* per, int S, int TM, int wsm, int asm_,
+    int save_bf16, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (cond == nullptr) {
+    M = Mp = 0;
+    dcond = nullptr;
+  }
   const size_t NTR = (size_t)N * T * R;
-  const size_t P = (size_t)k * Rp * 2 * Dp + Dp * Rp + 2 * Dp + Rp;
+  const size_t P = (size_t)(k * Rp + Mp) * 2 * Dp + Dp * Rp + 2 * Dp + Rp;
   float* dvs[2] = {dv0, dv1};
   cudaError_t err;
   for (int l = L - 1; l >= 0; --l) {
@@ -402,14 +451,21 @@ extern "C" int wavenet_trunk_bwd(
     a.dv = dvs[l % 2];
     a.w = w + l * P;
     a.slots = slots + (size_t)l * S * P;
+    a.cond = cond;
+    a.dcond = dcond;
     a.T = T; a.out = out; a.LD = L * D; a.k = k; a.R = R; a.D = D;
-    a.Rp = Rp; a.Dp = Dp; a.d = dil[l]; a.s = s[l]; a.col = l * D;
+    a.Rp = Rp; a.Dp = Dp; a.M = M; a.Mp = Mp; a.d = dil[l]; a.s = s[l];
+    a.col = l * D;
     a.dn = l + 1 < L ? dil[l + 1] : 1;
     a.sn = l + 1 < L ? s[l + 1] : T;
     a.tpi = tpi[l]; a.ntiles = ntiles[l]; a.per = per[l];
     a.wsm = wsm; a.asm_ = asm_;
-    err = save_bf16 ? launch_tm<true>(TM, a, S, st)
-                    : launch_tm<false>(TM, a, S, st);
+    if (cond != nullptr)
+      err = save_bf16 ? launch_tm<true, true>(TM, a, S, st)
+                      : launch_tm<false, true>(TM, a, S, st);
+    else
+      err = save_bf16 ? launch_tm<true, false>(TM, a, S, st)
+                      : launch_tm<false, false>(TM, a, S, st);
     if (err != cudaSuccess) return (int)err;
   }
   const size_t nel = NTR;

@@ -16,7 +16,10 @@
 // Widths are padded to multiples of 16 by the wrapper's packing
 // (ops/cuda/trunk_kernel.py::pack_weights), so every m-tile, n-tile and
 // k-step is whole; the padding is zero and stays zero through every
-// product. The gate's two halves are interleaved by 8-column tiles (packed
+// product. Local conditioning (cond rows of Mp columns, w_cond's Mp rows
+// packed below w_in) extends the tap product's depth from k*Rp to k*Rp +
+// Mp; the kernels compile it apart (a COND template flag), so the
+// unconditioned kernels keep their code. The gate's two halves are interleaved by 8-column tiles (packed
 // column 16c + i is the filter half of channel 8c + i, 16c + 8 + i its gate
 // half), so one warp's accumulators hold both halves of the same channels
 // and the gate runs in registers.
@@ -160,6 +163,28 @@ __device__ __forceinline__ void stage_taps_f32(float* v, int ld, const float* h,
         const int j = c / Rp, r = c - j * Rp, src = t - (k - 1 - j) * d;
         const bool ok = t < T && src >= 0 && r < R;
         cp4(v + i * ld + c, ok ? h + (size_t)src * R + r : h, ok);
+      }
+    }
+  }
+}
+
+// The tile's cond rows c[i][m] = cond(t0 + i)[m] (the columns after the tap
+// rows) from an f32 (N, T, M) at item base `c`, zero at or past T and in
+// the padding m >= M (Mp columns). 16-byte copies when M % 4 == 0.
+__device__ __forceinline__ void stage_cond_f32(float* v, int ld, const float* c,
+                                               int t0, int TM, int T, int M,
+                                               int Mp) {
+  FOR_ROWS(i, TM) {
+    const int t = t0 + i;
+    if (M % 4 == 0) {
+      FOR_COLS(m, Mp, 4) {
+        const bool ok = t < T && m < M;
+        cp16(v + i * ld + m, ok ? c + (size_t)t * M + m : c, ok);
+      }
+    } else {
+      FOR_COLS(m, Mp, 1) {
+        const bool ok = t < T && m < M;
+        cp4(v + i * ld + m, ok ? c + (size_t)t * M + m : c, ok);
       }
     }
   }

@@ -5,9 +5,11 @@
 // _trunk_fwd_call, _make_fwd_kernel :150, pallas_call :621).
 //
 // What it computes, for the embedded window h0 (N, T, R) f32, channels last,
-// per layer l (dilation d, tap j looking back m_j = (k-1-j)d, zero history
-// before t = 0), on the layer's window t in [s_l, T):
+// and optionally local conditioning cond (N, T, M) f32, per layer l
+// (dilation d, tap j looking back m_j = (k-1-j)d, zero history before
+// t = 0), on the layer's window t in [s_l, T):
 //   z[t] = sum_j h(t - m_j) @ w_in[l, j] + b_in[l]          (2D columns)
+//          (+ cond[t] @ w_cond[l])
 //   u[t] = tanh(z[t][:D]) * sigmoid(z[t][D:])
 //   h'[t] = h[t] + u[t] @ w_res[l] + b_res[l]   (not for the last layer,
 //                                                whose stream is discarded)
@@ -19,7 +21,8 @@
 // out 1024 the layers' windows hold 1,375,872 positions, each 2*(64*64 +
 // 32*32) = 10,240 operations: 14.09 GFLOP, done as three TF32 products
 // each, 0.0854 ms at the tensor cores' 495 TFLOP/s, against 0.048 ms for
-// its bytes (chip_smoke.py::trunk_bounds).
+// its bytes (chip_smoke.py::trunk_bounds). The vocoder's cond product adds
+// 2*80*128 operations a position.
 //
 // Design. The TPU kernel keeps one item's whole stream in VMEM while all L
 // layers walk over it. Here one item's stream (524 KB at chaconne_wide) is
@@ -35,7 +38,10 @@
 // product on the tensor cores (trunk_core.cuh, 3xTF32), runs the gate in
 // registers (with the fast exponential), puts u in shared memory (for the
 // residual product and a coalesced write of u_out), and forms the residual
-// product on the tensor cores.
+// product on the tensor cores. With cond (the COND instantiation) the
+// tile's cond rows are staged beside its tap rows and w_cond's rows below
+// w_in's, so the tap product runs k*Rp + Mp deep: the cond product costs
+// no pass of its own.
 
 #include "trunk_core.cuh"
 
@@ -50,28 +56,32 @@ struct Layer {
   const float* w;       // the layer's packed weights (pack_weights)
   float* u_out;         // (N, out, L*D)
   int T, out, LD, k, R, D, Rp, Dp, d, s, sp, col, wsm;
+  const float* cond;    // (N, T, M) f32 (COND; last, as in trunk_bwd.cu)
+  int M, Mp;
 };
 
-// Shared memory in floats: biases, tap rows, u, then (wsm) the weights.
-int smem_floats(int TM, int k, int Rp, int Dp, int wsm) {
-  const int KR = k * Rp, D2 = 2 * Dp;
-  return D2 + Rp + TM * lda(KR) + TM * lda(Dp) +
-         (wsm ? KR * ldb(D2) + Dp * ldb(Rp) : 0);
+// Shared memory in floats: biases, tap (and cond) rows, u, then (wsm) the
+// weights (w_in and w_cond).
+int smem_floats(int TM, int k, int Rp, int Dp, int Mp, int wsm) {
+  const int KC = k * Rp + Mp, D2 = 2 * Dp;
+  return D2 + Rp + TM * lda(KC) + TM * lda(Dp) +
+         (wsm ? KC * ldb(D2) + Dp * ldb(Rp) : 0);
 }
 
-template <int TM>
+template <int TM, bool COND>
 __global__ void __launch_bounds__(NTHREADS) trunk_fwd_layer(Layer a) {
   extern __shared__ __align__(16) float sm[];
   const int k = a.k, Rp = a.Rp, Dp = a.Dp, KR = k * Rp, D2 = 2 * Dp;
-  const int LW = ldb(D2), LR = ldb(Rp), LV = lda(KR), LU = lda(Dp);
+  const int KC = KR + (COND ? a.Mp : 0);  // the product's depth
+  const int LW = ldb(D2), LR = ldb(Rp), LV = lda(KC), LU = lda(Dp);
   float* bi = sm;               // D2, packed (gate halves interleaved)
   float* br = bi + D2;          // Rp
-  float* v = br + Rp;           // TM x KR: tap rows
+  float* v = br + Rp;           // TM x KC: tap rows, then cond rows
   float* us = v + TM * LV;      // TM x Dp: u
-  float* wi = us + TM * LU;     // KR x D2 (wsm)
-  float* wr = wi + KR * LW;     // Dp x Rp (wsm)
+  float* wi = us + TM * LU;     // KC x D2 (wsm): w_in, then w_cond
+  float* wr = wi + KC * LW;     // Dp x Rp (wsm)
   const float* wg = a.w;
-  const float* wrg = wg + KR * D2;
+  const float* wrg = wg + KC * D2;
   const float* big = wrg + Dp * Rp;
   const float* brg = big + D2;
   const int n = blockIdx.y, t0 = a.sp + blockIdx.x * TM;
@@ -81,10 +91,13 @@ __global__ void __launch_bounds__(NTHREADS) trunk_fwd_layer(Layer a) {
   stage(bi, D2, big, 1, D2);
   stage(br, Rp, brg, 1, Rp);
   if (a.wsm) {
-    stage(wi, LW, wg, KR, D2);
+    stage(wi, LW, wg, KC, D2);
     stage(wr, LR, wrg, Dp, Rp);
   }
   stage_taps_f32(v, LV, a.hin + base, t0, TM, a.T, k, a.R, Rp, a.d);
+  if (COND)
+    stage_cond_f32(v + KR, LV, a.cond + (size_t)n * a.T * a.M, t0, TM, a.T,
+                   a.M, a.Mp);
   cp_commit();
   cp_wait();
   __syncthreads();
@@ -99,8 +112,9 @@ __global__ void __launch_bounds__(NTHREADS) trunk_fwd_layer(Layer a) {
     }
   }
 
-  // z = taps @ w_in on the tensor cores, the gate in registers: an item is
-  // an m-tile of 16 positions and 2 channel tiles (4 n-tiles: f, g, f, g)
+  // z = taps @ w_in (+ cond @ w_cond) on the tensor cores, the gate in
+  // registers: an item is an m-tile of 16 positions and 2 channel tiles (4
+  // n-tiles: f, g, f, g)
   const Op V = op(v, LV, 1);
   const Op W = a.wsm ? op(wi, LW, 1) : op(wg, D2, 1);
   const int MT = TM / 16, G = Dp / 16;
@@ -108,7 +122,7 @@ __global__ void __launch_bounds__(NTHREADS) trunk_fwd_layer(Layer a) {
     const int mt = it % MT, grp = it / MT;
     float acc[4][4];
     zero(acc);
-    mma3<4, false>(acc, V, 16 * mt, W, 32 * grp, 4, KR);
+    mma3<4, false>(acc, V, 16 * mt, W, 32 * grp, 4, KC);
 #pragma unroll
     for (int c = 0; c < 2; ++c) {
 #pragma unroll
@@ -158,28 +172,41 @@ __global__ void __launch_bounds__(NTHREADS) trunk_fwd_layer(Layer a) {
   }
 }
 
-template <int TM>
+template <int TM, bool COND>
 cudaError_t launch(const Layer& a, int N, cudaStream_t st) {
-  const int smem = 4 * smem_floats(TM, a.k, a.Rp, a.Dp, a.wsm);
+  const int smem = 4 * smem_floats(TM, a.k, a.Rp, a.Dp, a.Mp, a.wsm);
   cudaError_t err = cudaFuncSetAttribute(
-      trunk_fwd_layer<TM>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      trunk_fwd_layer<TM, COND>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.T - a.sp + TM - 1) / TM, N);
-  trunk_fwd_layer<TM><<<grid, NTHREADS, smem, st>>>(a);
+  trunk_fwd_layer<TM, COND><<<grid, NTHREADS, smem, st>>>(a);
   return cudaGetLastError();
+}
+
+template <bool COND>
+cudaError_t launch_tm(int TM, const Layer& a, int N, cudaStream_t st) {
+  switch (TM) {
+    case 64: return launch<64, COND>(a, N, st);
+    case 32: return launch<32, COND>(a, N, st);
+    case 16: return launch<16, COND>(a, N, st);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
-// Shared memory per block, in bytes, for the tile of TM positions.
-extern "C" int wavenet_trunk_fwd_smem(int TM, int k, int Rp, int Dp,
+// Shared memory per block, in bytes, for the tile of TM positions (Mp
+// padded cond channels, 0 without cond).
+extern "C" int wavenet_trunk_fwd_smem(int TM, int k, int Rp, int Dp, int Mp,
                                       int wsm) {
-  return 4 * smem_floats(TM, k, Rp, Dp, wsm);
+  return 4 * smem_floats(TM, k, Rp, Dp, Mp, wsm);
 }
 
 // Runs the layer walk on `stream`: one launch per layer. `w` holds the
-// packed weights, (L, P) with P = k*Rp*2Dp + Dp*Rp + 2Dp + Rp
-// (ops/cuda/trunk_kernel.py::pack_weights). f32 saves (save_bf16 = 0):
+// packed weights, (L, P) with P = (k*Rp + Mp)*2Dp + Dp*Rp + 2Dp + Rp
+// (ops/cuda/trunk_kernel.py::pack_weights). `cond` (N, T, M) f32, or null
+// (then M and Mp are 0): every layer's gate adds cond @ w_cond[l]. f32 saves (save_bf16 = 0):
 // `saves` is (L, N, T, R) f32 and is the stream itself (h0 is copied into
 // saves[0]; buf0/buf1 are not read). bf16 saves: h0 is layer 0's input,
 // buf0/buf1 (N, T, R) f32 ping-pong, `saves` (L, N, T, R) bf16. TM (16, 32
@@ -188,12 +215,13 @@ extern "C" int wavenet_trunk_fwd_smem(int TM, int k, int Rp, int Dp,
 // launch went out.
 extern "C" int wavenet_trunk_fwd(
     const float* h0, const float* w, float* buf0, float* buf1, void* saves,
-    float* u_out, int N, int T, int out, int L, int k, int R, int D, int Rp,
-    int Dp, const int* dil, const int* s, const int* sp, int save_bf16,
-    int TM, int wsm, void* stream) {
+    float* u_out, const float* cond, int N, int T, int out, int L, int k,
+    int R, int D, int Rp, int Dp, int M, int Mp, const int* dil, const int* s,
+    const int* sp, int save_bf16, int TM, int wsm, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (cond == nullptr) M = Mp = 0;
   const size_t NTR = (size_t)N * T * R;
-  const size_t P = (size_t)k * Rp * 2 * Dp + Dp * Rp + 2 * Dp + Rp;
+  const size_t P = (size_t)(k * Rp + Mp) * 2 * Dp + Dp * Rp + 2 * Dp + Rp;
   float* sf = static_cast<float*>(saves);
   __nv_bfloat16* sb = static_cast<__nv_bfloat16*>(saves);
   cudaError_t err;
@@ -216,15 +244,12 @@ extern "C" int wavenet_trunk_fwd(
     }
     a.w = w + l * P;
     a.u_out = u_out;
+    a.cond = cond;
     a.T = T; a.out = out; a.LD = L * D; a.k = k; a.R = R; a.D = D;
-    a.Rp = Rp; a.Dp = Dp; a.d = dil[l]; a.s = s[l]; a.sp = sp[l];
-    a.col = l * D; a.wsm = wsm;
-    switch (TM) {
-      case 64: err = launch<64>(a, N, st); break;
-      case 32: err = launch<32>(a, N, st); break;
-      case 16: err = launch<16>(a, N, st); break;
-      default: return (int)cudaErrorInvalidValue;
-    }
+    a.Rp = Rp; a.Dp = Dp; a.M = M; a.Mp = Mp; a.d = dil[l]; a.s = s[l];
+    a.sp = sp[l]; a.col = l * D; a.wsm = wsm;
+    err = cond != nullptr ? launch_tm<true>(TM, a, N, st)
+                          : launch_tm<false>(TM, a, N, st);
     if (err != cudaSuccess) return (int)err;
   }
   return 0;

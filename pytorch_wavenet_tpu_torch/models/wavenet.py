@@ -201,8 +201,10 @@ def wavenet_logits(params: Params, cfg: WaveNetConfig, x: torch.Tensor,
     The skip projections run per layer below ``out_len`` 128 and as one
     ``K = L*D`` matmul after the layer walk at 128 and above
     (``cfg.fuse_skip`` overrides). With ``cfg.trunk_kernel`` the trunk is
-    the fused one (:func:`_logits_fused`); it takes unconditioned models
-    with ``kernel_size >= 2`` and an f32 stream, and raises on the rest."""
+    the fused one (:func:`_logits_fused`, local conditioning in its
+    kernels); it takes ``kernel_size >= 2`` and an f32 stream, and raises
+    on the rest and on a passed ``global_cond`` (the JAX package falls back
+    to its plain trunk there)."""
     if out_len is None:
         out_len = cfg.output_length
     if x.shape[1] < out_len:
@@ -215,12 +217,12 @@ def wavenet_logits(params: Params, cfg: WaveNetConfig, x: torch.Tensor,
     k = cfg.kernel_size
     cdt = cfg.compute_dtype
     if cfg.trunk_kernel:
-        if cond is not None or global_cond is not None:
+        if global_cond is not None:
             raise ValueError(
-                "cfg.trunk_kernel takes unconditioned models: conditioning "
-                "in the training trunk (K2/K3) is the next slice of the "
-                "port; use cfg.trunk_kernel=False for conditioned models")
-        return _logits_fused(params, cfg, x, out_len)
+                "cfg.trunk_kernel takes no global conditioning (the trunk "
+                "kernels K2/K3 have no w_gcond product); use "
+                "cfg.trunk_kernel=False for a global_cond")
+        return _logits_fused(params, cfg, x, out_len, cond)
     h = embed_inputs(params, cfg, x).to(cfg.stream_dtype)
     N, T, _ = h.shape
     lp = params["layers"]
@@ -256,20 +258,35 @@ def wavenet_logits(params: Params, cfg: WaveNetConfig, x: torch.Tensor,
         h = (r + h).to(cfg.stream_dtype)
 
     if fuse:
-        L, D = cfg.num_layers, cfg.dilation_channels
-        ucat = torch.cat(gated_units, dim=-1)
-        skip = _mm(ucat, lp["w_skip"].reshape(L * D, -1), cdt)
-        if "b_skip" in lp:
-            skip = skip + lp["b_skip"].sum(dim=0)
+        return skip_head(params, cfg, torch.cat(gated_units, dim=-1))
+    return _head(params, cfg, skip)
 
+
+def _head(params: Params, cfg: WaveNetConfig, skip: torch.Tensor) -> torch.Tensor:
+    """relu -> end1 -> relu -> end2 on the summed skip ``(N, out, S)``."""
+    cdt = cfg.compute_dtype
     y = torch.relu(skip)
     y = torch.relu(_mm(y, params["end1"]["w"], cdt) + params["end1"]["b"])
     return _mm(y, params["end2"]["w"], cdt) + params["end2"]["b"]
 
 
+def skip_head(params: Params, cfg: WaveNetConfig, units: torch.Tensor) -> torch.Tensor:
+    """Logits from every layer's gated units ``(N, out, L*D)`` over the
+    output window: the skip projection as one ``K = L*D`` product, then
+    the head."""
+    lp = params["layers"]
+    L, D = cfg.num_layers, cfg.dilation_channels
+    skip = _mm(units, lp["w_skip"].reshape(L * D, -1), cfg.compute_dtype)
+    if "b_skip" in lp:
+        skip = skip + lp["b_skip"].sum(dim=0)
+    return _head(params, cfg, skip)
+
+
 def _logits_fused(params: Params, cfg: WaveNetConfig, x: torch.Tensor,
-                  out_len: int) -> torch.Tensor:
-    """The ``cfg.trunk_kernel`` path: the embedded window through
+                  out_len: int, cond: torch.Tensor | None = None
+                  ) -> torch.Tensor:
+    """The ``cfg.trunk_kernel`` path: the embedded window (and its cond
+    rows) through
     :func:`~pytorch_wavenet_tpu_torch.ops.cuda.trunk_kernel.fused_trunk`
     (the kernels K2/K3 on the card, their plain versions on the CPU), then
     the skip projection as one ``K = L*D`` product and the head. A longer
@@ -280,15 +297,10 @@ def _logits_fused(params: Params, cfg: WaveNetConfig, x: torch.Tensor,
     win = cfg.receptive_field + out_len - 1
     if h0.shape[1] > win:
         h0 = h0[:, h0.shape[1] - win:]
-    lp = params["layers"]
-    L, D, cdt = cfg.num_layers, cfg.dilation_channels, cfg.compute_dtype
-    u = fused_trunk(params, cfg, h0, out_len)  # (N, out, L*D)
-    skip = _mm(u, lp["w_skip"].reshape(L * D, -1), cdt)
-    if "b_skip" in lp:
-        skip = skip + lp["b_skip"].sum(dim=0)
-    y = torch.relu(skip)
-    y = torch.relu(_mm(y, params["end1"]["w"], cdt) + params["end1"]["b"])
-    return _mm(y, params["end2"]["w"], cdt) + params["end2"]["b"]
+        if cond is not None:
+            cond = cond[:, cond.shape[1] - win:]
+    u = fused_trunk(params, cfg, h0, out_len, cond=cond)  # (N, out, L*D)
+    return skip_head(params, cfg, u)
 
 
 def forward(params: Params, cfg: WaveNetConfig, x: torch.Tensor) -> torch.Tensor:

@@ -2,13 +2,19 @@
 
   python -m pytorch_wavenet_tpu_torch.training.train --data-dir <wavs> \\
       --config chaconne_wide --batch-size 16 --snapshot-path snapshots
+  python -m pytorch_wavenet_tpu_torch.training.train --data-dir <wavs> \\
+      --config vocoder --cond-upsample 16,16 --batch-size 16
 
-Builds the dataset (``<data-dir>/dataset.npz`` on first use), random params
-from ``--seed`` and the trainer, optionally resumes from the newest snapshot
-(written by either package), and trains. The trunk runs through the CUDA
-kernels K2/K3 unless ``--no-trunk-kernel`` (the plain PyTorch trunk, as the
-JAX package's XLA trunk); ``--device cpu`` runs everything with plain
-PyTorch ops. The JAX script's conditioning, mesh, EMA, schedule,
+Builds the dataset (``<data-dir>/dataset.npz`` on first use; for a
+conditioned config such as ``vocoder`` the mel dataset, whose batches
+carry log-mel frames of ``--n-fft`` and ``--hop-length``, expanded to
+per-sample rows in the step, through the learnable upsampler with
+``--cond-upsample``), random params from ``--seed`` and the trainer,
+optionally resumes from the newest snapshot (written by either package),
+and trains. The trunk runs through the CUDA kernels K2/K3 (local
+conditioning in them) unless ``--no-trunk-kernel`` (the plain PyTorch
+trunk, as the JAX package's XLA trunk); ``--device cpu`` runs everything
+with plain PyTorch ops. The JAX script's bf16, mesh, EMA, schedule,
 accumulation, SGD and TensorBoard flags are not ported.
 """
 
@@ -26,8 +32,17 @@ def parse_args(argv=None):
     p.add_argument("--dataset-file", default=None,
                    help="npz cache (default: <data-dir>/dataset.npz)")
     p.add_argument("--config", default="chaconne",
-                   help="preset name (chaconne|saber|chaconne_wide|"
-                        "test_small|tiny)")
+                   help="preset name (chaconne|saber|chaconne_wide|vocoder|"
+                        "test_small|tiny|tiny_vocoder)")
+    p.add_argument("--n-fft", type=int, default=1024,
+                   help="mel STFT size (conditioned configs)")
+    p.add_argument("--hop-length", type=int, default=256,
+                   help="mel hop in samples (conditioned configs)")
+    p.add_argument("--cond-upsample", default=None,
+                   help="comma-separated stride factors enabling the "
+                        "learnable conditioning upsampler, e.g. 16,16; their "
+                        "product must equal --hop-length (default: linear "
+                        "interpolation)")
     p.add_argument("--no-trunk-kernel", action="store_true",
                    help="run the plain PyTorch trunk instead of K2/K3")
     p.add_argument("--batch-size", type=int, default=16)
@@ -53,6 +68,7 @@ def main(argv=None):
     """Train as the flags say; returns the trainer."""
     from .. import config as config_mod
     from ..data.dataset import WaveNetDataset
+    from ..data.mel_dataset import MelWaveNetDataset
     from ..device import resolve_device
     from ..models.wavenet import init_wavenet
     from ..utils.logging import Logger
@@ -60,18 +76,29 @@ def main(argv=None):
 
     args = parse_args(argv)
     dev = resolve_device(args.device)
-    cfg = config_mod.get_config(args.config,
-                                trunk_kernel=not args.no_trunk_kernel)
+    overrides = {"trunk_kernel": not args.no_trunk_kernel}
+    if args.cond_upsample:
+        overrides["cond_upsample"] = tuple(
+            int(r) for r in args.cond_upsample.split(","))
+    cfg = config_mod.get_config(args.config, **overrides)
     params = init_wavenet(cfg, torch.Generator().manual_seed(args.seed), dev)
     print(f"config: {args.config} {cfg}")
     print(f"receptive field: {cfg.receptive_field}")
     print(f"parameter count: {cfg.parameter_count():,}")
-    data = WaveNetDataset(
+    ds_kwargs = dict(
         dataset_file=args.dataset_file or os.path.join(args.data_dir,
                                                        "dataset.npz"),
         item_length=cfg.item_length, target_length=cfg.output_length,
         file_location=args.data_dir, classes=cfg.classes,
         test_stride=args.test_stride)
+    if cfg.cond_channels:
+        # mel frames per window; the step expands them on the device
+        # (learnably with --cond-upsample, whose factors must multiply to
+        # --hop-length: models.wavenet.upsample_cond checks)
+        data = MelWaveNetDataset(**ds_kwargs, num_mels=cfg.cond_channels,
+                                 n_fft=args.n_fft, hop_length=args.hop_length)
+    else:
+        data = WaveNetDataset(**ds_kwargs)
     print(f"the dataset has {len(data)} items")
     logger = Logger(log_interval=args.log_interval,
                     validation_interval=args.validation_interval,

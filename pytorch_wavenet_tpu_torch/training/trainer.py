@@ -9,9 +9,15 @@ epoch and batch an uninterrupted run would have reached, so a resumed run
 sees the same data. With ``cfg.trunk_kernel`` the trunk runs through the
 CUDA kernels K2/K3 on the card (their plain versions on the CPU).
 
+A conditioned model (the vocoder) trains on 3-tuple batches ``(x, y,
+cond)`` from :class:`~pytorch_wavenet_tpu_torch.data.mel_dataset.
+MelWaveNetDataset`: mel frames, expanded to per-sample rows inside the
+step (:func:`_expand_cond`) through the learnable upsampler when the
+config has one, so its weights train with the rest.
+
 Batches travel to the card through pinned memory without blocking the
 host; the loss stays on the card until the logger reads it. The JAX
-package's ``generate_audio``, mesh mode and conditioning are not ported.
+package's ``generate_audio`` and mesh mode are not ported.
 """
 
 from __future__ import annotations
@@ -24,7 +30,7 @@ import torch.nn.functional as F
 from ..config import WaveNetConfig
 from ..data.dataset import BatchIterator, PrefetchBatchIterator, WaveNetDataset
 from ..device import resolve_device
-from ..models.wavenet import wavenet_logits
+from ..models.wavenet import upsample_cond, wavenet_logits
 from ..utils import checkpoints
 from ..utils.logging import Logger
 from .optimizers import ReferenceAdam, _leaves, _map, reference_adam
@@ -33,11 +39,28 @@ from .optimizers import ReferenceAdam, _leaves, _map, reference_adam
 _SYNC_EVERY = 25
 
 
+def _expand_cond(params, cfg: WaveNetConfig, cond, cond_hop: int | None,
+                 T: int):
+    """Mel frames ``(N, F, M)`` -> per-sample rows ``(N, T, M)`` on the
+    device (through the learnable upsampler when the config has one); rows
+    already at ``(N, T, M)`` pass through."""
+    if cond is None or cond.shape[1] == T:
+        return cond
+    if cond_hop is None:
+        raise ValueError(
+            f"cond has {cond.shape[1]} rows for {T} samples but no cond_hop "
+            "was given to upsample it")
+    return upsample_cond(params, cfg, cond, cond_hop, T)
+
+
 def cross_entropy_loss(params, cfg: WaveNetConfig, x: torch.Tensor,
-                       target: torch.Tensor) -> torch.Tensor:
+                       target: torch.Tensor, cond=None,
+                       cond_hop: int | None = None) -> torch.Tensor:
     """Mean softmax cross-entropy over the ``(N * output_length)``
-    predictions, as logsumexp minus the one-hot hit."""
-    logits = wavenet_logits(params, cfg, x, cfg.output_length)
+    predictions, as logsumexp minus the one-hot hit. ``cond``: per-sample
+    rows ``(N, T, M)``, or frames ``(N, F, M)`` with ``cond_hop``."""
+    cond = _expand_cond(params, cfg, cond, cond_hop, x.shape[1])
+    logits = wavenet_logits(params, cfg, x, cfg.output_length, cond=cond)
     logits32 = logits.to(torch.float32)
     logz = torch.logsumexp(logits32, dim=-1)
     hit = torch.sum(logits32 * F.one_hot(target.long(), logits.shape[-1]).to(
@@ -46,11 +69,12 @@ def cross_entropy_loss(params, cfg: WaveNetConfig, x: torch.Tensor,
 
 
 def train_step(params, opt_state: dict, cfg: WaveNetConfig,
-               tx: ReferenceAdam, x: torch.Tensor, target: torch.Tensor):
+               tx: ReferenceAdam, x: torch.Tensor, target: torch.Tensor,
+               cond=None, cond_hop: int | None = None):
     """One optimization step; updates ``params`` and ``opt_state`` in
     place and returns ``(loss, grads)``. ``params`` leaves require grad."""
     leaves = [p for _, p in _leaves(params)]
-    loss = cross_entropy_loss(params, cfg, x, target)
+    loss = cross_entropy_loss(params, cfg, x, target, cond, cond_hop)
     grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     it = iter([torch.zeros_like(p) if g is None else g
                for p, g in zip(leaves, grads)])
@@ -61,10 +85,11 @@ def train_step(params, opt_state: dict, cfg: WaveNetConfig,
 
 @torch.no_grad()
 def eval_step(params, cfg: WaveNetConfig, x: torch.Tensor,
-              target: torch.Tensor):
+              target: torch.Tensor, cond=None, cond_hop: int | None = None):
     """Mean loss and the count of argmax hits."""
-    logits = wavenet_logits(params, cfg, x, cfg.output_length).to(
-        torch.float32)
+    cond = _expand_cond(params, cfg, cond, cond_hop, x.shape[1])
+    logits = wavenet_logits(params, cfg, x, cfg.output_length,
+                            cond=cond).to(torch.float32)
     t = target.long()
     losses = torch.logsumexp(logits, dim=-1) - torch.gather(
         logits, -1, t[..., None])[..., 0]
@@ -104,6 +129,11 @@ class WaveNetTrainer:
         self.num_workers = num_workers
         self.step = 0
         self.avg_step_time = None
+        # frame-rate conditioning (MelWaveNetDataset.device_upsample): the
+        # step expands it on the device with this hop
+        self._cond_hop = (getattr(dataset, "hop_length", None)
+                          if getattr(dataset, "device_upsample", False)
+                          else None)
 
     def _put(self, x) -> torch.Tensor:
         """A host batch on the device: through pinned memory, without
@@ -134,9 +164,12 @@ class WaveNetTrainer:
                                         num_workers=self.num_workers, **kw)
                   if self.num_workers > 0
                   else BatchIterator(self.dataset, batch_size, **kw))
-            for x, target in it:
+            for batch in it:
+                cond = self._put(batch[2]) if len(batch) > 2 else None
                 loss, _ = train_step(self.params, self.opt_state, self.cfg,
-                                     self.tx, self._put(x), self._put(target))
+                                     self.tx, self._put(batch[0]),
+                                     self._put(batch[1]), cond,
+                                     self._cond_hop)
                 self.step += 1
                 if (self.device.type == "cuda"
                         and self.step % _SYNC_EVERY == 0):
@@ -185,13 +218,15 @@ class WaveNetTrainer:
         self.dataset.train = False
         try:
             losses, correct, seen = [], [], 0
-            for x, target in BatchIterator(self.dataset, batch_size,
-                                           shuffle=False, drop_last=False):
-                loss, c = eval_step(self.params, self.cfg, self._put(x),
-                                    self._put(target))
+            for batch in BatchIterator(self.dataset, batch_size,
+                                       shuffle=False, drop_last=False):
+                cond = self._put(batch[2]) if len(batch) > 2 else None
+                loss, c = eval_step(self.params, self.cfg,
+                                    self._put(batch[0]), self._put(batch[1]),
+                                    cond, self._cond_hop)
                 losses.append(loss)
                 correct.append(c)
-                seen += target.size
+                seen += batch[1].size
             if not losses:
                 return float("nan"), 0.0
             avg_loss = float(torch.mean(torch.stack(losses)))

@@ -2,14 +2,17 @@
 """Quick check of the port's training-trunk kernels K2 and K3 on one CUDA
 card: build them with ``-Xptxas -v`` (registers, spills, shared memory),
 hold each against its plain PyTorch version at a few shapes with f32 and
-bf16 saves (units, saves on each layer's window, gradients, two K3 calls
-bitwise equal), then time K2 and K3 at chaconne_wide, batch 16, out 1024
-with bf16 saves (CUDA events) and split their device time by CUDA kernel
-(``torch.profiler``). ``chip_smoke.py`` runs the full checks.
+bf16 saves, without and with local conditioning (units, saves on each
+layer's window, gradients, dW_cond and dcond, two K3 calls bitwise equal),
+then time K2 and K3 at chaconne_wide and at the vocoder (without and with
+its 80 mel channels), batch 16, out 1024 with bf16 saves (CUDA events) and
+split their device time by CUDA kernel (``torch.profiler``).
+``chip_smoke.py`` runs the full checks.
 
   python3 scripts/torch_trunk_check.py               # checks, times, split
   python3 scripts/torch_trunk_check.py --times-only  # times and split
   python3 scripts/torch_trunk_check.py --times-only --root _checkout/parent
+  python3 scripts/torch_trunk_check.py --times-only --reps 20
 
 ``--root`` takes the package from another checkout (for example an older
 commit unpacked with ``git archive`` under the ignored ``_checkout/``), so
@@ -38,6 +41,8 @@ def _smoke():
 
 
 def case(torch, pt, tk, dev, name, N, out, **kw):
+    """K2/K3 against their plain versions; with ``cond_channels`` in ``kw``
+    the kernels take random cond rows and K3 gives dW_cond and dcond."""
     cfg = pt.get_config(name, **kw)
     p = pt.init_wavenet(cfg, torch.Generator().manual_seed(0), dev)
     T = cfg.receptive_field + out - 1
@@ -46,19 +51,22 @@ def case(torch, pt, tk, dev, name, N, out, **kw):
           - 1).to(dev)
     du = (torch.rand((N, out, cfg.num_layers * cfg.dilation_channels),
                      generator=g) * 2e-3 - 1e-3).to(dev)
+    cond = (torch.randn((N, T, cfg.cond_channels), generator=g).to(dev)
+            if cfg.cond_channels else None)
+    c = {"cond": cond} if cond is not None else {}
     _, sp = tk.windows(cfg, out)
     for sd in (torch.float32, torch.bfloat16):
-        uk, sk = tk.trunk_fwd_cuda(p, cfg, h0, out, sd)
+        uk, sk = tk.trunk_fwd_cuda(p, cfg, h0, out, sd, **c)
         torch.cuda.synchronize()
-        up, spl = tk.trunk_fwd_plain(p, cfg, h0, out, sd)
+        up, spl = tk.trunk_fwd_plain(p, cfg, h0, out, sd, **c)
         eu = float(((uk - up).abs() / up.abs().clamp(min=1)).max())
         es = max(float((sk[l][:, sp[l]:].float()
                         - spl[l][:, sp[l]:].float()).abs().max())
                  for l in range(cfg.num_layers))
-        gk = tk.trunk_bwd_cuda(p, cfg, sk, du, out)
-        gk2 = tk.trunk_bwd_cuda(p, cfg, sk, du, out)
+        gk = tk.trunk_bwd_cuda(p, cfg, sk, du, out, **c)
+        gk2 = tk.trunk_bwd_cuda(p, cfg, sk, du, out, **c)
         torch.cuda.synchronize()
-        gp = tk.trunk_bwd_plain(p, cfg, sk, du, out)
+        gp = tk.trunk_bwd_plain(p, cfg, sk, du, out, **c)
         rep = all(torch.equal(a, b) for a, b in zip(gk, gk2))
         eg = max(float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
                  for a, b in zip(gk, gp))
@@ -69,28 +77,40 @@ def case(torch, pt, tk, dev, name, N, out, **kw):
             raise SystemExit("K2/K3 disagree with their plain versions")
 
 
-def times(torch, pt, tk, smoke, dev, card, tag):
-    """K2 and K3 at chaconne_wide, batch 16, out 1024, bf16 saves: CUDA
-    events (min of 5 warm calls) and the profiler's split by kernel."""
-    cfg, p, h0, du = smoke._trunk_case(torch, pt, dev, "chaconne_wide", 16,
-                                       1024)
+def times(torch, pt, tk, smoke, dev, card, tag, name="chaconne_wide",
+          cond=False, reps=5):
+    """K2 and K3 at ``name``, batch 16, out 1024, bf16 saves (with the
+    preset's cond channels under ``cond``): CUDA events (min of ``reps``
+    warm calls) and the profiler's split by kernel."""
+    cfg, p, h0, du = smoke._trunk_case(torch, pt, dev, name, 16, 1024)
     out = cfg.output_length
-    _, saves = tk.trunk_fwd_cuda(p, cfg, h0, out, torch.bfloat16)
-    bounds = smoke.trunk_bounds(cfg, 16, out)
-    fns = {"K2": lambda: tk.trunk_fwd_cuda(p, cfg, h0, out, torch.bfloat16),
-           "K3": lambda: tk.trunk_bwd_cuda(p, cfg, saves, du, out)}
+    c = {}
+    if cond:
+        g = torch.Generator().manual_seed(3)
+        c["cond"] = torch.randn(h0.shape[:2] + (cfg.cond_channels,),
+                                generator=g).to(dev)
+    _, saves = tk.trunk_fwd_cuda(p, cfg, h0, out, torch.bfloat16, **c)
+    bounds = smoke.trunk_bounds(cfg, 16, out,
+                                cond_channels=cfg.cond_channels if cond
+                                else 0)
+    fns = {"K2": lambda: tk.trunk_fwd_cuda(p, cfg, h0, out, torch.bfloat16,
+                                           **c),
+           "K3": lambda: tk.trunk_bwd_cuda(p, cfg, saves, du, out, **c)}
+    what = f"{name}{' cond' if cond else ''}"
     for lab, fn in fns.items():
-        ms = min(smoke._time(torch, fn, 5))
+        ms = min(smoke._time(torch, fn, reps))
         b_ms, b_by = bounds[lab]
-        print(f"[{tag}] {lab} chaconne_wide batch 16 out 1024 bf16 saves: "
-              f"{ms:.3f} ms (min of 5); bound {b_ms:.4f} ms ({b_by}), "
+        print(f"[{tag}] {lab} {what} batch 16 out 1024 bf16 saves: "
+              f"{ms:.3f} ms (min of {reps}); bound {b_ms:.4f} ms ({b_by}), "
               f"{100 * b_ms / ms:.2f} % of it [{card}]", flush=True)
         split = smoke.kernel_split(torch, fn)
         if not split:
             print(f"[{tag}] {lab} split: the profiler saw no device time",
                   flush=True)
-        for name, (k_ms, n) in sorted(split.items(), key=lambda x: -x[1][0]):
-            print(f"[{tag}] {lab} split: {smoke.short_kernel_name(name)} "
+        for kname, (k_ms, n) in sorted(split.items(),
+                                       key=lambda x: -x[1][0]):
+            print(f"[{tag}] {lab} {what} split: "
+                  f"{smoke.short_kernel_name(kname)} "
                   f"{k_ms:.3f} ms in {n:g} launches per call "
                   f"({k_ms / n * 1e3:.1f} us each) [{card}]", flush=True)
 
@@ -101,6 +121,8 @@ def main():
                     help="checkout whose pytorch_wavenet_tpu_torch to test")
     ap.add_argument("--times-only", action="store_true",
                     help="skip the checks against the plain versions")
+    ap.add_argument("--reps", type=int, default=5,
+                    help="timed calls per kernel (the minimum is printed)")
     args = ap.parse_args()
     import torch
 
@@ -126,23 +148,32 @@ def main():
     for n, out in build.build(["trunk_fwd", "trunk_bwd"],
                               verbose=True).items():
         for line in out.splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
+            if ("registers" in line or "spill" in line or "error" in line
+                    or "entry function" in line):
                 print(n, line.strip())
     print(f"build {time.time() - t:.1f} s", flush=True)
+    has_cond = hasattr(tk, "cond_width")  # an older --root has no cond
     if hasattr(tk, "bwd_plan"):  # the kernels' shared memory, both sides
         fl, bl = tk._bind("trunk_fwd"), tk._bind("trunk_bwd")
-        for name, kw in (("chaconne_wide", {}),
-                         ("chaconne_wide", {"residual_channels": 64,
-                                            "dilation_channels": 64})):
+        rows = [("chaconne_wide", {}, 0),
+                ("chaconne_wide", {"residual_channels": 64,
+                                   "dilation_channels": 64}, 0)]
+        if has_cond:
+            rows += [("vocoder", {}, 80), ("tiny_vocoder", {}, 8),
+                     ("test_small", {"residual_channels": 128,
+                                     "dilation_channels": 128}, 20)]
+        for name, kw, M in rows:
             c = pt.get_config(name, **kw)
             Rp, Dp, k = *tk.padded_widths(c), c.kernel_size
-            f, b = tk.fwd_plan(c), tk.bwd_plan(c)
-            pf, pb = tk.fwd_smem(f[0], k, Rp, Dp, f[1]), tk.bwd_smem(
-                b[0], k, Rp, Dp, *b[1:])
-            cf = fl.wavenet_trunk_fwd_smem(f[0], k, Rp, Dp, int(f[1]))
-            cb = bl.wavenet_trunk_bwd_smem(b[0], k, Rp, Dp, *map(int, b[1:]))
-            print(f"{name} {kw}: K2 plan {f} {cf} B of shared memory, K3 "
-                  f"plan {b} {cb} B", flush=True)
+            mp = (tk.cond_width(M),) if has_cond else ()
+            f, b = tk.fwd_plan(c, *mp), tk.bwd_plan(c, *mp)
+            pf = tk.fwd_smem(f[0], k, Rp, Dp, f[1], *mp)
+            pb = tk.bwd_smem(b[0], k, Rp, Dp, *b[1:], *mp)
+            cf = fl.wavenet_trunk_fwd_smem(f[0], k, Rp, Dp, *mp, int(f[1]))
+            cb = bl.wavenet_trunk_bwd_smem(b[0], k, Rp, Dp, *mp,
+                                           *map(int, b[1:]))
+            print(f"{name} {kw} Mp {mp[0] if mp else 0}: K2 plan {f} {cf} B "
+                  f"of shared memory, K3 plan {b} {cb} B", flush=True)
             if (pf, pb) != (cf, cb):
                 raise SystemExit(f"shared memory: Python {pf}, {pb}, "
                                  f"the kernels {cf}, {cb}")
@@ -159,7 +190,24 @@ def main():
                 ("chaconne_wide", 3, 64, {"kernel_size": 3}),
                 ("chaconne_wide", 16, 1024, {})):
             case(torch, pt, tk, dev, name, N, out, **kw)
-    times(torch, pt, tk, smoke, dev, card, tag)
+        if has_cond:
+            for name, N, out, kw in (
+                    ("tiny_vocoder", 3, 20, {}),
+                    ("tiny_vocoder", 2, 20, {"kernel_size": 3,
+                                             "cond_channels": 20}),
+                    ("test_small", 2, 64, {"residual_channels": 12,
+                                           "dilation_channels": 20,
+                                           "cond_channels": 3}),
+                    ("test_small", 2, 64, {"residual_channels": 128,
+                                           "dilation_channels": 128,
+                                           "cond_channels": 80}),
+                    ("vocoder", 4, 1024, {})):
+                case(torch, pt, tk, dev, name, N, out, **kw)
+    times(torch, pt, tk, smoke, dev, card, tag, reps=args.reps)
+    if has_cond:  # an older --root refuses the vocoder's cond channels
+        times(torch, pt, tk, smoke, dev, card, tag, "vocoder", reps=args.reps)
+        times(torch, pt, tk, smoke, dev, card, tag, "vocoder", cond=True,
+              reps=args.reps)
     return 0
 
 

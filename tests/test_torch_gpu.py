@@ -1,5 +1,6 @@
-"""The CUDA kernels K1, K4, K2 and K3 against their plain versions, on a
-card (marked ``gpu``; each test skips without one).
+"""The CUDA kernels K1, K4, K2 and K3 (K2/K3 also with local conditioning)
+against their plain versions, on a card (marked ``gpu``; each test skips
+without one).
 
 This file imports neither JAX nor the JAX package, so it also runs on a
 machine that has only PyTorch: ``python -m pytest --noconftest -m gpu
@@ -362,7 +363,12 @@ def test_trunk_train_step_on_card_equals_plain_model(card):
 
 @pytest.mark.gpu
 def test_trunk_launchers_refuse_what_the_kernels_do_not_take(card):
-    cfg = pt.get_config("tiny")
+    """Local conditioning (and a model with global channels) passes; a bf16
+    stream, wrong shapes, a strided stream or cond, CPU tensors and a
+    passed ``global_cond`` raise."""
+    import dataclasses
+
+    cfg = pt.get_config("tiny_vocoder", gcond_channels=4)
     params = pt.init_wavenet(cfg, torch.Generator().manual_seed(0), card)
     T = cfg.receptive_field + 3
     h0 = torch.zeros((2, T, cfg.residual_channels), device=card)
@@ -376,6 +382,137 @@ def test_trunk_launchers_refuse_what_the_kernels_do_not_take(card):
                           .transpose(0, 1), 4)
     with pytest.raises(ValueError, match="CUDA tensors"):
         tk.trunk_fwd_cuda(params, cfg, h0.cpu(), 4)
+    cond = torch.ones((2, T, cfg.cond_channels), device=card)
+    u, saves = tk.trunk_fwd_cuda(params, cfg, h0, 4, cond=cond)
+    assert len(tk.trunk_bwd_cuda(params, cfg, saves, torch.zeros_like(u), 4,
+                                 cond=cond)) == 7
+    with pytest.raises(ValueError, match="cond"):
+        tk.trunk_fwd_cuda(params, cfg, h0, 4, cond=cond[..., 1:].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        tk.trunk_fwd_cuda(params, cfg, h0, 4, cond=cond.transpose(
+            0, 1).contiguous().transpose(0, 1))
+    with pytest.raises(ValueError, match="cond"):
+        tk.trunk_bwd_cuda(params, cfg, saves, torch.zeros_like(u), 4,
+                          cond=cond.cpu())
+    x = torch.zeros((2, T), dtype=torch.long, device=card)
+    with pytest.raises(ValueError, match="global"):
+        pt.wavenet_logits(params, dataclasses.replace(cfg, trunk_kernel=True),
+                          x, 4, cond=cond,
+                          global_cond=torch.zeros((2, 4), device=card))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,batch,k,bias,out_len", TRUNK_CASES)
+@pytest.mark.parametrize("M", [8, 80, 20])
+@pytest.mark.parametrize("save_dtype,need_dcond", [
+    (torch.float32, True), (torch.bfloat16, True), (torch.float32, False)],
+    ids=["f32", "bf16", "f32-no-dcond"])
+def test_conditioned_trunk_kernels_match_plain_on_card(
+        card, name, batch, k, bias, out_len, M, save_dtype, need_dcond):
+    """K2 with cond (M mel channels; 20 is not a multiple of 16) within
+    1e-5 x max(1, |u|) of its plain version; K3's gradients, dW_cond and
+    dcond (or none, when not asked for) within 1e-5 x max(1, scale) of the
+    plain version's on the same saves; two K3 calls bitwise equal."""
+    cfg = _trunk_config(name, kernel_size=k, bias=bias, cond_channels=M)
+    params = pt.init_wavenet(cfg, torch.Generator().manual_seed(2), card)
+    T = cfg.receptive_field + out_len - 1
+    rng = np.random.default_rng(7)
+    h0 = torch.from_numpy(rng.uniform(-1, 1, (batch, T, cfg.residual_channels))
+                          .astype(np.float32)).to(card)
+    cond = torch.from_numpy(rng.standard_normal((batch, T, M))
+                            .astype(np.float32)).to(card)
+    du = torch.from_numpy(rng.uniform(-1, 1, (batch, out_len, cfg.num_layers
+                                              * cfg.dilation_channels))
+                          .astype(np.float32) / (batch * out_len)).to(card)
+    before = (tk.fwd_launches, tk.bwd_launches)
+    uk, sk = tk.trunk_fwd_cuda(params, cfg, h0, out_len, save_dtype, cond)
+    gk = tk.trunk_bwd_cuda(params, cfg, sk, du, out_len, cond, need_dcond)
+    again = tk.trunk_bwd_cuda(params, cfg, sk, du, out_len, cond, need_dcond)
+    torch.cuda.synchronize()
+    assert (tk.fwd_launches, tk.bwd_launches) == (before[0] + 1,
+                                                  before[1] + 2)
+    up, _ = tk.trunk_fwd_plain(params, cfg, h0, out_len, save_dtype, cond)
+    assert float(((uk - up).abs() / up.abs().clamp(min=1.0)).max()) <= 1e-5
+    gp = tk.trunk_bwd_plain(params, cfg, sk, du, out_len, cond, need_dcond)
+    assert len(gk) == len(gp) == 7
+    assert (gk[6] is None) == (not need_dcond)
+    for a, b in zip(gk, gp):
+        if b is None:
+            continue
+        assert float((a - b).abs().max()) <= 1e-5 * max(
+            1.0, float(b.abs().max()))
+    assert all(a is None and b is None or torch.equal(a, b)
+               for a, b in zip(gk, again))
+
+
+@pytest.mark.gpu
+def test_conditioned_trunk_bwd_repeats_bitwise_at_the_vocoder(card):
+    """Three conditioned K3 calls at the vocoder (R = D = 64, 80 mel
+    channels), batch 4, out 1024, bf16 saves: dW_cond and dcond (summed in
+    place layer by layer) and every other gradient bitwise equal."""
+    cfg = pt.get_config("vocoder")
+    out_len, batch = 1024, 4
+    params = pt.init_wavenet(cfg, torch.Generator().manual_seed(3), card)
+    T = cfg.receptive_field + out_len - 1
+    rng = np.random.default_rng(10)
+    h0 = torch.from_numpy(rng.uniform(-1, 1, (batch, T, cfg.residual_channels))
+                          .astype(np.float32)).to(card)
+    cond = torch.from_numpy(rng.standard_normal((batch, T, 80))
+                            .astype(np.float32)).to(card)
+    du = torch.from_numpy(rng.uniform(-1, 1, (batch, out_len, cfg.num_layers
+                                              * cfg.dilation_channels))
+                          .astype(np.float32) / (batch * out_len)).to(card)
+    _, saves = tk.trunk_fwd_cuda(params, cfg, h0, out_len, cond=cond)
+    runs = [tk.trunk_bwd_cuda(params, cfg, saves, du, out_len, cond)
+            for _ in range(3)]
+    torch.cuda.synchronize()
+    for other in runs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(runs[0], other))
+    gp = tk.trunk_bwd_plain(params, cfg, saves, du, out_len, cond)
+    for a, b in zip(runs[0], gp):
+        assert float((a - b).abs().max()) <= 1e-5 * max(
+            1.0, float(b.abs().max()))
+
+
+@pytest.mark.gpu
+def test_conditioned_train_step_on_card_equals_plain_model(card):
+    """A conditioned train step's gradients through K2/K3 (f32 saves), the
+    learnable upsampler's and w_cond's included, equal autograd of the
+    plain model within 1e-5 x max(1, scale)."""
+    import dataclasses
+    import functools
+
+    from pytorch_wavenet_tpu_torch.training.optimizers import _leaves
+
+    cfg = pt.get_config("tiny_vocoder", output_length=64,
+                        cond_upsample=(2, 2))
+    params = pt.init_wavenet(cfg, torch.Generator().manual_seed(4), card)
+    leaves = [p.requires_grad_(True) for _, p in _leaves(params)]
+    rng = np.random.default_rng(6)
+    x = torch.from_numpy(rng.integers(0, cfg.classes, (3, cfg.item_length))
+                         ).to(card)
+    y = torch.from_numpy(rng.integers(0, cfg.classes, (3, 64))).to(card)
+    frames = torch.from_numpy(rng.standard_normal(
+        (3, 1 + cfg.item_length // 4, cfg.cond_channels)).astype(
+            np.float32)).to(card)
+
+    def grads(c):
+        return torch.autograd.grad(
+            pt.cross_entropy_loss(params, c, x, y, frames, 4), leaves)
+
+    ref = grads(cfg)
+    orig = tk.fused_trunk
+    before = (tk.fwd_launches, tk.bwd_launches)
+    try:
+        tk.fused_trunk = functools.partial(orig, save_dtype=torch.float32)
+        got = grads(dataclasses.replace(cfg, trunk_kernel=True))
+    finally:
+        tk.fused_trunk = orig
+    assert (tk.fwd_launches, tk.bwd_launches) == (before[0] + 1,
+                                                  before[1] + 1)
+    for a, b in zip(got, ref):
+        assert float((a - b).abs().max()) <= 1e-5 * max(
+            1.0, float(b.abs().max()))
 
 
 # ------------------------------------------- the cluster core at chaconne

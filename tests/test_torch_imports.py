@@ -13,6 +13,7 @@ import pytorch_wavenet_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
+assert "pytorch_wavenet_tpu_torch.data.mel_dataset" in names
 banned = [m for m in sys.modules
           if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "msgpack",
                                  "pytorch_wavenet_tpu")]

@@ -1,6 +1,7 @@
 """The port's training path (data layer, loss, reference Adam, train step,
 trainer, checkpoints with optimizer state, the CLI) against the JAX
-package's on the CPU, at the ``tiny`` preset.
+package's on the CPU, at the ``tiny`` preset (the vocoder's conditioned
+path: tests/test_torch_vocoder_training.py).
 
 Tolerances: losses and params within 1e-5 after 3 steps (both sides full
 f32 on the CPU; the sums run in other orders), Adam moments within 1e-5
@@ -27,6 +28,7 @@ from pytorch_wavenet_tpu.training.trainer import (
     cross_entropy_loss as jax_loss,
 )
 from pytorch_wavenet_tpu.training.trainer import train_step as jax_step
+from pytorch_wavenet_tpu_torch.ops.cuda import trunk_kernel as tk
 from pytorch_wavenet_tpu_torch.training import train as train_cli
 from pytorch_wavenet_tpu_torch.training.optimizers import _leaves
 
@@ -111,6 +113,45 @@ def test_three_train_steps_match_jax(trunk_kernel, weight_decay, clip):
                     scale = max(float(np.abs(a).max()), 1e-30)
                     assert float(np.abs(a - b).max()) <= 1e-5 * max(
                         scale, 1e-3), (m, path)
+
+
+def test_gcond_model_without_global_cond_trains_on_the_fused_trunk(
+        monkeypatch):
+    """A model with global conditioning channels, trained without a
+    ``global_cond``, takes the fused trunk (as the JAX package does: it
+    leaves its kernel only when a global_cond is passed), and three steps
+    match the JAX package's within 1e-5; w_gcond gets no gradient in
+    either."""
+    cfg_j = wt.get_config("tiny", gcond_channels=4, trunk_kernel=True)
+    cfg_t = pt.get_config("tiny", gcond_channels=4, trunk_kernel=True)
+    params_np = _np_params(cfg_j, 2)
+    calls = []
+    real = tk.trunk_fwd_plain
+
+    def counted(*args, **kwargs):
+        calls.append(1)
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(tk, "trunk_fwd_plain", counted)
+    tx_j, tx_t = jax_adam(3e-3), pt.reference_adam(3e-3)
+    pj = jax.tree.map(jnp.asarray, params_np)
+    sj = tx_j.init(pj)
+    p_t = {k: {n: v.requires_grad_(True) for n, v in sub.items()}
+           for k, sub in pt.from_jax_params(params_np, "cpu").items()}
+    s_t = tx_t.init(p_t)
+    for x, y in _batches(cfg_j, 3):
+        pj, sj, lj, gj = jax_step(pj, sj, cfg_j, tx_j, jnp.asarray(x),
+                                  jnp.asarray(y))
+        lt, gt = pt.train_step(p_t, s_t, cfg_t, tx_t, torch.from_numpy(x),
+                               torch.from_numpy(y))
+        assert abs(float(lt) - float(lj)) <= 1e-5
+        assert float(np.abs(np.asarray(gj["layers"]["w_gcond"])).max()) == 0
+        assert float(gt["layers"]["w_gcond"].abs().max()) == 0
+    assert len(calls) == 3
+    for (path, a), (_, b) in zip(_leaves(jax.tree.map(np.asarray, pj)),
+                                 _leaves(p_t)):
+        np.testing.assert_allclose(b.detach().numpy(), a, atol=1e-5, rtol=0,
+                                   err_msg=str(path))
 
 
 def test_dataset_matches_jax(audio_dir, tmp_path):

@@ -126,14 +126,18 @@ def test_grads_with_bf16_saves_match_jax_at_bf16_scale():
 
 @pytest.mark.parametrize("kw,N,out_len", [({}, 3, 20),
                                           ({"kernel_size": 3}, 2, 7),
-                                          ({"bias": False}, 2, 1)])
+                                          ({"bias": False}, 2, 1),
+                                          ({"cond_channels": 8}, 3, 20),
+                                          ({"cond_channels": 20,
+                                            "kernel_size": 3}, 2, 7)])
 @pytest.mark.parametrize("save_dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 def test_plain_backward_equals_autograd_of_plain_forward(kw, N, out_len,
                                                          save_dtype):
     """trunk_bwd_plain (written out, recomputing from the saves) against
-    autograd of trunk_fwd_plain: within 1e-5 x max(1, scale) with f32
-    saves; with bf16 saves the recompute reads rounded streams, so 2e-2."""
+    autograd of trunk_fwd_plain, with cond (dw_cond, dcond) where the config
+    has cond channels: within 1e-5 x max(1, scale) with f32 saves; with
+    bf16 saves the recompute reads rounded streams, so 2e-2."""
     cfg = pt.get_config("tiny", **kw)
     params = pt.init_wavenet(cfg, torch.Generator().manual_seed(1), "cpu")
     T = cfg.receptive_field + out_len - 1
@@ -144,26 +148,36 @@ def test_plain_backward_equals_autograd_of_plain_forward(kw, N, out_len,
                                               * cfg.dilation_channels))
                           .astype(np.float32))
     lp = params["layers"]
-    names = [n for n in ("b_in", "b_res", "w_in", "w_res") if n in lp]
+    names = [n for n in ("b_in", "b_res", "w_in", "w_res", "w_cond")
+             if n in lp]
     for n in names:
         lp[n].requires_grad_(True)
+    cond = None
+    if cfg.cond_channels:
+        cond = torch.from_numpy(rng.standard_normal(
+            (N, T, cfg.cond_channels)).astype(np.float32)).requires_grad_(True)
     u, _ = tk.trunk_fwd_plain.__wrapped__(params, cfg, h0, out_len,
-                                          torch.float32)
-    ref = torch.autograd.grad((u * du).sum(), [h0] + [lp[n] for n in names])
+                                          torch.float32, cond)
+    wrt = [h0] + ([cond] if cond is not None else [])
+    ref = torch.autograd.grad((u * du).sum(), wrt + [lp[n] for n in names])
+    c = cond.detach() if cond is not None else None
     _, saves = tk.trunk_fwd_plain(params, cfg, h0.detach(), out_len,
-                                  save_dtype)
-    dh0, dw_in, dw_res, db_in, db_res = tk.trunk_bwd_plain(
-        params, cfg, saves, du, out_len)
-    got = {"w_in": dw_in, "w_res": dw_res, "b_in": db_in, "b_res": db_res}
+                                  save_dtype, c)
+    out = tk.trunk_bwd_plain(params, cfg, saves, du, out_len, c)
+    got = dict(zip(("h0", "w_in", "w_res", "b_in", "b_res", "w_cond",
+                    "cond"), out))
     rel = 1e-5 if save_dtype == torch.float32 else 2e-2
     _assert_close_scaled(
-        [("h0", ref[0].numpy(), dh0.numpy())]
-        + [(n, r.numpy(), got[n].numpy()) for n, r in zip(names, ref[1:])],
-        rel)
+        [(n, r.numpy(), got[n].numpy())
+         for n, r in zip(["h0"] + (["cond"] if c is not None else []) + names,
+                         ref)], rel)
 
 
 def test_rejects_what_the_trunk_does_not_take():
-    cfg = pt.get_config("tiny")
+    """Local conditioning passes (and a model with global channels, given no
+    ``global_cond``); a passed ``global_cond``, a bf16 stream, a short
+    window, kernel_size 1 and a cond of the wrong shape raise."""
+    cfg = pt.get_config("tiny_vocoder", gcond_channels=4)
     params = pt.init_wavenet(cfg, torch.Generator().manual_seed(0), "cpu")
     T = cfg.receptive_field + 19
     h0 = torch.zeros((2, T, cfg.residual_channels))
@@ -174,8 +188,16 @@ def test_rejects_what_the_trunk_does_not_take():
     with pytest.raises(ValueError, match="f32 streams"):
         tk.fused_trunk(params, pt.get_config(
             "tiny", stream_dtype=torch.bfloat16), h0, 20)
-    with pytest.raises(ValueError, match="conditioning"):
-        tk.fused_trunk(params, cfg, h0, 20, cond=torch.zeros(2, T, 3))
+    cond = torch.ones((2, T, cfg.cond_channels))
+    assert tk.fused_trunk(params, cfg, h0, 20, cond=cond).shape == (
+        2, 20, cfg.num_layers * cfg.dilation_channels)
+    with pytest.raises(ValueError, match="cond_channels"):
+        tk.fused_trunk(params, cfg, h0, 20, cond=cond[..., 1:])
+    x = torch.zeros((2, T), dtype=torch.long)
+    with pytest.raises(ValueError, match="global"):
+        pt.wavenet_logits(params, dataclasses.replace(cfg, trunk_kernel=True),
+                          x, 20, cond=cond,
+                          global_cond=torch.zeros((2, cfg.gcond_channels)))
     # a CPU tensor never reaches the CUDA launchers' kernels
     with pytest.raises(ValueError, match="CUDA tensors"):
         tk.trunk_fwd_cuda(params, cfg, h0, 20)
@@ -200,6 +222,44 @@ def test_raw_view_and_longer_window():
     h0 = pt.embed_inputs(params, cfg, x[:, 5:])
     raw = tk.fused_trunk(params, cfg, h0, 12, raw=True)
     assert raw.shape == (2, 12, cfg.num_layers, cfg.dilation_channels)
+
+
+def test_longer_conditioned_window_and_dcond_on_demand(monkeypatch):
+    """A conditioned input longer than the window is cut to its trailing
+    window (cond with it), as the plain trunk reads it; the backward
+    computes dcond only when cond needs a gradient (the learnable
+    upsampler's; frames interpolated linearly need none)."""
+    cfg = pt.get_config("tiny_vocoder")
+    params = pt.init_wavenet(cfg, torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(4)
+    T = cfg.receptive_field + 16
+    x = torch.from_numpy(rng.integers(0, cfg.classes, (2, T)))
+    cond = torch.from_numpy(rng.standard_normal(
+        (2, T, cfg.cond_channels)).astype(np.float32))
+    ref = pt.wavenet_logits(params, cfg, x, 12, cond=cond)
+    fused = dataclasses.replace(cfg, trunk_kernel=True)
+    got = pt.wavenet_logits(params, fused, x, 12, cond=cond)
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), atol=5e-6, rtol=1e-5)
+    asked = []
+    real = tk.trunk_bwd_plain
+
+    def spy(*args):
+        asked.append(args[-1])
+        return real(*args)
+
+    monkeypatch.setattr(tk, "trunk_bwd_plain", spy)
+    lp = params["layers"]
+    lp["w_cond"].requires_grad_(True)
+    for c in (cond, cond.clone().requires_grad_(True)):
+        y = pt.wavenet_logits(params, fused, x, 12, cond=c)
+        wrt = [lp["w_cond"]] + ([c] if c.requires_grad else [])
+        g = torch.autograd.grad(y.sum(), wrt)
+        assert all(bool(torch.isfinite(t).all()) for t in g)
+        if c.requires_grad:  # only the trailing window's rows get one
+            assert float(g[1][:, :T - (cfg.receptive_field + 11)]
+                         .abs().max()) == 0.0
+            assert float(g[1].abs().max()) > 0.0
+    assert asked == [False, True]
 
 
 # ------------------------------------------- the CUDA kernels' Python side
@@ -252,6 +312,37 @@ def test_pack_weights_pads_interleaves_and_round_trips(name, kw):
         assert torch.equal(got, w[n]), n
 
 
+@pytest.mark.parametrize("name,kw", [("tiny_vocoder", {}),
+                                     ("tiny_vocoder", {"cond_channels": 20,
+                                                       "kernel_size": 3}),
+                                     ("vocoder", {})])
+def test_pack_weights_places_w_cond_below_w_in(name, kw):
+    """With cond, w_cond (M padded to Mp) sits right below w_in in each
+    layer's packed weights, its gate halves interleaved like w_in's, so the
+    tap product's depth runs on into it; the rest of the layout follows
+    it, and unpacking gives every weight back exactly."""
+    cfg = pt.get_config(name, **kw)
+    params = pt.init_wavenet(cfg, torch.Generator().manual_seed(4), "cpu")
+    w = tk._weights(params, cfg, torch.device("cpu"), cond=True)
+    L, k, M = cfg.num_layers, cfg.kernel_size, cfg.cond_channels
+    R, D = cfg.residual_channels, cfg.dilation_channels
+    Rp, Dp = tk.padded_widths(cfg)
+    Mp = tk.cond_width(M)
+    packed = tk.pack_weights(w, cfg)
+    assert packed.shape == (L, tk.layer_size(cfg, Mp))
+    o = k * Rp * 2 * Dp
+    wc = packed[:, o:o + Mp * 2 * Dp].view(L, Mp, Dp // 8, 2, 8)
+    wc = wc.permute(0, 1, 3, 2, 4).reshape(L, Mp, 2, Dp)
+    assert torch.equal(wc[:, :M, 0, :D], w["w_cond"][..., :D])
+    assert torch.equal(wc[:, :M, 1, :D], w["w_cond"][..., D:])
+    assert float(wc[:, M:].abs().sum() + wc[..., D:].abs().sum()) == 0.0
+    w_res = packed[:, o + Mp * 2 * Dp:o + Mp * 2 * Dp + Dp * Rp]
+    assert torch.equal(w_res.view(L, Dp, Rp)[:, :D, :R], w["w_res"])
+    back = tk.unpack_grads(packed, cfg, M)
+    for got, n in zip(back, ("w_in", "w_res", "b_in", "b_res", "w_cond")):
+        assert torch.equal(got, w[n]), n
+
+
 def _slot_tiles(geo, l, slot):
     """The tiles layer l's block ``slot`` walks, in order (the loop bounds
     of csrc/trunk_bwd.cu's layer launch)."""
@@ -287,6 +378,60 @@ def test_slot_geometry_covers_each_window_once_in_order(name, kw, N,
         assert int(seen[:, s[l]:].min()) == 1
         assert int(seen[:, s[l]:].max()) == 1
         assert int(seen[:, :s[l]].sum()) == 0
+
+
+# each LAYOUT_CASES row's tile plans without cond: (fwd_plan, bwd_plan)
+PLANS = [((64, True), (64, True, True)), ((64, True), (64, True, True)),
+         ((64, True), (64, True, True)), ((64, True), (64, True, True)),
+         ((64, True), (32, True, True)), ((64, True), (64, True, True))]
+
+
+@pytest.mark.parametrize("case,plans", list(zip(LAYOUT_CASES, PLANS)))
+def test_tile_plans_without_cond_stay_as_they_were(case, plans):
+    """Mp = 0 gives every unconditioned width the plans and sizes it had
+    before conditioning entered the kernels."""
+    cfg = pt.get_config(case[0], **case[1])
+    assert (tk.fwd_plan(cfg), tk.bwd_plan(cfg)) == plans
+    assert (tk.fwd_plan(cfg, 0), tk.bwd_plan(cfg, 0)) == plans
+    Rp, Dp = tk.padded_widths(cfg)
+    k = cfg.kernel_size
+    assert tk.layer_size(cfg, 0) == k * Rp * 2 * Dp + Dp * Rp + 2 * Dp + Rp
+    for tm in (16, 32, 64):
+        for wsm in (False, True):
+            assert tk.fwd_smem(tm, k, Rp, Dp, wsm, 0) == tk.fwd_smem(
+                tm, k, Rp, Dp, wsm)
+            assert tk.fwd_smem(tm, k, Rp, Dp, wsm) == 4 * (
+                2 * Dp + Rp + tm * (k * Rp + 4 + Dp + 4)
+                + wsm * (k * Rp * (2 * Dp + 8) + Dp * (Rp + 8)))
+
+
+@pytest.mark.parametrize("name,kw", [
+    ("tiny_vocoder", {}),
+    ("tiny_vocoder", {"cond_channels": 20, "kernel_size": 3}),
+    ("vocoder", {}),
+    ("vocoder", {"cond_channels": 8}),
+    ("chaconne_wide", {"cond_channels": 80}),
+    ("test_small", {"residual_channels": 128, "dilation_channels": 128,
+                    "cond_channels": 80})])
+def test_conditioned_tile_plans_fit_a_block(name, kw):
+    """With cond (Mp columns more in the tap rows, Mp rows more in the
+    weights and K3's partial sums) every plan fits the card's shared memory;
+    at the vocoder K2 keeps its 64-wide tile with the weights on chip and
+    K3 a 32-wide tile with the weights on chip and its sums in the slot."""
+    cfg = pt.get_config(name, **kw)
+    Rp, Dp = tk.padded_widths(cfg)
+    Mp = tk.cond_width(cfg.cond_channels)
+    assert Mp % 16 == 0 and 0 <= Mp - cfg.cond_channels < 16
+    k = cfg.kernel_size
+    tm, wsm = tk.fwd_plan(cfg, Mp)
+    assert tk.fwd_smem(tm, k, Rp, Dp, wsm, Mp) <= tk.SMEM_LIMIT
+    tm, wsm, acc = tk.bwd_plan(cfg, Mp)
+    assert tk.bwd_smem(tm, k, Rp, Dp, wsm, acc, Mp) <= tk.SMEM_LIMIT
+    assert tk.layer_size(cfg, Mp) == tk.layer_size(cfg) + Mp * 2 * Dp
+    if (name, kw) == ("vocoder", {}):
+        assert tk.fwd_plan(cfg, Mp) == (64, True)
+        assert tk.bwd_plan(cfg, Mp) == (32, True, False)
+        assert tk.layer_size(cfg, Mp) == 30912
 
 
 @pytest.mark.parametrize("name,kw", LAYOUT_CASES + [

@@ -181,12 +181,17 @@ def test_conditioned_logits_refusals():
     with pytest.raises(ValueError, match="cond_channels == 0"):
         pt.wavenet_logits(tp, plain, x, cond=torch.zeros(
             (2, plain.item_length, 6)))
+    # the fused trunk takes local conditioning (the trunk kernels' cond
+    # input) and refuses a passed global_cond, where the JAX package falls
+    # back to its plain trunk
     fused = pt.get_config("tiny", cond_channels=6, gcond_channels=3,
                           trunk_kernel=True)
-    for kw in (dict(cond=torch.zeros((2, cfgt.item_length, 6))),
-               dict(global_cond=torch.zeros((2, 3)))):
-        with pytest.raises(ValueError, match="next slice"):
-            pt.wavenet_logits(tp, fused, x, **kw)
+    cond = torch.from_numpy(_normal(2, (2, cfgt.item_length, 6), 1.0))
+    np.testing.assert_allclose(
+        pt.wavenet_logits(tp, fused, x, cond=cond).numpy(),
+        pt.wavenet_logits(tp, cfgt, x, cond=cond).numpy(), **TOL)
+    with pytest.raises(ValueError, match="global"):
+        pt.wavenet_logits(tp, fused, x, global_cond=torch.zeros((2, 3)))
 
 
 def test_upsample_cond_learnable_and_linear():
