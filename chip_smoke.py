@@ -102,7 +102,32 @@ Phases (any failure stops the run with a nonzero exit):
      without and with cond beside their bounds, their plain versions, K3's
      device time by CUDA kernel (its reduction apart), the conditioned
      train step, its split (upsampler, trunk, skip and head, optimizer)
-     and training targets per second.
+     and training targets per second;
+ 21. kernels K2 and K3 at a bf16 stream (``cfg.stream_dtype``) against
+     their plain versions at chaconne_wide, batch 16, out 1024, and at the
+     vocoder with cond, batch 4: layer by layer from the kernel's own
+     stream (u within U_TOL, the stream's bf16 flips counted and each
+     within one ulp), K3 on the kernel's saves, two K3 calls bitwise equal,
+     f32 and bf16 saves giving bitwise the same gradients;
+ 22. ``--bf16`` training (the main path of this slice): ``training.train.
+     main --config chaconne_wide --bf16 --batch-size 16``, 20 steps with a
+     snapshot at 10 and a resumed run, K2/K3 launches counted and the plain
+     trunk barred (as phase 12); then its times and step split (as phase
+     13), and the f32 and ``--bf16`` steps with their optimizer and loss
+     parts timed in alternation;
+ 23. kernel K4 with bf16 and int8 rings against its plain version at
+     chaconne, 256 lanes, fuse_res + skip_slab, int8 scales from
+     ``calibrate_ring_scales``: teacher-forced, then the pool's resumed
+     2048-step chunk step by step from the kernel's state (classes off
+     near-ties, ring writes within one bf16 ulp or int8 count), the 2048
+     one-step launches and three resumed chunks equal to one launch
+     bitwise; the vocoder with cond + gcond at bf16 rings; times and the
+     phase split (the vocoder on phase 17's chunk, f32 and bf16 rings in
+     alternation); then ``generate_fast_batched(ring_dtype=int8)`` in two
+     chunks with its launches counted;
+ 24. batched serving with ``--bf16-rings`` (the main path of this slice):
+     phase 8's burst with the pool's ring in bf16, two responses equal to
+     their bf16-ring solo rollouts.
 
 The line before the last is one JSON object listing the kernels; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -116,6 +141,7 @@ on the same saves and of the exact gradients with f32 saves, and within
 GRAD_TOL_BF16 with bf16 saves (the rule of tests/test_trunk_kernel.py).
 """
 
+import functools
 import json
 import math
 import os
@@ -132,6 +158,7 @@ RING_TOL = 1e-4
 SEED = 1234
 F32_PEAK_FLOPS = 67e12   # H100 SXM, f32 outside the tensor cores
 TF32_PEAK_FLOPS = 495e12  # H100 SXM, TF32 on the tensor cores (dense)
+BF16_PEAK_FLOPS = 989e12  # H100 SXM, bf16 on the tensor cores (dense)
 HBM_BYTES_PER_S = 3.35e12
 
 
@@ -438,29 +465,37 @@ def _flops_per_step(cfg):
 
 
 def bound_ms(pt, gk, params, cfg, streams, num_given, total, lane_rows=0,
-             extra_bytes=0, extra_flops=0):
+             extra_bytes=0, extra_flops=0, ring_bytes=4, skip_bf16=False):
     """Least time for the call: the larger of its bytes (the model's
-    parameters, the prime, the rings and ``lane_rows`` per-lane f32/int32
+    parameters, the prime, the rings (``ring_bytes`` an element: 4, or 2
+    and 1 for bf16 and int8 rings) and ``lane_rows`` per-lane f32/int32
     rows read once, classes and rings written once; no fuse_res products,
     no stand-in zero biases; plus ``extra_bytes``, the conditioning rows)
     over the memory rate and its operations at the peak of their type: the
     chain's f32 products (plus ``extra_flops``, K4's cond product) at the
     f32 rate, the head's as the three TF32 products of 3xTF32 each at the
-    TF32 rate."""
-    ring = sum(gk.periods(cfg)) * streams * cfg.residual_channels * 4
+    TF32 rate, except the skip row's under ``skip_bf16`` (skip_slab with a
+    bf16 or int8 ring: both operands bf16), one product at the bf16
+    rate."""
+    ring = sum(gk.periods(cfg)) * streams * cfg.residual_channels * ring_bytes
     nbytes = (4 * pt.parameter_count(params) + 2 * ring
               + 4 * streams * (num_given + total + lane_rows) + extra_bytes)
     chain, head = _flops_per_step(cfg)
+    L, D, S = cfg.num_layers, cfg.dilation_channels, cfg.skip_channels
+    skip = 2 * L * D * S
+    t_skip = (skip / BF16_PEAK_FLOPS if skip_bf16
+              else 3 * skip / TF32_PEAK_FLOPS)
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = (streams * total * (chain / F32_PEAK_FLOPS
-                                + 3 * head / TF32_PEAK_FLOPS)
+                                + 3 * (head - skip) / TF32_PEAK_FLOPS
+                                + t_skip)
              + extra_flops / F32_PEAK_FLOPS)
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops
                                        else "operations")
 
 
 def trunk_bounds(cfg, batch, out_len, save_bytes=2, tf32x3=True,
-                 cond_channels=0):
+                 cond_channels=0, stream_bf16=False):
     """Bounds of the training trunk kernels K2 (forward) and K3 (backward)
     from their shapes: ``{name: (ms, bound_by)}``.
     Layer l's gated unit is needed on the output window widened by every
@@ -480,7 +515,14 @@ def trunk_bounds(cfg, batch, out_len, save_bytes=2, tf32x3=True,
     ``cond_channels`` M the cond product adds 2*M*2D operations a position
     forward and three times that backward (recompute, dW_cond, dcond), and
     its bytes: w_cond, the cond rows (f32, read once by each kernel) and
-    dcond (written once by K3)."""
+    dcond (written once by K3). With a bf16 stream (``stream_bf16``) the
+    input stream and the cond rows count 2 bytes an element, and each
+    product counts at the peak of its operands' type: one whose two
+    operands are bf16 values (the tap and cond products forward and their
+    recompute) at the bf16 rate; one with an f32 operand as the TF32
+    products the kernels run, two with a bf16 operand (the residual product
+    forward, du and dv through the bf16 weights, dW_in and dW_cond against
+    the bf16 rows) and three with none (dW_res)."""
     k, R, D, L = (cfg.kernel_size, cfg.residual_channels,
                   cfg.dilation_channels, cfg.num_layers)
     M = cond_channels
@@ -497,13 +539,22 @@ def trunk_bounds(cfg, batch, out_len, save_bytes=2, tf32x3=True,
     units = 4 * batch * out_len * L * D
     stream = 4 * batch * T * R
     rate = TF32_PEAK_FLOPS / 3 if tf32x3 else F32_PEAK_FLOPS
+    t_fwd = pos * (tap + res + cnd) / rate
+    t_bwd = pos * (3 * tap + 2 * res + 3 * cnd) / rate
+    stream_in, cond_in = stream, cond
+    if stream_bf16:  # bf16 x bf16 at the bf16 rate, TF32 products apart
+        t_fwd = pos * ((tap + cnd) / BF16_PEAK_FLOPS
+                       + 2 * res / TF32_PEAK_FLOPS)
+        t_bwd = pos * ((tap + cnd) / BF16_PEAK_FLOPS
+                       + ((2 + 2) * (tap + cnd) + (2 + 3) * res)
+                       / TF32_PEAK_FLOPS)
+        stream_in, cond_in = stream // 2, cond // 2
     out = {}  # saves in bf16 (save_bytes 2) unless said
-    for name, flops, nbytes in (
-            ("K2", pos * (tap + res + cnd),
-             stream + units + saves + w_bytes + cond),
-            ("K3", pos * (3 * tap + 2 * res + 3 * cnd),
-             saves + units + stream + 2 * w_bytes + 2 * cond)):
-        t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / rate
+    for name, t_o, nbytes in (
+            ("K2", t_fwd, stream_in + units + saves + w_bytes + cond_in),
+            ("K3", t_bwd, saves + units + stream + 2 * w_bytes + cond_in
+             + cond)):
+        t_b = nbytes / HBM_BYTES_PER_S
         out[name] = (1e3 * max(t_b, t_o),
                      "bytes" if t_b > t_o else "operations")
     return out
@@ -933,10 +984,10 @@ def phase_kernel_sizes(torch, pt, gk, ghbm, dev):
     return stats["K1"], stats["K4"]
 
 
-def _solo_cls(pt, params, cfg, prime, n, temperature, seed, dev):
+def _solo_cls(pt, params, cfg, prime, n, temperature, seed, dev, **kw):
     _, cls = pt.generate_fast_batched(
         params, cfg, 0, n, prime, temperature=temperature,
-        lane_seed=seed, fuse_res=True, skip_slab=True, device=dev)
+        lane_seed=seed, fuse_res=True, skip_slab=True, device=dev, **kw)
     return cls.cpu().numpy()
 
 
@@ -1001,9 +1052,10 @@ def phase_k4_batcher(torch, np, pt, dev):
         f"{stats['prime_calls']} prime calls, {dt:.1f} s")
 
 
-def phase_k4_serving(torch, np, pt, gk, ghbm, dev):
-    """The main path of this slice. Returns the K4 launches counted around
-    it and the served figures."""
+def phase_k4_serving(torch, np, pt, gk, ghbm, dev, bf16_rings=False):
+    """Phase 8 (and, with ``bf16_rings``, phase 24: ``--bf16-rings``, the
+    pool's ring in bf16, the solo rollouts too). Returns the K4 launches
+    counted around it and the served figures."""
     from pytorch_wavenet_tpu_torch.ops.mulaw import dequantize_to_f32
     from pytorch_wavenet_tpu_torch.serving import server as srv
 
@@ -1031,7 +1083,8 @@ def phase_k4_serving(torch, np, pt, gk, ghbm, dev):
         ghbm.launches = 0
         th = threading.Thread(target=srv.main, kwargs=dict(
             argv=["--snapshot", path, "--port", "0", "--batcher", "--lanes",
-                  "256", "--batch-chunk", "2048"], on_ready=on_ready),
+                  "256", "--batch-chunk", "2048"]
+            + (["--bf16-rings"] if bf16_rings else []), on_ready=on_ready),
             daemon=True)
         t0 = time.time()
         th.start()
@@ -1095,7 +1148,8 @@ def phase_k4_serving(torch, np, pt, gk, ghbm, dev):
     # what came out: two responses equal their solo rollouts byte for byte
     for i in (0, 2):
         cls = _solo_cls(pt, params, cfg, [[cfg.classes // 2]], n, temps[i],
-                        [500 + i], dev)[0]
+                        [500 + i], dev, **({"ring_dtype": torch.bfloat16}
+                                           if bf16_rings else {}))[0]
         wav = dequantize_to_f32(cls, cfg.classes)
         check(np.isfinite(wav).all(), "non-finite waveform")
         solo = np.clip(wav * 32767.0, -32768, 32767).astype("<i2")
@@ -1104,7 +1158,8 @@ def phase_k4_serving(torch, np, pt, gk, ghbm, dev):
               f"rollout")
     ttfa = sorted(o[1] for o in out)
     served = n_req * n / wall
-    log(f"[serve-batcher] {n_req} concurrent {n}-sample requests in "
+    log(f"[serve-batcher{' --bf16-rings' if bf16_rings else ''}] {n_req} "
+        f"concurrent {n}-sample requests in "
         f"{wall:.2f} s: {served:.0f} samples/s served; time to first audio "
         f"median {1e3 * ttfa[n_req // 2]:.0f} ms, max {1e3 * ttfa[-1]:.0f} "
         f"ms; requests 0 and 2 equal their solo rollouts byte for byte; "
@@ -1453,16 +1508,28 @@ def _time_median(torch, fn, reps):
     return sorted(ms)[len(ms) // 2], ms
 
 
+def _loss_part(torch, logits, y):
+    """The train step's loss forward and backward on given logits (phase
+    13's split: logsumexp minus the one-hot hit, in f32)."""
+    l32 = logits.to(torch.float32)
+    hit = torch.sum(l32 * torch.nn.functional.one_hot(
+        y.long(), logits.shape[-1]).to(torch.float32), dim=-1)
+    torch.autograd.grad(torch.mean(torch.logsumexp(l32, dim=-1) - hit),
+                        [logits])
+
+
 def phase_train_times(torch, pt, tk, dev, card, config="chaconne_wide",
-                      cond_upsample=None, hop=256):
+                      cond_upsample=None, hop=256, bf16=False):
     """Times with CUDA events at ``config``, batch 16: the train step and
     the step with the plain trunk, K2 and K3 beside their bounds, the plain
     trunk, K2's and K3's device time by CUDA kernel (``torch.profiler``)
     and the step's split. Phase 13 times chaconne_wide with K2/K3 at bf16
     and f32 saves; phase 20 the vocoder with ``cond_upsample`` (mel-like
     frames of ``hop`` samples through the learnable upsampler) and K2/K3 at
-    bf16 saves without and with its cond rows. Returns the figures for the
-    kernels line, ``k[(kernel, variant)] = (ms, bound ms, bound by)``."""
+    bf16 saves without and with its cond rows; phase 22 chaconne_wide with
+    ``bf16`` (``--bf16``: compute and stream dtypes bf16, K2/K3 at a bf16
+    stream). Returns the figures for the kernels line, ``k[(kernel,
+    variant)] = (ms, bound ms, bound by)``."""
     import dataclasses
 
     from pytorch_wavenet_tpu_torch.models.wavenet import skip_head
@@ -1470,9 +1537,11 @@ def phase_train_times(torch, pt, tk, dev, card, config="chaconne_wide",
     from pytorch_wavenet_tpu_torch.training.trainer import _expand_cond
 
     kw = {"cond_upsample": tuple(cond_upsample)} if cond_upsample else {}
-    cfg = pt.get_config(config, trunk_kernel=True, **kw)
+    dtypes = (dict(compute_dtype=torch.bfloat16, stream_dtype=torch.bfloat16)
+              if bf16 else {})
+    cfg = pt.get_config(config, trunk_kernel=True, **kw, **dtypes)
     what = config + (" --cond-upsample " + ",".join(map(str, cond_upsample))
-                     if cond_upsample else "")
+                     if cond_upsample else "") + (" --bf16" if bf16 else "")
     B, out = 16, cfg.output_length
     g = torch.Generator().manual_seed(4)
     x = torch.randint(0, cfg.classes, (B, cfg.item_length), generator=g)
@@ -1490,19 +1559,23 @@ def phase_train_times(torch, pt, tk, dev, card, config="chaconne_wide",
     step_ms, all_ms = _time_median(torch, lambda: pt.train_step(
         params, state, cfg, tx, x, y, *cargs), 10)
     log(f"[time] train step, {what} batch 16, trunk K2/K3"
-        f"{' with cond' if cond_upsample else ''} (bf16 saves): median "
+        f"{' with cond' if cond_upsample else ''} "
+        f"({'a bf16 stream' if bf16 else 'bf16 saves'}): median "
         f"{step_ms:.3f} ms of 10 warm steps ("
         + ", ".join(f"{m:.3f}" for m in all_ms) + f"); "
         f"{B * out / step_ms * 1e3:.0f} targets/s [{card}]")
     plain_cfg = dataclasses.replace(cfg, trunk_kernel=False)
     plain_step, _ = _time_median(torch, lambda: pt.train_step(
         params, state, plain_cfg, tx, x, y, *cargs), 3)
-    log(f"[time] {config} train step with the plain trunk "
+    log(f"[time] {what} train step with the plain trunk "
         f"(--no-trunk-kernel): median {plain_step:.3f} ms of 3 [{card}]")
 
     # the kernels alone, at the main path's shapes
-    cfg_t, p_t, h0, du = _trunk_case(torch, pt, dev, config, B, out)
-    if cond_upsample:
+    cfg_t, p_t, h0, du = _trunk_case(torch, pt, dev, config, B, out,
+                                     **dtypes)
+    if bf16:
+        variants = (("bf16 stream", " bf16 stream", torch.bfloat16, None),)
+    elif cond_upsample:
         variants = (("without cond", " without cond", torch.bfloat16, None),
                     ("cond", " with cond", torch.bfloat16,
                      _cond_rows(torch, cfg_t, B, out, dev)))
@@ -1517,15 +1590,18 @@ def phase_train_times(torch, pt, tk, dev, card, config="chaconne_wide",
                                                 c)))
         sb, M = (2 if sd == torch.bfloat16 else 4,
                  0 if c is None else cfg_t.cond_channels)
-        bounds = trunk_bounds(cfg_t, B, out, sb, cond_channels=M)
+        bounds = trunk_bounds(cfg_t, B, out, sb, cond_channels=M,
+                              stream_bf16=bf16)
         old = trunk_bounds(cfg_t, B, out, sb, tf32x3=False, cond_channels=M)
         for kname, fn in fns:
             ms = min(_time(torch, fn, 5))
             b_ms, b_by = bounds[kname]
             log(f"[time] {kname} {config}{label}, batch 16 out {out}, "
                 f"{'bf16' if sb == 2 else 'f32'} saves: {ms:.3f} ms (min of "
-                f"5); bound {b_ms:.4f} ms ({b_by}, 3xTF32 on the tensor "
-                f"cores), {100 * b_ms / ms:.2f} % of it; the f32 bound of the "
+                f"5); bound {b_ms:.4f} ms ({b_by}, "
+                + ("bf16 x bf16 products at the bf16 rate, the rest in TF32"
+                   if bf16 else "3xTF32 on the tensor cores")
+                + f"), {100 * b_ms / ms:.2f} % of it; the f32 bound of the "
                 f"FMA kernels {old[kname][0]:.4f} ms, "
                 f"{100 * old[kname][0] / ms:.2f} % [{card}]")
             out_k[(kname, name)] = (ms, b_ms, b_by)
@@ -1591,12 +1667,6 @@ def phase_train_times(torch, pt, tk, dev, card, config="chaconne_wide",
         yy = skip_head(params, cfg, u)
         torch.autograd.grad(yy, [u, lp["w_skip"]], torch.ones_like(yy))
 
-    def loss():
-        lz = torch.logsumexp(logits, dim=-1)
-        hit = torch.sum(logits * torch.nn.functional.one_hot(
-            y.long(), cfg.classes).to(torch.float32), dim=-1)
-        torch.autograd.grad(torch.mean(lz - hit), [logits])
-
     gtree = pt.train_step(params, state, cfg, tx, x, y, *cargs)[1]
 
     def opt():
@@ -1609,7 +1679,9 @@ def phase_train_times(torch, pt, tk, dev, card, config="chaconne_wide",
                      ("trunk K2+K3" + (" with cond" if cond_upsample else ""),
                       trunk),
                      ("skip+head fwd+bwd", head),
-                     ("loss fwd+bwd", loss), ("optimizer", opt)):
+                     ("loss fwd+bwd", functools.partial(
+                         _loss_part, torch, logits, y)),
+                     ("optimizer", opt)):
         parts[name] = _time_median(torch, fn, 5)[0]
     total = sum(parts.values())
     log(f"[time] {config} step split (each part alone, median of 5): "
@@ -1621,6 +1693,53 @@ def phase_train_times(torch, pt, tk, dev, card, config="chaconne_wide",
                 targets_per_s=B * out / step_ms * 1e3, parts=parts,
                 k=out_k, plain_fwd_ms=pf, plain_bwd_ms=pb,
                 reduce_ms=reduce_ms)
+
+
+def phase_step_alternation(torch, pt, dev, card, rounds=4):
+    """The chaconne_wide train step at batch 16, f32 and ``--bf16``, in
+    alternation (f32 then bf16, then bf16 then f32, ``rounds`` rounds):
+    each round times the step and its optimizer and loss parts (as phase
+    13's split; the loss on logits in the config's compute dtype), the
+    median of 5 warm calls each. Whether ``--bf16`` costs more a step, and
+    how far the parts that run the same code spread between rounds."""
+    from pytorch_wavenet_tpu_torch.training.optimizers import _leaves
+
+    B, runs = 16, {}
+    for name, dtypes in (("f32", {}), ("bf16", dict(
+            compute_dtype=torch.bfloat16, stream_dtype=torch.bfloat16))):
+        cfg = pt.get_config("chaconne_wide", trunk_kernel=True, **dtypes)
+        g = torch.Generator().manual_seed(4)
+        x = torch.randint(0, cfg.classes, (B, cfg.item_length), generator=g)
+        y = torch.randint(0, cfg.classes, (B, cfg.output_length),
+                          generator=g)
+        x, y = x.to(dev, torch.int32), y.to(dev, torch.int32)
+        logits = torch.randn((B, cfg.output_length, cfg.classes),
+                             generator=g).to(dev, cfg.compute_dtype)
+        params = pt.init_wavenet(cfg, torch.Generator().manual_seed(SEED),
+                                 dev)
+        for _, p in _leaves(params):
+            p.requires_grad_(True)
+        tx = pt.reference_adam(1e-4)
+        state = tx.init(params)
+        grads = pt.train_step(params, state, cfg, tx, x, y)[1]
+        runs[name] = {
+            "step": functools.partial(pt.train_step, params, state, cfg, tx,
+                                      x, y),
+            "optimizer": functools.partial(tx.step, params, grads, state),
+            "loss": functools.partial(_loss_part, torch,
+                                      logits.requires_grad_(True), y)}
+    ms = {n: {part: [] for part in runs[n]} for n in runs}
+    for r in range(rounds):
+        for name in (("f32", "bf16") if r % 2 == 0 else ("bf16", "f32")):
+            for part, fn in runs[name].items():
+                ms[name][part].append(_time_median(torch, fn, 5)[0])
+    for part in ("step", "optimizer", "loss"):
+        log(f"[time] chaconne_wide batch 16, {part}, f32 and --bf16 in "
+            f"alternation ({rounds} rounds, median of 5 warm calls each): "
+            + "; ".join(f"{n} " + ", ".join(f"{m:.3f}" for m in v[part])
+                        + f" ms (spread {max(v[part]) - min(v[part]):.3f})"
+                        for n, v in ms.items()) + f" [{card}]")
+    return ms
 
 
 # ------------------------------------------------------------- the vocoder
@@ -2058,6 +2177,25 @@ def phase_vocode_serving(torch, np, pt, gk, ghbm, dev):
     return k1_launched, k4_launched, out
 
 
+def _vocoder_chunk(torch, ghbm, cfg, params, dev, lanes, steps,
+                   ring_dtype=None):
+    """Phase 17's K4 chunk at the vocoder, from fixed seeds: the packed
+    weights (fuse_res + skip_slab), prime, ring (zeros, f32 or
+    ``ring_dtype``), per-lane rows (T = 0.9, lane_seed), cond rows and the
+    gcond table. Phase 23 times the same chunk at bf16 rings."""
+    rdt = torch.float32 if ring_dtype is None else ring_dtype
+    w = ghbm.prepare_weights(params, cfg, True, True, rdt)
+    prime = torch.randint(0, cfg.classes, (lanes, 1),
+                          generator=torch.Generator().manual_seed(3))
+    ring = torch.zeros(ghbm.ring_rows(cfg), lanes, dtype=rdt, device=dev)
+    _, seeds, toffs = _lane_rows(torch, dev, lanes)
+    cond = _normal(torch, (steps, cfg.cond_channels, lanes), 16, dev)
+    gcond = ghbm.project_gcond(
+        w, cfg, _normal(torch, (lanes, GCOND), 17, dev, 1.0), lanes)
+    return (w, prime.to(dev, torch.int32), ring,
+            torch.full((lanes,), 0.9, device=dev), seeds, toffs, cond, gcond)
+
+
 def phase_vocoder_times(torch, pt, gk, ghbm, dev, card):
     """K1 (one stream) and K4 (256 lanes) on a resumed 2048-step chunk at
     the vocoder, without conditioning, with cond rows, and with cond and
@@ -2103,16 +2241,8 @@ def phase_vocoder_times(torch, pt, gk, ghbm, dev, card):
         f"{plain:.1f} ms, {1e3 * plain / steps:.1f} us/step [{card}]")
     # K4: 256 lanes, fuse_res + skip_slab, resumed at the pool's clock
     lanes = 256
-    w = ghbm.prepare_weights(params, cfg, True, True)
-    prime = torch.randint(0, cfg.classes, (lanes, 1),
-                          generator=torch.Generator().manual_seed(3))
-    prime = prime.to(dev, torch.int32)
-    ring = torch.zeros(ghbm.ring_rows(cfg), lanes, device=dev)
-    temps = torch.full((lanes,), 0.9, device=dev)
-    _, seeds, toffs = _lane_rows(torch, dev, lanes)
-    cond = _normal(torch, (steps, M, lanes), 16, dev)
-    gcond = ghbm.project_gcond(
-        w, cfg, _normal(torch, (lanes, GCOND), 17, dev, 1.0), lanes)
+    w, prime, ring, temps, seeds, toffs, cond, gcond = _vocoder_chunk(
+        torch, ghbm, cfg, params, dev, lanes, steps)
     tile = ghbm.default_tile(lanes, cfg, True, lambda t: (
         ghbm.max_active_clusters(cfg, t, True, True, M)), M)
     act = {t: ghbm.max_active_clusters(cfg, t, True, True, M)
@@ -2200,6 +2330,378 @@ def phase_cond_k23_vs_plain(torch, pt, tk, dev):
 # -------------------------------------------------------------------- main
 
 
+
+# ------------------------------------- reduced-precision inputs (phases 21-24)
+
+def bf16_flips(torch, a, b):
+    """Where two bf16 tensors differ: ``(count, all within one bf16 ulp of
+    the larger, max |a - b|)``. One ulp of |x| is 2^(floor(log2 |x|) - 7);
+    a value within U_TOL of 0 may also differ by that much (the two sides'
+    f32 sums, which differ by about that, decide its rounding and
+    sign)."""
+    fa, fb = a.to(torch.float32), b.to(torch.float32)
+    d = (fa - fb).abs()
+    m = torch.maximum(fa.abs(), fb.abs())
+    ulp = torch.exp2(torch.floor(torch.log2(m.clamp(min=1e-30))) - 7)
+    ok = d <= ulp + U_TOL
+    return int((d > 0).sum()), bool(ok.all()), float(d.max())
+
+
+def ring_flips(torch, a, b):
+    """The same for rings: bf16 as :func:`bf16_flips`; int8 rings within
+    one count, ``(count, within, max counts)``."""
+    if a.dtype == torch.int8:
+        d = (a.to(torch.int32) - b.to(torch.int32)).abs()
+        return int((d > 0).sum()), bool((d <= 1).all()), float(d.max())
+    return bf16_flips(torch, a, b)
+
+
+def phase_bf16_k23_vs_plain(torch, pt, tk, dev):
+    """K2 and K3 at a bf16 stream against their plain versions: the main
+    path's shapes (chaconne_wide, batch 16, out 1024) and the vocoder with
+    cond at batch 4, out 1024. Layer by layer from the kernel's own input
+    stream: u within U_TOL x max(1, |u|) of the plain layer's, and the
+    stream the kernel writes against the plain layer's, its flips counted
+    and each within one bf16 ulp (:func:`bf16_flips`); end to end the units
+    and the last stream against the plain walk's (reported: a flip moves
+    the later layers). K3 on the kernel's saves within GRAD_TOL x max(1,
+    scale) of the plain version, two calls bitwise equal, and f32 saves
+    (K2's, holding the same values) giving bitwise the gradients of bf16
+    ones. Returns the largest unit error, the largest gradient error
+    (absolute) and the stream flips."""
+    u_err = g_err = 0.0
+    flips_all = 0
+    for name, batch, cond_on in (("chaconne_wide", 16, False),
+                                 ("vocoder", 4, True)):
+        out = 1024
+        cfg, params, h0, du = _trunk_case(torch, pt, dev, name, batch, out,
+                                          stream_dtype=torch.bfloat16)
+        cond = _cond_rows(torch, cfg, batch, out, dev) if cond_on else None
+        tag = f"K2/K3 {name} batch {batch} out {out} bf16 stream" + (
+            " cond" if cond_on else "")
+        uk, sk = tk.trunk_fwd_cuda(params, cfg, h0, out, torch.bfloat16,
+                                   cond)
+        uk32, sk32 = tk.trunk_fwd_cuda(params, cfg, h0, out, torch.float32,
+                                       cond)
+        torch.cuda.synchronize()
+        s, sp = tk.windows(cfg, out)
+        T, D, L = h0.shape[1], cfg.dilation_channels, cfg.num_layers
+        check(sk.dtype == torch.bfloat16 and sk32.dtype == torch.float32
+              and torch.equal(uk, uk32) and all(
+                  torch.equal(sk32[l, :, sp[l]:], sk[l, :, sp[l]:].float())
+                  for l in range(L)),
+              f"{tag}: f32 and bf16 saves of a bf16 stream differ")
+        check(torch.equal(sk[0], h0.to(torch.bfloat16)),
+              f"{tag}: the stream did not enter rounded")
+        cr = None if cond is None else tk.round_bf16(cond)
+        eu, flips, within, worst = 0.0, 0, True, 0.0
+        for l in range(L):
+            u, hn = tk.layer_fwd_plain(params, cfg, l, sk[l].float(), cr)
+            ref = u[:, T - out:]
+            got = uk[:, :, l * D:(l + 1) * D]
+            eu = max(eu, float(((got - ref).abs()
+                                / ref.abs().clamp(min=1.0)).max()))
+            u_err = max(u_err, float((got - ref).abs().max()))
+            if l + 1 < L:
+                n, ok, d = bf16_flips(torch, hn[:, s[l]:].to(torch.bfloat16),
+                                      sk[l + 1, :, s[l]:])
+                flips, within, worst = flips + n, within and ok, max(worst, d)
+        check(eu <= U_TOL, f"{tag}: u error {eu} x max(1, |u|)")
+        check(within, f"{tag}: a stream flip beyond one bf16 ulp ({worst})")
+        flips_all += flips
+        n_stream = sum(batch * (T - s[l]) * cfg.residual_channels
+                       for l in range(L - 1))
+        up, sp_ = tk.trunk_fwd_plain(params, cfg, h0, out, torch.bfloat16,
+                                     cond)
+        e2e = float((uk - up).abs().max())
+        n_e, _, d_e = bf16_flips(torch, sp_[-1, :, s[-2]:], sk[-1, :, s[-2]:])
+        log(f"[{tag}] layer by layer from the kernel's stream: u within "
+            f"{eu:.3g} x max(1, |u|) (tol {U_TOL}); the stream it writes: "
+            f"{flips} of {n_stream} values one bf16 ulp off the plain "
+            f"layer's (largest difference {worst:.3g}), none beyond; end to "
+            f"end: u within {e2e:.3g} of the plain walk's, the last layer's "
+            f"stream {n_e} values apart (largest {d_e:.3g}): the flips "
+            f"carry forward")
+        gk = tk.trunk_bwd_cuda(params, cfg, sk, du, out, cond)
+        again = tk.trunk_bwd_cuda(params, cfg, sk, du, out, cond)
+        g32 = tk.trunk_bwd_cuda(params, cfg, sk32, du, out, cond)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(gk, again)),
+              f"{tag}: two K3 calls differ")
+        check(all(torch.equal(a, b) for a, b in zip(gk, g32)),
+              f"{tag}: f32 saves give other gradients than bf16 saves")
+        gp = tk.trunk_bwd_plain(params, cfg, sk, du, out, cond)
+        eg = _grad_err(gk, gp)
+        check(eg <= GRAD_TOL, f"{tag}: K3 vs plain {eg}")
+        g_err = max(g_err, max(float((a - b).abs().max())
+                               for a, b in zip(gk, gp)))
+        log(f"[{tag}] K3 on the kernel's saves: every gradient"
+            f"{', dW_cond and dcond' if cond_on else ''} within {eg:.3g} x "
+            f"max(1, scale) of the plain version (tol {GRAD_TOL}); two K3 "
+            f"calls bitwise equal; f32 saves give bitwise the same "
+            f"gradients")
+    return u_err, g_err, flips_all
+
+
+RING_DTYPES = ("bf16", "int8")
+
+
+def _lockstep(torch, ghbm, cfg, w, prime, ring, t0, steps, lane_rows, tag,
+              kw=None):
+    """Kernel and plain version step by step from the kernel's own state
+    (``ring``, advanced in place): at each step the plain version starts
+    from a copy of the kernel's ring and the same input class (``prime``'s
+    column t while it lasts, then the kernel's last class), so every step
+    compares the two on equal inputs. Classes agree off near-ties of the
+    plain scores; the ring slots each step writes agree within one bf16
+    ulp or one int8 count (:func:`ring_flips`). Returns the kernel's
+    classes (streams, steps), the plain version's time in ms, and
+    ``(mismatches, near-ties, ring values off, largest)``."""
+    from pytorch_wavenet_tpu_torch.ops.cuda import gen_kernel as gk
+
+    kw = kw or {}
+    cond = kw.get("cond")
+    rp = torch.empty_like(ring)
+    cls, mm, nt, off, worst, within, plain_s = [], 0, 0, 0, 0.0, True, 0.0
+    p = prime[:, :1].contiguous()
+    for t in range(steps):
+        if t < prime.shape[1]:
+            p = prime[:, t:t + 1].contiguous()
+        extra = dict(kw)
+        if cond is not None:
+            extra["cond"] = cond[t:t + 1].contiguous()
+        rp.copy_(ring)
+        ck = ghbm.batched_cuda(w, cfg, p, ring, t0 + t, 1, *lane_rows, 0,
+                               0.0, True, True, True, **extra)
+        torch.cuda.synchronize()
+        a = time.perf_counter()
+        with gk.full_f32():
+            cp, gaps = ghbm.batched_plain(w, cfg, p, rp, t0 + t, 1,
+                                          *lane_rows, 0, 0.0, True, True,
+                                          True, return_gaps=True, **extra)
+        torch.cuda.synchronize()
+        plain_s += time.perf_counter() - a
+        miss = ck != cp
+        ties = gaps < NEAR_TIE
+        check(not bool((miss & ~ties).any()),
+              f"{tag}: step {t}: a class differs off a near-tie")
+        mm, nt = mm + int(miss.sum()), nt + int(ties.sum())
+        n, ok, d = ring_flips(torch, ring, rp)
+        off, within, worst = off + n, within and ok, max(worst, d)
+        cls.append(ck)
+        p = ck
+    check(within, f"{tag}: a ring value beyond one unit ({worst})")
+    return torch.cat(cls, dim=1), 1e3 * plain_s, (mm, nt, off, worst)
+
+
+def phase_ring_k4_vs_plain(torch, pt, ghbm, dev, card):
+    """K4 with bf16 and int8 rings against its plain version: chaconne,
+    256 lanes, fuse_res + skip_slab (the pool's flags), int8 scales from
+    ``calibrate_ring_scales`` on a greedy receptive-field prime. A
+    teacher-forced 64-step prime at t0 = 449, then the pool's call, a
+    resumed 2048-step chunk at t0 = 513, T in {0, 0.9, 1} with lane_seed,
+    run in one launch and again in lockstep with the plain version
+    (:func:`_lockstep`): the 2048 one-step launches equal the one launch
+    bitwise (classes and ring), and every step agrees with the plain
+    version; three resumed chunks equal one shot bitwise. Then the vocoder
+    with cond + gcond at bf16 rings (256 lanes, 512 steps in lockstep).
+    Times (CUDA events, min of 2) and the kernel's phase split at 256
+    lanes; the vocoder on phase 17's 2048-step chunk, f32 and bf16 rings
+    in alternation, and its phase split at bf16 rings. Returns ``{ring: figures}`` for the kernels line and
+    the scales."""
+    cfg = pt.get_config("chaconne")
+    params = pt.init_wavenet(cfg, torch.Generator().manual_seed(SEED), dev)
+    lanes, rows, clock = 256, ghbm.ring_rows(cfg), max(ghbm.periods(cfg))
+    g = torch.Generator().manual_seed(21)
+    cal = torch.randint(0, cfg.classes, (16, cfg.receptive_field),
+                        generator=g)
+    scales = ghbm.calibrate_ring_scales(params, cfg, cal, num_samples=256,
+                                        device=dev)
+    check(bool((scales > 0).all()) and scales.shape == (cfg.num_layers,),
+          f"ring scales {scales}")
+    log(f"[K4 rings] int8 scales from calibrate_ring_scales (16 streams, a "
+        f"receptive-field prime + 256 greedy steps at bf16 rings, margin "
+        f"1.05): " + ", ".join(f"{x:.4f}" for x in scales.tolist()))
+    prime = torch.randint(0, cfg.classes, (lanes, 64), generator=g).to(
+        dev, torch.int32)
+    zeros = torch.zeros(lanes, dtype=torch.int32, device=dev)
+    greedy = torch.zeros(lanes, device=dev)
+    hot = _lane_rows(torch, dev, lanes)
+    out = {}
+    for rname in RING_DTYPES:
+        rdt = getattr(torch, {"bf16": "bfloat16", "int8": "int8"}[rname])
+        tag = f"K4 chaconne {lanes} lanes {rname} rings"
+        w = ghbm.prepare_weights(params, cfg, True, True, rdt,
+                                 scales if rname == "int8" else None)
+        ring = torch.zeros(rows, lanes, dtype=rdt, device=dev)
+        start, _, mmf = _lockstep(torch, ghbm, cfg, w, prime, ring,
+                                  clock - 64, 64, (greedy, zeros, zeros),
+                                  tag + " teacher-forced")
+        state = ring.clone()
+        first = start[:, -1:].contiguous()
+        one_ring = state.clone()
+        one = ghbm.batched_cuda(w, cfg, first, one_ring, clock, 2048, *hot,
+                                0, 0.0, True, True, True)
+        lock_ring = state.clone()
+        cls, plain_ms, (mm, nt, off, worst) = _lockstep(
+            torch, ghbm, cfg, w, first, lock_ring, clock, 2048, hot, tag)
+        check(torch.equal(cls, one) and torch.equal(lock_ring, one_ring),
+              f"{tag}: 2048 one-step launches differ from one launch")
+        parts, r3, p, t0 = [], state.clone(), first, clock
+        for m in (1, 1000, 1047):
+            parts.append(ghbm.batched_cuda(w, cfg, p, r3, t0, m, *hot, 0,
+                                           0.0, True, True, True))
+            p, t0 = parts[-1][:, -1:].contiguous(), t0 + m
+        check(torch.equal(torch.cat(parts, dim=1), one)
+              and torch.equal(r3, one_ring),
+              f"{tag}: three resumed chunks differ from one shot")
+        unit = "bf16 ulp" if rname == "bf16" else "int8 count"
+        log(f"[{tag}] teacher-forced 64 steps at t0={clock - 64}: "
+            f"{mmf[0]} class mismatches, {mmf[2]} ring values one {unit} "
+            f"off; the pool's resumed 2048-step chunk at t0={clock} (T in "
+            f"0/0.9/1, lane_seed), step by step from the kernel's state: "
+            f"{mm} class mismatches, all at near-ties ({nt} near-ties, gap "
+            f"< {NEAR_TIE}), {off} ring values written one {unit} off the "
+            f"plain version's (largest difference {worst:.3g}), none beyond; "
+            f"2048 one-step launches equal the one launch bitwise, and so do "
+            f"three resumed chunks (1 + 1000 + 1047)")
+        # times: the same chunk, min of 2, and the phase split
+        b_ms, b_by = bound_ms(pt, ghbm, params, cfg, lanes, 1, 2048,
+                              lane_rows=3, ring_bytes=rdt.itemsize,
+                              skip_bf16=True)
+        r = state.clone()
+        ms = min(_time(torch, lambda: ghbm.batched_cuda(
+            w, cfg, first, r, clock, 2048, *hot, 0, 0.0, True, True, True),
+            2))
+        tm = torch.zeros(len(ghbm.PHASES), dtype=torch.int64, device=dev)
+        r = state.clone()
+        ghbm.batched_cuda(w, cfg, first, r, clock, 2048, *hot, 0, 0.0, True,
+                          True, True, timers=tm)
+        torch.cuda.synchronize()
+        log(f"[time] K4 chaconne {rname} rings, fuse_res+skip_slab, "
+            f"{lanes} lanes, resumed 2048-step chunk: {ms:.2f} ms, "
+            f"{1e3 * ms / 2048:.2f} us/step, {lanes * 2048 / ms * 1e3:.0f} "
+            f"samples/s; bound {b_ms:.4f} ms ({b_by}; the ring's "
+            f"{rdt.itemsize} bytes an element, the skip row's bf16 "
+            f"operands at the bf16 rate), {100 * b_ms / ms:.2f} % of it; the plain version "
+            f"{plain_ms:.1f} ms (the lockstep's 2048 steps) [{card}]")
+        log(f"[time] K4 {rname} rings, 256 lanes, per step: "
+            + ", ".join(f"{n} {v / 2048e3:.2f} us"
+                        for n, v in zip(ghbm.PHASES, tm.tolist()))
+            + f" [{card}]")
+        out[rname] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                          bound_by=b_by, err=worst, mismatches=mm,
+                          near_ties=nt, flips=off)
+    # the vocoder with cond + gcond at bf16 rings
+    vcfg, vparams = _vocoder(torch, pt, dev, GCOND)
+    rdt, steps = torch.bfloat16, 512
+    w = ghbm.prepare_weights(vparams, vcfg, True, True, rdt)
+    vrows, vclock = ghbm.ring_rows(vcfg), max(ghbm.periods(vcfg))
+    cond = _normal(torch, (64 + steps, vcfg.cond_channels, lanes), 12, dev)
+    gcond = ghbm.project_gcond(
+        w, vcfg, _normal(torch, (lanes, GCOND), 13, dev, 1.0), lanes)
+    tag = f"K4 vocoder {lanes} lanes bf16 rings cond + gcond"
+    ring = torch.zeros(vrows, lanes, dtype=rdt, device=dev)
+    vprime = torch.randint(0, vcfg.classes, (lanes, 64), generator=g).to(
+        dev, torch.int32)
+    start, _, mmf = _lockstep(torch, ghbm, vcfg, w, vprime, ring,
+                              vclock - 64, 64, (greedy, zeros, zeros),
+                              tag + " teacher-forced",
+                              dict(cond=cond[:64], gcond=gcond))
+    state, first = ring.clone(), start[:, -1:].contiguous()
+    kw = dict(cond=cond[64:].contiguous(), gcond=gcond)
+    one_ring = state.clone()
+    one = ghbm.batched_cuda(w, vcfg, first, one_ring, vclock, steps, *hot, 0,
+                            0.0, True, True, True, **kw)
+    cls, plain_ms, (mm, nt, off, worst) = _lockstep(
+        torch, ghbm, vcfg, w, first, state, vclock, steps, hot, tag,
+        dict(cond=cond[64:], gcond=gcond))
+    check(torch.equal(cls, one) and torch.equal(state, one_ring),
+          f"{tag}: one-step launches differ from one launch")
+    log(f"[{tag}] teacher-forced 64 steps: {mmf[0]} class mismatches, "
+        f"{mmf[2]} ring values one bf16 ulp off; a resumed {steps}-step "
+        f"chunk at t0={vclock}, step by step: {mm} class mismatches, all at "
+        f"near-ties ({nt} near-ties), {off} ring values one bf16 ulp off "
+        f"(largest {worst:.3g}), none beyond; the one-step launches equal "
+        f"the one launch bitwise")
+    # times: phase 17's 2048-step chunk, f32 and bf16 rings in alternation
+    us = {"f32": [], "bf16": []}
+    for rname in ("f32", "bf16", "bf16", "f32"):
+        vw, vp, vr, vt, vs, vo, vc, vg = _vocoder_chunk(
+            torch, ghbm, vcfg, vparams, dev, lanes, 2048,
+            None if rname == "f32" else torch.bfloat16)
+        us[rname] += [1e3 * m / 2048 for m in _time(
+            torch, lambda: ghbm.batched_cuda(
+                vw, vcfg, vp, vr, vclock, 2048, vt, vs, vo, 0, 0.0, True,
+                True, True, cond=vc, gcond=vg), 2)]
+    log(f"[time] K4 vocoder fuse_res+skip_slab, 256 lanes, phase 17's "
+        f"resumed 2048-step chunk with cond + gcond, f32 and bf16 rings in "
+        f"alternation (f32, bf16, bf16, f32; 2 calls each): f32 rings "
+        + ", ".join(f"{u:.2f}" for u in us["f32"]) + " us/step, bf16 rings "
+        + ", ".join(f"{u:.2f}" for u in us["bf16"]) + f" [{card}]")
+    vw, vp, vr, vt, vs, vo, vc, vg = _vocoder_chunk(
+        torch, ghbm, vcfg, vparams, dev, lanes, 2048, torch.bfloat16)
+    tm = torch.zeros(len(ghbm.PHASES), dtype=torch.int64, device=dev)
+    ghbm.batched_cuda(vw, vcfg, vp, vr, vclock, 2048, vt, vs, vo, 0, 0.0,
+                      True, True, True, timers=tm, cond=vc, gcond=vg)
+    torch.cuda.synchronize()
+    log("[time] K4 vocoder 256 lanes cond + gcond, bf16 rings, per step: "
+        + ", ".join(f"{n} {v / 2048e3:.2f} us"
+                    for n, v in zip(ghbm.PHASES, tm.tolist()))
+        + f" [{card}]")
+    out["bf16"]["vocoder_us_per_step"] = min(us["bf16"])
+    out["bf16"]["vocoder_f32_us_per_step"] = min(us["f32"])
+    return out, scales
+
+
+def phase_int8_generation(torch, pt, ghbm, dev, scales):
+    """The int8 rings' main path: ``generate_fast_batched(ring_dtype=int8,
+    ring_scales=calibrate_ring_scales(...))`` in two chunks at 256 lanes
+    of chaconne (fuse_res + skip_slab), K4's launches counted around
+    exactly these calls and the plain version barred; the two chunks equal
+    one call bitwise, the state stays int8, and the waveform is finite.
+    Returns the launches."""
+    cfg = pt.get_config("chaconne")
+    params = pt.init_wavenet(cfg, torch.Generator().manual_seed(SEED), dev)
+    lanes = 256
+    prime = torch.randint(0, cfg.classes, (lanes, 600),
+                          generator=torch.Generator().manual_seed(22))
+    kw = dict(temperature=0.9, lane_seed=list(range(lanes)), fuse_res=True,
+              skip_slab=True, device=dev, ring_dtype=torch.int8,
+              ring_scales=scales, return_state=True)
+    real, calls = ghbm.batched_plain, []
+
+    def barred(*args, **kwargs):
+        calls.append(1)
+        raise RuntimeError("the plain version ran on the card path")
+
+    ghbm.batched_plain = barred
+    try:
+        ghbm.launches = 0
+        _, c1, st = pt.generate_fast_batched(params, cfg, 0, 1024, prime,
+                                             **kw)
+        wav, c2, st = pt.generate_fast_batched(params, cfg, 0, 1024,
+                                               state=st, **kw)
+        torch.cuda.synchronize()
+        launched = ghbm.launches
+        _, one, s1 = pt.generate_fast_batched(params, cfg, 0, 2048, prime,
+                                              **kw)
+    finally:
+        ghbm.batched_plain = real
+    check(not calls and launched == 2,
+          f"int8 generation: {launched} K4 launches, {len(calls)} plain")
+    check(st.ring.dtype == torch.int8 and torch.equal(st.ring, s1.ring)
+          and torch.equal(torch.cat([c1, c2], dim=1), one),
+          "int8 generation: two chunks differ from one call")
+    check(bool(torch.isfinite(wav).all()), "int8 generation: non-finite")
+    log(f"[int8 generation] generate_fast_batched(ring_dtype=int8, "
+        f"ring_scales=calibrate_ring_scales(...)), 256 lanes, two 1024-sample "
+        f"chunks after a 600-sample prime: K4 launches {launched}, plain "
+        f"calls 0; equal to one 2048-sample call bitwise; the state's ring "
+        f"is {st.ring.dtype}")
+    return launched
+
+
 def main():
     import numpy as np
     import torch
@@ -2269,6 +2771,24 @@ def main():
                             VOCODER_UPSAMPLE)
     log(f"phase vocoder training times done at "
         f"{time.time() - t_start:.0f} s")
+    bu_err, bg_err, b_flips = phase_bf16_k23_vs_plain(torch, pt, tk, dev)
+    log(f"phase K2/K3 bf16 stream vs plain done at "
+        f"{time.time() - t_start:.0f} s")
+    bk2_launched, bk3_launched = phase_training(
+        torch, np, pt, tk, dev, "chaconne_wide", 20, ("--bf16",))
+    log(f"phase --bf16 training done at {time.time() - t_start:.0f} s")
+    btt = phase_train_times(torch, pt, tk, dev, card, bf16=True)
+    alt = phase_step_alternation(torch, pt, dev, card)
+    log(f"phase --bf16 training times done at "
+        f"{time.time() - t_start:.0f} s")
+    rings, scales = phase_ring_k4_vs_plain(torch, pt, ghbm, dev, card)
+    log(f"phase K4 bf16 and int8 rings vs plain done at "
+        f"{time.time() - t_start:.0f} s")
+    i8_launched = phase_int8_generation(torch, pt, ghbm, dev, scales)
+    log(f"phase int8 generation done at {time.time() - t_start:.0f} s")
+    r_launched, r_served = phase_k4_serving(torch, np, pt, gk, ghbm, dev,
+                                            bf16_rings=True)
+    log(f"phase --bf16-rings serving done at {time.time() - t_start:.0f} s")
 
     kernels = [{
         "name": "gen_fused (K1, fuse_res)",
@@ -2376,6 +2896,59 @@ def main():
             "train_targets_per_s": vtt["targets_per_s"],
         })
     kernels[-1]["k3_reduce_ms"] = vtt["reduce_ms"]
+    for name, src, line, launched, err, plain in (
+            ("trunk_fwd (K2, chaconne_wide, bf16 stream (--bf16), batch 16, "
+             "out 1024)", "trunk_fwd.cu", 621, bk2_launched, bu_err,
+             btt["plain_fwd_ms"]),
+            ("trunk_bwd (K3, chaconne_wide, bf16 stream (--bf16), batch 16, "
+             "out 1024)", "trunk_bwd.cu", 729, bk3_launched, bg_err,
+             btt["plain_bwd_ms"])):
+        key = name[name.index("(") + 1:name.index("(") + 3]
+        ms, b_ms, b_by = btt["k"][(key, "bf16 stream")]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"pytorch_wavenet_tpu_torch/csrc/{src}",
+            "replaces": f"pytorch_wavenet_tpu/ops/pallas/trunk_kernel.py:{line}",
+            "launches": launched,
+            "max_abs_err": err,
+            "ms": ms,
+            "plain_ms": plain,
+            "bound_ms": b_ms,
+            "bound_by": b_by,
+            "library_ms": None,
+            "stream_flips": b_flips,
+            "train_step_ms": btt["step_ms"],
+            "train_targets_per_s": btt["targets_per_s"],
+            "train_step_ms_alternating": {n: alt[n]["step"] for n in alt},
+        })
+    for rname, launched in (("bf16", r_launched), ("int8", i8_launched)):
+        r = rings[rname]
+        kernels.append({
+            "name": f"gen_batched (K4, {rname} rings, fuse_res + skip_slab, "
+                    f"256 lanes, 2048-step chunk)",
+            "route": "cuda",
+            "source": f"pytorch_wavenet_tpu_torch/csrc/gen_kernel_hbm_"
+                      f"{rname}.cu",
+            "replaces": "pytorch_wavenet_tpu/ops/pallas/gen_kernel_hbm.py:"
+                        "1037",
+            "launches": launched,
+            "max_abs_err": r["err"],
+            "ms": r["ms"],
+            "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"],
+            "library_ms": None,
+            "class_mismatches": r["mismatches"],
+            "near_ties": r["near_ties"],
+            "ring_values_off": r["flips"],
+        })
+    kernels[-2].update(served_samples_per_s=r_served["samples_per_s"],
+                       ttfa_median_ms=r_served["ttfa_median_ms"],
+                       vocoder_us_per_step=rings["bf16"][
+                           "vocoder_us_per_step"],
+                       vocoder_f32_us_per_step=rings["bf16"][
+                           "vocoder_f32_us_per_step"])
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -63,6 +63,21 @@
 //    form reads B only K-major from shared memory, and the slab of u is
 //    stored lane-major for the chain. The argmax combines each rank's best
 //    in rank order (first index on ties).
+//  * Ring dtypes (K4; the RT template argument, compiled apart): f32
+//    (RT 0), bf16 (1) or int8 (2, symmetric per layer). A tap row of a
+//    narrow ring is TL elements of 2 or 1 bytes at any offset in the ring
+//    (any stream count), so it is copied with 4-byte cp.async from the
+//    word below its first byte on (the bytes past the ring's end
+//    zero-filled) into the top of its layer's tap rows, which are idle
+//    from the ring writes to the next step, and widened in place into the
+//    f32 tap rows at the step's start: bf16 values, or int8 counts whose
+//    dequant the host folded into the tap weights. The layout is the f32
+//    ring's, so no width loses its resident chain. The ring write rounds h to bf16, or
+//    stores clip(rint(h * qscale[l]), -127, 127). In-register and
+//    shared-memory h stay f32 within the step, as on the TPU. Under
+//    skip_slab the skip row's operands are rounded to bf16 (u as the head
+//    reads the slab; w_skip by the host), so its product is one TF32
+//    product, exact, in place of three.
 // What still bounds a step (chip_smoke.py prints the split from the
 // kernel's own timers, `timers`): the chain's latency, a cluster barrier
 // and a few dependent shared-memory, shuffle and transcendental rounds per
@@ -82,6 +97,7 @@
 #pragma once
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -119,7 +135,8 @@ struct Args {
   const int* toffs;      // lane_seed: (streams)
   const int* prime;      // (streams, num_given)
   const int* meta;       // (L, 3): dilation, period, ring offset
-  float* ring;           // updated in place
+  void* ring;            // updated in place: f32, or (K4) bf16 or int8
+  const float* qscale;   // int8 rings: (L) store scales 127 / scale_l
   int* out_cls;          // (streams, total)
   unsigned long long* timers;  // null, or (NPHASE,): ns per phase
   int streams, num_given, total, t0;
@@ -242,7 +259,7 @@ __device__ __forceinline__ size_t ring_index(const Args& a, int off, int slot,
     return ((size_t)(off + slot) * a.R + r) * a.streams + s;
 }
 
-// Issue the copies of every tap row of this rank's layers for step ta.
+// Start the copies of every tap row of this rank's layers for step ta.
 template <int TL, bool K1RING>
 __device__ void prefetch_taps(const Args& a, const Chain& ch, int q, int ta,
                               int lane0, float* taps) {
@@ -257,13 +274,124 @@ __device__ void prefetch_taps(const Args& a, const Chain& ch, int q, int ta,
       const int look = (a.k - 1 - j) * d;
       const int s = lane0 + lane;
       const bool valid = s < a.streams && ta >= look;
+      const float* ring = static_cast<const float*>(a.ring);
       const float* src =
-          valid ? a.ring + ring_index<K1RING>(a, off, pmod(ta - look, P), r, s)
-                : a.ring;
+          valid ? ring + ring_index<K1RING>(a, off, pmod(ta - look, P), r, s)
+                : ring;
       cp_async4(taps + (size_t)m * ch.TS * TL + idx, src, valid);
     }
   }
   cp_async_commit();
+}
+
+// A narrow ring (K4's layout, rb = 2 or 1 bytes per element): the byte at
+// which tap row `row` of owned layer `l` starts for the tile's first lane
+// at step ta.
+__device__ __forceinline__ size_t raw_byte(const Args& a, int l, int row,
+                                           int ta, int lane0, int rb) {
+  const int d = a.meta[3 * l], P = a.meta[3 * l + 1], off = a.meta[3 * l + 2];
+  const int j = row / a.R, r = row - j * a.R;
+  const int look = (a.k - 1 - j) * d;
+  return ring_index<false>(a, off, pmod(ta - look, P), r, 0) * rb +
+         (size_t)lane0 * rb;
+}
+
+// A narrow ring's staged tap rows (RW words each: a row's TL elements from
+// the 4-byte word below its first byte on) sit at the top of their owned
+// layer's TS x TL tap rows, idle from the ring writes to the next step.
+template <int TL, int RB>
+__device__ __forceinline__ unsigned* raw_rows(const Chain& ch, float* taps,
+                                              int m) {
+  constexpr int RW = TL * RB / 4 + 1;
+  return reinterpret_cast<unsigned*>(taps + (size_t)(m + 1) * ch.TS * TL) -
+         ch.KT * RW;
+}
+
+// Start the copies of every tap row of this rank's layers for step ta from
+// a narrow ring: per row, the 4-byte words from the one holding its first
+// byte to the one holding its last lane's (clipped to the ring's
+// `ring_bytes`; a word partly past it is zero-filled), into its raw row
+// (raw_rows). Rows whose tap is not yet valid (ta < lookback) are not
+// copied; widen_taps writes 0.0 for them.
+template <int TL, int RB>
+__device__ void prefetch_raw(const Args& a, const Chain& ch, int q, int ta,
+                             int lane0, float* taps, size_t ring_bytes) {
+  constexpr int RW = TL * RB / 4 + 1;
+  const int nl = min(TL, a.streams - lane0);
+  const char* base = static_cast<const char*>(a.ring);
+  for (int m = 0; m < ch.nlt; ++m) {
+    const int l = q + m * a.CS;
+    if (l >= a.L) break;
+    const int d = a.meta[3 * l];
+    for (int idx = threadIdx.x; idx < ch.KT * RW; idx += NT) {
+      const int row = idx / RW, w = idx - row * RW;
+      const int look = (a.k - 1 - row / a.R) * d;
+      const size_t b0 = raw_byte(a, l, row, ta, lane0, RB);
+      const size_t g = (b0 & ~(size_t)3) + 4 * (size_t)w;
+      const size_t end = min(b0 + (size_t)nl * RB, ring_bytes);
+      const int n = ta >= look && g < end ? (int)min((size_t)4, ring_bytes - g)
+                                          : 0;
+      const unsigned dst = (unsigned)__cvta_generic_to_shared(
+          raw_rows<TL, RB>(ch, taps, m) + row * RW + w);
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+                   "l"(n ? base + g : base), "r"(n)
+                   : "memory");
+    }
+  }
+  cp_async_commit();
+}
+
+// The staged raw rows of step ta into the f32 tap rows, in place: bf16
+// values, or int8 counts; 0.0 where the tap is not yet valid or the lane
+// is empty. A thread takes LPT lanes of one row (the row's offsets
+// computed once), reads them into registers and, after a barrier, writes
+// them; a pass takes whole rows in order, and f32 rows 0..r end at or
+// below raw row r + 1 (RW <= TL, TS >= KT), so a pass never overwrites a
+// raw row a later pass reads. Every thread of the block calls it (it
+// holds block barriers).
+template <int TL, int RB>
+__device__ void widen_taps(const Args& a, const Chain& ch, int q, int ta,
+                           int lane0, float* taps) {
+  constexpr int RW = TL * RB / 4 + 1, LPT = 8, TPR = TL / LPT;
+  constexpr int RP = NT / TPR;  // rows per pass
+  static_assert(TL % LPT == 0, "lanes per cluster: a multiple of 8");
+  const int rows = min(ch.nlt, cdiv(a.L - q, a.CS)) * ch.KT;
+  const int sub = (int)threadIdx.x % TPR, lo = sub * LPT;
+  for (int r0 = 0; r0 < rows; r0 += RP) {
+    const int g = r0 + (int)threadIdx.x / TPR;
+    const bool live = (int)threadIdx.x / TPR < RP && g < rows;
+    const int m = live ? g / ch.KT : 0, row = live ? g - m * ch.KT : 0;
+    float x[LPT];
+#pragma unroll
+    for (int j = 0; j < LPT; ++j) x[j] = 0.f;
+    if (live) {
+      const int l = q + m * a.CS;
+      const int look = (a.k - 1 - row / a.R) * a.meta[3 * l];
+      if (ta >= look) {
+        const unsigned char* src =
+            reinterpret_cast<const unsigned char*>(
+                raw_rows<TL, RB>(ch, taps, m) + row * RW) +
+            (raw_byte(a, l, row, ta, lane0, RB) & 3) + lo * RB;
+        const int nl = min(LPT, a.streams - lane0 - lo);
+#pragma unroll
+        for (int j = 0; j < LPT; ++j) {
+          if (j >= nl) continue;
+          if constexpr (RB == 2)
+            x[j] = __uint_as_float((unsigned)src[2 * j] << 16 |
+                                   (unsigned)src[2 * j + 1] << 24);
+          else
+            x[j] = (float)static_cast<signed char>(src[j]);
+        }
+      }
+    }
+    __syncthreads();
+    if (live) {
+      float* dst = taps + ((size_t)m * ch.TS + row) * TL + lo;
+      reinterpret_cast<float4*>(dst)[0] = make_float4(x[0], x[1], x[2], x[3]);
+      reinterpret_cast<float4*>(dst)[1] = make_float4(x[4], x[5], x[6], x[7]);
+    }
+    __syncthreads();
+  }
 }
 
 // Issue the copies of step t's conditioning rows (t counts from the
@@ -393,7 +521,10 @@ __device__ __forceinline__ void tc_load(const float* __restrict__ W, int ld,
 // 4, a3 m g + 8 row t + 4, thread g = lane / 4, t = lane % 4), B[i][n] =
 // f(x[k + i][8n + g]) (b0 row t, b1 row t + 4; f = relu when RELU). The
 // weights of the next HEAD_DEPTH k-steps are loaded while one computes.
-template <int TL, bool RELU, bool VEC>
+// BF16: x is rounded to bf16 as it is read and W holds bf16 values (the
+// skip row of a narrow ring), so both are exact TF32 and one product
+// replaces three.
+template <int TL, bool RELU, bool VEC, bool BF16 = false>
 __device__ __forceinline__ void tc_rows(const float* __restrict__ W, int ld,
                                         int c, int c_last, const float* x,
                                         int k0, int k1, int g, int t,
@@ -411,7 +542,10 @@ __device__ __forceinline__ void tc_rows(const float* __restrict__ W, int ld,
       if (kk >= k1) continue;
       unsigned ah[4], al[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) tf32_split(a[i], ah[i], al[i]);
+      for (int i = 0; i < 4; ++i) {
+        if (BF16) ah[i] = __float_as_uint(a[i]);
+        else tf32_split(a[i], ah[i], al[i]);
+      }
       const int ra = kk + t, rb = ra + 4;
 #pragma unroll
       for (int n = 0; n < TL / 8; ++n) {
@@ -420,6 +554,12 @@ __device__ __forceinline__ void tc_rows(const float* __restrict__ W, int ld,
         if (RELU) {
           b0 = fmaxf(b0, 0.f);
           b1 = fmaxf(b1, 0.f);
+        }
+        if (BF16) {
+          mma_tf32(acc[n], ah,
+                   __float_as_uint(__bfloat162float(__float2bfloat16_rn(b0))),
+                   __float_as_uint(__bfloat162float(__float2bfloat16_rn(b1))));
+          continue;
         }
         unsigned bh0, bl0, bh1, bl1;
         tf32_split(b0, bh0, bl0);
@@ -445,9 +585,10 @@ __device__ __forceinline__ void tc_rows(const float* __restrict__ W, int ld,
 // [skip|res] output weights (L, D, ld) read as (L*D, ld) rows and the bias
 // the layers' skip biases b_out (L, ld), summed in layer order: the skip
 // row the exact path accumulates layer by layer, summed in the slab
-// form's order. Every thread of the block calls it (it holds block
-// barriers).
-template <int TL, bool RELU_IN, bool RELU_OUT, bool EXACT_SKIP>
+// form's order. BF16: the operands rounded to bf16 (tc_rows). Every thread
+// of the block calls it (it holds block barriers).
+template <int TL, bool RELU_IN, bool RELU_OUT, bool EXACT_SKIP,
+          bool BF16 = false>
 __device__ void head_cols(const float* __restrict__ W,
                           const float* __restrict__ bias, int ld, int n_in,
                           int L, const float* x, int c0, int c1, float* out,
@@ -476,9 +617,11 @@ __device__ void head_cols(const float* __restrict__ W,
       const int k0 = 8 * (grp * nk / ks);
       const int k1 = min(n_in, 8 * ((grp + 1) * nk / ks));
       if (vec)
-        tc_rows<TL, RELU_IN, true>(W, ld, c, c1 - 1, x, k0, k1, g, t, acc);
+        tc_rows<TL, RELU_IN, true, BF16>(W, ld, c, c1 - 1, x, k0, k1, g, t,
+                                         acc);
       else
-        tc_rows<TL, RELU_IN, false>(W, ld, c, c1 - 1, x, k0, k1, g, t, acc);
+        tc_rows<TL, RELU_IN, false, BF16>(W, ld, c, c1 - 1, x, k0, k1, g, t,
+                                          acc);
     }
     // acc[n]: 0, 1 column c, lanes 8n + 2t and + 1; 2, 3 column c + 1
     float* mine = part + ((slot * (ks - 1) + grp - 1) * 16 + 2 * g) * TL;
@@ -561,9 +704,11 @@ __device__ __forceinline__ void chain_rows(const float* W, int n2, int cs,
 
 // COND: the call has conditioning inputs (cond or gcond). The kernel
 // without them is compiled apart, so their code costs the unconditioned
-// paths no registers.
-template <int TL, bool K1RING, bool COND>
+// paths no registers. RT: the ring's dtype, 0 f32, 1 bf16, 2 int8 (K4).
+template <int TL, bool K1RING, bool COND, int RT = 0>
 __global__ void __launch_bounds__(NT, 1) gen_cluster_kernel(Args a) {
+  static_assert(RT == 0 || !K1RING, "K1's rings are f32");
+  constexpr int RB = RT == 0 ? 4 : RT == 1 ? 2 : 1;  // bytes per element
   extern __shared__ __align__(16) float sm[];
   cg::cluster_group cl = cg::this_cluster();
   const int CS = a.CS, q = (int)cl.block_rank();
@@ -586,6 +731,11 @@ __global__ void __launch_bounds__(NT, 1) gen_cluster_kernel(Args a) {
   float* tab_v = sm + lay.tab_v;
   int* tab_i = reinterpret_cast<int*>(sm + lay.tab_i);
   int* cur = reinterpret_cast<int*>(sm + lay.cur);
+  // a narrow ring's size in bytes (its last layer's slots end it)
+  const size_t ring_bytes =
+      RT == 0 ? 0
+              : (size_t)(a.meta[3 * (L - 1) + 2] + a.meta[3 * (L - 1) + 1]) *
+                    R * a.streams * RB;
   const float* wtaps = a.chain + (size_t)q * a.F;  // tap blocks: from L2
   const float* blob = wtaps + ch.base;
   if (a.resident) {
@@ -601,7 +751,10 @@ __global__ void __launch_bounds__(NT, 1) gen_cluster_kernel(Args a) {
   // resumed call reads its history from the first step on)
   if (COND && a.cond != nullptr)
     prefetch_cond<TL, K1RING>(a, ch, q, 0, lane0, cs);
-  prefetch_taps<TL, K1RING>(a, ch, q, a.t0, lane0, taps);
+  if constexpr (RT == 0)
+    prefetch_taps<TL, K1RING>(a, ch, q, a.t0, lane0, taps);
+  else
+    prefetch_raw<TL, RB>(a, ch, q, a.t0, lane0, taps, ring_bytes);
   cl.sync();
 
   const int bsS = col_block(S, CS), bsE = col_block(E, CS);
@@ -630,6 +783,7 @@ __global__ void __launch_bounds__(NT, 1) gen_cluster_kernel(Args a) {
     const int ta = a.t0 + t;
     cp_async_wait_all();
     __syncthreads();
+    if constexpr (RT != 0) widen_taps<TL, RB>(a, ch, q, ta, lane0, taps);
     // tap products of this rank's layers, all 2D columns, into the
     // owners' tz rows
     for (int idx = tid; idx < n_own * 2 * D * NQ; idx += NT) {
@@ -828,8 +982,9 @@ __global__ void __launch_bounds__(NT, 1) gen_cluster_kernel(Args a) {
     mark(1);
     // skip row: this rank's columns from the slab of u
     if (a.skip_slab)
-      head_cols<TL, false, false, false>(a.w_skip, a.b_skip, S, L * D, L, H,
-                                         s0, s1, scratch, part);
+      head_cols<TL, false, false, false, RT != 0>(a.w_skip, a.b_skip, S,
+                                                  L * D, L, H, s0, s1,
+                                                  scratch, part);
     else
       head_cols<TL, false, false, true>(a.w_skip, a.b_skip, S + R, L * D, L,
                                         H, s0, s1, scratch, part);
@@ -843,15 +998,27 @@ __global__ void __launch_bounds__(NT, 1) gen_cluster_kernel(Args a) {
       const float* h = taps + (size_t)m * ch.TS * TL;
       for (int idx = tid; idx < R * TL; idx += NT) {
         const int r = idx / TL, lane = idx - r * TL, s = lane0 + lane;
-        if (s < a.streams)
-          a.ring[ring_index<K1RING>(a, off, slot, r, s)] = h[idx];
+        if (s >= a.streams) continue;
+        const size_t e = ring_index<K1RING>(a, off, slot, r, s);
+        if constexpr (RT == 0) {
+          static_cast<float*>(a.ring)[e] = h[idx];
+        } else if constexpr (RT == 1) {
+          static_cast<__nv_bfloat16*>(a.ring)[e] = __float2bfloat16_rn(h[idx]);
+        } else {  // jnp.round: half to even, as rintf
+          const float v = rintf(__fmul_rn(h[idx], a.qscale[l]));
+          static_cast<signed char*>(a.ring)[e] =
+              (signed char)(int)fminf(fmaxf(v, -127.f), 127.f);
+        }
       }
     }
     __syncthreads();  // a d = 1 layer's taps read the slot just written
     if (t + 1 < a.total) {
       if (COND && a.cond != nullptr)
         prefetch_cond<TL, K1RING>(a, ch, q, t + 1, lane0, cs);
-      prefetch_taps<TL, K1RING>(a, ch, q, ta + 1, lane0, taps);
+      if constexpr (RT == 0)
+        prefetch_taps<TL, K1RING>(a, ch, q, ta + 1, lane0, taps);
+      else
+        prefetch_raw<TL, RB>(a, ch, q, ta + 1, lane0, taps, ring_bytes);
     }
     all_gather<TL>(cl, CS, scratch, H, s0, s1 - s0);
     cl.sync();
@@ -943,7 +1110,7 @@ inline int shared_bytes(int TL, int CS, int L, int k, int R, int D, int S,
 
 // Launch on `st`; returns a cudaError_t (0 = success), or -2 when even
 // the layout without the chain exceeds a block's shared memory.
-template <int TL, bool K1RING>
+template <int TL, bool K1RING, int RT = 0>
 int launch(Args a, int tiles, cudaStream_t st, int* max_clusters) {
   int resident = 0;
   const int smem = shared_bytes(TL, a.CS, a.L, a.k, a.R, a.D, a.S, a.E, a.C,
@@ -951,8 +1118,8 @@ int launch(Args a, int tiles, cudaStream_t st, int* max_clusters) {
   if (smem > SMEM_LIMIT) return -2;
   a.resident = resident;
   auto kern = (a.cond != nullptr || a.gcond != nullptr)
-                  ? gen_cluster_kernel<TL, K1RING, true>
-                  : gen_cluster_kernel<TL, K1RING, false>;
+                  ? gen_cluster_kernel<TL, K1RING, true, RT>
+                  : gen_cluster_kernel<TL, K1RING, false, RT>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
@@ -977,6 +1144,7 @@ int launch(Args a, int tiles, cudaStream_t st, int* max_clusters) {
     err = cudaOccupancyMaxActiveClusters(max_clusters, kern, &cfg);
     return (int)err;
   }
+  if (RT == 2 && a.qscale == nullptr) return -1;  // int8 without scales
   err = cudaLaunchKernelEx(&cfg, kern, a);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();

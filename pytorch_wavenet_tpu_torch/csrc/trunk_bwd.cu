@@ -5,7 +5,8 @@
 // of fused_trunk, _make_bwd_kernel :267, pallas_call :729).
 //
 // What it computes: the reverse layer walk over the forward's saves (layer
-// l's input stream on [sp_l, T), f32 or bf16) and du (N, out, L*D), the
+// l's input stream on [sp_l, T), f32 or bf16; with a bf16 stream, the
+// stream itself) and du (N, out, L*D), the
 // cotangent of the gated units on the output window. Per layer l, from the
 // top, with dh_next the gradient of the layer's output stream (0 for the last
 // layer), on the layer's window t in [s_l, T):
@@ -54,6 +55,13 @@
 //     over the whole card.
 // No atomics anywhere, so two calls on the same inputs give bitwise-equal
 // gradients and a resumed run can be held to an uninterrupted one.
+// A bf16 stream (MODE 2; the JAX kernel's cfg.stream_dtype, its "direct"
+// loads) reads its bf16 saves as the bf16 saves of an f32 stream do (MODE
+// 1), but the wrapper has rounded w_in, w_res, w_cond and cond to bf16, as
+// the forward used them, so every product with a weight operand drops the
+// weight's lo part (the recompute, both operands exact, runs one TF32
+// product; du_out . w_res^T and dz . w_in^T two), and the cond rows of
+// dW_cond are exact like the tap rows.
 // Conditioning (the COND instantiation) extends the three tap products'
 // depth or width by the cond rows: the tile's cond rows are staged beside
 // its tap rows and w_cond's rows below w_in's, so the recompute's depth is
@@ -136,8 +144,10 @@ __device__ __forceinline__ void c_store(const float (&acc)[NB][4], float* C,
         C[(m0 + frag_row(e)) * ld + n0 + 8 * b + frag_col(e)] = acc[b][e];
 }
 
-template <int TM, bool BF16, bool COND>
+// MODE 0: f32 saves; 1: bf16 saves of an f32 stream; 2: a bf16 stream.
+template <int TM, int MODE, bool COND>
 __global__ void __launch_bounds__(NTHREADS) trunk_bwd_layer(Layer a) {
+  constexpr bool BF16 = MODE >= 1, SX = MODE == 2;
   extern __shared__ __align__(16) float sm[];
   const int k = a.k, Rp = a.Rp, Dp = a.Dp, KR = k * Rp, D2 = 2 * Dp;
   const int Mp = COND ? a.Mp : 0, KC = KR + Mp;
@@ -246,9 +256,9 @@ __global__ void __launch_bounds__(NTHREADS) trunk_bwd_layer(Layer a) {
       float az[4][4], ag[2][4];
       zero(az);
       zero(ag);
-      mma3<4, BF16>(az, V, 16 * mt, W, 32 * grp, 4, KR);
-      if (COND) mma3<4, false>(az, VC, 16 * mt, WC, 32 * grp, 4, Mp);
-      mma3<2, false>(ag, DH, 16 * mt, WrT, 16 * grp, 2, Rp);
+      mma3<4, BF16, SX>(az, V, 16 * mt, W, 32 * grp, 4, KR);
+      if (COND) mma3<4, SX, SX>(az, VC, 16 * mt, WC, 32 * grp, 4, Mp);
+      mma3<2, false, SX>(ag, DH, 16 * mt, WrT, 16 * grp, 2, Rp);
 #pragma unroll
       for (int c = 0; c < 2; ++c) {
 #pragma unroll
@@ -282,7 +292,7 @@ __global__ void __launch_bounds__(NTHREADS) trunk_bwd_layer(Layer a) {
       const int mt = it % MT, grp = it / MT, nb = min(4, NV / 8 - 4 * grp);
       float acc[4][4];
       zero(acc);
-      mma3<4, false>(acc, DZ, 16 * mt, WT, 32 * grp, nb, D2);
+      mma3<4, false, SX>(acc, DZ, 16 * mt, WT, 32 * grp, nb, D2);
 #pragma unroll
       for (int b = 0; b < 4; ++b) {
         if (b >= nb) continue;
@@ -316,8 +326,8 @@ __global__ void __launch_bounds__(NTHREADS) trunk_bwd_layer(Layer a) {
         c_load(acc, gw, lgw, 16 * mt, 32 * grp, 4);
         if (!COND || 16 * mt < KR)  // tap rows (exact TF32 from bf16 saves)
           mma3<4, BF16>(acc, VT, 16 * mt, DZ, 32 * grp, 4, TM);
-        else  // cond rows, f32
-          mma3<4, false>(acc, VT, 16 * mt, DZ, 32 * grp, 4, TM);
+        else  // cond rows: f32, exact under a bf16 stream
+          mma3<4, SX>(acc, VT, 16 * mt, DZ, 32 * grp, 4, TM);
         c_store(acc, gw, lgw, 16 * mt, 32 * grp, 4);
       } else {
         const int j = it - n1, mt = j % (Dp / 16), grp = j / (Dp / 16);
@@ -385,23 +395,34 @@ __global__ void __launch_bounds__(128) trunk_bwd_reduce(
                              ps[3][lane];
 }
 
-template <int TM, bool BF16, bool COND>
+template <int TM, int MODE, bool COND>
 cudaError_t launch(const Layer& a, int S, cudaStream_t st) {
   const int smem = 4 * smem_floats(TM, a.k, a.Rp, a.Dp, a.Mp, a.wsm, a.asm_);
   cudaError_t err = cudaFuncSetAttribute(
-      trunk_bwd_layer<TM, BF16, COND>,
+      trunk_bwd_layer<TM, MODE, COND>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  trunk_bwd_layer<TM, BF16, COND><<<S, NTHREADS, smem, st>>>(a);
+  trunk_bwd_layer<TM, MODE, COND><<<S, NTHREADS, smem, st>>>(a);
   return cudaGetLastError();
 }
 
-template <bool BF16, bool COND>
+template <int MODE, bool COND>
 cudaError_t launch_tm(int TM, const Layer& a, int S, cudaStream_t st) {
   switch (TM) {
-    case 64: return launch<64, BF16, COND>(a, S, st);
-    case 32: return launch<32, BF16, COND>(a, S, st);
-    case 16: return launch<16, BF16, COND>(a, S, st);
+    case 64: return launch<64, MODE, COND>(a, S, st);
+    case 32: return launch<32, MODE, COND>(a, S, st);
+    case 16: return launch<16, MODE, COND>(a, S, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <bool COND>
+cudaError_t launch_mode(int mode, int TM, const Layer& a, int S,
+                        cudaStream_t st) {
+  switch (mode) {
+    case 0: return launch_tm<0, COND>(TM, a, S, st);
+    case 1: return launch_tm<1, COND>(TM, a, S, st);
+    case 2: return launch_tm<2, COND>(TM, a, S, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -416,8 +437,10 @@ extern "C" int wavenet_trunk_bwd_smem(int TM, int k, int Rp, int Dp, int Mp,
 }
 
 // Runs the reverse walk on `stream`: L layer launches, the dh0 gather and
-// the reduction. `saves` is (L, N, T, R), f32 or bf16 (save_bf16); `w` the
-// packed weights (L, P) (pack_weights); dv0/dv1 (N, T, k*Rp) and `slots`
+// the reduction. `saves` is (L, N, T, R), f32 (mode 0) or bf16 (mode 1:
+// the saves of an f32 stream; 2: a bf16 stream, whose weights and cond
+// the wrapper rounded to bf16); `w` the packed weights (L, P)
+// (pack_weights); dv0/dv1 (N, T, k*Rp) and `slots`
 // (L, S, P) are scratch. `cond` (N, T, M) f32, or null (then M and Mp are
 // 0); `dcond` (N, T, M) f32, zero on entry, receives d cond (null: not
 // wanted). Layer l walks ntiles[l] tiles of TM positions
@@ -431,12 +454,14 @@ extern "C" int wavenet_trunk_bwd(
     float* dcond, int N, int T, int out, int L, int k, int R, int D, int Rp,
     int Dp, int M, int Mp, const int* dil, const int* s, const int* tpi,
     const int* ntiles, const int* per, int S, int TM, int wsm, int asm_,
-    int save_bf16, void* stream) {
+    int mode, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (cond == nullptr) {
     M = Mp = 0;
     dcond = nullptr;
   }
+  if (mode < 0 || mode > 2) return (int)cudaErrorInvalidValue;
+  const bool save_bf16 = mode >= 1;
   const size_t NTR = (size_t)N * T * R;
   const size_t P = (size_t)(k * Rp + Mp) * 2 * Dp + Dp * Rp + 2 * Dp + Rp;
   float* dvs[2] = {dv0, dv1};
@@ -460,12 +485,8 @@ extern "C" int wavenet_trunk_bwd(
     a.sn = l + 1 < L ? s[l + 1] : T;
     a.tpi = tpi[l]; a.ntiles = ntiles[l]; a.per = per[l];
     a.wsm = wsm; a.asm_ = asm_;
-    if (cond != nullptr)
-      err = save_bf16 ? launch_tm<true, true>(TM, a, S, st)
-                      : launch_tm<false, true>(TM, a, S, st);
-    else
-      err = save_bf16 ? launch_tm<true, false>(TM, a, S, st)
-                      : launch_tm<false, false>(TM, a, S, st);
+    err = cond != nullptr ? launch_mode<true>(mode, TM, a, S, st)
+                          : launch_mode<false>(mode, TM, a, S, st);
     if (err != cudaSuccess) return (int)err;
   }
   const size_t nel = NTR;

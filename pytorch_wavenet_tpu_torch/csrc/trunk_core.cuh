@@ -55,8 +55,10 @@ __device__ __forceinline__ Op op(const float* p, int rs, int cs) {
 
 // acc[b] += A[m0 : m0 + 16, 0 : K] @ B[0 : K, n0 + 8b : n0 + 8b + 8] for
 // b < nb, in 3xTF32, k-steps in order. AEX: every A value is exactly a
-// TF32 value (a bf16 save), so its lo part is 0 and a_lo b_hi is dropped.
-template <int NB, bool AEX>
+// TF32 value (a bf16 save or stream), so its lo part is 0 and a_lo b_hi is
+// dropped; BEX: the same for B (weights rounded to bf16 under a bf16
+// stream), which drops a_hi b_lo. Both: one product, exact in f32.
+template <int NB, bool AEX, bool BEX = false>
 __device__ __forceinline__ void mma3(float (&acc)[NB][4], Op A, int m0, Op B,
                                      int n0, int nb, int K) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
@@ -70,11 +72,16 @@ __device__ __forceinline__ void mma3(float (&acc)[NB][4], Op A, int m0, Op B,
     for (int b = 0; b < NB; ++b) {
       if (b < nb) {
         const int n = n0 + 8 * b + g;
-        unsigned bh0, bl0, bh1, bl1;
-        tf32_split(B(k0 + t, n), bh0, bl0);
-        tf32_split(B(k0 + t + 4, n), bh1, bl1);
+        unsigned bh0, bl0 = 0, bh1, bl1 = 0;
+        if (BEX) {
+          bh0 = __float_as_uint(B(k0 + t, n));
+          bh1 = __float_as_uint(B(k0 + t + 4, n));
+        } else {
+          tf32_split(B(k0 + t, n), bh0, bl0);
+          tf32_split(B(k0 + t + 4, n), bh1, bl1);
+        }
         if (!AEX) mma_tf32(acc[b], al, bh0, bh1);
-        mma_tf32(acc[b], ah, bl0, bl1);
+        if (!BEX) mma_tf32(acc[b], ah, bl0, bl1);
         mma_tf32(acc[b], ah, bh0, bh1);
       }
     }
@@ -190,8 +197,9 @@ __device__ __forceinline__ void stage_cond_f32(float* v, int ld, const float* c,
   }
 }
 
-// The same from a bf16 save (N, T, R) when R % 8 == 0: the raw rows go to
-// `raw` ([TM][k*Rp] bf16) with cp.async; widen_taps then writes them to v.
+// The same from a bf16 save or stream (N, T, R) when R % 8 == 0: the raw
+// rows go to `raw` ([TM][k*Rp] bf16) with cp.async; widen_taps then writes
+// them to v.
 __device__ __forceinline__ void stage_taps_bf16_raw(
     __nv_bfloat16* raw, const __nv_bfloat16* h, int t0, int TM, int T, int k,
     int R, int Rp, int d) {
@@ -220,7 +228,8 @@ __device__ __forceinline__ void widen_taps(float* v, int ld,
   }
 }
 
-// The same from a bf16 save of any width: plain loads, widened to f32.
+// The same from a bf16 save or stream of any width: plain loads, widened
+// to f32.
 __device__ __forceinline__ void stage_taps_bf16(float* v, int ld,
                                                 const __nv_bfloat16* h, int t0,
                                                 int TM, int T, int k, int R,

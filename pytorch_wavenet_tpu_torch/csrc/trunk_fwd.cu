@@ -15,7 +15,12 @@
 //                                                whose stream is discarded)
 // u on the output window [T - out, T) goes to u_out (N, out, L*D), columns
 // l*D..l*D+D; layer l's input stream on [sp_l, T) is saved for the backward
-// (f32 or bf16).
+// (f32 or bf16). With a bf16 stream (the BS instantiation; the JAX
+// kernel's cfg.stream_dtype) the stream is stored in bf16 between layers:
+// h'[t] = round_bf16((h[t] + u[t] @ w_res[l]) + b_res[l]), summed in f32,
+// with w_in, w_res, w_cond and cond rounded to bf16 by the wrapper, so the
+// tap product's operands are all exact TF32 values (one TF32 product in
+// place of three) and the residual product's weights are (two).
 //
 // What bounds it on this card: the arithmetic. At chaconne_wide, batch 16,
 // out 1024 the layers' windows hold 1,375,872 positions, each 2*(64*64 +
@@ -31,8 +36,9 @@
 // stream lives in device memory (at batch 16 the two 8.4 MB ping-pong
 // copies stay in the 50 MB L2). A dilated tap reads up to (k-1)*512
 // positions back, into another block's tile, so a layer never updates its
-// input in place: it reads one buffer and writes the other. With f32 saves
-// the saves are the stream: layer l reads saves[l] and writes saves[l+1].
+// input in place: it reads one buffer and writes the other. With f32 saves,
+// and with a bf16 stream, the saves are the stream: layer l reads saves[l]
+// and writes saves[l+1] (a bf16 stream moves half the bytes).
 // A block owns a tile of TM positions of one item: it stages the layer's
 // packed weights and the tile's k tap rows with cp.async, forms the tap
 // product on the tensor cores (trunk_core.cuh, 3xTF32), runs the gate in
@@ -50,8 +56,8 @@ using namespace trunk;
 namespace {
 
 struct Layer {
-  const float* hin;     // (N, T, R): this layer's input stream
-  float* hout;          // (N, T, R): its output stream, or null (last layer)
+  const void* hin;      // (N, T, R): this layer's input stream (f32; BS bf16)
+  void* hout;           // (N, T, R): its output stream, or null (last layer)
   __nv_bfloat16* save;  // (N, T, R) bf16 save of hin, or null
   const float* w;       // the layer's packed weights (pack_weights)
   float* u_out;         // (N, out, L*D)
@@ -60,15 +66,16 @@ struct Layer {
   int M, Mp;
 };
 
-// Shared memory in floats: biases, tap (and cond) rows, u, then (wsm) the
-// weights (w_in and w_cond).
-int smem_floats(int TM, int k, int Rp, int Dp, int Mp, int wsm) {
+// Shared memory in floats: biases, tap (and cond) rows, u (first, with a
+// bf16 stream, the staged bf16 tap rows), then (wsm) the weights (w_in and
+// w_cond).
+int smem_floats(int TM, int k, int Rp, int Dp, int Mp, int wsm, int bs) {
   const int KC = k * Rp + Mp, D2 = 2 * Dp;
-  return D2 + Rp + TM * lda(KC) + TM * lda(Dp) +
+  return D2 + Rp + TM * lda(KC) + TM * imax(lda(Dp), bs ? k * Rp / 2 : 0) +
          (wsm ? KC * ldb(D2) + Dp * ldb(Rp) : 0);
 }
 
-template <int TM, bool COND>
+template <int TM, bool COND, bool BS>
 __global__ void __launch_bounds__(NTHREADS) trunk_fwd_layer(Layer a) {
   extern __shared__ __align__(16) float sm[];
   const int k = a.k, Rp = a.Rp, Dp = a.Dp, KR = k * Rp, D2 = 2 * Dp;
@@ -77,8 +84,8 @@ __global__ void __launch_bounds__(NTHREADS) trunk_fwd_layer(Layer a) {
   float* bi = sm;               // D2, packed (gate halves interleaved)
   float* br = bi + D2;          // Rp
   float* v = br + Rp;           // TM x KC: tap rows, then cond rows
-  float* us = v + TM * LV;      // TM x Dp: u
-  float* wi = us + TM * LU;     // KC x D2 (wsm): w_in, then w_cond
+  float* us = v + TM * LV;      // TM x Dp: u (BS: first the raw tap rows)
+  float* wi = us + TM * imax(LU, BS ? KR / 2 : 0);  // KC x D2 (wsm)
   float* wr = wi + KC * LW;     // Dp x Rp (wsm)
   const float* wg = a.w;
   const float* wrg = wg + KC * D2;
@@ -87,6 +94,8 @@ __global__ void __launch_bounds__(NTHREADS) trunk_fwd_layer(Layer a) {
   const int n = blockIdx.y, t0 = a.sp + blockIdx.x * TM;
   const int warp = threadIdx.x >> 5;
   const size_t base = (size_t)n * a.T * a.R;
+  const bool raw_taps = BS && a.R % 8 == 0;
+  __nv_bfloat16* raw = reinterpret_cast<__nv_bfloat16*>(us);  // [TM][KR]
 
   stage(bi, D2, big, 1, D2);
   stage(br, Rp, brg, 1, Rp);
@@ -94,13 +103,25 @@ __global__ void __launch_bounds__(NTHREADS) trunk_fwd_layer(Layer a) {
     stage(wi, LW, wg, KC, D2);
     stage(wr, LR, wrg, Dp, Rp);
   }
-  stage_taps_f32(v, LV, a.hin + base, t0, TM, a.T, k, a.R, Rp, a.d);
+  if (!BS)
+    stage_taps_f32(v, LV, static_cast<const float*>(a.hin) + base, t0, TM,
+                   a.T, k, a.R, Rp, a.d);
+  else if (raw_taps)
+    stage_taps_bf16_raw(raw, static_cast<const __nv_bfloat16*>(a.hin) + base,
+                        t0, TM, a.T, k, a.R, Rp, a.d);
+  else
+    stage_taps_bf16(v, LV, static_cast<const __nv_bfloat16*>(a.hin) + base,
+                    t0, TM, a.T, k, a.R, Rp, a.d);
   if (COND)
     stage_cond_f32(v + KR, LV, a.cond + (size_t)n * a.T * a.M, t0, TM, a.T,
                    a.M, a.Mp);
   cp_commit();
   cp_wait();
   __syncthreads();
+  if (raw_taps) {
+    widen_taps(v, LV, raw, TM, KR);
+    __syncthreads();
+  }
 
   if (a.save != nullptr) {  // the layer's input on the tile: tap k-1
     FOR_ROWS(i, TM) {
@@ -114,7 +135,7 @@ __global__ void __launch_bounds__(NTHREADS) trunk_fwd_layer(Layer a) {
 
   // z = taps @ w_in (+ cond @ w_cond) on the tensor cores, the gate in
   // registers: an item is an m-tile of 16 positions and 2 channel tiles (4
-  // n-tiles: f, g, f, g)
+  // n-tiles: f, g, f, g). With a bf16 stream both operands are exact TF32.
   const Op V = op(v, LV, 1);
   const Op W = a.wsm ? op(wi, LW, 1) : op(wg, D2, 1);
   const int MT = TM / 16, G = Dp / 16;
@@ -122,7 +143,7 @@ __global__ void __launch_bounds__(NTHREADS) trunk_fwd_layer(Layer a) {
     const int mt = it % MT, grp = it / MT;
     float acc[4][4];
     zero(acc);
-    mma3<4, false>(acc, V, 16 * mt, W, 32 * grp, 4, KC);
+    mma3<4, BS, BS>(acc, V, 16 * mt, W, 32 * grp, 4, KC);
 #pragma unroll
     for (int c = 0; c < 2; ++c) {
 #pragma unroll
@@ -148,7 +169,8 @@ __global__ void __launch_bounds__(NTHREADS) trunk_fwd_layer(Layer a) {
   }
   if (a.hout == nullptr) return;
 
-  // h' = h + (u @ w_res + b_res) on the layer's window
+  // h' = h + (u @ w_res + b_res) on the layer's window; with a bf16 stream
+  // round((h + u @ w_res) + b_res), the JAX kernel's order
   const Op U = op(us, LU, 1);
   const Op Wr = a.wsm ? op(wr, LR, 1) : op(wrg, Rp, 1);
   const int GR = (Rp + 31) / 32;
@@ -156,7 +178,7 @@ __global__ void __launch_bounds__(NTHREADS) trunk_fwd_layer(Layer a) {
     const int mt = it % MT, grp = it / MT, nb = min(4, Rp / 8 - 4 * grp);
     float acc[4][4];
     zero(acc);
-    mma3<4, false>(acc, U, 16 * mt, Wr, 32 * grp, nb, Dp);
+    mma3<4, false, BS>(acc, U, 16 * mt, Wr, 32 * grp, nb, Dp);
 #pragma unroll
     for (int b = 0; b < 4; ++b) {
       if (b >= nb) continue;
@@ -164,32 +186,38 @@ __global__ void __launch_bounds__(NTHREADS) trunk_fwd_layer(Layer a) {
       for (int e = 0; e < 4; ++e) {
         const int row = 16 * mt + frag_row(e), t = t0 + row;
         const int r = 32 * grp + 8 * b + frag_col(e);
-        if (t >= a.s && t < a.T && r < a.R)
-          a.hout[base + (size_t)t * a.R + r] =
-              v[row * LV + (k - 1) * Rp + r] + (acc[b][e] + br[r]);
+        if (t >= a.s && t < a.T && r < a.R) {
+          const float h = v[row * LV + (k - 1) * Rp + r];
+          const size_t o = base + (size_t)t * a.R + r;
+          if (BS)
+            static_cast<__nv_bfloat16*>(a.hout)[o] = __float2bfloat16_rn(
+                __fadd_rn(__fadd_rn(h, acc[b][e]), br[r]));
+          else
+            static_cast<float*>(a.hout)[o] = h + (acc[b][e] + br[r]);
+        }
       }
     }
   }
 }
 
-template <int TM, bool COND>
+template <int TM, bool COND, bool BS>
 cudaError_t launch(const Layer& a, int N, cudaStream_t st) {
-  const int smem = 4 * smem_floats(TM, a.k, a.Rp, a.Dp, a.Mp, a.wsm);
+  const int smem = 4 * smem_floats(TM, a.k, a.Rp, a.Dp, a.Mp, a.wsm, BS);
   cudaError_t err = cudaFuncSetAttribute(
-      trunk_fwd_layer<TM, COND>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      trunk_fwd_layer<TM, COND, BS>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.T - a.sp + TM - 1) / TM, N);
-  trunk_fwd_layer<TM, COND><<<grid, NTHREADS, smem, st>>>(a);
+  trunk_fwd_layer<TM, COND, BS><<<grid, NTHREADS, smem, st>>>(a);
   return cudaGetLastError();
 }
 
-template <bool COND>
+template <bool COND, bool BS>
 cudaError_t launch_tm(int TM, const Layer& a, int N, cudaStream_t st) {
   switch (TM) {
-    case 64: return launch<64, COND>(a, N, st);
-    case 32: return launch<32, COND>(a, N, st);
-    case 16: return launch<16, COND>(a, N, st);
+    case 64: return launch<64, COND, BS>(a, N, st);
+    case 32: return launch<32, COND, BS>(a, N, st);
+    case 16: return launch<16, COND, BS>(a, N, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -197,35 +225,38 @@ cudaError_t launch_tm(int TM, const Layer& a, int N, cudaStream_t st) {
 }  // namespace
 
 // Shared memory per block, in bytes, for the tile of TM positions (Mp
-// padded cond channels, 0 without cond).
+// padded cond channels, 0 without cond; bs: a bf16 stream).
 extern "C" int wavenet_trunk_fwd_smem(int TM, int k, int Rp, int Dp, int Mp,
-                                      int wsm) {
-  return 4 * smem_floats(TM, k, Rp, Dp, Mp, wsm);
+                                      int wsm, int bs) {
+  return 4 * smem_floats(TM, k, Rp, Dp, Mp, wsm, bs);
 }
 
 // Runs the layer walk on `stream`: one launch per layer. `w` holds the
 // packed weights, (L, P) with P = (k*Rp + Mp)*2Dp + Dp*Rp + 2Dp + Rp
 // (ops/cuda/trunk_kernel.py::pack_weights). `cond` (N, T, M) f32, or null
-// (then M and Mp are 0): every layer's gate adds cond @ w_cond[l]. f32 saves (save_bf16 = 0):
-// `saves` is (L, N, T, R) f32 and is the stream itself (h0 is copied into
-// saves[0]; buf0/buf1 are not read). bf16 saves: h0 is layer 0's input,
-// buf0/buf1 (N, T, R) f32 ping-pong, `saves` (L, N, T, R) bf16. TM (16, 32
-// or 64) and wsm (weights in shared memory) come from the wrapper's plan.
-// Returns the first cudaError_t that is not cudaSuccess, 0 when every
-// launch went out.
+// (then M and Mp are 0): every layer's gate adds cond @ w_cond[l]. `mode`:
+// 0, f32 saves: `saves` is (L, N, T, R) f32 and is the stream itself (h0
+// is copied into saves[0]; buf0/buf1 are not read); 1, bf16 saves of an
+// f32 stream: h0 is layer 0's input, buf0/buf1 (N, T, R) f32 ping-pong,
+// `saves` (L, N, T, R) bf16; 2, a bf16 stream: `saves` (L, N, T, R) bf16 is
+// the stream, saves[0] holds h0 rounded (the wrapper writes it), buf0/buf1
+// are not read. TM (16, 32 or 64) and wsm (weights in shared memory) come
+// from the wrapper's plan. Returns the first cudaError_t that is not
+// cudaSuccess, 0 when every launch went out.
 extern "C" int wavenet_trunk_fwd(
     const float* h0, const float* w, float* buf0, float* buf1, void* saves,
     float* u_out, const float* cond, int N, int T, int out, int L, int k,
     int R, int D, int Rp, int Dp, int M, int Mp, const int* dil, const int* s,
-    const int* sp, int save_bf16, int TM, int wsm, void* stream) {
+    const int* sp, int mode, int TM, int wsm, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (cond == nullptr) M = Mp = 0;
+  if (mode < 0 || mode > 2) return (int)cudaErrorInvalidValue;
   const size_t NTR = (size_t)N * T * R;
   const size_t P = (size_t)(k * Rp + Mp) * 2 * Dp + Dp * Rp + 2 * Dp + Rp;
   float* sf = static_cast<float*>(saves);
   __nv_bfloat16* sb = static_cast<__nv_bfloat16*>(saves);
   cudaError_t err;
-  if (!save_bf16) {
+  if (mode == 0) {
     err = cudaMemcpyAsync(sf, h0, NTR * sizeof(float),
                           cudaMemcpyDeviceToDevice, st);
     if (err != cudaSuccess) return (int)err;
@@ -233,10 +264,14 @@ extern "C" int wavenet_trunk_fwd(
   float* bufs[2] = {buf0, buf1};
   for (int l = 0; l < L; ++l) {
     Layer a;
-    if (save_bf16) {
+    if (mode == 1) {
       a.hin = l == 0 ? h0 : bufs[(l - 1) % 2];
       a.hout = l + 1 < L ? bufs[l % 2] : nullptr;
       a.save = sb + l * NTR;
+    } else if (mode == 2) {
+      a.hin = sb + l * NTR;
+      a.hout = l + 1 < L ? sb + (l + 1) * NTR : nullptr;
+      a.save = nullptr;
     } else {
       a.hin = sf + l * NTR;
       a.hout = l + 1 < L ? sf + (l + 1) * NTR : nullptr;
@@ -248,8 +283,12 @@ extern "C" int wavenet_trunk_fwd(
     a.T = T; a.out = out; a.LD = L * D; a.k = k; a.R = R; a.D = D;
     a.Rp = Rp; a.Dp = Dp; a.M = M; a.Mp = Mp; a.d = dil[l]; a.s = s[l];
     a.sp = sp[l]; a.col = l * D; a.wsm = wsm;
-    err = cond != nullptr ? launch_tm<true>(TM, a, N, st)
-                          : launch_tm<false>(TM, a, N, st);
+    if (mode == 2)
+      err = cond != nullptr ? launch_tm<true, true>(TM, a, N, st)
+                            : launch_tm<false, true>(TM, a, N, st);
+    else
+      err = cond != nullptr ? launch_tm<true, false>(TM, a, N, st)
+                            : launch_tm<false, false>(TM, a, N, st);
     if (err != cudaSuccess) return (int)err;
   }
   return 0;

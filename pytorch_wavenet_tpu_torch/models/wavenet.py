@@ -202,9 +202,9 @@ def wavenet_logits(params: Params, cfg: WaveNetConfig, x: torch.Tensor,
     ``K = L*D`` matmul after the layer walk at 128 and above
     (``cfg.fuse_skip`` overrides). With ``cfg.trunk_kernel`` the trunk is
     the fused one (:func:`_logits_fused`, local conditioning in its
-    kernels); it takes ``kernel_size >= 2`` and an f32 stream, and raises
-    on the rest and on a passed ``global_cond`` (the JAX package falls back
-    to its plain trunk there)."""
+    kernels, an f32 or bf16 ``cfg.stream_dtype``); it takes ``kernel_size
+    >= 2``, and raises on the rest and on a passed ``global_cond`` (the JAX
+    package falls back to its plain trunk there)."""
     if out_len is None:
         out_len = cfg.output_length
     if x.shape[1] < out_len:

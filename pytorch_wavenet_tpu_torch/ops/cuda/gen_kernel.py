@@ -229,7 +229,9 @@ def shared_bytes_for(cfg: WaveNetConfig, tile: int, cluster: int,
     h rows, the slab of u (reused for the skip row and y1), a column
     scratch, the head's partial sums (in the tap products' rows when they
     are large enough), the argmax table and the next classes, then the
-    per-layer chain weights (the tap weights are read from L2)."""
+    per-layer chain weights (the tap weights are read from L2). K4's bf16
+    and int8 rings stage their tap rows inside the tap rows: the layout
+    does not depend on the ring's dtype."""
     L, R, D = cfg.num_layers, cfg.residual_channels, cfg.dilation_channels
     S, E, C = cfg.skip_channels, cfg.end_channels, cfg.classes
     fuse_res = fuse_res and L > 1

@@ -31,12 +31,23 @@ Semantics carried over from the TPU kernel:
   counter hash, keyed by ``(class, ta + lane_clock, lane_seed)`` with
   ``lane_seed``, else by ``(class * streams + lane, ta, seed)``.
 
+Ring dtypes, as in the TPU kernel (``ring_dtype``): f32; bf16, the ring
+stores each layer's h rounded to bf16 while in-register h stays f32 within
+a step (taps read the bf16 values, widened); int8, the ring stores
+``clip(round(h * 127 / scale_l), -127, 127)`` with a per-layer scale
+(:func:`calibrate_ring_scales`), whose dequant ``scale_l / 127`` is folded
+into the lookback tap weights on the host. Under ``skip_slab`` with a bf16
+or int8 ring the skip row's operands, the slab of u and the skip weights,
+are rounded to bf16 (their products summed in f32).
+
 Differences from the JAX package: a scalar temperature > 0 without
 ``lane_seed`` goes to the per-lane counter-hash path (the TPU kernel draws
 from the TPU's own PRNG there, which has no counter-part), so such
-rollouts differ from the JAX package's; any stream count >= 1 runs as it
-is (the TPU kernel pads to 128 lanes); rings are f32 (bf16 and int8 rings
-are not ported yet).
+rollouts differ from the JAX package's; any stream count >= 1 and any
+residual width runs as it is (the TPU kernel pads to 128 lanes, and on
+the TPU needs R % 16 for bf16 rings and R % 32 for int8 ones, its sublane
+tiles); a resumed state keeps its ring dtype, and a call raises when it
+is not ``ring_dtype`` (the JAX package casts it).
 
 Conditioning, as in the TPU kernel: local conditioning ``cond`` ``(S,
 total, M)`` enters the kernel as raw rows ``(total, M, S)`` and each layer
@@ -71,6 +82,10 @@ from .gen_kernel import _seed_from, counter_uniform, full_f32, periods
 launches = 0
 
 TILES = (8, 16, 24)  # lanes per cluster the kernel is compiled for
+# ring dtypes and the library each is compiled into
+RING_LIBS = {torch.float32: "gen_kernel_hbm",
+             torch.bfloat16: "gen_kernel_hbm_bf16",
+             torch.int8: "gen_kernel_hbm_int8"}
 CLUSTER = 8          # blocks per cluster (16 lost in every sweep: PERF.md)
 # the phases of a step that ``batched_cuda(timers=...)`` times
 PHASES = ("tap products", "chain work", "chain barriers", "skip row",
@@ -83,7 +98,7 @@ class HbmGenState(NamedTuple):
     it back continues every stream with no re-priming, bitwise equal to an
     uninterrupted run."""
 
-    ring: torch.Tensor  # (sum(P_l) * R, streams) f32
+    ring: torch.Tensor  # (sum(P_l) * R, streams) in the ring dtype
     t: int              # absolute steps completed
     cls: torch.Tensor   # (streams,) int32 next input class
 
@@ -98,7 +113,8 @@ def ring_rows(cfg: WaveNetConfig) -> int:
 
 
 def prepare_weights(params: Params, cfg: WaveNetConfig, fuse_res: bool,
-                    skip_slab: bool) -> dict:
+                    skip_slab: bool, ring_dtype=torch.float32,
+                    ring_scales=None) -> dict:
     """K4's operands, contiguous f32 on the params' device: K1's (see
     ``gen_kernel.base_weights``: fused filter|gate taps, [skip|res]
     output weights, zero biases where the model has none, the ``fuse_res``
@@ -111,7 +127,21 @@ def prepare_weights(params: Params, cfg: WaveNetConfig, fuse_res: bool,
     ``chain`` packs the layer chain's weights per rank of the
     :data:`CLUSTER`-block cluster (``gen_kernel.pack_chain``). A
     conditioned model adds ``w_cond`` ``(L, M, 2D)``, which the kernel
-    reads from L2 (and ``w_gcond``, for :func:`project_gcond`)."""
+    reads from L2 (and ``w_gcond``, for :func:`project_gcond`).
+
+    ``ring_dtype`` (f32, bf16 or int8) is recorded under ``"ring_dtype"``:
+    the operands serve rings of that dtype only. With a bf16 or int8 ring
+    and ``skip_slab``, ``w_skip`` is rounded to bf16. int8 rings take
+    ``ring_scales`` ``(L,)`` (:func:`calibrate_ring_scales`): the lookback
+    taps ``w_tap[:, :k-1]`` are multiplied by ``scale / 127`` (the
+    dequant) and ``qscale`` ``(L,)`` holds the store scale ``127 /
+    scale``, both in f32 as the JAX package computes them."""
+    if ring_dtype not in RING_LIBS:
+        raise ValueError(f"ring_dtype must be one of {list(RING_LIBS)}, "
+                         f"not {ring_dtype}")
+    if (ring_dtype == torch.int8) != (ring_scales is not None):
+        raise ValueError("int8 rings need per-layer ring_scales (and only "
+                         "they take them): calibrate_ring_scales()")
     fuse_res = fuse_res and cfg.num_layers > 1
     w = k1.base_weights(params, cfg, fuse_res)
     for name in ("w_cond", "w_gcond"):
@@ -129,7 +159,24 @@ def prepare_weights(params: Params, cfg: WaveNetConfig, fuse_res: bool,
         w["b_res"] = b_out[:, S:].contiguous()
         w["w_skip"] = w_out[:, :, :S].reshape(L * D, S).contiguous()
         w["b_skip"] = b_out[:, :S].sum(dim=0).contiguous()
+        if ring_dtype != torch.float32:
+            w["w_skip"] = w["w_skip"].to(torch.bfloat16).to(torch.float32)
+    if ring_dtype == torch.int8:
+        # f32 divisions on the host: torch divides by (and into) a scalar
+        # through its reciprocal on some devices, one ulp off jnp's
+        sc = np.asarray(_host(ring_scales), np.float32)
+        if sc.shape != (cfg.num_layers,):
+            raise ValueError(f"ring_scales must have shape "
+                             f"({cfg.num_layers},), not {sc.shape}")
+        dev, k = w["w_tap"].device, cfg.kernel_size
+        deq = torch.from_numpy(sc / np.float32(127.0)).to(dev)
+        w_tap = w["w_tap"]  # may be the params' own tensor: not in place
+        w["w_tap"] = torch.cat(
+            [w_tap[:, :k - 1] * deq[:, None, None, None],
+             w_tap[:, k - 1:]], dim=1).contiguous()
+        w["qscale"] = torch.from_numpy(np.float32(127.0) / sc).to(dev)
     w["chain"] = k1.pack_chain(w, cfg, fuse_res, skip_slab, CLUSTER)
+    w["ring_dtype"] = ring_dtype
     return w
 
 
@@ -190,7 +237,11 @@ def batched_plain(w: dict, cfg: WaveNetConfig, prime: torch.Tensor,
     (read under ``lane_seed``), ``seed`` the one seed otherwise. ``cond``
     ``(total, M, streams)`` rows (step t's at ``cond[t]``, times
     ``w["w_cond"][l]`` in each layer) and ``gcond`` ``(L, 2D, streams)``
-    (:func:`project_gcond`) add to the gate inputs after the taps. Returns
+    (:func:`project_gcond`) add to the gate inputs after the taps. The
+    ring's dtype is the one ``w`` was prepared for: a bf16 ring stores h
+    rounded, an int8 one its counts at ``w["qscale"]``; taps read the
+    stored values widened to f32 (int8 counts times the folded weights),
+    and under ``skip_slab`` the slab of u is rounded to bf16. Returns
     the sampled classes ``(streams, total)`` int32 and, with
     ``return_gaps``, the per-step gap between the two best sampling scores
     ``(streams, total)`` (what decides whether a differently-rounded
@@ -203,6 +254,7 @@ def batched_plain(w: dict, cfg: WaveNetConfig, prime: torch.Tensor,
     streams, num_given = prime.shape
     dev = prime.device
     per, first = periods(cfg), ring_offsets(cfg)
+    rdt = _check_ring_dtype(w, ring)
     slots = ring.view(sum(per), R, streams)
     w_cur = w["w_tap"][:, k - 1]
     hot = temps > 0
@@ -228,7 +280,8 @@ def batched_plain(w: dict, cfg: WaveNetConfig, prime: torch.Tensor,
             for j in range(k - 1):
                 m = (k - 1 - j) * d
                 if ta >= m:
-                    z = z + slots[first[l] + (ta - m) % P].T @ w["w_tap"][l, j]
+                    tap = slots[first[l] + (ta - m) % P].T.to(torch.float32)
+                    z = z + tap @ w["w_tap"][l, j]
             if cond is not None:
                 z = z + cond[t].T @ w["w_cond"][l]
             if gcond is not None:
@@ -236,11 +289,15 @@ def batched_plain(w: dict, cfg: WaveNetConfig, prime: torch.Tensor,
             return z
 
         def write(l, h):
-            slots[first[l] + ta % per[l]] = h.T
+            if rdt == torch.int8:  # jnp.round and torch.round: half to even
+                h = torch.clamp(torch.round(h * w["qscale"][l]), -127.0,
+                                127.0)
+            slots[first[l] + ta % per[l]] = h.T  # bf16: rounds to nearest
 
         def consume(l, u, h, skip):
             if skip_slab:
-                slab.append(u)
+                slab.append(u if rdt == torch.float32 else
+                            u.to(torch.bfloat16).to(torch.float32))
                 return h + (u @ w["w_res"][l] + w["b_res"][l]), skip
             sr = u @ w["w_out"][l] + w["b_out"][l]
             return h + sr[:, S:], skip + sr[:, :S]
@@ -292,17 +349,26 @@ def batched_plain(w: dict, cfg: WaveNetConfig, prime: torch.Tensor,
 
 # ------------------------------------------------------------------ kernel
 
+def _check_ring_dtype(w: dict, ring: torch.Tensor) -> torch.dtype:
+    """The ring's dtype; raises unless ``w`` was prepared for it."""
+    want = w.get("ring_dtype", torch.float32)
+    if ring.dtype != want:
+        raise ValueError(f"the ring is {ring.dtype} but the weights were "
+                         f"prepared for {want} rings")
+    return want
+
+
 _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
 
 
-def _bind():
+def _bind(ring_dtype=torch.float32):
     from .build import load
 
-    lib = load("gen_kernel_hbm")
+    lib = load(RING_LIBS[ring_dtype])
     fn = lib.wavenet_gen_batched
     if fn.argtypes is None:
-        fn.argtypes = ([_PTR] * 12 + [_INT] + [_PTR] * 7 + [_INT] * 12
+        fn.argtypes = ([_PTR] * 12 + [_INT] + [_PTR] * 8 + [_INT] * 12
                        + [ctypes.c_float] + [_INT] * 6 + [_PTR] * 3)
         fn.restype = _INT
         lib.wavenet_gen_batched_smem.argtypes = [_INT] * 11 + [_PTR]
@@ -315,7 +381,7 @@ def shared_bytes(cfg: WaveNetConfig, tile: int, fuse_res: bool,
     """Dynamic shared memory of one block of the kernel at ``tile`` lanes
     per cluster (the chain's weights included when they fit;
     ``gen_kernel.shared_bytes_for``), with the conditioning slab (M rows)
-    under ``cond``."""
+    under ``cond``; the same at every ring dtype."""
     rows = cfg.cond_channels if cond else 0
     return k1.shared_bytes_for(cfg, tile, CLUSTER, fuse_res, rows)[0]
 
@@ -349,7 +415,7 @@ def _launch(w, cfg, prime, ring, t0, total, temps, seeds, toffs, seed,
     dev = prime.device
     streams, num_given = prime.shape
     out = torch.empty((streams, total), dtype=torch.int32, device=dev)
-    lib = _bind()
+    lib = _bind(ring.dtype)
     dims = (cfg.num_layers, cfg.kernel_size, cfg.residual_channels,
             cfg.dilation_channels, cfg.skip_channels, cfg.end_channels,
             cfg.classes)
@@ -370,6 +436,7 @@ def _launch(w, cfg, prime, ring, t0, total, temps, seeds, toffs, seed,
         None if cond is None else cond.data_ptr(),
         None if cond is None else w["w_cond"].data_ptr(),
         None if gcond is None else gcond.data_ptr(), rows,
+        w["qscale"].data_ptr() if "qscale" in w else None,
         temps.data_ptr(), seeds.data_ptr(), toffs.data_ptr(),
         prime.data_ptr(), w["meta"].data_ptr(), ring.data_ptr(),
         out.data_ptr(), streams, num_given, total, t0, *dims,
@@ -384,22 +451,25 @@ def _launch(w, cfg, prime, ring, t0, total, temps, seeds, toffs, seed,
 
 @functools.lru_cache(maxsize=None)
 def max_active_clusters(cfg: WaveNetConfig, tile: int, fuse_res: bool,
-                        skip_slab: bool, cond_rows: int = 0) -> int:
+                        skip_slab: bool, cond_rows: int = 0,
+                        ring_dtype=torch.float32) -> int:
     """``cudaOccupancyMaxActiveClusters`` of the kernel at ``tile`` lanes
-    per cluster (with a conditioning slab of ``cond_rows`` rows) on the
-    current card (nothing is launched; cached)."""
+    per cluster (with a conditioning slab of ``cond_rows`` rows, for rings
+    of ``ring_dtype``) on the current card (nothing is launched;
+    cached)."""
     fuse_res = fuse_res and cfg.num_layers > 1
     k1.cluster_fits(cfg, tile, CLUSTER, fuse_res, cond_rows)
     dev = torch.device("cuda")
     x = torch.empty((CLUSTER, 1), device=dev)
+    ring = torch.empty((CLUSTER, 1), dtype=ring_dtype, device=dev)
     i = torch.zeros((1, 1), dtype=torch.int32, device=dev)
     w = {name: x for name in ("w_start", "b_start", "chain", "w_skip",
                               "b_skip", "w_out", "b_out", "w_end1", "b_end1",
                               "w_end2", "b_end2")}
     w["meta"] = i
     n = ctypes.c_int(0)
-    _launch(w, cfg, i, x, 0, 1, x, i, i, 0, 0.0, fuse_res, skip_slab, False,
-            tile, max_clusters=n, cond_rows=cond_rows)
+    _launch(w, cfg, i, ring, 0, 1, x, i, i, 0, 0.0, fuse_res, skip_slab,
+            False, tile, max_clusters=n, cond_rows=cond_rows)
     return n.value
 
 
@@ -416,11 +486,13 @@ def batched_cuda(w: dict, cfg: WaveNetConfig, prime: torch.Tensor,
     :func:`batched_plain` (no gaps). ``tile`` lanes per cluster, one of
     ``TILES``: callers leave it to :func:`default_tile`; the tests and
     ``chip_smoke.py``'s sweep set it. Every lane's classes and ring are
-    bitwise the same at any tile width. Raises on operands that do not match ``cfg`` (the kernel would read
-    out of bounds), on a width or config the kernel does not take, and if
-    the launch fails. ``timers``, an int64 ``(len(PHASES),)`` tensor on
-    the device, receives the ns the first block spends in each of
-    ``PHASES`` over the call."""
+    bitwise the same at any tile width. The ring's dtype (f32, bf16 or
+    int8) picks the kernel; ``w`` must have been prepared for it
+    (:func:`prepare_weights`). Raises on operands that do not match
+    ``cfg`` (the kernel would read out of bounds), on a width, config or
+    ring dtype the kernel does not take, and if the launch fails.
+    ``timers``, an int64 ``(len(PHASES),)`` tensor on the device, receives
+    the ns the first block spends in each of ``PHASES`` over the call."""
     global launches
     fuse_res = fuse_res and cfg.num_layers > 1
     if prime.dim() != 2:
@@ -437,8 +509,11 @@ def batched_cuda(w: dict, cfg: WaveNetConfig, prime: torch.Tensor,
         raise ValueError(f"tile {tile}: the kernel is compiled for {TILES} "
                          f"lanes per cluster")
     rows = 0 if cond is None else cfg.cond_channels
+    rdt = _check_ring_dtype(w, ring)
     k1.cluster_fits(cfg, tile or TILES[0], CLUSTER, fuse_res, rows)
     shapes = operand_shapes(cfg, fuse_res, skip_slab)
+    if rdt == torch.int8:
+        shapes["qscale"] = (cfg.num_layers,)
     L, D, M = cfg.num_layers, cfg.dilation_channels, cfg.cond_channels
     extra = {}
     if cond is not None:
@@ -481,13 +556,14 @@ def batched_cuda(w: dict, cfg: WaveNetConfig, prime: torch.Tensor,
     for name, (x, _) in extra.items():
         if x.dtype != torch.float32:
             raise ValueError(f"{name} must be f32")
-    if ring.dtype != torch.float32:
-        raise ValueError("ring must be f32")
+    if ring.data_ptr() % 4:
+        raise ValueError("the ring's data must be 4-byte aligned")
     if prime.dtype != torch.int32 or not prime.is_contiguous():
         raise ValueError("prime must be contiguous int32")
     if tile is None:
         tile = default_tile(streams, cfg, fuse_res, lambda t: (
-            max_active_clusters(cfg, t, fuse_res, skip_slab, rows)), rows)
+            max_active_clusters(cfg, t, fuse_res, skip_slab, rows, rdt)),
+            rows)
     if timers is not None and (tuple(timers.shape) != (len(PHASES),)
                                or timers.device != dev
                                or timers.dtype != torch.int64):
@@ -545,9 +621,16 @@ def generate_fast_batched(params: Params, cfg: WaveNetConfig,
                           skip_slab: bool = False, lane_seed=None,
                           lane_clock=None,
                           device: str | torch.device = "cuda",
-                          cond=None, global_cond=None):
+                          cond=None, global_cond=None,
+                          ring_dtype=torch.float32, ring_scales=None):
     """Batched generation for any number of streams, the contract of the
-    JAX package's ``generate_fast_batched`` (f32 rings).
+    JAX package's ``generate_fast_batched``.
+
+    ``ring_dtype``: f32, bf16 or int8 (the module docstring); int8 takes
+    per-layer ``ring_scales`` ``(L,)`` from :func:`calibrate_ring_scales`,
+    and a chunked rollout must pass the same scales with every chunk. A
+    resumed ``state`` keeps its ring's dtype, which must be
+    ``ring_dtype``.
 
     ``cond`` ``(streams, num_given - 1 + num_samples, M)``: row t
     conditions the step that consumes input sample t (a resumed call takes
@@ -585,7 +668,11 @@ def generate_fast_batched(params: Params, cfg: WaveNetConfig,
         if tuple(state.ring.shape) != (rows, prime.shape[0]):
             raise ValueError(f"state ring {tuple(state.ring.shape)} does not "
                              f"match the config and {prime.shape[0]} streams")
-        ring = state.ring.to(dev, torch.float32).clone()
+        if state.ring.dtype != ring_dtype:
+            raise ValueError(f"the state's ring is {state.ring.dtype}, not "
+                             f"ring_dtype {ring_dtype}: a ring keeps its "
+                             f"dtype across calls")
+        ring = state.ring.to(dev).clone()
     else:
         if first_samples is None:
             first_samples = torch.full((1, 1), C // 2, dtype=torch.int32)
@@ -607,7 +694,7 @@ def generate_fast_batched(params: Params, cfg: WaveNetConfig,
     if bool(((prime < 0) | (prime >= C)).any()):
         raise ValueError(f"prime classes must lie in [0, {C})")
     if ring is None:  # uninitialised: the taps are predicated on ta >= m
-        ring = torch.empty((rows, streams), dtype=torch.float32, device=dev)
+        ring = torch.empty((rows, streams), dtype=ring_dtype, device=dev)
 
     if _host(temperature).ndim == 0:
         temps = torch.full((streams,), float(temperature),
@@ -624,7 +711,8 @@ def generate_fast_batched(params: Params, cfg: WaveNetConfig,
     else:
         seeds = toffs = torch.zeros((streams,), dtype=torch.int32,
                                     device=dev)
-    w = prepare_weights(params, cfg, fuse_res, skip_slab)
+    w = prepare_weights(params, cfg, fuse_res, skip_slab, ring_dtype,
+                        ring_scales)
     if cond is not None:
         from ...models.wavenet import check_cond
 
@@ -643,3 +731,35 @@ def generate_fast_batched(params: Params, cfg: WaveNetConfig,
         return wav, cls
     return wav, cls, HbmGenState(ring=ring, t=t0 + total,
                                  cls=all_cls[:, total - 1].clone())
+
+
+def calibrate_ring_scales(params: Params, cfg: WaveNetConfig,
+                          first_samples, num_samples: int = 256,
+                          margin: float = 1.05, **kwargs) -> torch.Tensor:
+    """Per-layer ``|h|`` scales ``(L,)`` f32 for int8 rings, as the JAX
+    package's ``calibrate_ring_scales``: a bf16-ring rollout (greedy unless
+    ``temperature`` is given; ``kwargs`` go to
+    :func:`generate_fast_batched`, ``device`` among them), then each
+    layer's max ``|ring|`` over its whole period window, floored at 1e-3,
+    times ``margin``. The rollout must write every ring slot (taps are
+    predicated, slots start uninitialised), so the clip ``num_given - 1 +
+    num_samples`` must reach the longest period; a receptive-field prime
+    always does. A chunked rollout reuses one calibration for the life of
+    its ring."""
+    prime = _host(first_samples)
+    total = np.atleast_2d(prime).shape[1] - 1 + num_samples
+    max_period = max(periods(cfg))
+    if total < max_period:
+        raise ValueError(
+            f"calibration needs >= {max_period} total steps to write every "
+            f"ring slot, got {total}: prime with a receptive-field window")
+    kwargs.setdefault("temperature", 0.0)
+    _, _, st = generate_fast_batched(
+        params, cfg, num_samples=num_samples, first_samples=prime,
+        return_state=True, ring_dtype=torch.bfloat16, **kwargs)
+    ring = np.abs(st.ring.float().cpu().numpy())
+    R, off = cfg.residual_channels, ring_offsets(cfg)
+    peak = np.array([ring[off[l] * R:(off[l] + P) * R].max()
+                     for l, P in enumerate(periods(cfg))], np.float32)
+    return torch.from_numpy(np.maximum(peak, np.float32(1e-3))
+                            * np.float32(margin))

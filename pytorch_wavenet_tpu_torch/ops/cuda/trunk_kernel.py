@@ -13,6 +13,16 @@ tap j looking back ``m = (k-1-j)*d``, history before the window zero)
     u = tanh(z[:D]) * sigmoid(z[D:])
     h <- h + u @ w_res[l] + b_res[l]
 
+``cfg.stream_dtype`` is f32 or bf16, as in the JAX kernel. With a bf16
+stream the stream is stored in bf16 between layers (h0 rounded on entry,
+each layer's update ``round((h + u @ w_res) + b_res)`` summed in f32 and
+rounded once), and the kernel's matrix operands are the stream's type too:
+w_in, w_res, w_cond and cond are rounded to bf16 (the biases stay f32),
+every product sums in f32 and u stays f32. The backward of each rounding
+is the identity. The saves are then the stream itself, so f32 saves of a
+bf16 stream hold the same values as bf16 ones, and give bitwise the same
+gradients.
+
 and the result is every layer's ``u`` over the output window, ``(N,
 out_len, L*D)`` with layer-major columns: exactly what the skip projection
 reads. The final residual stream is never needed.
@@ -90,16 +100,65 @@ def _taps(h: torch.Tensor, cfg: WaveNetConfig, d: int) -> torch.Tensor:
     return torch.cat(parts, dim=-1)
 
 
+def bf16_stream(cfg: WaveNetConfig) -> bool:
+    """Whether the stream (and the kernels' matrix operands) is bf16."""
+    return cfg.stream_dtype == torch.bfloat16
+
+
+def round_bf16(x: torch.Tensor) -> torch.Tensor:
+    """``x`` rounded to bf16 (to nearest, ties to even) and back to f32."""
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
 def _layer_weights(params, cfg: WaveNetConfig, l: int):
+    """``(w_in (k*R, 2D), w_res, b_in, b_res)`` of layer l as the kernels
+    read them: the matrices rounded to bf16 under a bf16 stream; a missing
+    bias is None."""
     lp = params["layers"]
     k, R, D = cfg.kernel_size, cfg.residual_channels, cfg.dilation_channels
     w = lp["w_in"][l].reshape(k * R, 2 * D)
+    w_res = lp["w_res"][l]
+    if bf16_stream(cfg):
+        w, w_res = round_bf16(w), round_bf16(w_res)
     b_in = lp["b_in"][l] if "b_in" in lp else None
     b_res = lp["b_res"][l] if "b_res" in lp else None
-    return w, lp["w_res"][l], b_in, b_res
+    return w, w_res, b_in, b_res
+
+
+def _cond_weight(params, cfg: WaveNetConfig, l: int):
+    """Layer l's w_cond (M, 2D) as the kernels read it (rounded to bf16
+    under a bf16 stream)."""
+    w = params["layers"]["w_cond"][l]
+    return round_bf16(w) if bf16_stream(cfg) else w
 
 
 # ----------------------------------------------------------- plain versions
+
+
+def layer_fwd_plain(params, cfg: WaveNetConfig, l: int, h: torch.Tensor,
+                    cond=None):
+    """One layer of K2's function over the whole window: ``(u (N, T, D),
+    h' (N, T, R))`` from the layer's input stream ``h`` (f32 holding the
+    stream's values; ``cond`` already rounded under a bf16 stream). With an
+    f32 stream ``h' = h + (u @ w_res + b_res)``; with a bf16 one ``h' =
+    round((h + u @ w_res) + b_res)``, the JAX kernel's order."""
+    T, D = h.shape[1], cfg.dilation_channels
+    w, w_res, b_in, b_res = _layer_weights(params, cfg, l)
+    z = _taps(h, cfg, cfg.dilations[l]) @ w
+    if b_in is not None:
+        z = z + b_in
+    if cond is not None:
+        z = z + cond @ _cond_weight(params, cfg, l)
+    u = torch.tanh(z[..., :D]) * torch.sigmoid(z[..., D:])
+    r = u @ w_res
+    if bf16_stream(cfg):
+        h = h + r
+        if b_res is not None:
+            h = h + b_res
+        return u, round_bf16(h)
+    if b_res is not None:
+        r = r + b_res
+    return u, h + r
 
 
 @torch.no_grad()
@@ -109,28 +168,21 @@ def trunk_fwd_plain(params, cfg: WaveNetConfig, h0: torch.Tensor,
     save_dtype)``. Every layer runs over the whole window (positions
     outside ``[s_l, T)`` never reach ``u``); ``saves[l]`` is layer l's
     input stream. ``cond (N, T, M)`` adds ``cond @ w_cond[l]`` after the
-    bias, the JAX kernel's order."""
+    bias, the JAX kernel's order. Under a bf16 stream h0 and cond are
+    rounded on entry (:func:`layer_fwd_plain`)."""
     N, T, R = h0.shape
     L, D = cfg.num_layers, cfg.dilation_channels
     h = h0.to(torch.float32)
+    if bf16_stream(cfg):
+        h = round_bf16(h)
+        cond = None if cond is None else round_bf16(cond)
     saves = torch.empty((L, N, T, R), dtype=save_dtype, device=h0.device)
     u_out = torch.empty((N, out_len, L * D), dtype=torch.float32,
                         device=h0.device)
-    for l, d in enumerate(cfg.dilations):
+    for l in range(L):
         saves[l] = h
-        w, w_res, b_in, b_res = _layer_weights(params, cfg, l)
-        z = _taps(h, cfg, d) @ w
-        if b_in is not None:
-            z = z + b_in
-        if cond is not None:
-            z = z + cond @ params["layers"]["w_cond"][l]
-        u = torch.tanh(z[..., :D]) * torch.sigmoid(z[..., D:])
+        u, h = layer_fwd_plain(params, cfg, l, h, cond)
         u_out[:, :, l * D:(l + 1) * D] = u[:, T - out_len:]
-        if l + 1 < L:
-            r = u @ w_res
-            if b_res is not None:
-                r = r + b_res
-            h = h + r
     return u_out, saves
 
 
@@ -146,7 +198,8 @@ def trunk_bwd_plain(params, cfg: WaveNetConfig, saves: torch.Tensor,
     recomputes z, tanh and sigmoid from ``saves[l]`` on ``[s_l, T)``; its
     stream gradient goes back to ``[sp_l, T)`` (the whole window for layer
     0), its cond gradient to ``[s_l, T)``, summed from the top layer
-    down."""
+    down. Under a bf16 stream the matrices and cond are rounded as in the
+    forward."""
     L, N, T, R = saves.shape
     k, D = cfg.kernel_size, cfg.dilation_channels
     dev = saves.device
@@ -158,20 +211,23 @@ def trunk_bwd_plain(params, cfg: WaveNetConfig, saves: torch.Tensor,
     db_res = torch.zeros((L, R), dtype=f32, device=dev)
     dh_next = torch.zeros((N, T, R), dtype=f32, device=dev)
     if cond is not None:
-        w_cond = params["layers"]["w_cond"]
-        dw_cond = torch.zeros(w_cond.shape, dtype=f32, device=dev)
+        if bf16_stream(cfg):
+            cond = round_bf16(cond)
+        dw_cond = torch.zeros(params["layers"]["w_cond"].shape, dtype=f32,
+                              device=dev)
         dcond = torch.zeros(cond.shape, dtype=f32, device=dev) \
             if need_dcond else None
     o = T - out_len
     for l in range(L - 1, -1, -1):
         d, sl = cfg.dilations[l], s[l]
         w, w_res, b_in, _ = _layer_weights(params, cfg, l)
+        w_cond = _cond_weight(params, cfg, l) if cond is not None else None
         v = _taps(saves[l].to(f32), cfg, d)[:, sl:]       # (N, W, k*R)
         z = v @ w
         if b_in is not None:
             z = z + b_in
         if cond is not None:
-            z = z + cond[:, sl:] @ w_cond[l]
+            z = z + cond[:, sl:] @ w_cond
         a = torch.tanh(z[..., :D])
         sg = torch.sigmoid(z[..., D:])
         dhn = dh_next[:, sl:]
@@ -186,7 +242,7 @@ def trunk_bwd_plain(params, cfg: WaveNetConfig, saves: torch.Tensor,
         if cond is not None:
             dw_cond[l] = torch.einsum("ntm,ntc->mc", cond[:, sl:], dz)
             if dcond is not None:
-                dcond[:, sl:] += dz @ w_cond[l].T
+                dcond[:, sl:] += dz @ w_cond.T
         dv = dz @ w.T                                      # (N, W, k*R)
         dh = torch.zeros_like(dh_next)
         dh[:, sl:] = dhn + dv[..., (k - 1) * R:]
@@ -236,12 +292,13 @@ def _ldb(cols: int) -> int:
 
 
 def fwd_smem(tm: int, k: int, Rp: int, Dp: int, wsm: bool,
-             Mp: int = 0) -> int:
+             Mp: int = 0, bs: bool = False) -> int:
     """K2's shared memory per block in bytes (csrc/trunk_fwd.cu,
     smem_floats): biases, tap rows (and cond rows: ``k*Rp + Mp`` columns),
-    u, and the weights (w_in and w_cond) under ``wsm``."""
+    u (first, with a bf16 stream ``bs``, the staged bf16 tap rows), and
+    the weights (w_in and w_cond) under ``wsm``."""
     KC, D2 = k * Rp + Mp, 2 * Dp
-    f = D2 + Rp + tm * (_lda(KC) + _lda(Dp))
+    f = D2 + Rp + tm * (_lda(KC) + max(_lda(Dp), k * Rp // 2 if bs else 0))
     if wsm:
         f += KC * _ldb(D2) + Dp * _ldb(Rp)
     return 4 * f
@@ -266,13 +323,15 @@ def bwd_smem(tm: int, k: int, Rp: int, Dp: int, wsm: bool,
 
 
 def fwd_plan(cfg: WaveNetConfig, Mp: int = 0) -> tuple[int, bool]:
-    """``(TM, wsm)`` for K2 (with ``Mp`` padded cond channels): the widest
-    tile of positions whose block fits, with the weights in shared memory
-    where they fit, else read from L2."""
+    """``(TM, wsm)`` for K2 (with ``Mp`` padded cond channels and the
+    config's stream dtype): the widest tile of positions whose block fits,
+    with the weights in shared memory where they fit, else read from
+    L2."""
     Rp, Dp = padded_widths(cfg)
     for wsm in (True, False):
         for tm in (64, 32, 16):
-            if fwd_smem(tm, cfg.kernel_size, Rp, Dp, wsm, Mp) <= SMEM_LIMIT:
+            if fwd_smem(tm, cfg.kernel_size, Rp, Dp, wsm, Mp,
+                        bf16_stream(cfg)) <= SMEM_LIMIT:
                 return tm, wsm
     raise ValueError("the trunk's widths are too large for the kernels "
                      f"(kernel_size {cfg.kernel_size}, R {Rp}, D {Dp})")
@@ -431,7 +490,7 @@ def _bind(name: str):
             fn.argtypes = ([_PTR] * 7 + [_INT] * 11 + [_INTS] * 3 + [_INT] * 3
                            + [_PTR])
             fn.restype = _INT
-            lib.wavenet_trunk_fwd_smem.argtypes = [_INT] * 6
+            lib.wavenet_trunk_fwd_smem.argtypes = [_INT] * 7
             lib.wavenet_trunk_fwd_smem.restype = _INT
     else:
         fn = lib.wavenet_trunk_bwd
@@ -455,16 +514,20 @@ def _check_config(cfg: WaveNetConfig) -> None:
     fused trunk only then."""
     if cfg.kernel_size < 2:
         raise ValueError("the trunk kernels need kernel_size >= 2")
-    if cfg.stream_dtype != torch.float32:
-        raise ValueError("the trunk kernels take f32 streams only "
+    if cfg.stream_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError("the trunk kernels take f32 and bf16 streams "
                          f"(stream_dtype {cfg.stream_dtype})")
+
+
+# the kernels' stream modes (csrc/trunk_fwd.cu, csrc/trunk_bwd.cu)
+F32_SAVES, BF16_SAVES, BF16_STREAM = 0, 1, 2
 
 
 def _weights(params, cfg: WaveNetConfig, dev: torch.device,
              cond: bool = False) -> dict:
     """The kernels' weight operands: contiguous f32 on ``dev`` in the
     params' own layout, zero biases where the model has none, and w_cond
-    with ``cond``."""
+    with ``cond``; the matrices rounded to bf16 under a bf16 stream."""
     L, k = cfg.num_layers, cfg.kernel_size
     R, D = cfg.residual_channels, cfg.dilation_channels
     lp = params["layers"]
@@ -482,7 +545,10 @@ def _weights(params, cfg: WaveNetConfig, dev: torch.device,
                              f"{None if x is None else tuple(x.shape)}")
         if x.device != dev or x.dtype != torch.float32:
             raise ValueError(f"layers.{name} must be f32 on {dev}")
-        out[name] = x.detach().contiguous()
+        x = x.detach()
+        if bf16_stream(cfg) and not name.startswith("b_"):
+            x = round_bf16(x)
+        out[name] = x.contiguous()
     return out
 
 
@@ -501,8 +567,11 @@ def _check_stream(name, x, shape, dtypes, dev):
 def trunk_fwd_cuda(params, cfg: WaveNetConfig, h0: torch.Tensor,
                    out_len: int, save_dtype=torch.bfloat16, cond=None):
     """Launch K2 on the current stream with the contract of
-    :func:`trunk_fwd_plain` (saves valid on ``[sp_l, T)`` only). Raises on
-    operands the kernel does not take and if the launch fails."""
+    :func:`trunk_fwd_plain` (saves valid on ``[sp_l, T)`` only). With a
+    bf16 stream the kernel walks a bf16 stream that is the bf16 saves
+    (layer l reads ``saves[l]`` and writes ``saves[l+1]``); f32 saves are
+    those values widened. Raises on operands the kernel does not take and
+    if the launch fails."""
     global fwd_launches
     _check_config(cfg)
     dev = h0.device
@@ -517,17 +586,26 @@ def trunk_fwd_cuda(params, cfg: WaveNetConfig, h0: torch.Tensor,
     N = h0.shape[0]
     _check_stream("h0", h0, (N, T, R), (torch.float32,), dev)
     M = cfg.cond_channels if cond is not None else 0
+    bs = bf16_stream(cfg)
     if cond is not None:
         _check_stream("cond", cond, (N, T, M), (torch.float32,), dev)
+        if bs:
+            cond = round_bf16(cond)
     w = _weights(params, cfg, dev, cond is not None)
     s, sp = windows(cfg, out_len)
     u = torch.empty((N, out_len, L * D), dtype=torch.float32, device=dev)
-    saves = torch.empty((L, N, T, R), dtype=save_dtype, device=dev)
-    bf16 = save_dtype == torch.bfloat16
-    # f32 saves are the layer walk's stream itself; bf16 saves need an f32
-    # ping-pong pair beside them
-    bufs = (torch.empty((2, N, T, R), dtype=torch.float32, device=dev)
-            if bf16 else saves)
+    if bs:
+        mode = BF16_STREAM
+        saves = torch.empty((L, N, T, R), dtype=torch.bfloat16, device=dev)
+        saves[0].copy_(h0)  # the stream enters rounded
+        bufs = saves
+    else:
+        mode = BF16_SAVES if save_dtype == torch.bfloat16 else F32_SAVES
+        saves = torch.empty((L, N, T, R), dtype=save_dtype, device=dev)
+        # f32 saves are the layer walk's stream itself; bf16 saves of an
+        # f32 stream need an f32 ping-pong pair beside them
+        bufs = (torch.empty((2, N, T, R), dtype=torch.float32, device=dev)
+                if mode == BF16_SAVES else saves)
     Rp, Dp = padded_widths(cfg)
     Mp = cond_width(M)
     tm, wsm = fwd_plan(cfg, Mp)
@@ -537,12 +615,12 @@ def trunk_fwd_cuda(params, cfg: WaveNetConfig, h0: torch.Tensor,
         bufs[min(1, bufs.shape[0] - 1)].data_ptr(), saves.data_ptr(),
         u.data_ptr(), cond.data_ptr() if M else None, N, T, out_len, L,
         cfg.kernel_size, R, D, Rp, Dp, M, Mp, _ints(cfg.dilations), _ints(s),
-        _ints(sp), int(bf16), tm, int(wsm),
+        _ints(sp), mode, tm, int(wsm),
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"trunk_fwd launch failed: error {err}")
     fwd_launches += 1
-    return u, saves
+    return u, saves.to(save_dtype)
 
 
 def trunk_bwd_cuda(params, cfg: WaveNetConfig, saves: torch.Tensor,
@@ -552,7 +630,9 @@ def trunk_bwd_cuda(params, cfg: WaveNetConfig, saves: torch.Tensor,
     :func:`trunk_bwd_plain`. The weight gradients are reduced over the
     batch and time in a fixed order, and dcond is summed layer by layer
     from the top, with no atomics: two calls on the same inputs give
-    bitwise-equal results."""
+    bitwise-equal results. Under a bf16 stream f32 saves are read as the
+    bf16 values they hold (the JAX kernel casts them to the stream dtype
+    on load), so they give the bf16 saves' gradients bitwise."""
     global bwd_launches
     _check_config(cfg)
     dev = saves.device
@@ -568,8 +648,16 @@ def trunk_bwd_cuda(params, cfg: WaveNetConfig, saves: torch.Tensor,
                   (torch.float32, torch.bfloat16), dev)
     _check_stream("du", du, (N, out_len, L * D), (torch.float32,), dev)
     M = cfg.cond_channels if cond is not None else 0
+    bs = bf16_stream(cfg)
     if cond is not None:
         _check_stream("cond", cond, (N, T, M), (torch.float32,), dev)
+        if bs:
+            cond = round_bf16(cond)
+    if bs:
+        mode = BF16_STREAM
+        saves = saves.to(torch.bfloat16)
+    else:
+        mode = BF16_SAVES if saves.dtype == torch.bfloat16 else F32_SAVES
     w = _weights(params, cfg, dev, cond is not None)
     s, _ = windows(cfg, out_len)
     f32 = dict(dtype=torch.float32, device=dev)
@@ -592,7 +680,7 @@ def trunk_bwd_cuda(params, cfg: WaveNetConfig, saves: torch.Tensor,
         dcond.data_ptr() if dcond is not None else None, N, T, out_len, L, k,
         R, D, Rp, Dp, M, Mp, _ints(cfg.dilations), _ints(s),
         _ints(geo["tpi"]), _ints(geo["ntiles"]), _ints(geo["per"]), S, tm,
-        int(wsm), int(acc_smem), int(saves.dtype == torch.bfloat16),
+        int(wsm), int(acc_smem), mode,
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"trunk_bwd launch failed: error {err}")
@@ -663,7 +751,11 @@ def fused_trunk(params, cfg: WaveNetConfig, h0: torch.Tensor, out_len: int,
     """The residual trunk through K2/K3 (CUDA tensors) or their plain
     versions (CPU tensors), differentiable in ``params['layers']``, ``h0``
     and ``cond``. The contract of the JAX package's ``fused_trunk`` with an
-    f32 stream.
+    f32 or a bf16 stream (``cfg.stream_dtype``). With a bf16 stream, h0
+    and each layer's output stream are rounded to bf16 between layers;
+    w_in, w_res, w_cond and cond are rounded to bf16; every sum stays in
+    f32; the saves are the stream itself, so f32 and bf16 saves give
+    bitwise-equal gradients.
 
     ``h0``: the embedded input stream ``(N, T, R)``, ``T = receptive_field +
     out_len - 1``. ``cond``: local conditioning ``(N, T, cond_channels)``

@@ -41,9 +41,15 @@ samples of an admission are copied and awaited the same way. Uploads go
 through pinned memory without blocking, and the kernel's weight operands
 are prepared once per parameter version.
 
-Not ported yet: ``mesh`` and ring dtypes other than f32. The TPU's width
-bucketing, its multiple-of-128 lane checks and the compiles ``prewarm``
-existed for have no counterpart: a prime runs a group at its own size.
+The pool's ring is f32 or bf16 (``ring_dtype``, the server's
+``--bf16-rings``); a prime's ring, the bootstrap ring and the admission
+splice keep that dtype, so a pooled request equals its solo rollout at the
+same ring dtype. int8 rings, which need calibrated scales, are not taken
+(nor does the JAX package's batcher pass scales).
+
+Not ported yet: ``mesh``. The TPU's width bucketing, its multiple-of-128
+lane checks and the compiles ``prewarm`` existed for have no counterpart:
+a prime runs a group at its own size.
 """
 
 from __future__ import annotations
@@ -189,12 +195,14 @@ class ContinuousBatcher:
                  light_threshold: float = 0.25,
                  cond_hop: int | None = None,
                  cond_wire_dtype: torch.dtype = torch.float32,
+                 ring_dtype: torch.dtype = torch.float32,
                  device: str | torch.device = "cuda"):
         """``cond_hop``: the pool takes mel frames at this hop
         (``submit(cond_frames=)``); with the model's learnable upsampler
         its factors must multiply to it. ``cond_wire_dtype``: f32, or
         bf16, which halves the frames' upload and makes a response equal
-        the solo rollout of bf16-rounded frames."""
+        the solo rollout of bf16-rounded frames. ``ring_dtype``: the pool
+        ring's dtype, f32 or bf16 (half the ring's bytes)."""
         self.device = resolve_device(device)
         if self.device.type == "cuda" and self.device.index is None:
             self.device = torch.device("cuda", torch.cuda.current_device())
@@ -220,6 +228,10 @@ class ContinuousBatcher:
         if cond_wire_dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"cond_wire_dtype must be float32 or bfloat16, "
                              f"not {cond_wire_dtype}")
+        if ring_dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"ring_dtype must be float32 or bfloat16, not "
+                             f"{ring_dtype}")
+        self.ring_dtype = ring_dtype
         self._cond_wire = cond_wire_dtype
         self._cond_up = None  # the upsampler's weights on the device
         self.cfg = cfg
@@ -512,7 +524,8 @@ class ContinuousBatcher:
         self.params = params
         dev_params = params_to(params, self.device)
         self._w = prepare_weights(dev_params, self.cfg,
-                                  self._kw["fuse_res"], self._kw["skip_slab"])
+                                  self._kw["fuse_res"], self._kw["skip_slab"],
+                                  self.ring_dtype)
         if self._factors:
             self._cond_up = {"cond_up": dev_params["cond_up"]}
 
@@ -584,7 +597,7 @@ class ContinuousBatcher:
         seeds = self._upload(np.array([p.seed for p in pends], np.int32))
         toffs = torch.zeros(len(pends), dtype=torch.int32, device=self.device)
         ring = torch.empty((ring_rows(self.cfg), len(pends)),
-                           dtype=torch.float32, device=self.device)
+                           dtype=self.ring_dtype, device=self.device)
         cond = None
         riders = [(i, _Active(None, 0, 0, p.cond)) for i, p in
                   enumerate(pends) if p.cond is not None]
@@ -649,7 +662,7 @@ class ContinuousBatcher:
         self._clock = max(self._periods)
         self._state = HbmGenState(
             ring=torch.zeros((ring_rows(self.cfg), self.lanes),
-                             dtype=torch.float32, device=self.device),
+                             dtype=self.ring_dtype, device=self.device),
             t=self._clock,
             cls=torch.full((self.lanes,), self.cfg.classes // 2,
                            dtype=torch.int32, device=self.device),

@@ -12,6 +12,8 @@ The serving paths of the JAX package's ``scripts/serve.py``:
   streams out chunk by chunk; a client that hangs up frees its lane. The
   pool runs ``fuse_res``, and ``skip_slab`` when the model's skip width is
   256 or more. ``--max-pending`` answers 503 beyond that queue depth.
+  ``--bf16-rings`` stores the pool's ring in bf16 (half its bytes; a
+  response then equals its solo rollout with bf16 rings).
 
 Endpoints
   GET  /health       -> JSON {status, backend, receptive_field,
@@ -434,6 +436,9 @@ def parse_args(argv=None):
                    help="mel-frame upload dtype of the batcher (bf16 halves "
                         "it; responses equal the solo rollout of "
                         "bf16-rounded frames)")
+    p.add_argument("--bf16-rings", action="store_true",
+                   help="batcher: store the pool's ring state in bfloat16 "
+                        "(half the ring's bytes)")
     return p.parse_args(argv)
 
 
@@ -463,6 +468,8 @@ def main(argv=None, on_ready=None):
             batcher_opts["cond_hop"] = args.cond_hop
             batcher_opts["cond_wire_dtype"] = (
                 torch.bfloat16 if args.cond_wire == "bf16" else torch.float32)
+        if args.bf16_rings:
+            batcher_opts["ring_dtype"] = torch.bfloat16
     synth = Synthesizer(blob["params"], cfg, args.sr, args.device,
                         batcher_opts=batcher_opts)
     # build the kernel and load it on the card before the first request

@@ -14,8 +14,11 @@ optionally resumes from the newest snapshot (written by either package),
 and trains. The trunk runs through the CUDA kernels K2/K3 (local
 conditioning in them) unless ``--no-trunk-kernel`` (the plain PyTorch
 trunk, as the JAX package's XLA trunk); ``--device cpu`` runs everything
-with plain PyTorch ops. The JAX script's bf16, mesh, EMA, schedule,
-accumulation, SGD and TensorBoard flags are not ported.
+with plain PyTorch ops. ``--bf16`` sets ``compute_dtype`` and
+``stream_dtype`` to bfloat16 (bf16 matrix inputs, products summed in f32,
+and a bf16 residual stream in K2/K3); snapshots carry both dtypes. The
+JAX script's mesh, EMA, schedule, accumulation, SGD and TensorBoard flags
+are not ported.
 """
 
 from __future__ import annotations
@@ -45,6 +48,10 @@ def parse_args(argv=None):
                         "interpolation)")
     p.add_argument("--no-trunk-kernel", action="store_true",
                    help="run the plain PyTorch trunk instead of K2/K3")
+    p.add_argument("--bf16", action="store_true",
+                   help="bfloat16 matmul inputs and residual-stream storage "
+                        "in the training trunk (cfg.compute_dtype and "
+                        "cfg.stream_dtype); sums stay f32")
     p.add_argument("--batch-size", type=int, default=16)
     p.add_argument("--epochs", type=int, default=10)
     p.add_argument("--lr", type=float, default=1e-4)
@@ -80,6 +87,9 @@ def main(argv=None):
     if args.cond_upsample:
         overrides["cond_upsample"] = tuple(
             int(r) for r in args.cond_upsample.split(","))
+    if args.bf16:
+        overrides["compute_dtype"] = torch.bfloat16
+        overrides["stream_dtype"] = torch.bfloat16
     cfg = config_mod.get_config(args.config, **overrides)
     params = init_wavenet(cfg, torch.Generator().manual_seed(args.seed), dev)
     print(f"config: {args.config} {cfg}")

@@ -162,18 +162,24 @@ def main():
             rows += [("vocoder", {}, 80), ("tiny_vocoder", {}, 8),
                      ("test_small", {"residual_channels": 128,
                                      "dilation_channels": 128}, 20)]
-        for name, kw, M in rows:
-            c = pt.get_config(name, **kw)
+        # a checkout with bf16 streams: both streams' layouts of K2
+        streams = ((0, 1) if hasattr(tk, "bf16_stream") else (None,))
+        for (name, kw, M), bs in ((r, s) for r in rows for s in streams):
+            c = pt.get_config(name, **kw, **(
+                {"stream_dtype": torch.bfloat16} if bs else {}))
             Rp, Dp, k = *tk.padded_widths(c), c.kernel_size
             mp = (tk.cond_width(M),) if has_cond else ()
+            fb = () if bs is None else (bool(bs),)
             f, b = tk.fwd_plan(c, *mp), tk.bwd_plan(c, *mp)
-            pf = tk.fwd_smem(f[0], k, Rp, Dp, f[1], *mp)
+            pf = tk.fwd_smem(f[0], k, Rp, Dp, f[1], *mp, *fb)
             pb = tk.bwd_smem(b[0], k, Rp, Dp, *b[1:], *mp)
-            cf = fl.wavenet_trunk_fwd_smem(f[0], k, Rp, Dp, *mp, int(f[1]))
+            cf = fl.wavenet_trunk_fwd_smem(f[0], k, Rp, Dp, *mp, int(f[1]),
+                                           *(() if bs is None else (bs,)))
             cb = bl.wavenet_trunk_bwd_smem(b[0], k, Rp, Dp, *mp,
                                            *map(int, b[1:]))
-            print(f"{name} {kw} Mp {mp[0] if mp else 0}: K2 plan {f} {cf} B "
-                  f"of shared memory, K3 plan {b} {cb} B", flush=True)
+            print(f"{name} {kw} Mp {mp[0] if mp else 0}"
+                  f"{' bf16 stream' if bs else ''}: K2 plan {f} {cf} B of "
+                  f"shared memory, K3 plan {b} {cb} B", flush=True)
             if (pf, pb) != (cf, cb):
                 raise SystemExit(f"shared memory: Python {pf}, {pb}, "
                                  f"the kernels {cf}, {cb}")

@@ -363,18 +363,21 @@ def test_trunk_train_step_on_card_equals_plain_model(card):
 
 @pytest.mark.gpu
 def test_trunk_launchers_refuse_what_the_kernels_do_not_take(card):
-    """Local conditioning (and a model with global channels) passes; a bf16
-    stream, wrong shapes, a strided stream or cond, CPU tensors and a
-    passed ``global_cond`` raise."""
+    """Local conditioning (and a model with global channels) passes, and so
+    does a bf16 stream; an f16 stream, wrong shapes, a strided stream or
+    cond, CPU tensors and a passed ``global_cond`` raise."""
     import dataclasses
 
     cfg = pt.get_config("tiny_vocoder", gcond_channels=4)
     params = pt.init_wavenet(cfg, torch.Generator().manual_seed(0), card)
     T = cfg.receptive_field + 3
     h0 = torch.zeros((2, T, cfg.residual_channels), device=card)
-    with pytest.raises(ValueError, match="f32 streams"):
+    with pytest.raises(ValueError, match="f32 and bf16 streams"):
         tk.trunk_fwd_cuda(params, pt.get_config(
-            "tiny", stream_dtype=torch.bfloat16), h0, 4)
+            "tiny", stream_dtype=torch.float16), h0, 4)
+    u, saves = tk.trunk_fwd_cuda(params, pt.get_config(
+        "tiny", stream_dtype=torch.bfloat16), h0, 4)
+    assert saves.dtype == torch.bfloat16
     with pytest.raises(ValueError, match="shape"):
         tk.trunk_fwd_cuda(params, cfg, h0[:, 1:], 4)
     with pytest.raises(ValueError, match="contiguous"):
@@ -858,3 +861,226 @@ def test_k4_conditioned_chunks_at_offset_bitwise_on_card(card, offset):
     torch.cuda.synchronize()
     assert torch.equal(torch.cat(parts, dim=1), runs[0][0])
     assert torch.equal(ring, runs[0][1])
+
+
+# ----------------------------- reduced-precision inputs: bf16 stream, rings
+
+U_TOL = 1e-5
+
+
+def _bf16_flips_ok(a, b):
+    """a and b (bf16) differ by at most one bf16 ulp of the larger, or,
+    within 1e-5 of 0, by the f32 sums' own difference (which decides the
+    rounding of a value near 0)."""
+    fa, fb = a.float(), b.float()
+    m = torch.maximum(fa.abs(), fb.abs()).clamp(min=1e-30)
+    ulp = torch.exp2(torch.floor(torch.log2(m)) - 7)
+    return bool(((fa - fb).abs() <= ulp + U_TOL).all())
+
+
+BF16_TRUNK_CASES = [  # (preset[:RxD], batch, kernel_size, out_len, cond M)
+    ("tiny", 2, 2, 20, 0),
+    ("test_small", 2, 3, 64, 0),
+    ("test_small:12x20", 2, 2, 64, 0),  # plain loads of the bf16 taps
+    ("test_small:80x80", 2, 2, 64, 0),  # K3's sums in its slot, L2 weights
+    ("chaconne_wide", 2, 2, 1024, 0),
+    ("chaconne_wide", 16, 2, 1024, 0),  # the main path's shapes
+    ("tiny", 2, 2, 20, 8),
+    ("vocoder", 2, 2, 256, 80),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,batch,k,out_len,M", BF16_TRUNK_CASES)
+def test_bf16_stream_trunk_kernels_match_plain_on_card(card, name, batch, k,
+                                                       out_len, M):
+    """K2 and K3 at a bf16 stream: layer by layer from K2's own stream, its
+    units within 1e-5 x max(1, |u|) of the plain layer's and the stream it
+    writes within one bf16 ulp; K3 on K2's saves within 1e-5 x max(1,
+    scale) of the plain version, two calls bitwise equal, and f32 saves
+    (the same values) giving bitwise the same gradients."""
+    kw = dict(cond_channels=M) if M else {}
+    cfg = _trunk_config(name, kernel_size=k, stream_dtype=torch.bfloat16,
+                        **kw)
+    params = pt.init_wavenet(cfg, torch.Generator().manual_seed(2), card)
+    T = cfg.receptive_field + out_len - 1
+    rng = np.random.default_rng(5)
+    h0 = torch.from_numpy(rng.uniform(-1, 1, (batch, T, cfg.residual_channels))
+                          .astype(np.float32)).to(card)
+    du = torch.from_numpy(rng.uniform(-1, 1, (batch, out_len, cfg.num_layers
+                                              * cfg.dilation_channels))
+                          .astype(np.float32) / (batch * out_len)).to(card)
+    cond = (torch.from_numpy(rng.normal(0, 2, (batch, T, M)).astype(
+        np.float32)).to(card) if M else None)
+    uk, sk = tk.trunk_fwd_cuda(params, cfg, h0, out_len, torch.bfloat16, cond)
+    uk32, sk32 = tk.trunk_fwd_cuda(params, cfg, h0, out_len, torch.float32,
+                                   cond)
+    torch.cuda.synchronize()
+    assert sk.dtype == torch.bfloat16 and torch.equal(uk, uk32)
+    s, sp = tk.windows(cfg, out_len)
+    cr = None if cond is None else tk.round_bf16(cond)
+    D, L = cfg.dilation_channels, cfg.num_layers
+    for l in range(L):
+        assert torch.equal(sk32[l, :, sp[l]:], sk[l, :, sp[l]:].float())
+        u, hn = tk.layer_fwd_plain(params, cfg, l, sk[l].float(), cr)
+        ref = u[:, T - out_len:]
+        got = uk[:, :, l * D:(l + 1) * D]
+        assert float(((got - ref).abs() / ref.abs().clamp(min=1)).max()) \
+            <= U_TOL
+        if l + 1 < L:
+            assert _bf16_flips_ok(hn[:, s[l]:].to(torch.bfloat16),
+                                  sk[l + 1, :, s[l]:])
+    gk = tk.trunk_bwd_cuda(params, cfg, sk, du, out_len, cond)
+    again = tk.trunk_bwd_cuda(params, cfg, sk, du, out_len, cond)
+    g32 = tk.trunk_bwd_cuda(params, cfg, sk32, du, out_len, cond)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(gk, again))
+    assert all(torch.equal(a, b) for a, b in zip(gk, g32))
+    gp = tk.trunk_bwd_plain(params, cfg, sk, du, out_len, cond)
+    for a, b in zip(gk, gp):
+        assert float((a - b).abs().max()) <= 1e-5 * max(
+            1.0, float(b.abs().max()))
+
+
+def _ring_ok(a, b):
+    if a.dtype == torch.int8:
+        return bool(((a.int() - b.int()).abs() <= 1).all())
+    return _bf16_flips_ok(a, b)
+
+
+def _ring_weights(card, name, rdt, fuse_res, skip_slab, gcond=0):
+    kw = dict(gcond_channels=gcond) if gcond else {}
+    cfg = pt.get_config(name, **kw)
+    params = pt.init_wavenet(cfg, torch.Generator().manual_seed(0), card)
+    scales = None
+    if rdt == torch.int8:
+        scales = ghbm.calibrate_ring_scales(
+            params, cfg, _prime(cfg, 4, 9), num_samples=32, device=card)
+    return cfg, params, ghbm.prepare_weights(params, cfg, fuse_res,
+                                             skip_slab, rdt, scales)
+
+
+RING_CASES = [(rdt, tile, fr, ss) for rdt in (torch.bfloat16, torch.int8)
+              for tile in ghbm.TILES
+              for fr, ss in ((False, False), (True, True))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rdt,tile,fuse_res,skip_slab", RING_CASES,
+                         ids=[f"{str(r)[6:]}-tile{t}-{'fused' if f else 'exact'}"
+                              for r, t, f, _ in RING_CASES])
+def test_k4_rings_match_plain_on_card(card, rdt, tile, fuse_res, skip_slab):
+    """K4 with bf16 and int8 rings (chaconne, 100 lanes: a ragged last
+    cluster at every width), step by step from the kernel's own state
+    against the plain version: classes off near-ties of 1e-4, the ring
+    slots written within one bf16 ulp or one int8 count; then three
+    resumed chunks equal one shot bitwise, and the lockstep's one-step
+    launches equal the one shot too."""
+    cfg, _, w = _ring_weights(card, "chaconne", rdt, fuse_res, skip_slab)
+    lanes, clock = 100, 513
+    temps = torch.tensor([(0.0, 0.9, 1.0)[i % 3] for i in range(lanes)],
+                         device=card)
+    seeds = torch.arange(lanes, dtype=torch.int32, device=card) * 31 - 7
+    toffs = torch.arange(lanes, dtype=torch.int32, device=card) % 5
+    prime = torch.from_numpy(_prime(cfg, lanes, 3, 24)).to(card, torch.int32)
+    ring = torch.zeros(ghbm.ring_rows(cfg), lanes, dtype=rdt, device=card)
+    args = (temps, seeds, toffs, 0, 0.0, fuse_res, skip_slab, True)
+    start = ring.clone()
+    one = ghbm.batched_cuda(w, cfg, prime, ring, clock, 48, *args, tile=tile)
+    one_ring = ring
+    r = start.clone()
+    rp = torch.empty_like(r)
+    p = prime[:, :1].contiguous()
+    cls = []
+    for t in range(48):
+        if t < prime.shape[1]:
+            p = prime[:, t:t + 1].contiguous()
+        rp.copy_(r)
+        ck = ghbm.batched_cuda(w, cfg, p, r, clock + t, 1, *args, tile=tile)
+        torch.cuda.synchronize()
+        cp, gaps = ghbm.batched_plain(w, cfg, p, rp, clock + t, 1, *args,
+                                      return_gaps=True)
+        assert not bool(((ck != cp) & (gaps >= 1e-4)).any())
+        assert _ring_ok(r, rp)
+        cls.append(ck)
+        p = ck
+    assert torch.equal(torch.cat(cls, dim=1), one) and torch.equal(r,
+                                                                   one_ring)
+    r3, parts, p, t0 = start.clone(), [], prime, clock
+    for m in (5, 20, 23):
+        parts.append(ghbm.batched_cuda(w, cfg, p, r3, t0, m, *args,
+                                       tile=tile))
+        p, t0 = prime[:, t0 - clock + m:] if t0 - clock + m < prime.shape[
+            1] else parts[-1][:, -1:], t0 + m
+        p = p.contiguous()
+    assert torch.equal(torch.cat(parts, dim=1), one)
+    assert torch.equal(r3, one_ring)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rdt", [torch.bfloat16, torch.int8],
+                         ids=["bf16", "int8"])
+def test_k4_rings_conditioned_and_odd_streams_on_card(card, rdt):
+    """The conditioned kernel (cond + gcond, tiny_vocoder) and a ring whose
+    rows start at odd byte offsets (37 lanes: a tile's row of a bf16 or
+    int8 ring lies at any alignment), step by step against the plain
+    version."""
+    cfg, params, w = _ring_weights(card, "tiny_vocoder", rdt, True, True,
+                                   gcond=4)
+    lanes, steps, clock = 37, 40, max(ghbm.periods(cfg))
+    g = torch.Generator().manual_seed(4)
+    cond = torch.randn((steps, cfg.cond_channels, lanes), generator=g).to(card)
+    gcond = ghbm.project_gcond(w, cfg, torch.randn((lanes, 4), generator=g),
+                               lanes)
+    temps = torch.full((lanes,), 0.9, device=card)
+    seeds = torch.arange(lanes, dtype=torch.int32, device=card)
+    toffs = torch.zeros(lanes, dtype=torch.int32, device=card)
+    args = (temps, seeds, toffs, 0, 0.0, True, True, True)
+    r = torch.zeros(ghbm.ring_rows(cfg), lanes, dtype=rdt, device=card)
+    rp = torch.empty_like(r)
+    p = torch.from_numpy(_prime(cfg, lanes, 5, 1)).to(card, torch.int32)
+    start = r.clone()
+    one = ghbm.batched_cuda(w, cfg, p, start, clock, steps, *args, cond=cond,
+                            gcond=gcond)
+    cls = []
+    for t in range(steps):
+        rp.copy_(r)
+        ck = ghbm.batched_cuda(w, cfg, p, r, clock + t, 1, *args,
+                               cond=cond[t:t + 1].contiguous(), gcond=gcond)
+        torch.cuda.synchronize()
+        cp, gaps = ghbm.batched_plain(w, cfg, p, rp, clock + t, 1, *args,
+                                      return_gaps=True,
+                                      cond=cond[t:t + 1].contiguous(),
+                                      gcond=gcond)
+        assert not bool(((ck != cp) & (gaps >= 1e-4)).any())
+        assert _ring_ok(r, rp)
+        cls.append(ck)
+        p = ck
+    assert torch.equal(torch.cat(cls, dim=1), one) and torch.equal(r, start)
+
+
+@pytest.mark.gpu
+def test_k4_ring_launcher_checks_on_card(card):
+    """A ring of another dtype than the weights were prepared for, a ring
+    not 4-byte aligned, and int8 weights without their scales raise before
+    anything launches."""
+    cfg, _, w = _ring_weights(card, "tiny", torch.bfloat16, False, False)
+    lanes = 3
+    z = torch.zeros(lanes, dtype=torch.int32, device=card)
+    args = (torch.zeros(lanes, device=card), z, z, 0, 0.0, False, False,
+            True)
+    p = z.view(lanes, 1)
+    rows = ghbm.ring_rows(cfg)
+    before = ghbm.launches
+    with pytest.raises(ValueError, match="prepared for"):
+        ghbm.batched_cuda(w, cfg, p, torch.zeros(rows, lanes, device=card),
+                          0, 2, *args)
+    big = torch.zeros(rows * lanes + 1, dtype=torch.bfloat16, device=card)
+    with pytest.raises(ValueError, match="aligned"):
+        ghbm.batched_cuda(w, cfg, p, big[1:].view(rows, lanes), 0, 2, *args)
+    w8 = dict(w, ring_dtype=torch.int8)
+    with pytest.raises(ValueError, match="qscale"):
+        ghbm.batched_cuda(w8, cfg, p, torch.zeros(rows, lanes,
+                                                  dtype=torch.int8,
+                                                  device=card), 0, 2, *args)
+    assert ghbm.launches == before

@@ -175,8 +175,9 @@ def test_plain_backward_equals_autograd_of_plain_forward(kw, N, out_len,
 
 def test_rejects_what_the_trunk_does_not_take():
     """Local conditioning passes (and a model with global channels, given no
-    ``global_cond``); a passed ``global_cond``, a bf16 stream, a short
-    window, kernel_size 1 and a cond of the wrong shape raise."""
+    ``global_cond``), and so does a bf16 stream; a passed ``global_cond``,
+    an f16 stream, a short window, kernel_size 1 and a cond of the wrong
+    shape raise."""
     cfg = pt.get_config("tiny_vocoder", gcond_channels=4)
     params = pt.init_wavenet(cfg, torch.Generator().manual_seed(0), "cpu")
     T = cfg.receptive_field + 19
@@ -185,9 +186,12 @@ def test_rejects_what_the_trunk_does_not_take():
         tk.fused_trunk(params, cfg, h0[:, :-1], 20)
     with pytest.raises(ValueError, match="kernel_size"):
         tk.fused_trunk(params, pt.get_config("tiny", kernel_size=1), h0, 20)
-    with pytest.raises(ValueError, match="f32 streams"):
+    with pytest.raises(ValueError, match="f32 and bf16 streams"):
         tk.fused_trunk(params, pt.get_config(
-            "tiny", stream_dtype=torch.bfloat16), h0, 20)
+            "tiny", stream_dtype=torch.float16), h0, 20)
+    assert tk.fused_trunk(params, pt.get_config(
+        "tiny", stream_dtype=torch.bfloat16), h0, 20).shape == (
+            2, 20, cfg.num_layers * cfg.dilation_channels)
     cond = torch.ones((2, T, cfg.cond_channels))
     assert tk.fused_trunk(params, cfg, h0, 20, cond=cond).shape == (
         2, 20, cfg.num_layers * cfg.dilation_channels)
