@@ -127,7 +127,37 @@ Phases (any failure stops the run with a nonzero exit):
      chunks with its launches counted;
  24. batched serving with ``--bf16-rings`` (the main path of this slice):
      phase 8's burst with the pool's ring in bf16, two responses equal to
-     their bf16-ring solo rollouts.
+     their bf16-ring solo rollouts;
+ 25. the training remainder (the main path of this slice):
+     ``training.train.main --config chaconne_wide --batch-size 16`` for 20
+     micro-steps with a cosine schedule after a 4-step warmup,
+     ``--accum-steps 2``, ``--ema-decay 0.999``, a TensorBoard log and the
+     audio hook at step 20 (``generate_audio``: 16000 samples at
+     temperatures 0.5 and 1.0 in one K4 rollout, on the logger's thread,
+     joined); snapshots every 5 micro-steps, so steps 5 and 15 fall in the
+     middle of an accumulation; K2/K3 launches (20 each) and the hook's K4
+     launch counted around exactly this run with the plain trunk and K4's
+     plain version barred; the loss on the first batch falls; a run
+     resumed from the async step-5 snapshot ends bitwise at the
+     uninterrupted run's params, EMA and optimizer state; the event file
+     parses back with every CRC checked (loss scalars, every parameter's
+     and gradient's histogram, two 16000-sample clips); 5 steps of
+     ``--optimizer sgd_normalized --momentum 0.9`` give a finite loss; the
+     native codec loads, and its gather and quantizer are timed against
+     numpy's on the host; then K4 at the hook's shape against its plain
+     version, timed;
+ 26. ``serve --ema`` (the main path of this slice): phase 25's step-20
+     snapshot served by ``serving.server.main --ema``, one request single
+     stream (K1) and one through ``--batcher`` (K4), each byte-equal to a
+     solo rollout of the EMA params that ``find_ema_state_dict`` takes from
+     the same file, launches counted around each, the plain versions
+     barred; then the train step's times under Adam, Adam with an EMA,
+     ``sgd_normalized`` and phase 25's stack per micro-step, each with its
+     optimizer part alone, and the training thread's stall in an async
+     snapshot against a synchronous ``save_checkpoint``.
+
+``python3 chip_smoke.py --remainder-only`` runs phases 1, 2, 25 and 26 only
+and exits 1 without a result (a short call while working on them).
 
 The line before the last is one JSON object listing the kernels; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -2702,6 +2732,460 @@ def phase_int8_generation(torch, pt, ghbm, dev, scales):
     return launched
 
 
+# ------------------------------------------- phases 25-26: the remainder
+
+REMAINDER_FLAGS = ("--lr-schedule", "cosine", "--warmup-steps", "4",
+                   "--decay-steps", "20", "--min-lr-ratio", "0.1",
+                   "--accum-steps", "2", "--ema-decay", "0.999")
+HOOK_TEMPS = (0.5, 1.0)  # the audio hook's lanes
+
+
+def _state_leaves(tr):
+    """Params and the optimizer state in optax's layout, as numpy leaves
+    in sorted order: what a bitwise resume compares."""
+    from pytorch_wavenet_tpu_torch.models.convert import to_numpy_params
+    from pytorch_wavenet_tpu_torch.training.optimizers import _leaves
+
+    return list(_leaves({"params": to_numpy_params(tr.params),
+                         "opt": tr.tx.state_dict(tr.opt_state)}))
+
+
+def _native_times(np, pt, native, ds, batch=16, reps=50):
+    """Host times of the data layer on this machine's CPU: a batch's window
+    gather and the mu-law quantizer over the example audio, native against
+    numpy (min of ``reps`` and of 5)."""
+    from pytorch_wavenet_tpu_torch.ops.mulaw import quantize_data
+
+    rng = np.random.default_rng(0)
+    starts = np.asarray([ds.sample_index(int(i)) for i in
+                         rng.integers(0, len(ds), batch)], np.int64)
+    stream, il, tl = ds.flat_stream, ds._item_length, ds.target_length
+
+    def best(fn, n):
+        out = []
+        for _ in range(n):
+            t = time.perf_counter()
+            fn()
+            out.append(1e3 * (time.perf_counter() - t))
+        return min(out)
+
+    a = native.gather_windows(stream, starts, il, tl)
+    b = native.gather_windows_numpy(stream, starts, il, tl)
+    check(all(np.array_equal(x, y) for x, y in zip(a, b)),
+          "native and numpy window gathers differ")
+    here = os.path.dirname(os.path.abspath(__file__))
+    wav = np.concatenate([pt.load_audio(os.path.join(here, "examples", f))[0]
+                          for f in sorted(os.listdir(os.path.join(
+                              here, "examples"))) if f.endswith(".wav")])
+    q_n = native.mu_law_quantize(wav, 256)
+    q_p = quantize_data(wav, 256).astype(np.uint8)
+    off = int((q_n != q_p).sum())
+    check(int(np.abs(q_n.astype(int) - q_p).max()) <= 1 and off <= 5e-3 *
+          wav.size, f"native quantizer off numpy by more than one class or "
+          f"at {off} samples")
+    return dict(
+        gather_native_ms=best(lambda: native.gather_windows(
+            stream, starts, il, tl), reps),
+        gather_numpy_ms=best(lambda: native.gather_windows_numpy(
+            stream, starts, il, tl), reps),
+        quantize_native_ms=best(lambda: native.mu_law_quantize(wav, 256), 5),
+        quantize_numpy_ms=best(lambda: quantize_data(wav, 256), 5),
+        samples=int(wav.size), window=il + 1, quantize_off=off)
+
+
+def phase_training_remainder(torch, np, pt, tk, ghbm, dev, keep_dir,
+                             steps=20, gen_len=16000):
+    """Phase 25, the main path of the training remainder: chaconne_wide at
+    batch 16 through ``training.train.main`` for ``steps`` micro-steps with
+    a cosine schedule after a warmup, ``--accum-steps 2``, an EMA, a
+    TensorBoard log and the audio hook at the last step (16000 samples at
+    temperatures 0.5 and 1.0 in one K4 rollout); snapshots every 5
+    micro-steps, so the step-5 and step-15 snapshots fall in the middle of
+    an accumulation. K2/K3 launches and the hook's K4 launches are counted
+    around exactly this run, the plain trunk and K4's plain version barred
+    (the hook's thread is joined before they are restored). The loss on
+    the first batch falls; a run resumed from the async step-5 snapshot
+    (mini_step 1, a half-filled acc_grads) ends bitwise at the
+    uninterrupted run's params, EMA and optimizer state; the event file
+    parses back with every CRC checked; 5 steps of ``--optimizer
+    sgd_normalized --momentum 0.9`` give a finite loss. The step-20
+    snapshot is copied to ``keep_dir`` for phase 26."""
+    import glob
+    import shutil
+
+    from pytorch_wavenet_tpu_torch.data import native
+    from pytorch_wavenet_tpu_torch.training import train
+    from pytorch_wavenet_tpu_torch.training.optimizers import _leaves
+    from pytorch_wavenet_tpu_torch.utils import tensorboard as tb
+    from pytorch_wavenet_tpu_torch.utils.checkpoints import checkpoint_path
+
+    check(native.available(), "the native audio codec did not build (g++)")
+    here = os.path.dirname(os.path.abspath(__file__))
+    wavs = sorted(glob.glob(os.path.join(here, "examples", "*.wav")))
+    real = (tk.trunk_fwd_plain, tk.trunk_bwd_plain, ghbm.batched_plain)
+    plain_calls = []
+
+    def barred(*args, **kwargs):
+        plain_calls.append(1)
+        raise RuntimeError("a plain version ran on the card path")
+
+    name = "chaconne_wide_model"
+    with tempfile.TemporaryDirectory() as d:
+        data = os.path.join(d, "audio")
+        os.makedirs(data)
+        for w in wavs:
+            shutil.copy(w, data)
+        common = ["--data-dir", data, "--config", "chaconne_wide",
+                  "--batch-size", "16", "--epochs", "10", "--seed", str(SEED),
+                  "--lr", "1e-3", "--validation-interval", "1000",
+                  "--device", str(dev)]
+        base = common + list(REMAINDER_FLAGS) + ["--log-interval", "10"]
+        logs = os.path.join(d, "logs")
+        tk.trunk_fwd_plain = tk.trunk_bwd_plain = barred
+        ghbm.batched_plain = barred
+        try:
+            tk.fwd_launches = tk.bwd_launches = ghbm.launches = 0
+            t = time.time()
+            a = train.main(base + [
+                "--max-steps", str(steps), "--snapshot-path",
+                os.path.join(d, "a"), "--snapshot-interval", "5",
+                "--log-dir", logs, "--generate-interval", str(steps),
+                "--generate-length", str(gen_len)])
+            train_wall = time.time() - t
+            hook = a.logger.generate_thread
+            check(hook is not None, "the audio hook did not start")
+            hook.join(600)
+            check(not hook.is_alive(), "the audio hook did not finish")
+            torch.cuda.synchronize()
+            wall = time.time() - t
+            launched = (tk.fwd_launches, tk.bwd_launches, ghbm.launches)
+            a.logger.flush()
+            snap5 = checkpoint_path(os.path.join(d, "a"), name, 5)
+            os.makedirs(os.path.join(d, "b"))
+            shutil.copy(snap5, os.path.join(d, "b"))
+            tk.fwd_launches = tk.bwd_launches = 0
+            b = train.main(base + [
+                "--max-steps", str(steps), "--snapshot-path",
+                os.path.join(d, "b"), "--snapshot-interval", "1000",
+                "--resume", "--generate-interval", "1000"])
+            torch.cuda.synchronize()
+            resumed = (tk.fwd_launches, tk.bwd_launches)
+            sgd = train.main(common + [
+                "--optimizer", "sgd_normalized", "--momentum", "0.9",
+                "--max-steps", "5", "--snapshot-path", os.path.join(d, "s"),
+                "--snapshot-interval", "1000", "--generate-interval", "1000",
+                "--log-interval", "5"])
+        finally:
+            tk.trunk_fwd_plain, tk.trunk_bwd_plain, ghbm.batched_plain = real
+        snap20 = checkpoint_path(os.path.join(d, "a"), name, steps)
+        kept = shutil.copy(snap20, keep_dir)
+        blob5 = pt.load_checkpoint(snap5, device="cpu")
+        events = tb.read_events(a.logger.writer.path)
+        batch = [torch.from_numpy(v).to(dev)
+                 for v in a.dataset.get_batch(np.arange(16))]
+        init = pt.init_wavenet(a.cfg, torch.Generator().manual_seed(SEED),
+                               dev)
+        with torch.no_grad():
+            l0 = float(pt.cross_entropy_loss(init, a.cfg, *batch))
+            l1 = float(pt.cross_entropy_loss(a.params, a.cfg, *batch))
+            ls = float(pt.cross_entropy_loss(sgd.params, sgd.cfg, *batch))
+        nt = _native_times(np, pt, native, a.dataset)
+
+    check(not plain_calls, f"a plain version ran {len(plain_calls)} times")
+    check(launched == (steps, steps, 1), f"K2/K3/K4 launches {launched}, "
+          f"expected {steps}, {steps} (one per micro-step) and 1 (the hook)")
+    check(resumed == (steps - 5,) * 2, f"resumed run: K2/K3 launches "
+          f"{resumed}, expected {steps - 5} each")
+    check(a.step == b.step == steps and sgd.step == 5,
+          f"steps {a.step}, {b.step}, {sgd.step}")
+    check(math.isfinite(l0) and math.isfinite(l1) and l1 < l0,
+          f"loss did not fall: {l0} -> {l1}")
+    check(math.isfinite(ls), f"sgd_normalized: loss {ls}")
+    opt5 = blob5["opt_state"]
+    check(int(opt5["mini_step"]) == 1 and int(opt5["gradient_step"]) == 2,
+          "the step-5 snapshot is not in the middle of an accumulation")
+    check(any(float(np.abs(g).max()) > 0 for _, g in
+              _leaves(opt5["acc_grads"])),
+          "the step-5 snapshot's acc_grads are empty")
+    sa, sb = _state_leaves(a), _state_leaves(b)
+    check([p for p, _ in sa] == [p for p, _ in sb], "state layouts differ")
+    off = [p for (p, x), (_, y) in zip(sa, sb) if not np.array_equal(x, y)]
+    check(not off, f"the resumed run differs from the uninterrupted one at "
+          f"{off[:4]}")
+    # the event file: loss scalars, every param's and gradient's
+    # histogram at the log cadence, two clips of 16000 samples
+    vals = [(e["step"], tag, kind, v) for e in events
+            for tag, kind, v in e["values"]]
+    names = [n for n, _ in a.named_parameters()]
+    losses = [s for s, tag, k, _ in vals if tag == "loss" and k == "scalar"]
+    hists = {tag for _, tag, k, _ in vals if k == "histogram"}
+    clips = {tag: tb.parse_fields(v)[3][0] for _, tag, k, v in vals
+             if k == "audio"}
+    check(events[0]["file_version"] == "brain.Event:2", "no file version")
+    check(losses == [10, 20], f"loss scalars at steps {losses}")
+    check(hists == set(names) | {n + "/grad" for n in names},
+          f"histograms {sorted(hists)[:6]}... of {len(hists)}, expected "
+          f"{2 * len(names)}")
+    check(clips == {f"temperature_{t}/0": gen_len for t in HOOK_TEMPS},
+          f"audio clips {clips}")
+    log(f"[train+] chaconne_wide batch 16, {' '.join(REMAINDER_FLAGS)}: "
+        f"{steps} micro-steps in {train_wall:.1f} s ({wall:.1f} s with the "
+        f"hook; dataset and 4 async snapshots included); K2/K3 launches "
+        f"{launched[0]}/{launched[1]}, the hook's K4 launches {launched[2]} "
+        f"(one rollout, {len(HOOK_TEMPS)} lanes x {gen_len} steps), plain calls "
+        f"{len(plain_calls)}; loss on the first batch {l0:.4f} at init -> "
+        f"{l1:.4f} at step {steps}; sgd_normalized momentum 0.9, 5 steps: "
+        f"{ls:.4f}")
+    log(f"[train+] resumed from the async step-5 snapshot (mini_step 1, "
+        f"gradient_step 2, acc_grads half filled) to step {steps} (K2/K3 "
+        f"launches {resumed[0]}/{resumed[1]}): params, EMA and optimizer "
+        f"state ({len(sa)} leaves) bitwise equal to the uninterrupted run's")
+    log(f"[train+] event file {os.path.basename(a.logger.writer.path)}: "
+        f"{len(events)} records, every CRC checked; loss at steps {losses}, "
+        f"{len(hists)} histograms ({len(names)} params and their "
+        f"gradients), clips {sorted(clips)} of {gen_len} samples")
+    log(f"[data] host times on this machine's CPU: batch-16 window gather "
+        f"({nt['window']} bytes a window) native {nt['gather_native_ms']:.3f} "
+        f"ms, numpy {nt['gather_numpy_ms']:.3f} ms; mu-law quantizer over "
+        f"{nt['samples']} samples native {nt['quantize_native_ms']:.2f} ms, "
+        f"numpy {nt['quantize_numpy_ms']:.2f} ms ({nt['quantize_off']} "
+        f"samples one class apart); min of 50 and of 5")
+    return dict(launches=launched, snapshot=kept, native=nt, wall_s=wall)
+
+
+def phase_hook_k4(torch, pt, ghbm, dev, card, steps=1024, full=16000):
+    """K4 at the audio hook's shape (chaconne_wide, one lane per hook
+    temperature, exact products, the noise keyed by one seed) against its
+    plain version: ``steps`` steps from a fresh ring, classes up to a
+    near-tie and the ring; times of both on that call with CUDA events,
+    the bound, and the kernel on the hook's whole ``full``-step call."""
+    cfg = pt.get_config("chaconne_wide")
+    params = pt.init_wavenet(cfg, torch.Generator().manual_seed(SEED), dev)
+    w = ghbm.prepare_weights(params, cfg, False, False)
+    lanes = len(HOOK_TEMPS)
+    prime = torch.full((lanes, 1), cfg.classes // 2, dtype=torch.int32,
+                       device=dev)
+    temps = torch.tensor(HOOK_TEMPS, dtype=torch.float32, device=dev)
+    z = torch.zeros(lanes, dtype=torch.int32, device=dev)
+    rows = ghbm.ring_rows(cfg)
+
+    def args(ring, total):
+        return (w, cfg, prime, ring, 0, total, temps, z, z, 7, 0.0, False,
+                False, False)
+
+    rk = torch.zeros(rows, lanes, device=dev)
+    rp = torch.zeros(rows, lanes, device=dev)
+    ck = ghbm.batched_cuda(*args(rk, steps))
+    cp, gaps = ghbm.batched_plain(*args(rp, steps), return_gaps=True)
+    torch.cuda.synchronize()
+    parted, err = _rollout_check(torch, ck, cp, gaps, rk, rp, "hook K4",
+                                 f"{lanes} lanes at T={HOOK_TEMPS}")
+    ring = torch.zeros(rows, lanes, device=dev)
+    ms = min(_time(torch, lambda: ghbm.batched_cuda(*args(ring, steps)), 5))
+    plain = min(_time(torch, lambda: ghbm.batched_plain(*args(ring, steps)),
+                      1))
+    full_ms = min(_time(torch, lambda: ghbm.batched_cuda(*args(ring, full)),
+                        2))
+    b_ms, b_by = bound_ms(pt, ghbm, params, cfg, lanes, 1, steps)
+    log(f"[time] K4 at the hook's shape (chaconne_wide, {lanes} lanes, "
+        f"exact, {steps} steps): {ms:.3f} ms (min of 5), "
+        f"{1e3 * ms / steps:.2f} us a step; plain {plain:.1f} ms; bound "
+        f"{b_ms:.4f} ms ({b_by}), {100 * b_ms / ms:.2f} % of it; the hook's "
+        f"{full}-step call {full_ms:.1f} ms [{card}]")
+    return dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                err=err, parted=parted, full_ms=full_ms)
+
+
+def phase_serve_ema(torch, np, pt, gk, ghbm, dev, snap, n=16000):
+    """Phase 26: phase 25's step-20 snapshot served with ``serving.server.
+    main --ema``: one single-stream request (K1) and then, with
+    ``--batcher``, one pooled request (K4), each byte-equal to a solo
+    rollout of the EMA params that ``find_ema_state_dict`` takes from the
+    same file (which must differ from the live params). Launches are
+    counted around each request, the plain versions barred."""
+    from pytorch_wavenet_tpu_torch.ops.mulaw import dequantize_to_f32
+    from pytorch_wavenet_tpu_torch.serving import server as srv
+    from pytorch_wavenet_tpu_torch.training.optimizers import (
+        _leaves, find_ema_state_dict)
+
+    blob = pt.load_checkpoint(snap, device=dev)
+    cfg = blob["config"]
+    ema = pt.from_jax_params(find_ema_state_dict(blob["opt_state"]), dev)
+    check(any(not torch.equal(a, b) for (_, a), (_, b) in
+              zip(_leaves(ema), _leaves(blob["params"]))),
+          "the EMA equals the live params")
+    real = (gk.fused_plain, ghbm.batched_plain)
+    plain_calls = []
+
+    def barred(*args, **kwargs):
+        plain_calls.append(1)
+        raise RuntimeError("a plain version ran on the card path")
+
+    def serve(extra, seed, temp):
+        box, ready = {}, threading.Event()
+
+        def on_ready(server):
+            box["server"] = server
+            ready.set()
+
+        th = threading.Thread(target=srv.main, kwargs=dict(
+            argv=["--snapshot", snap, "--port", "0", "--ema", *extra],
+            on_ready=on_ready), daemon=True)
+        th.start()
+        t0 = time.time()
+        while not ready.wait(1):
+            check(th.is_alive() and time.time() - t0 < 600,
+                  "the --ema server did not come up")
+        server = box["server"]
+        base = f"http://127.0.0.1:{server.server_address[1]}"
+        try:
+            gk.launches = ghbm.launches = 0
+            url = (f"{base}/synthesize?num_samples={n}&temperature={temp}"
+                   f"&seed={seed}")
+            t = time.time()
+            with urllib.request.urlopen(url, timeout=600) as r:
+                body = r.read()
+            dt = time.time() - t
+            counts = (gk.launches, ghbm.launches)
+        finally:
+            server.shutdown()
+            th.join(120)
+        check(not th.is_alive(), "the --ema server thread did not stop")
+        return np.frombuffer(_read_wav(body, n), "<i2"), counts, dt
+
+    gk.fused_plain = ghbm.batched_plain = barred
+    try:
+        single, c1, dt1 = serve([], 21, 1.0)
+        pooled, c4, dt4 = serve(["--batcher", "--lanes", "256",
+                                 "--batch-chunk", "2048"], 22, 0.9)
+    finally:
+        gk.fused_plain, ghbm.batched_plain = real
+    check(not plain_calls, f"a plain version ran {len(plain_calls)} times")
+    chunks = math.ceil(n / 2048)
+    check(c1 == (chunks, 0), f"single stream: K1/K4 launches {c1}, expected "
+          f"{chunks} K1 (one per 2048-sample chunk)")
+    check(c4[0] == 0 and c4[1] >= chunks, f"--batcher: K1/K4 launches {c4}")
+    kseed = srv.Synthesizer.kernel_seed(21)
+
+    def pcm(wav):
+        w = np.asarray(wav)
+        check(np.isfinite(w).all(), "non-finite waveform")
+        return np.clip(w * 32767.0, -32768, 32767).astype("<i2")
+
+    wav, _ = pt.generate_fast_fused(ema, cfg, kseed, n, None, temperature=1.0,
+                                    fuse_res=True, device=dev)
+    check(np.array_equal(single, pcm(wav[0].cpu().numpy())),
+          "--ema single stream differs from a solo K1 rollout of the EMA")
+    wav_live, _ = pt.generate_fast_fused(blob["params"], cfg, kseed, n, None,
+                                         temperature=1.0, fuse_res=True,
+                                         device=dev)
+    check(not np.array_equal(single, pcm(wav_live[0].cpu().numpy())),
+          "--ema served the live params")
+    cls = _solo_cls(pt, ema, cfg, [[cfg.classes // 2]], n, 0.9, [22],
+                    dev)[0]
+    check(np.array_equal(pooled, pcm(dequantize_to_f32(cls, cfg.classes))),
+          "--ema --batcher differs from a solo K4 rollout of the EMA")
+    log(f"[serve --ema] phase 25's step-20 snapshot, EMA weights from "
+        f"find_ema_state_dict: one {n}-sample request single-stream (K1 "
+        f"launches {c1[0]}, K4 {c1[1]}; {dt1:.2f} s) and one through "
+        f"--batcher --lanes 256 --batch-chunk 2048 (K1 {c4[0]}, K4 {c4[1]}; "
+        f"{dt4:.2f} s), each byte-equal to its solo rollout of the EMA "
+        f"params and not to the live params'; plain calls 0")
+    return c1[0], c4[1]
+
+
+def phase_remainder_times(torch, pt, dev, card, reps=10):
+    """Times at chaconne_wide, batch 16, with CUDA events: the train step
+    under plain Adam, Adam with an EMA, ``sgd_normalized``, and phase 25's
+    stack per micro-step (``--accum-steps 2``: a mean over an even number
+    of steps, half of them accumulating only), each with its optimizer
+    part alone; then the training thread's stall in an async snapshot of
+    phase 25's state against a synchronous ``save_checkpoint`` (host
+    clock), and the worker's time to the file."""
+    from pytorch_wavenet_tpu_torch.training import optimizers as topt
+    from pytorch_wavenet_tpu_torch.utils.checkpoints import (
+        AsyncCheckpointer, save_checkpoint)
+
+    cfg = pt.get_config("chaconne_wide", trunk_kernel=True)
+    B = 16
+    g = torch.Generator().manual_seed(4)
+    x = torch.randint(0, cfg.classes, (B, cfg.item_length), generator=g)
+    y = torch.randint(0, cfg.classes, (B, cfg.output_length), generator=g)
+    x, y = x.to(dev, torch.int32), y.to(dev, torch.int32)
+    stacks = {
+        "adam": lambda: topt.reference_adam(1e-4),
+        "adam + EMA": lambda: topt.with_ema(topt.reference_adam(1e-4), 0.999),
+        "sgd_normalized momentum 0.9": lambda: topt.sgd_normalized(
+            1e-4, momentum=0.9),
+        "accum 2 (EMA, cosine Adam), per micro-step": lambda: topt.
+        build_optimizer("adam", 1e-3, schedule="cosine", warmup_steps=4,
+                        decay_steps=20, min_lr_ratio=0.1, ema_decay=0.999,
+                        accum_steps=2),
+    }
+    out = {}
+    for name, make in stacks.items():
+        params = pt.init_wavenet(cfg, torch.Generator().manual_seed(SEED),
+                                 dev)
+        for _, p in topt._leaves(params):
+            p.requires_grad_(True)
+        tx = make()
+        state = tx.init(params)
+        step = _time(torch, lambda: pt.train_step(params, state, cfg, tx, x,
+                                                  y), reps)
+        gtree = pt.train_step(params, state, cfg, tx, x, y)[1]
+        opt = _time(torch, lambda: tx.step(params, gtree, state), reps)
+        out[name] = dict(step_ms=sum(step) / reps, opt_ms=sum(opt) / reps,
+                         step_median_ms=sorted(step)[reps // 2])
+        log(f"[time] chaconne_wide batch 16 train step, {name}: mean "
+            f"{out[name]['step_ms']:.3f} ms of {reps} (median "
+            f"{out[name]['step_median_ms']:.3f}); its optimizer part alone "
+            f"mean {out[name]['opt_ms']:.3f} ms [{card}]")
+    # the snapshot stall: phase 25's stack after a few steps
+    stall, sync, worker = [], [], []
+    with tempfile.TemporaryDirectory() as d:
+        ck = AsyncCheckpointer()
+        for i in range(3):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            ck.save(d, "a", i, params, opt_state=state, cfg=cfg,
+                    state_dict=tx.state_dict)
+            stall.append(1e3 * (time.perf_counter() - t))
+            ck.wait()
+            worker.append(1e3 * (time.perf_counter() - t))
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            save_checkpoint(d, "s", i, params, cfg=cfg,
+                            opt_state=tx.state_dict(state))
+            sync.append(1e3 * (time.perf_counter() - t))
+        ck.close()
+        nbytes = os.path.getsize(os.path.join(d, sorted(os.listdir(d))[0]))
+    out["snapshot"] = dict(async_stall_ms=min(stall), sync_ms=min(sync),
+                           async_total_ms=min(worker), bytes=nbytes)
+    log(f"[time] snapshot of chaconne_wide with phase 25's optimizer state "
+        f"({nbytes} bytes): the training thread stalls {min(stall):.2f} ms "
+        f"in an async snapshot (device clones + event; min of 3: "
+        + ", ".join(f"{v:.2f}" for v in stall) + f"), the file lands "
+        f"{min(worker):.1f} ms after the call; a synchronous save_checkpoint "
+        f"takes {min(sync):.1f} ms (" + ", ".join(f"{v:.1f}" for v in sync)
+        + f"), host clock [{card}]")
+    return out
+
+
+def remainder(torch, np, pt, gk, ghbm, tk, dev, card, t_start):
+    """Phases 25 and 26 and their times."""
+    with tempfile.TemporaryDirectory() as keep:
+        rem = phase_training_remainder(torch, np, pt, tk, ghbm, dev, keep)
+        log(f"phase training remainder done at {time.time() - t_start:.0f} s")
+        hk = phase_hook_k4(torch, pt, ghbm, dev, card)
+        log(f"phase hook K4 done at {time.time() - t_start:.0f} s")
+        served = phase_serve_ema(torch, np, pt, gk, ghbm, dev,
+                                 rem["snapshot"])
+        log(f"phase serve --ema done at {time.time() - t_start:.0f} s")
+    rt = phase_remainder_times(torch, pt, dev, card)
+    log(f"phase remainder times done at {time.time() - t_start:.0f} s")
+    return rem, hk, served, rt
+
+
 def main():
     import numpy as np
     import torch
@@ -2720,6 +3204,10 @@ def main():
     dev = torch.device("cuda")
     card = phase_card(torch)
     phase_build()
+    if sys.argv[1:] == ["--remainder-only"]:
+        # a short call for work on phases 25-26 alone: no kernels line
+        remainder(torch, np, pt, gk, ghbm, tk, dev, card, t_start)
+        return 1
     phase_clusters(torch, pt, gk, ghbm, card)
     err, mismatches, near_ties = phase_kernel_vs_plain(torch, pt, gk, dev)
     log(f"phase kernel-vs-plain done at {time.time() - t_start:.0f} s")
@@ -2789,6 +3277,8 @@ def main():
     r_launched, r_served = phase_k4_serving(torch, np, pt, gk, ghbm, dev,
                                             bf16_rings=True)
     log(f"phase --bf16-rings serving done at {time.time() - t_start:.0f} s")
+    rem, hk, (e1_launched, e4_launched), rt = remainder(
+        torch, np, pt, gk, ghbm, tk, dev, card, t_start)
 
     kernels = [{
         "name": "gen_fused (K1, fuse_res)",
@@ -2949,6 +3439,75 @@ def main():
                            "vocoder_us_per_step"],
                        vocoder_f32_us_per_step=rings["bf16"][
                            "vocoder_f32_us_per_step"])
+    # this slice's main paths: the scheduled, accumulated, EMA-tracking
+    # run (phase 25: K2/K3 each micro-step, K4 in the audio hook) and
+    # serve --ema (phase 26: K1, then K4 through the batcher)
+    for name, src, line, launched, err, plain in (
+            ("trunk_fwd (K2, chaconne_wide, batch 16, out 1024, bf16 saves: "
+             "phase 25's scheduled --accum-steps 2 --ema-decay run)",
+             "trunk_fwd.cu", 621, rem["launches"][0], u_err,
+             tt["plain_fwd_ms"]),
+            ("trunk_bwd (K3, chaconne_wide, batch 16, out 1024, bf16 saves: "
+             "phase 25's scheduled --accum-steps 2 --ema-decay run)",
+             "trunk_bwd.cu", 729, rem["launches"][1], g_err,
+             tt["plain_bwd_ms"])):
+        key = name[name.index("(") + 1:name.index("(") + 3]
+        ms, b_ms, b_by = tt["k"][(key, "bf16")]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"pytorch_wavenet_tpu_torch/csrc/{src}",
+            "replaces": f"pytorch_wavenet_tpu/ops/pallas/trunk_kernel.py:{line}",
+            "launches": launched,
+            "max_abs_err": err,
+            "ms": ms,
+            "plain_ms": plain,
+            "bound_ms": b_ms,
+            "bound_by": b_by,
+            "library_ms": None,
+            "train_step_ms": {k: v["step_ms"] for k, v in rt.items()
+                              if "step_ms" in v},
+            "optimizer_ms": {k: v["opt_ms"] for k, v in rt.items()
+                             if "opt_ms" in v},
+        })
+    kernels[-1]["snapshot"] = rt["snapshot"]
+    kernels[-1]["data_layer_host_ms"] = rem["native"]
+    kernels.append({
+        "name": "gen_batched (K4, the audio hook: chaconne_wide, 2 lanes at "
+                "T 0.5 and 1.0, exact, 1024-step call)",
+        "route": "cuda",
+        "source": "pytorch_wavenet_tpu_torch/csrc/gen_kernel_hbm.cu",
+        "replaces": "pytorch_wavenet_tpu/ops/pallas/gen_kernel_hbm.py:1037",
+        "launches": rem["launches"][2],
+        "max_abs_err": hk["err"],
+        "ms": hk["ms"],
+        "plain_ms": hk["plain_ms"],
+        "bound_ms": hk["bound_ms"],
+        "bound_by": hk["bound_by"],
+        "library_ms": None,
+        "lanes_parted_at_near_ties": hk["parted"],
+        "hook_call_16000_steps_ms": hk["full_ms"],
+    })
+    for name, src, line, launched, err, t in (
+            ("gen_fused (K1, serve --ema, chaconne_wide, fuse_res)",
+             "gen_kernel.cu", "gen_kernel.py:558", e1_launched, kernels[0][
+                 "max_abs_err"], kernels[0]),
+            ("gen_batched (K4, serve --ema --batcher, 256 lanes, 2048-step "
+             "chunk)", "gen_kernel_hbm.cu", "gen_kernel_hbm.py:1037",
+             e4_launched, kernels[1]["max_abs_err"], kernels[1])):
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"pytorch_wavenet_tpu_torch/csrc/{src}",
+            "replaces": f"pytorch_wavenet_tpu/ops/pallas/{line}",
+            "launches": launched,
+            "max_abs_err": err,
+            "ms": t["ms"],
+            "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"],
+            "library_ms": None,
+        })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

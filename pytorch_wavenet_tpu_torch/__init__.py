@@ -8,8 +8,11 @@ through a hand-written CUDA kernel for the fused generation loop
 (``ops/cuda/gen_kernel.py``), and continuous-batching serving of many
 streams (``serving/batcher.py``) through a hand-written CUDA kernel for
 batched generation (``ops/cuda/gen_kernel_hbm.py``), and training
-(``training/``: the numpy data layer with the vocoder's mel features, the
-reference Adam, the trainer and its CLI) with the trunk through hand-written CUDA kernels for its forward
+(``training/``: the data layer with the vocoder's mel features and the
+native audio codec, the reference Adam with schedules, SGDNormalized, an
+EMA and gradient accumulation, the trainer with asynchronous snapshots,
+TensorBoard logging and the audio hook, and its CLI) with the trunk
+through hand-written CUDA kernels for its forward
 and backward (``ops/cuda/trunk_kernel.py``); the kernel sources are in
 ``csrc/``. Importing the package
 builds nothing and touches no device; kernels build with ``nvcc`` at first
@@ -51,15 +54,23 @@ from .ops.mulaw import (
     mu_law_expansion,
     quantize_data,
 )
-from .training.optimizers import reference_adam
+from .training.optimizers import (
+    MultiSteps,
+    lr_schedule,
+    reference_adam,
+    sgd_normalized,
+    with_ema,
+)
 from .training.trainer import (
     WaveNetTrainer,
     cross_entropy_loss,
     eval_step,
+    generate_audio,
     train_step,
 )
-from .utils.logging import Logger
+from .utils.logging import Logger, TensorboardLogger
 from .utils.checkpoints import (
+    AsyncCheckpointer,
     latest_checkpoint,
     load_checkpoint,
     load_latest_model_from,
@@ -77,8 +88,10 @@ __all__ = [
     "upsample_cond", "wavenet_logits",
     "FusedGenState", "generate_fast_fused",
     "HbmGenState", "generate_fast_batched", "ContinuousBatcher",
-    "fused_trunk", "reference_adam", "WaveNetTrainer", "cross_entropy_loss",
-    "eval_step", "train_step", "Logger",
+    "fused_trunk", "reference_adam", "lr_schedule", "sgd_normalized",
+    "with_ema", "MultiSteps", "WaveNetTrainer", "cross_entropy_loss",
+    "eval_step", "generate_audio", "train_step", "Logger",
+    "TensorboardLogger", "AsyncCheckpointer",
     "dequantize_data", "dequantize_to_f32", "mu_law_encoding",
     "mu_law_expansion", "quantize_data",
     "latest_checkpoint", "load_checkpoint", "load_latest_model_from",

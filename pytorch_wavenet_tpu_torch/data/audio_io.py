@@ -1,17 +1,21 @@
 """Audio file I/O on numpy: a copy of the JAX package's ``data/audio_io.py``
 (WAV and AIFF reading, mixdown, linear resampling, peak normalization,
-16-bit WAV writing). Compressed formats (mp3) are not read: convert them to
-WAV first.
+16-bit WAV writing). Compressed audio (mp3 and the rest) decodes through
+whichever backend exists: librosa, then soundfile, then an ``ffmpeg``
+subprocess; when none does, the error names every backend tried.
 """
 
 from __future__ import annotations
 
 import os
+import shutil
 import struct
+import subprocess
 import wave
+
 import numpy as np
 
-AUDIO_EXTENSIONS = (".wav", ".aif", ".aiff")
+AUDIO_EXTENSIONS = (".mp3", ".wav", ".aif", ".aiff")
 
 
 def list_all_audio_files(location: str) -> list[str]:
@@ -133,14 +137,54 @@ def load_audio(
     elif lower.endswith((".aif", ".aiff")):
         data, sr = _read_aiff(path)
     else:
-        raise ValueError(f"{path}: only WAV and AIFF files are read; "
-                         "convert compressed audio to WAV first")
+        return _decode_compressed(path, sampling_rate, mono)
     if mono and data.ndim == 2:
         data = data.mean(axis=1)
     else:
         data = data.reshape(-1)
     data = resample(data.astype(np.float32), sr, sampling_rate)
     return data, sampling_rate
+
+
+def _decode_compressed(path: str, sampling_rate: int,
+                       mono: bool) -> tuple[np.ndarray, int]:
+    """Decode mp3 or other compressed audio (the reference decodes with
+    librosa, audio_data.py:69-71): librosa, else soundfile, else ffmpeg
+    to mono f32 PCM at the target rate on stdout; the error names every
+    backend tried."""
+    tried = []
+    try:
+        import librosa  # type: ignore
+
+        y, sr = librosa.load(path, sr=sampling_rate, mono=mono)
+        return y.astype(np.float32), int(sr)
+    except ImportError:
+        tried.append("librosa (not installed)")
+    try:
+        import soundfile  # type: ignore
+
+        data, sr = soundfile.read(path, dtype="float32", always_2d=True)
+        data = data.mean(axis=1) if mono else data.reshape(-1)
+        return resample(data, sr, sampling_rate), sampling_rate
+    except ImportError:
+        tried.append("soundfile (not installed)")
+    if shutil.which("ffmpeg"):
+        cmd = ["ffmpeg", "-v", "error", "-i", path, "-f", "f32le",
+               "-acodec", "pcm_f32le", "-ar", str(sampling_rate)]
+        if mono:
+            cmd += ["-ac", "1"]
+        proc = subprocess.run(cmd + ["pipe:1"], capture_output=True,
+                              timeout=600)
+        if proc.returncode == 0 and proc.stdout:
+            y = np.frombuffer(proc.stdout, dtype="<f4").astype(np.float32)
+            return y, sampling_rate
+        tried.append(f"ffmpeg (exit {proc.returncode}: "
+                     f"{proc.stderr.decode(errors='replace')[:200].strip()})")
+    else:
+        tried.append("ffmpeg (not on PATH)")
+    raise ValueError(
+        f"cannot decode {path}; tried: {', '.join(tried)}. Install librosa "
+        "or soundfile, or put ffmpeg on PATH, or convert to wav/aiff.")
 
 
 def write_wav(path: str, x: np.ndarray, sr: int = 16000) -> None:

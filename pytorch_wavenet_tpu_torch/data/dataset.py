@@ -7,9 +7,11 @@ per-file uint8 class arrays on first use), the same index math
 split, train windows creep one byte per ``test_stride - 1`` items), the
 same ``.flat`` stream cache beside the npz, and the same batch order for a
 seed (``default_rng(seed).permutation``, ``skip_batches`` for resume).
-Windows are gathered with numpy; the JAX package's native C++ codec and
-gather are not ported (its numpy paths give the same windows, and its
-native quantizer may differ from the numpy one by one class, rarely).
+As in the JAX package, files are quantized and batches gathered by the
+native C++ codec (``data/native.py``, built with ``g++`` at first use),
+so both packages write the same ``dataset.npz`` from the same audio;
+without a compiler the numpy paths run (the same windows; the quantizer
+may differ by one class, rarely).
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 
 from ..ops.mulaw import quantize_data
+from . import native
 from .audio_io import list_all_audio_files, load_audio, normalize
 
 
@@ -62,6 +65,8 @@ class WaveNetDataset:
                              mono=self.mono)
         if self.normalize:
             data = normalize(data)
+        if self.dtype == np.uint8 and native.available():
+            return native.mu_law_quantize(data, self.classes)
         return quantize_data(data, self.classes).astype(self.dtype)
 
     def create_dataset(self, location: str, out_file: str,
@@ -123,11 +128,8 @@ class WaveNetDataset:
         targets of the items ``idxs``."""
         starts = np.asarray([self.sample_index(int(i)) for i in idxs],
                             np.int64)
-        cols = np.arange(self._item_length + 1, dtype=np.int64)
-        win = np.asarray(self.flat_stream[starts[:, None] + cols[None, :]],
-                         np.int32)
-        return (np.ascontiguousarray(win[:, :self._item_length]),
-                np.ascontiguousarray(win[:, -self.target_length:]))
+        return native.gather_windows(self.flat_stream, starts,
+                                     self._item_length, self.target_length)
 
     def __getitem__(self, idx: int) -> tuple[np.ndarray, np.ndarray]:
         """``(input (item_length,), target (target_length,))`` int64."""

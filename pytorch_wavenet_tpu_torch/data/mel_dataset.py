@@ -3,9 +3,9 @@
 
 Each batch of a :class:`WaveNetDataset` also carries the log-mel features
 of its (dequantized) input windows, the training input of the ``vocoder``
-preset. The window audio is decoded with the port's numpy mu-law codec
-(the JAX package decodes through its native C++ library where that is
-built; the two differ by a few f32 ulps, about 2e-7 of the waveform).
+preset. The window audio is decoded by the native codec
+(``data/native.py``), as in the JAX package; without a C++ compiler by the
+numpy codec (a few f32 ulps apart, about 2e-7 of the waveform).
 """
 
 from __future__ import annotations
@@ -13,7 +13,7 @@ from __future__ import annotations
 import numpy as np
 
 from ..ops.mel import log_mel_spectrogram, upsample_frames_np
-from ..ops.mulaw import dequantize_data
+from . import native
 from .dataset import WaveNetDataset
 
 
@@ -40,8 +40,7 @@ class MelWaveNetDataset(WaveNetDataset):
         (or rows ``(B, T, num_mels)`` without ``device_upsample``), the
         whole batch in one numpy pass."""
         T = x.shape[1]
-        wav = dequantize_data(x.astype(np.uint8), self.classes).astype(
-            np.float32)
+        wav = native.mu_law_dequantize(x.astype(np.uint8), self.classes)
         frames = log_mel_spectrogram(
             wav, num_mels=self.num_mels, n_fft=self.n_fft,
             hop_length=self.hop_length,

@@ -28,7 +28,10 @@ def from_jax_params(tree, device: str | torch.device = "cuda"):
 
 def to_numpy_params(params):
     """Port params -> the same dict of numpy arrays (host copies; numpy
-    leaves pass through)."""
+    leaves pass through, and None stays None: optax's empty optional
+    states, such as ``sgd_normalized`` without momentum)."""
+    if params is None:
+        return None
     if isinstance(params, dict):
         return {k: to_numpy_params(v) for k, v in params.items()}
     if isinstance(params, torch.Tensor):

@@ -15,6 +15,10 @@ The serving paths of the JAX package's ``scripts/serve.py``:
   ``--bf16-rings`` stores the pool's ring in bf16 (half its bytes; a
   response then equals its solo rollout with bf16 rings).
 
+``--ema`` serves the exponential moving average of the weights that a
+snapshot trained with ``--ema-decay`` carries in its optimizer state
+(written by either package), on either path.
+
 Endpoints
   GET  /health       -> JSON {status, backend, receptive_field,
                         parameter_count, classes, sample_rate}
@@ -43,6 +47,7 @@ ignored there: the pool's chunk rules).
 Run:
   python -m pytorch_wavenet_tpu_torch.serving.server --snapshot model.ckpt --port 8765
   python -m pytorch_wavenet_tpu_torch.serving.server --snapshot model.ckpt --batcher --lanes 256 --batch-chunk 2048
+  python -m pytorch_wavenet_tpu_torch.serving.server --snapshot model.ckpt --ema
   curl -sN 'localhost:8765/synthesize?num_samples=16000&temperature=0.9' > x.wav
   curl -s --data-binary @in.wav 'localhost:8765/vocode?seed=1' > out.wav
 """
@@ -66,11 +71,13 @@ import torch
 
 from ..data.audio_io import load_audio
 from ..device import resolve_device
+from ..models.convert import from_jax_params
 from ..models.generate import synthesize
 from ..models.wavenet import params_to
 from ..ops.cuda.gen_kernel import generate_fast_fused
 from ..ops.mel import log_mel_spectrogram
 from ..ops.mulaw import dequantize_to_f32, quantize_data
+from ..training.optimizers import find_ema_state_dict
 from ..utils.checkpoints import load_checkpoint, load_latest_model_from
 from .batcher import ContinuousBatcher, PoolOverloaded
 
@@ -439,6 +446,9 @@ def parse_args(argv=None):
     p.add_argument("--bf16-rings", action="store_true",
                    help="batcher: store the pool's ring state in bfloat16 "
                         "(half the ring's bytes)")
+    p.add_argument("--ema", action="store_true",
+                   help="serve the snapshot's EMA weights "
+                        "(training.train --ema-decay)")
     return p.parse_args(argv)
 
 
@@ -454,6 +464,14 @@ def main(argv=None, on_ready=None):
     if blob["config"] is None:
         raise SystemExit("the checkpoint carries no config")
     cfg = blob["config"]
+    params = blob["params"]
+    if args.ema:
+        ema = find_ema_state_dict(blob["opt_state"])
+        if ema is None:
+            raise SystemExit("--ema: this snapshot carries no EMA weights "
+                             "(train with --ema-decay)")
+        params = from_jax_params(ema, args.device)
+        print("serving EMA weights")
     batcher_opts = None
     if args.batcher:
         batcher_opts = dict(lanes=args.lanes, chunk=args.batch_chunk,
@@ -470,7 +488,7 @@ def main(argv=None, on_ready=None):
                 torch.bfloat16 if args.cond_wire == "bf16" else torch.float32)
         if args.bf16_rings:
             batcher_opts["ring_dtype"] = torch.bfloat16
-    synth = Synthesizer(blob["params"], cfg, args.sr, args.device,
+    synth = Synthesizer(params, cfg, args.sr, args.device,
                         batcher_opts=batcher_opts)
     # build the kernel and load it on the card before the first request
     next(synth.stream(1, 1.0, 0, 1))

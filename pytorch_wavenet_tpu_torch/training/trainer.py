@@ -15,15 +15,25 @@ MelWaveNetDataset`: mel frames, expanded to per-sample rows inside the
 step (:func:`_expand_cond`) through the learnable upsampler when the
 config has one, so its weights train with the rest.
 
+The optimizer is any transform of ``training/optimizers.py`` (Adam with a
+schedule, ``sgd_normalized``, an EMA, ``MultiSteps`` accumulation):
+``step`` counts micro-steps, as the JAX trainer does. Snapshots go through
+an :class:`~pytorch_wavenet_tpu_torch.utils.checkpoints.AsyncCheckpointer`
+(cloned on the device, written by a worker thread); ``train`` waits for the
+last one before it returns. The last step's gradients are kept for the
+logger's histograms (:meth:`WaveNetTrainer.named_gradients`), and
+:func:`generate_audio` is the audio hook's rollout (K4 on the card).
+
 Batches travel to the card through pinned memory without blocking the
-host; the loss stays on the card until the logger reads it. The JAX
-package's ``generate_audio`` and mesh mode are not ported.
+host; the loss stays on the card until the logger reads it. The trainer
+runs on one card (the JAX package's mesh mode has no counterpart here).
 """
 
 from __future__ import annotations
 
 import time
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -31,9 +41,10 @@ from ..config import WaveNetConfig
 from ..data.dataset import BatchIterator, PrefetchBatchIterator, WaveNetDataset
 from ..device import resolve_device
 from ..models.wavenet import upsample_cond, wavenet_logits
+from ..ops.cuda.gen_kernel_hbm import generate_fast_batched
 from ..utils import checkpoints
 from ..utils.logging import Logger
-from .optimizers import ReferenceAdam, _leaves, _map, reference_adam
+from .optimizers import _leaves, _map, reference_adam
 
 # steps between waits for the card: bounds how far the host runs ahead
 _SYNC_EVERY = 25
@@ -69,7 +80,7 @@ def cross_entropy_loss(params, cfg: WaveNetConfig, x: torch.Tensor,
 
 
 def train_step(params, opt_state: dict, cfg: WaveNetConfig,
-               tx: ReferenceAdam, x: torch.Tensor, target: torch.Tensor,
+               tx, x: torch.Tensor, target: torch.Tensor,
                cond=None, cond_hop: int | None = None):
     """One optimization step; updates ``params`` and ``opt_state`` in
     place and returns ``(loss, grads)``. ``params`` leaves require grad."""
@@ -101,7 +112,7 @@ class WaveNetTrainer:
     """The reference-shaped trainer on ``device`` (default ``"cuda"``)."""
 
     def __init__(self, cfg: WaveNetConfig, params, dataset: WaveNetDataset,
-                 optimizer: ReferenceAdam | None = None, lr: float = 0.001,
+                 optimizer=None, lr: float = 0.001,
                  weight_decay: float = 0.0,
                  gradient_clipping: float | None = None,
                  logger: Logger | None = None,
@@ -129,6 +140,8 @@ class WaveNetTrainer:
         self.num_workers = num_workers
         self.step = 0
         self.avg_step_time = None
+        self._last_grads = None
+        self._ckpt = checkpoints.AsyncCheckpointer()
         # frame-rate conditioning (MelWaveNetDataset.device_upsample): the
         # step expands it on the device with this hop
         self._cond_hop = (getattr(dataset, "hop_length", None)
@@ -166,10 +179,10 @@ class WaveNetTrainer:
                   else BatchIterator(self.dataset, batch_size, **kw))
             for batch in it:
                 cond = self._put(batch[2]) if len(batch) > 2 else None
-                loss, _ = train_step(self.params, self.opt_state, self.cfg,
-                                     self.tx, self._put(batch[0]),
-                                     self._put(batch[1]), cond,
-                                     self._cond_hop)
+                loss, self._last_grads = train_step(
+                    self.params, self.opt_state, self.cfg, self.tx,
+                    self._put(batch[0]), self._put(batch[1]), cond,
+                    self._cond_hop)
                 self.step += 1
                 if (self.device.type == "cuda"
                         and self.step % _SYNC_EVERY == 0):
@@ -189,13 +202,23 @@ class WaveNetTrainer:
                     self.snapshot()
                 self.logger.log(self.step, loss)
                 if max_steps is not None and self.step >= max_steps:
+                    self._ckpt.wait()
                     return
+        self._ckpt.wait()
 
-    def snapshot(self) -> str:
-        """Write params, optimizer state (optax's layout) and step."""
-        return checkpoints.save_checkpoint(
-            self.snapshot_path, self.snapshot_name, self.step, self.params,
-            cfg=self.cfg, opt_state=self.tx.state_dict(self.opt_state))
+    def snapshot(self, wait: bool = False) -> str:
+        """Checkpoint params, optimizer state (optax's layout) and step as
+        they are now: cloned on the device here, copied to the host and
+        written on the checkpointer's thread. ``wait``: block until the
+        file is on disk. Returns the path."""
+        path = checkpoints.checkpoint_path(self.snapshot_path,
+                                           self.snapshot_name, self.step)
+        self._ckpt.save(self.snapshot_path, self.snapshot_name, self.step,
+                        self.params, opt_state=self.opt_state, cfg=self.cfg,
+                        state_dict=self.tx.state_dict)
+        if wait:
+            self._ckpt.wait()
+        return path
 
     def resume(self, location: str | None = None) -> int:
         """Load the newest snapshot (params, optimizer state, step) from
@@ -234,3 +257,34 @@ class WaveNetTrainer:
         finally:
             self.dataset.train = was_train
         return avg_loss, avg_accuracy
+
+    # ------------------------------------------------------- observability
+
+    def named_parameters(self) -> list:
+        """``("layers/w_in", tensor), ...`` in the JAX package's order."""
+        return [("/".join(path), p) for path, p in _leaves(self.params)]
+
+    def named_gradients(self) -> list:
+        """The last step's gradients, named as :meth:`named_parameters`;
+        empty before the first step."""
+        if self._last_grads is None:
+            return []
+        return [("/".join(path), g) for path, g in _leaves(self._last_grads)]
+
+
+def generate_audio(params, cfg: WaveNetConfig, length: int = 8000,
+                   temperatures=(0.0, 1.0), seed: int = 0,
+                   device: str | torch.device = "cuda") -> np.ndarray:
+    """One clip per temperature, ``(len(temperatures), length)`` f32, the
+    JAX package's ``generate_audio``: all temperatures share one batched
+    rollout (one lane each, the first input ``classes // 2``, the noise
+    keyed by ``seed``), K4 on the card and its plain version on the CPU.
+    At temperature 0 the classes are the JAX function's (near-ties of the
+    logits aside); above 0 the noise differs (the JAX function draws from
+    ``jax.random``)."""
+    temps = torch.tensor([float(t) for t in temperatures],
+                         dtype=torch.float32)
+    first = np.full((len(temps), 1), cfg.classes // 2, np.int32)
+    wav, _ = generate_fast_batched(params, cfg, int(seed), length, first,
+                                   temperature=temps, device=device)
+    return wav.cpu().numpy()

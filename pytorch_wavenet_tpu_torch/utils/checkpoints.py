@@ -12,10 +12,15 @@ none; a loaded blob hands it back as nested numpy, which the JAX package
 reads with ``load_checkpoint(path, opt_state_template=tx.init(params))``
 and the port's optimizer with ``load_state_dict``. Sharded checkpoint
 directories (``.ckpt.sharded``) are not read.
+
+:class:`AsyncCheckpointer` keeps the copy to the host, the encoding and the
+write off the training thread (the JAX package's ``AsyncCheckpointer``).
 """
 
 from __future__ import annotations
 
+import concurrent.futures
+import contextlib
 import os
 import time
 
@@ -111,3 +116,87 @@ def load_latest_model_from(location: str,
         raise FileNotFoundError(f"no checkpoints under {location}")
     print("load model " + path)
     return load_checkpoint(path, device)
+
+
+def _clone(tree):
+    """A copy of a nested dict whose tensors are cloned where they lie (on
+    the card: a device-to-device copy queued on the current stream)."""
+    if isinstance(tree, dict):
+        return {k: _clone(v) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().clone()
+    return tree
+
+
+class AsyncCheckpointer:
+    """One worker thread writes checkpoints; one save is in flight at a time
+    (a newer save first waits for the previous one: bounded memory, ordered
+    files).
+
+    The port's train step updates the params and the optimizer state in
+    place, so :meth:`save` first clones both on the device, on the caller's
+    stream, and records a CUDA event after the clones: that copy plays the
+    part of the JAX package's copy against buffer donation. The worker
+    waits on the event, then copies the clones to the host on a stream of
+    its own (so the copy does not queue behind the next steps' kernels),
+    turns the optimizer state into optax's layout with ``state_dict`` and
+    writes the file atomically. The file holds the values from the moment
+    of the save, whatever steps run meanwhile."""
+
+    def __init__(self):
+        self._ex = concurrent.futures.ThreadPoolExecutor(
+            max_workers=1, thread_name_prefix="ckpt")
+        self._pending: concurrent.futures.Future | None = None
+        self._stream = None  # the worker's copy stream on the card
+
+    def save(self, directory: str, name: str, step: int, params,
+             opt_state=None, cfg: WaveNetConfig | None = None,
+             extra: dict | None = None, state_dict=None
+             ) -> concurrent.futures.Future:
+        """Queue a checkpoint of ``params`` and ``opt_state`` as they are
+        now. ``state_dict``: turns the (cloned) optimizer state into optax's
+        layout on the worker (an optimizer's ``state_dict``); without it
+        ``opt_state`` is written as given. Returns the future of the path."""
+        self.wait()
+        params_c, opt_c = _clone(params), _clone(opt_state)
+        dev = next((t.device for t in _tensors(params_c)), None)
+        event = None
+        if dev is not None and dev.type == "cuda":
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(dev))
+
+        def write():
+            ctx = contextlib.nullcontext()
+            if event is not None:
+                event.synchronize()
+                if self._stream is None:
+                    self._stream = torch.cuda.Stream(dev)
+                ctx = torch.cuda.stream(self._stream)
+            with ctx:
+                opt = (state_dict(opt_c) if state_dict and opt_c is not None
+                       else opt_c)
+                return save_checkpoint(directory, name, step, params_c,
+                                       cfg=cfg, extra=extra, opt_state=opt)
+
+        self._pending = self._ex.submit(write)
+        return self._pending
+
+    def wait(self) -> str | None:
+        """Block until the in-flight save (if any) is on disk; returns its
+        path (and raises what the worker raised)."""
+        if self._pending is None:
+            return None
+        fut, self._pending = self._pending, None
+        return fut.result()
+
+    def close(self):
+        self.wait()
+        self._ex.shutdown(wait=True)
+
+
+def _tensors(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
+    elif isinstance(tree, torch.Tensor):
+        yield tree

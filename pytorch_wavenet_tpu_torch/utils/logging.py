@@ -6,13 +6,28 @@ the ``trainer`` back-reference, which the trainer sets) and an audio
 callback every ``generate_interval`` on a daemon thread, skipped while the
 previous one still runs. The loss may be a device scalar: it is read on the
 host only at the log cadence, so the loop does not wait for the card every
-step. ``TensorboardLogger`` is not ported.
+step.
+
+:class:`TensorboardLogger` (the JAX package's) writes TensorBoard event
+files through the port's dependency-free writer (``utils/tensorboard.py``):
+the loss scalar and the parameter and gradient histograms at the log
+cadence, the validation scalars at the validation cadence, and the audio
+clips that the generate callback passes to :meth:`audio_summary`.
 """
 
 from __future__ import annotations
 
 import threading
 from typing import Callable
+
+import numpy as np
+import torch
+
+
+def _host(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.detach().to(torch.float32).cpu().numpy()
+    return np.asarray(x)
 
 
 class Logger:
@@ -57,3 +72,78 @@ class Logger:
         self.generate_thread = threading.Thread(
             target=self.generate_function, args=[current_step], daemon=True)
         self.generate_thread.start()
+
+
+class TensorboardLogger(Logger):
+    """Scalars, per-parameter and per-gradient histograms and audio clips
+    in a TensorBoard event file under ``log_dir`` (reference:
+    model_logging.py:62-163). Writes come from the training thread and from
+    the generate callback's thread, so they take a lock."""
+
+    def __init__(self, log_interval: int = 50, validation_interval: int = 200,
+                 generate_interval: int = 500, trainer=None,
+                 generate_function: Callable | None = None,
+                 log_dir: str = "logs", log_histograms: bool = True):
+        super().__init__(log_interval, validation_interval, generate_interval,
+                         trainer, generate_function)
+        from .tensorboard import SummaryWriter
+
+        self.writer = SummaryWriter(log_dir)
+        self.log_histograms = log_histograms
+        self._lock = threading.Lock()
+
+    def log_loss(self, current_step: int):
+        avg_loss = float(self.accumulated_loss) / self.log_interval
+        self.scalar_summary("loss", avg_loss, current_step)
+        if self.log_histograms and self.trainer is not None:
+            # (reference: model_logging.py:79-83)
+            for tag, value in self.trainer.named_parameters():
+                self.histo_summary(tag.replace(".", "/"), _host(value),
+                                   current_step)
+            for tag, grad in self.trainer.named_gradients():
+                self.histo_summary(tag.replace(".", "/") + "/grad",
+                                   _host(grad), current_step)
+
+    def validate(self, current_step: int):
+        if self.trainer is None:
+            return
+        avg_loss, avg_accuracy = self.trainer.validate()
+        self.scalar_summary("validation loss", avg_loss, current_step)
+        self.scalar_summary("validation accuracy", avg_accuracy, current_step)
+
+    def log_audio(self, step: int):
+        """Run the generate callback here (not on a thread) and write what
+        it returns as audio (reference: model_logging.py:90-93)."""
+        if self.generate_function is None:
+            return
+        samples = self.generate_function(step)
+        if samples is not None:
+            self.audio_summary("audio sample", samples, step, sr=16000)
+
+    def scalar_summary(self, tag, value, step):
+        with self._lock:
+            self.writer.add_scalar(tag, value, step)
+
+    def histo_summary(self, tag, values, step, bins=200):
+        with self._lock:
+            self.writer.add_histogram(tag, values, step, bins=bins)
+
+    def image_summary(self, tag, images, step):
+        with self._lock:
+            for i, img in enumerate(images):
+                self.writer.add_image(f"{tag}/{i}", img, step)
+
+    def audio_summary(self, tag, samples, step, sr=16000):
+        samples = np.atleast_2d(_host(samples))
+        with self._lock:
+            for i, clip in enumerate(samples):
+                self.writer.add_audio(f"{tag}/{i}", clip, step,
+                                      sample_rate=sr)
+
+    def flush(self):
+        with self._lock:
+            self.writer.flush()
+
+    def close(self):
+        with self._lock:
+            self.writer.close()

@@ -1084,3 +1084,91 @@ def test_k4_ring_launcher_checks_on_card(card):
                                                   dtype=torch.int8,
                                                   device=card), 0, 2, *args)
     assert ghbm.launches == before
+
+
+# ------------------------------------------------- the training remainder
+
+
+@pytest.mark.gpu
+def test_generate_audio_on_card_matches_plain(card):
+    """The audio hook's rollout: K4 on the card (one launch, one lane per
+    temperature) against its plain version on the CPU, greedy lanes class
+    for class up to a near-tie of the plain version's logits."""
+    from pytorch_wavenet_tpu_torch.training.trainer import generate_audio
+
+    cfg = pt.get_config("test_small")
+    params = pt.init_wavenet(cfg, torch.Generator().manual_seed(3), "cpu")
+    before = ghbm.launches
+    got = generate_audio(pt.from_jax_params(pt.to_numpy_params(params), card),
+                         cfg, length=300, temperatures=(0.0, 0.0, 1.0),
+                         seed=4, device=card)
+    assert ghbm.launches == before + 1
+    ref = generate_audio(params, cfg, length=300, temperatures=(0.0, 0.0, 1.0),
+                         seed=4, device="cpu")
+    assert got.shape == ref.shape == (3, 300)
+    # the classes behind the clips (the card's and the CPU's dequantizers
+    # may differ by an f32 ulp)
+    levels = np.asarray(pt.dequantize_to_f32(np.arange(cfg.classes),
+                                             cfg.classes))
+    gc, rc = (np.abs(w[..., None] - levels).argmin(-1) for w in (got, ref))
+    np.testing.assert_allclose(got, levels[gc], atol=1e-6)
+    for lane in range(2):
+        diff = np.nonzero(gc[lane] != rc[lane])[0]
+        t = int(diff[0]) if diff.size else 300
+        if t < 300:  # the first difference must be a near-tie
+            prefix = np.concatenate([[cfg.classes // 2], rc[lane, :t]])[None]
+            logits = pt.wavenet_logits(params, cfg, torch.from_numpy(prefix),
+                                       1)[0, -1].to(torch.float64)
+            top = torch.topk(logits, 2).values
+            assert float(top[0] - top[1]) < 1e-4, (lane, t)
+        assert t > 0
+        np.testing.assert_allclose(got[lane, :t], ref[lane, :t], atol=1e-6)
+
+
+@pytest.mark.gpu
+def test_async_checkpointer_on_card(card, tmp_path):
+    """Steps that update the params and the optimizer state in place on the
+    card, queued between the save and the worker's copy, do not reach the
+    file."""
+    from pytorch_wavenet_tpu_torch.training import optimizers as topt
+    from pytorch_wavenet_tpu_torch.utils.checkpoints import AsyncCheckpointer
+
+    cfg = pt.get_config("test_small")
+    params = pt.init_wavenet(cfg, torch.Generator().manual_seed(0), card)
+    tx = topt.MultiSteps(topt.with_ema(topt.reference_adam(1e-3), 0.9), 2)
+    state = tx.init(params)
+    grads = topt._map(lambda p: torch.full_like(p, 0.5), params)
+    tx.step(params, grads, state)  # mini_step 1, a half-filled mean
+    want_p = pt.to_numpy_params(params)
+    want_s = tx.state_dict(state)
+    ck = AsyncCheckpointer()
+    ck.save(str(tmp_path), "m", 1, params, opt_state=state, cfg=cfg,
+            state_dict=tx.state_dict)
+    for _ in range(6):  # in place, on the training stream
+        tx.step(params, grads, state)
+    path = ck.wait()
+    ck.close()
+    blob = pt.load_checkpoint(path, device="cpu")
+    for (_, a), (_, b) in zip(topt._leaves(blob["params"]),
+                              topt._leaves(want_p)):
+        np.testing.assert_array_equal(a.numpy(), b)
+    for (pa, a), (_, b) in zip(topt._leaves(blob["opt_state"]),
+                               topt._leaves(want_s)):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b),
+                                      err_msg=str(pa))
+    assert int(blob["opt_state"]["mini_step"]) == 1
+    assert int(blob["opt_state"]["gradient_step"]) == 0
+    assert state["gradient_step"] == 3  # 7 micro-steps of k = 2
+
+
+@pytest.mark.gpu
+def test_native_codec_loads_on_card_machine(card):
+    from pytorch_wavenet_tpu_torch.data import native
+
+    from pytorch_wavenet_tpu_torch.ops.mulaw import quantize_data
+
+    assert native.available() and native.get_lib().native_abi_version() == 1
+    x = np.linspace(-1, 1, 1001, dtype=np.float32)
+    q = native.mu_law_quantize(x, 256)
+    assert q.dtype == np.uint8 and np.all(np.diff(q.astype(int)) >= 0)
+    assert np.abs(q.astype(int) - quantize_data(x, 256)).max() <= 1

@@ -14,6 +14,8 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for name in names:
     importlib.import_module(name)
 assert "pytorch_wavenet_tpu_torch.data.mel_dataset" in names
+for new in ("data.native", "utils.tensorboard"):
+    assert "pytorch_wavenet_tpu_torch." + new in names
 banned = [m for m in sys.modules
           if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "msgpack",
                                  "pytorch_wavenet_tpu")]
@@ -75,17 +77,28 @@ import pytorch_wavenet_tpu_torch.training.optimizers
 import pytorch_wavenet_tpu_torch.training.train as cli
 import pytorch_wavenet_tpu_torch.training.trainer as tr
 import pytorch_wavenet_tpu_torch.utils.logging as lg
+import pytorch_wavenet_tpu_torch.data.native as nat
+import pytorch_wavenet_tpu_torch.serving.server as srv
+import pytorch_wavenet_tpu_torch.training.optimizers as opt
+import pytorch_wavenet_tpu_torch.utils.checkpoints as ck
+import pytorch_wavenet_tpu_torch.utils.tensorboard as tb
 from pytorch_wavenet_tpu_torch.ops.cuda import build
 assert tk.fwd_launches == 0 and tk.bwd_launches == 0 and not build._libs
 assert tr.WaveNetTrainer and ds.WaveNetDataset and lg.Logger and cli.main
+assert tr.generate_audio and lg.TensorboardLogger and ck.AsyncCheckpointer
+assert opt.MultiSteps and opt.with_ema and opt.sgd_normalized and tb.read_events
+assert srv.find_ema_state_dict is opt.find_ema_state_dict
+assert nat._lib is None and not nat._tried  # importing builds nothing
 print("ok")
 """
 
 
 def test_training_path_imports_with_jax_blocked():
-    """The training modules (data layer, trunk kernels' module, optimizer,
-    trainer, CLI, logger) import with every import of JAX or of the JAX
-    package made to fail, and build nothing."""
+    """The training modules (data layer with the native codec's bindings,
+    trunk kernels' module, optimizers, trainer, CLI, loggers with the
+    TensorBoard writer, the asynchronous checkpointer, the server with
+    ``--ema``) import with every import of JAX or of the JAX package made
+    to fail, and build nothing."""
     out = subprocess.run([sys.executable, "-c", _BLOCKED_TRAINING], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
