@@ -155,9 +155,41 @@ Phases (any failure stops the run with a nonzero exit):
      ``sgd_normalized`` and phase 25's stack per micro-step, each with its
      optimizer part alone, and the training thread's stall in an async
      snapshot against a synchronous ``save_checkpoint``.
+ 27. speculation at full width: the chaconne teacher from seed 1234;
+     ``gen_step_window`` over windows of 1, 8 and 20 against as many
+     chained ``gen_step`` calls (logits within 1e-5 x max(1, |y|); after
+     ``commit_window`` each ring slot holds its last pending input
+     bitwise, the steps' rings within 1e-5 x max(1, |h|) with the values
+     that differ counted, and the draft's recorded steps committed equal
+     the steps bitwise); ``speculative_generate`` for 2048 samples after a
+     512-class prime at k = 4 and 8 with the teacher as its own draft
+     (accept rate exactly k) and a one-block draft (chaconne, blocks=1:
+     the teacher's first block under its embedding and head),
+     every class the teacher's argmax on its history off near-ties and
+     the rollouts equal to the plain ``generate_fast(T=0)`` and to K1 at
+     T = 0 up to a first difference at a near-tie (counted); samples/s,
+     accept rate and host syncs a sample beside K1's samples/s;
+ 28. distillation (the main path of this slice): K2 against its plain
+     version at N 4, out 931 (chaconne, and the vocoder with cond), timed
+     beside its bound; the distillation loss with the teacher through K2
+     against the plain trunk within 1e-5 relative; ``distill_cli.main``
+     for 10 steps on phase 25's chaconne_wide step-20 snapshot with
+     ``--data-dir`` (the example audio), the default student, batch 4,
+     length 4000, K2/K3 launches counted around exactly this run (10 and
+     0) with the plain trunk barred; a run resumed from the step-5
+     snapshot ends at the step-10 params bitwise; 3 steps on a vocoder
+     teacher from seed 1234 (K2's COND instantiation, 3 launches); each
+     step's split (the student's draw, the teacher, the loss and its
+     backward, the optimizer);
+ 29. the student served: ``serving.server.main --student-snapshot`` on
+     phase 28's students, ``/synthesize`` of 16000 samples byte-equal to
+     ``student_generate`` with the request's seed, ``/vocode`` of
+     ``examples/generated_t1.0.wav`` on the conditioned student byte-equal
+     to ``student_synthesize``; request times.
 
-``python3 chip_smoke.py --remainder-only`` runs phases 1, 2, 25 and 26 only
-and exits 1 without a result (a short call while working on them).
+``python3 chip_smoke.py --remainder-only`` runs phases 1, 2, 25 and 26 only,
+and ``--distill-only`` phases 1, 2, 25 (the teacher) and 27-29; both exit
+1 without a result (short calls while working on them).
 
 The line before the last is one JSON object listing the kernels; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -3171,16 +3203,581 @@ def phase_remainder_times(torch, pt, dev, card, reps=10):
     return out
 
 
-def remainder(torch, np, pt, gk, ghbm, tk, dev, card, t_start):
-    """Phases 25 and 26 and their times."""
-    with tempfile.TemporaryDirectory() as keep:
-        rem = phase_training_remainder(torch, np, pt, tk, ghbm, dev, keep)
-        log(f"phase training remainder done at {time.time() - t_start:.0f} s")
-        hk = phase_hook_k4(torch, pt, ghbm, dev, card)
-        log(f"phase hook K4 done at {time.time() - t_start:.0f} s")
-        served = phase_serve_ema(torch, np, pt, gk, ghbm, dev,
-                                 rem["snapshot"])
-        log(f"phase serve --ema done at {time.time() - t_start:.0f} s")
+# ------------------------------------------ speculation and distillation
+
+SPEC_N = 2048           # phase 27's rollout length
+SPEC_PRIME = 512        # its prime (random classes, window-primed)
+DISTILL_LENGTH = 4000   # the distillation CLI's draw length and batch
+DISTILL_BATCH = 4
+STUDENT_BUCKET = 8192   # the server's student clip bucket
+
+
+def _clone_state(pt, state):
+    return pt.GenState(tuple(b.clone() for b in state.buffers), state.t)
+
+
+def _spec_gaps(torch, pt, params, cfg, prime, cls):
+    """The teacher's top-2 logit gaps and argmax at every emitted position,
+    teacher-forced on the emitted history (one plain trunk pass)."""
+    full = torch.cat([prime, cls[:, :-1]], dim=1)
+    with torch.no_grad():
+        logits = pt.wavenet_logits(params, cfg, full, out_len=cls.shape[1])
+    top = torch.topk(logits[0], 2, dim=-1).values
+    return (top[:, 0] - top[:, 1]).cpu(), logits[0].argmax(-1).cpu()
+
+
+def _held_off_near_ties(got, want, gaps, tag):
+    """Classes equal up to the first difference, which must sit at a
+    near-tie of the teacher (the rollouts part there); 1 if they parted."""
+    off = (got[0].cpu() != want[0].cpu()).nonzero()
+    if off.numel() == 0:
+        return 0
+    i = int(off[0])
+    check(float(gaps[i]) < NEAR_TIE, f"{tag}: class {i} differs at a top-2 "
+          f"gap of {float(gaps[i]):.3g} (not a near-tie)")
+    return 1
+
+
+def phase_window(torch, np, pt, dev, cfg, params):
+    """Phase 27a: ``gen_step_window`` over windows of 1, 8 and 20 against
+    as many chained ``gen_step`` calls on the card from a state with 300
+    steps of history: logits within 1e-5 x max(1, |y|); the rings after
+    ``commit_window`` hold each slot's last pending input bitwise (a
+    dilation-1 ring takes ten of a window of 20), and the steps' rings
+    within 1e-5 x max(1, |h|) (the window's ``(k, R)`` products round
+    unlike a step's ``(1, R)`` ones; the elements that differ are
+    counted); the draft's bookkeeping (each step's layer inputs recorded,
+    then committed) equals the chained steps bitwise."""
+    from pytorch_wavenet_tpu_torch.models.generate import PendingWindow
+
+    rng = np.random.default_rng(SEED + 27)
+    state = pt.init_gen_state(cfg, 1, dev)
+    with torch.no_grad():
+        for c in rng.integers(0, cfg.classes, 300):
+            _, state = pt.gen_step(params, cfg, state,
+                                   torch.tensor([int(c)], device=dev))
+        out = {}
+        for win in (1, 8, 20):
+            window = torch.from_numpy(rng.integers(0, cfg.classes,
+                                                   (1, win))).to(dev)
+            logits, pend = pt.gen_step_window(params, cfg, state, window)
+            seq, steps, recs = [], _clone_state(pt, state), []
+            for i in range(win):
+                rec = []
+                lg, steps = pt.gen_step(params, cfg, steps, window[:, i],
+                                        record=rec)
+                seq.append(lg)
+                recs.append(rec)
+            seq = torch.stack(seq, dim=1)
+            err = float(((logits - seq).abs() / seq.abs().clamp(min=1.0))
+                        .max())
+            check(err <= 1e-5, f"window {win}: logits {err:.3g} x max(1, |y|)")
+            got = pt.commit_window(_clone_state(pt, state), pend, win)
+            want = _clone_state(pt, state)
+            for buf, h in zip(want.buffers, pend.h_wins):
+                for i in range(win):  # ascending writes: the last one wins
+                    buf[:, (state.t + i) % buf.shape[1]] = h[:, i]
+            check(got.t == steps.t == state.t + win, "window cursor")
+            check(all(torch.equal(a, b) for a, b in
+                      zip(got.buffers, want.buffers)),
+                  f"window {win}: commit_window is not the last write")
+            ring_err, ring_off = 0.0, 0
+            for a, b in zip(got.buffers, steps.buffers):
+                d = (a - b).abs() / b.abs().clamp(min=1.0)
+                ring_err = max(ring_err, float(d.max()))
+                ring_off += int((a != b).sum())
+            check(ring_err <= 1e-5, f"window {win}: rings {ring_err:.3g}")
+            h = tuple(torch.stack([r[l] for r in recs], dim=1)
+                      for l in range(cfg.num_layers))
+            drafted = pt.commit_window(_clone_state(pt, state),
+                                       PendingWindow(h, state.t), win)
+            check(all(torch.equal(a, b) for a, b in
+                      zip(drafted.buffers, steps.buffers)),
+                  f"window {win}: recorded steps committed differ")
+            out[win] = dict(logit_err=err, ring_err=ring_err,
+                            ring_values_off=ring_off,
+                            ring_values=sum(b.numel() for b in got.buffers))
+            log(f"[window] chaconne, window {win} on the card against {win} "
+                f"chained gen_step calls: logits within {err:.3g} x max(1, "
+                f"|y|); commit_window leaves each slot's last pending input "
+                f"(bitwise); rings within {ring_err:.3g} x max(1, |h|) of "
+                f"the steps' ({ring_off} of {out[win]['ring_values']} "
+                f"values differ: the window's products); recorded steps "
+                f"committed equal the steps' rings bitwise")
+    return out
+
+
+def phase_speculation(torch, np, pt, gk, dev, card, n=SPEC_N):
+    """Phase 27, speculation at full width: the chaconne teacher from seed
+    1234 (``phase_window`` first), then ``speculative_generate`` for ``n``
+    samples after a 512-class prime at k = 4 and 8 with two drafts (the
+    teacher itself, whose accept rate must be exactly k, and chaconne with
+    ``blocks=1``, rf 1024: the teacher's first block of layers under its
+    embedding and head, a truncated teacher), held against the plain
+    ``generate_fast(temperature=0)`` on the card and K1 at T = 0 (exact
+    products): every class the teacher's argmax on the emitted history off
+    near-ties, and the rollouts equal up to a first difference at a
+    near-tie (the flips are counted). Times on the host clock after a
+    synchronize: samples/s, accept rate, host syncs per sample; K1's
+    samples/s on the same teacher beside them."""
+    from pytorch_wavenet_tpu_torch.models import speculative as spec
+
+    cfg = pt.get_config("chaconne")
+    params = pt.init_wavenet(cfg, torch.Generator().manual_seed(SEED), dev)
+    win = phase_window(torch, np, pt, dev, cfg, params)
+    dcfg = pt.get_config("chaconne", blocks=1)
+    draft = dict(params, layers={k: v[:dcfg.num_layers]
+                                 for k, v in params["layers"].items()})
+    prime = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, cfg.classes, (1, SPEC_PRIME))).to(dev)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    (_, plain), plain_s = timed(lambda: pt.generate_fast(
+        params, cfg, None, n, prime, temperature=0.0, device=dev))
+    gk.launches = 0
+    (_, k1), k1_s = timed(lambda: pt.generate_fast_fused(
+        params, cfg, 0, n, prime.to(torch.int32), temperature=0.0,
+        device=dev))
+    check(gk.launches == 1, f"K1 launches {gk.launches}")
+    (_, k1), k1_s = timed(lambda: pt.generate_fast_fused(
+        params, cfg, 0, n, prime.to(torch.int32), temperature=0.0,
+        device=dev))  # warm
+    gaps, _ = _spec_gaps(torch, pt, params, cfg, prime, plain)
+    flips = {"K1 vs plain": _held_off_near_ties(k1.long(), plain, gaps,
+                                                "K1 vs plain")}
+    runs = {}
+    for dname, dp, dc in (("teacher", params, cfg),
+                          ("one block", draft, dcfg)):
+        for k in (4, 8):
+            spec.host_syncs = 0
+            (_, cls, rate), s = timed(lambda: pt.speculative_generate(
+                params, cfg, dp, dc, None, n, prime, k=k, device=dev))
+            syncs = spec.host_syncs
+            check(cls.shape == (1, n), f"speculation shape {cls.shape}")
+            tag = f"draft {dname}, k {k}"
+            g, am = _spec_gaps(torch, pt, params, cfg, prime, cls)
+            bad = ((cls[0].cpu() != am) & (g >= NEAR_TIE)).nonzero()
+            check(bad.numel() == 0, f"{tag}: class {bad[:4].tolist()} is not "
+                  "the teacher's argmax on its history")
+            off_argmax = int((cls[0].cpu() != am).sum())
+            f_plain = _held_off_near_ties(cls, plain, g, f"{tag} vs plain")
+            f_k1 = _held_off_near_ties(cls, k1.long(), g, f"{tag} vs K1")
+            if dname == "teacher":
+                check(rate == k, f"{tag}: accept rate {rate}, expected {k}")
+            runs[tag] = dict(s=s, samples_per_s=n / s, accept_rate=rate,
+                             host_syncs=syncs, syncs_per_sample=syncs / n,
+                             flips_vs_plain=f_plain, flips_vs_k1=f_k1,
+                             off_argmax_at_near_ties=off_argmax)
+            flips[tag] = f_plain + f_k1
+            log(f"[speculation] chaconne teacher, {tag}: {n} samples in "
+                f"{s:.2f} s ({n / s:,.1f} samples/s), accept rate "
+                f"{rate:.3f}, {syncs} host syncs ({syncs / n:.4f} a sample); "
+                f"classes against the plain rollout and K1 at T = 0: parted "
+                f"at a near-tie {f_plain} and {f_k1} times, "
+                f"{off_argmax} classes off the teacher-forced argmax, all at "
+                f"near-ties [{card}]")
+    log(f"[speculation] baselines on the same teacher and prime: plain "
+        f"generate_fast(T=0) {n / plain_s:,.1f} samples/s ({plain_s:.2f} s); "
+        f"K1 at T = 0 (exact) {n / k1_s:,.1f} samples/s ({1e3 * k1_s:.1f} "
+        f"ms); K1 against the plain rollout: parted at a near-tie "
+        f"{flips['K1 vs plain']} times [{card}]")
+    return dict(window=win, runs=runs, plain_samples_per_s=n / plain_s,
+                k1_samples_per_s=n / k1_s, flips=flips)
+
+
+def _k2_at(torch, pt, tk, dev, name, cond, card, reps=5):
+    """K2 at the distillation shape (N 4, out 931) against its plain
+    version: units within U_TOL x max(1, |u|); times (CUDA events, min of
+    ``reps`` warm calls; the plain version once) and the bound."""
+    cfg = pt.get_config(name)
+    params = pt.init_wavenet(cfg, torch.Generator().manual_seed(SEED), dev)
+    out_len = DISTILL_LENGTH - cfg.receptive_field + 1
+    T = cfg.receptive_field + out_len - 1
+    g = torch.Generator().manual_seed(28)
+    h0 = (torch.rand((DISTILL_BATCH, T, cfg.residual_channels), generator=g)
+          * 2 - 1).to(dev)
+    c = ((torch.rand((DISTILL_BATCH, T, cfg.cond_channels), generator=g) * 2
+          - 1).to(dev) if cond else None)
+    uk, _ = tk.trunk_fwd_cuda(params, cfg, h0, out_len, cond=c)
+    torch.cuda.synchronize()
+    up, _ = tk.trunk_fwd_plain(params, cfg, h0, out_len, cond=c)
+    eu = float(((uk - up).abs() / up.abs().clamp(min=1.0)).max())
+    err = float((uk - up).abs().max())
+    tag = f"K2 {name}{' with cond' if cond else ''}, N {DISTILL_BATCH}, out {out_len}"
+    check(eu <= U_TOL, f"{tag}: u error {eu}")
+    ms = min(_time(torch, lambda: tk.trunk_fwd_cuda(params, cfg, h0, out_len,
+                                                    cond=c), reps))
+    plain = min(_time(torch, lambda: tk.trunk_fwd_plain(params, cfg, h0,
+                                                        out_len, cond=c), 1))
+    b_ms, b_by = trunk_bounds(cfg, DISTILL_BATCH, out_len,
+                              cond_channels=cfg.cond_channels if cond else 0
+                              )["K2"]
+    log(f"[distill] {tag}: u within {eu:.3g} x max(1, |u|) (max |diff| "
+        f"{err:.3g}); {ms:.3f} ms (min of {reps}), plain {plain:.3f} ms, "
+        f"bound {b_ms:.4f} ms ({b_by}), {100 * b_ms / ms:.2f} % of it "
+        f"[{card}]")
+    return dict(err=err, rel_err=eu, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                bound_by=b_by, out_len=out_len)
+
+
+def _example_audio(d):
+    import glob
+    import shutil
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    wavs = sorted(glob.glob(os.path.join(here, "examples", "*.wav")))
+    check(len(wavs) >= 4, f"example audio missing: {wavs}")
+    os.makedirs(d)
+    for w in wavs:
+        shutil.copy(w, d)
+    return d
+
+
+def _distill_split(torch, pt, tk, dev, card, teacher, tcfg, reps=5):
+    """One distillation step of the default student (4 flows x 10 layers,
+    width 64) on ``teacher`` at batch 4, length 4000, the CLI's loss (rms
+    against a reference batch, teacher smoothing), split on the host clock
+    after a synchronize into the student's draw, the teacher (K2 under
+    no_grad), the loss with its backward, and the optimizer; median of
+    ``reps`` after a warm step; K2's launches per step."""
+    from pytorch_wavenet_tpu_torch.models import iaf
+    from pytorch_wavenet_tpu_torch.training import distill
+    from pytorch_wavenet_tpu_torch.training.optimizers import _leaves, _map
+
+    scfg = pt.IAFConfig(cond_channels=tcfg.cond_channels)
+    sp = pt.init_student(scfg, torch.Generator().manual_seed(SEED), 0.1, dev)
+    view = iaf.student_state_dict(sp)
+    leaves = [p.requires_grad_(True) for _, p in _leaves(view)]
+    tx = pt.reference_adam(3e-4, gradient_clipping=1.0)
+    opt = tx.init(view)
+    B, T = DISTILL_BATCH, DISTILL_LENGTH
+    g = torch.Generator().manual_seed(29)
+    ref = (0.2 * torch.randn((B, T - 1), generator=g)).to(dev)
+    cond = ((torch.rand((B, T, tcfg.cond_channels), generator=g) - 0.5)
+            .to(dev) if tcfg.cond_channels else None)
+    parts = {"draw": [], "teacher": [], "loss+backward": [], "optimizer": []}
+    step = []
+    for r in range(reps + 1):
+        u = iaf.base_uniforms(torch.Generator().manual_seed(100 + r), (B, T))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tk.fwd_launches = 0
+        draw = iaf.student_sample(sp, scfg, None, (B, T), cond=cond, u=u)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        logp = distill.teacher_logprobs(teacher, tcfg,
+                                        torch.clamp(draw.x, -1.0, 1.0), cond,
+                                        teacher_smooth=1e-3)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        launches = tk.fwd_launches
+        rf = tcfg.receptive_field
+        q = distill.student_bin_logprobs(draw.m[:, rf:], draw.log_s[:, rf:],
+                                         tcfg.classes)
+        kl = torch.mean(torch.sum(q * (torch.log(torch.clamp(q, min=1e-12))
+                                       - logp), dim=-1))
+        rms = torch.sqrt(torch.mean(draw.x * draw.x))
+        loss = kl + (torch.log(rms + 1e-6) - torch.log(
+            torch.sqrt(torch.mean(ref ** 2)) + 1e-6)) ** 2
+        grads = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        it = iter(grads)
+        tx.step(view, _map(lambda _: next(it), view), opt)
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        if r:
+            for name, a, b in (("draw", t0, t1), ("teacher", t1, t2),
+                               ("loss+backward", t2, t3),
+                               ("optimizer", t3, t4)):
+                parts[name].append(1e3 * (b - a))
+            step.append(1e3 * (t4 - t0))
+    check(launches == 1, f"K2 launches a step {launches}, expected 1")
+    med = {k: sorted(v)[reps // 2] for k, v in parts.items()}
+    out = dict(step_ms=sorted(step)[reps // 2], split_ms=med,
+               k2_launches_per_step=launches,
+               student_params=iaf.student_parameter_count(sp))
+    log(f"[distill] step of the default student ({out['student_params']:,} "
+        f"params) on the {'vocoder' if tcfg.cond_channels else 'chaconne_wide'}"
+        f" teacher (K2), batch {B}, length {T}: {out['step_ms']:.2f} ms "
+        f"(median of {reps}; host clock after synchronize): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in med.items())
+        + f"; K2 launches a step {launches} [{card}]")
+    return out
+
+
+def phase_distillation(torch, np, pt, tk, dev, card, keep, teacher_snap):
+    """Phase 28, distillation (the main path of this slice): K2 against
+    its plain version at N 4, out 931 (chaconne, and the vocoder with
+    cond); the distillation loss with the teacher through K2 against the
+    plain trunk on the card (within 1e-5 relative); ``distill_cli.main``
+    for 10 steps on phase 25's chaconne_wide step-20 snapshot with
+    ``--data-dir`` (the example audio), the default student, batch 4,
+    length 4000, snapshots every 5, K2/K3 launches counted around exactly
+    this run with the plain trunk barred (10 and 0); a run resumed from the
+    step-5 snapshot ends at the step-10 params bitwise; 3 steps of vocoder
+    distillation on a ``vocoder`` teacher from seed 1234 written with
+    ``save_checkpoint`` (cond through K2's COND instantiation, 3
+    launches); then each step's split. The students are kept in ``keep``
+    for phase 29."""
+    import dataclasses
+    import shutil
+
+    from pytorch_wavenet_tpu_torch.models import iaf
+    from pytorch_wavenet_tpu_torch.training import distill, distill_cli
+    from pytorch_wavenet_tpu_torch.training.optimizers import _leaves
+
+    k2 = {"chaconne": _k2_at(torch, pt, tk, dev, "chaconne", False, card),
+          "vocoder": _k2_at(torch, pt, tk, dev, "vocoder", True, card)}
+    blob = pt.load_checkpoint(teacher_snap, device=dev)
+    tcfg = dataclasses.replace(blob["config"], trunk_kernel=True)
+    teacher = blob["params"]
+    scfg = pt.IAFConfig()
+    sp = pt.init_student(scfg, torch.Generator().manual_seed(SEED), 0.1, dev)
+    u = iaf.base_uniforms(torch.Generator().manual_seed(30),
+                          (DISTILL_BATCH, DISTILL_LENGTH))
+    with torch.no_grad():
+        lk, ak = distill.distill_loss(sp, teacher, scfg, tcfg, u,
+                                      DISTILL_BATCH, DISTILL_LENGTH,
+                                      teacher_smooth=1e-3)
+        lp, ap = distill.distill_loss(
+            sp, teacher, scfg, dataclasses.replace(tcfg, trunk_kernel=False),
+            u, DISTILL_BATCH, DISTILL_LENGTH, teacher_smooth=1e-3)
+    loss_err = abs(float(lk) - float(lp)) / max(1.0, abs(float(lp)))
+    check(loss_err <= 1e-5, f"distillation loss through K2 {float(lk)} "
+          f"against the plain trunk {float(lp)}")
+    log(f"[distill] loss of a fresh default student on phase 25's "
+        f"chaconne_wide step-20 teacher, batch {DISTILL_BATCH}, length "
+        f"{DISTILL_LENGTH}: teacher through K2 {float(lk):.6f} (KL "
+        f"{float(ak['kl']):.6f}), plain trunk {float(lp):.6f}: within "
+        f"{loss_err:.3g} relative")
+
+    real = tk.trunk_fwd_plain, tk.trunk_bwd_plain
+    plain_calls = []
+
+    def barred(*args, **kwargs):
+        plain_calls.append(1)
+        raise RuntimeError("a plain version ran on the card path")
+
+    with tempfile.TemporaryDirectory() as d:
+        audio = _example_audio(os.path.join(d, "audio"))
+        common = ["--data-dir", audio, "--seed", str(SEED), "--batch-size",
+                  str(DISTILL_BATCH), "--length", str(DISTILL_LENGTH),
+                  "--log-interval", "5", "--device", str(dev)]
+        vteacher_cfg = pt.get_config("vocoder")
+        vsnap = pt.save_checkpoint(
+            os.path.join(d, "vteacher"), "vocoder", 0,
+            pt.init_wavenet(vteacher_cfg, torch.Generator().manual_seed(SEED),
+                            dev), cfg=vteacher_cfg)
+        tk.trunk_fwd_plain = tk.trunk_bwd_plain = barred
+        try:
+            tk.fwd_launches = tk.bwd_launches = 0
+            t = time.time()
+            a = distill_cli.main(["--teacher-snapshot", teacher_snap,
+                                  "--steps", "10", "--save-interval", "5",
+                                  "--out-dir", os.path.join(d, "a")]
+                                 + common)
+            torch.cuda.synchronize()
+            wall = time.time() - t
+            launched = (tk.fwd_launches, tk.bwd_launches)
+            snap5 = os.path.join(d, "a", "student_0000000005.ckpt")
+            tk.fwd_launches = tk.bwd_launches = 0
+            b = distill_cli.main(["--teacher-snapshot", teacher_snap,
+                                  "--steps", "5", "--student-snapshot",
+                                  snap5, "--out-dir", os.path.join(d, "b")]
+                                 + common)
+            torch.cuda.synchronize()
+            resumed = (tk.fwd_launches, tk.bwd_launches)
+            tk.fwd_launches = tk.bwd_launches = 0
+            t = time.time()
+            v = distill_cli.main(["--teacher-snapshot", vsnap, "--steps", "3",
+                                  "--out-dir", os.path.join(d, "v")]
+                                 + common)
+            torch.cuda.synchronize()
+            v_wall = time.time() - t
+            v_launched = (tk.fwd_launches, tk.bwd_launches)
+        finally:
+            tk.trunk_fwd_plain, tk.trunk_bwd_plain = real
+        students = {"chaconne": shutil.copy(a["path"], keep),
+                    "vocoder": shutil.copy(v["path"], keep)}
+    check(not plain_calls, f"a plain version ran {len(plain_calls)} times")
+    check(launched == (10, 0), f"distillation: K2/K3 launches {launched}, "
+          "expected 10 and 0 (the teacher is frozen)")
+    check(resumed == (5, 0), f"resumed: K2/K3 launches {resumed}")
+    check(v_launched == (3, 0), f"vocoder distillation: K2/K3 launches "
+          f"{v_launched}")
+    check(a["step"] == b["step"] == 10 and v["step"] == 3,
+          f"steps {a['step']}, {b['step']}, {v['step']}")
+    la = list(_leaves(iaf.student_state_dict(a["params"])))
+    lb = list(_leaves(iaf.student_state_dict(b["params"])))
+    off = [p for (p, x), (_, y) in zip(la, lb) if not torch.equal(x, y)]
+    check([p for p, _ in la] == [p for p, _ in lb] and not off,
+          f"the resumed run differs from the uninterrupted one at {off[:4]}")
+    check(v["scfg"].cond_channels == vteacher_cfg.cond_channels,
+          "the vocoder student is unconditioned")
+    log(f"[distill] distill_cli.main on phase 25's chaconne_wide step-20 "
+        f"snapshot, --data-dir (examples), default student, batch "
+        f"{DISTILL_BATCH}, length {DISTILL_LENGTH}: 10 steps in {wall:.1f} s "
+        f"(dataset, init and 2 snapshots included), K2/K3 launches "
+        f"{launched[0]}/{launched[1]}, plain calls {len(plain_calls)}; "
+        f"resumed from the step-5 snapshot (K2 {resumed[0]}): the step-10 "
+        f"params ({len(la)} leaves) bitwise equal; the vocoder teacher, 3 "
+        f"steps with cond in {v_wall:.1f} s, K2 (COND) launches "
+        f"{v_launched[0]}")
+    split = {"chaconne": _distill_split(torch, pt, tk, dev, card, teacher,
+                                        tcfg)}
+    vblob = pt.init_wavenet(vteacher_cfg, torch.Generator().manual_seed(SEED),
+                            dev)
+    split["vocoder"] = _distill_split(
+        torch, pt, tk, dev, card, vblob,
+        dataclasses.replace(vteacher_cfg, trunk_kernel=True))
+    return dict(k2=k2, launches=launched[0], v_launches=v_launched[0],
+                loss_err=loss_err, split=split, students=students,
+                wall_s=wall)
+
+
+def phase_student_serving(torch, np, pt, dev, card, students, n=16000):
+    """Phase 29, the student served: ``serving.server.main
+    --student-snapshot`` on phase 28's students. ``/synthesize`` of ``n``
+    samples byte-equal to ``student_generate`` with the request's seed at
+    the clip's 8192-sample bucket, cut; ``/vocode`` of
+    ``examples/generated_t1.0.wav`` on the conditioned student byte-equal
+    to ``student_synthesize`` of the server's mel frames. Request times on
+    the host clock."""
+    from pytorch_wavenet_tpu_torch.models import iaf
+    from pytorch_wavenet_tpu_torch.serving import server as srv
+
+    def serve(path):
+        box, ready = {}, threading.Event()
+
+        def on_ready(server):
+            box["server"] = server
+            ready.set()
+
+        th = threading.Thread(target=srv.main, kwargs=dict(
+            argv=["--student-snapshot", path, "--port", "0"],
+            on_ready=on_ready), daemon=True)
+        th.start()
+        t0 = time.time()
+        while not ready.wait(1):
+            check(th.is_alive() and time.time() - t0 < 300,
+                  "the student server did not come up")
+        server = box["server"]
+        return server, th, f"http://127.0.0.1:{server.server_address[1]}"
+
+    def pcm(wav):
+        w = np.asarray(wav)
+        check(np.isfinite(w).all(), "non-finite waveform")
+        return np.clip(w * 32767.0, -32768, 32767).astype("<i2")
+
+    def bucket(m):
+        return -(-m // STUDENT_BUCKET) * STUDENT_BUCKET
+
+    out = {}
+    server, th, base = serve(students["chaconne"])
+    try:
+        with urllib.request.urlopen(base + "/health", timeout=60) as r:
+            health = json.loads(r.read())
+        check(health["backend"] == "iaf-student", f"backend {health}")
+        times, bodies = [], []
+        for _ in range(2):  # the second request warm
+            t = time.time()
+            with urllib.request.urlopen(
+                    f"{base}/synthesize?num_samples={n}&seed=31",
+                    timeout=600) as r:
+                bodies.append(r.read())
+            times.append(time.time() - t)
+        out["synthesize_s"] = min(times)
+    finally:
+        server.shutdown()
+        th.join(60)
+    check(not th.is_alive(), "the student server thread did not stop")
+    params, scfg, _ = iaf.load_student_snapshot(students["chaconne"],
+                                                device=dev)
+    want = pcm(iaf.student_generate(
+        params, scfg, torch.Generator().manual_seed(31), bucket(n),
+        device=dev)[0, :n].cpu().numpy())
+    for body in bodies:
+        check(np.array_equal(np.frombuffer(_read_wav(body, n), "<i2"), want),
+              "/synthesize differs from student_generate with its seed")
+    check(health["parameter_count"] == iaf.student_parameter_count(params),
+          f"/health parameter_count {health['parameter_count']}")
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, VOCODER_WAV), "rb") as f:
+        blob = f.read()
+    server, th, base = serve(students["vocoder"])
+    try:
+        vt = []
+        for _ in range(2):
+            req = urllib.request.Request(f"{base}/vocode?seed=33", data=blob,
+                                         method="POST")
+            t = time.time()
+            with urllib.request.urlopen(req, timeout=600) as r:
+                vbody = r.read()
+            vt.append(time.time() - t)
+    finally:
+        server.shutdown()
+        th.join(60)
+    check(not th.is_alive(), "the student vocoder server thread did not stop")
+    vparams, vscfg, _ = iaf.load_student_snapshot(students["vocoder"],
+                                                  device=dev)
+    mel = _vocoder_mel(pt, blob, pt.get_config("vocoder"))
+    m = mel.shape[0] * 256
+    vgot = np.frombuffer(_read_wav(vbody, m), "<i2")
+    vwant = iaf.student_synthesize(vparams, vscfg,
+                                   torch.Generator().manual_seed(33), mel,
+                                   256, num_samples=bucket(m), device=dev)
+    check(np.array_equal(vgot, pcm(vwant[0, :m].cpu().numpy())),
+          "/vocode differs from student_synthesize")
+    # the library call alone on the card, for the served rate beside it
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    iaf.student_generate(params, scfg, torch.Generator().manual_seed(31),
+                         bucket(n), device=dev)
+    torch.cuda.synchronize()
+    lib_s = time.perf_counter() - t
+    out.update(synthesize_samples_per_s=n / out["synthesize_s"],
+               vocode_s=min(vt), vocode_samples=m,
+               vocode_samples_per_s=m / min(vt), library_s=lib_s,
+               student_params=health["parameter_count"])
+    log(f"[serve student] chaconne student ({health['parameter_count']:,} "
+        f"params): /synthesize {n} samples in {out['synthesize_s']:.3f} s "
+        f"({out['synthesize_samples_per_s']:,.0f} samples/s; the "
+        f"{bucket(n)}-sample draw alone {1e3 * lib_s:.1f} ms), byte-equal to "
+        f"student_generate with its seed; the vocoder student: /vocode of "
+        f"{VOCODER_WAV} ({m} samples) in {min(vt):.3f} s "
+        f"({out['vocode_samples_per_s']:,.0f} samples/s), byte-equal to "
+        f"student_synthesize; host clock [{card}]")
+    return out
+
+
+def slice10(torch, np, pt, gk, tk, dev, card, t_start, keep, teacher_snap):
+    """Phases 27-29."""
+    sp = phase_speculation(torch, np, pt, gk, dev, card)
+    log(f"phase speculation done at {time.time() - t_start:.0f} s")
+    ds = phase_distillation(torch, np, pt, tk, dev, card, keep, teacher_snap)
+    log(f"phase distillation done at {time.time() - t_start:.0f} s")
+    ss = phase_student_serving(torch, np, pt, dev, card, ds["students"])
+    log(f"phase student serving done at {time.time() - t_start:.0f} s")
+    return sp, ds, ss
+
+
+def remainder(torch, np, pt, gk, ghbm, tk, dev, card, t_start, keep):
+    """Phases 25 and 26 and their times; phase 25's step-20 snapshot is
+    kept in ``keep`` (phase 28's teacher)."""
+    rem = phase_training_remainder(torch, np, pt, tk, ghbm, dev, keep)
+    log(f"phase training remainder done at {time.time() - t_start:.0f} s")
+    hk = phase_hook_k4(torch, pt, ghbm, dev, card)
+    log(f"phase hook K4 done at {time.time() - t_start:.0f} s")
+    served = phase_serve_ema(torch, np, pt, gk, ghbm, dev, rem["snapshot"])
+    log(f"phase serve --ema done at {time.time() - t_start:.0f} s")
     rt = phase_remainder_times(torch, pt, dev, card)
     log(f"phase remainder times done at {time.time() - t_start:.0f} s")
     return rem, hk, served, rt
@@ -3206,7 +3803,16 @@ def main():
     phase_build()
     if sys.argv[1:] == ["--remainder-only"]:
         # a short call for work on phases 25-26 alone: no kernels line
-        remainder(torch, np, pt, gk, ghbm, tk, dev, card, t_start)
+        with tempfile.TemporaryDirectory() as keep:
+            remainder(torch, np, pt, gk, ghbm, tk, dev, card, t_start, keep)
+        return 1
+    if sys.argv[1:] == ["--distill-only"]:
+        # a short call for work on phases 27-29 alone (phase 25 first for
+        # the teacher): no kernels line
+        with tempfile.TemporaryDirectory() as keep:
+            rem = phase_training_remainder(torch, np, pt, tk, ghbm, dev, keep)
+            slice10(torch, np, pt, gk, tk, dev, card, t_start, keep,
+                    rem["snapshot"])
         return 1
     phase_clusters(torch, pt, gk, ghbm, card)
     err, mismatches, near_ties = phase_kernel_vs_plain(torch, pt, gk, dev)
@@ -3277,8 +3883,11 @@ def main():
     r_launched, r_served = phase_k4_serving(torch, np, pt, gk, ghbm, dev,
                                             bf16_rings=True)
     log(f"phase --bf16-rings serving done at {time.time() - t_start:.0f} s")
-    rem, hk, (e1_launched, e4_launched), rt = remainder(
-        torch, np, pt, gk, ghbm, tk, dev, card, t_start)
+    with tempfile.TemporaryDirectory() as keep:
+        rem, hk, (e1_launched, e4_launched), rt = remainder(
+            torch, np, pt, gk, ghbm, tk, dev, card, t_start, keep)
+        sp, ds, ss = slice10(torch, np, pt, gk, tk, dev, card, t_start, keep,
+                             rem["snapshot"])
 
     kernels = [{
         "name": "gen_fused (K1, fuse_res)",
@@ -3508,6 +4117,42 @@ def main():
             "bound_by": t["bound_by"],
             "library_ms": None,
         })
+    # this slice's main path: distillation, the teacher scored through K2
+    # at N 4, out 931 (phase 28: distill_cli's 10 steps on phase 25's
+    # chaconne_wide snapshot, and 3 on the vocoder teacher with cond)
+    for name, key, launched in (
+            ("trunk_fwd (K2, the distillation teacher: chaconne_wide, N 4, "
+             "out 931, no_grad: distill_cli's 10 steps)", "chaconne",
+             ds["launches"]),
+            ("trunk_fwd (K2, the vocoder distillation teacher, cond, N 4, "
+             "out 931: distill_cli's 3 steps)", "vocoder",
+             ds["v_launches"])):
+        t = ds["k2"][key]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "pytorch_wavenet_tpu_torch/csrc/trunk_fwd.cu",
+            "replaces": "pytorch_wavenet_tpu/ops/pallas/trunk_kernel.py:621",
+            "launches": launched,
+            "max_abs_err": t["err"],
+            "ms": t["ms"],
+            "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"],
+            "library_ms": None,
+            "distill_step_ms": ds["split"][key]["step_ms"],
+            "distill_step_split_ms": ds["split"][key]["split_ms"],
+            "k2_launches_per_step": ds["split"][key]["k2_launches_per_step"],
+        })
+    kernels[-2].update(
+        distill_loss_rel_err_vs_plain_trunk=ds["loss_err"],
+        speculation={k: {m: v[m] for m in ("samples_per_s", "accept_rate",
+                                           "syncs_per_sample")}
+                     for k, v in sp["runs"].items()},
+        speculation_plain_samples_per_s=sp["plain_samples_per_s"],
+        speculation_k1_samples_per_s=sp["k1_samples_per_s"],
+        student_synthesize_samples_per_s=ss["synthesize_samples_per_s"],
+        student_vocode_samples_per_s=ss["vocode_samples_per_s"])
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

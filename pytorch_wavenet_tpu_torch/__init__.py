@@ -13,8 +13,11 @@ native audio codec, the reference Adam with schedules, SGDNormalized, an
 EMA and gradient accumulation, the trainer with asynchronous snapshots,
 TensorBoard logging and the audio hook, and its CLI) with the trunk
 through hand-written CUDA kernels for its forward
-and backward (``ops/cuda/trunk_kernel.py``); the kernel sources are in
-``csrc/``. Importing the package
+and backward (``ops/cuda/trunk_kernel.py``); speculative decoding over the
+window API (``models/speculative.py``), and Parallel-WaveNet distillation
+(``models/iaf.py``, ``training/distill.py`` and its CLI, the teacher
+scored through the forward kernel) with the server's student backend; the
+kernel sources are in ``csrc/``. Importing the package
 builds nothing and touches no device; kernels build with ``nvcc`` at first
 use. Entry points take ``device`` (default ``"cuda"``, which raises when no
 card is present); ``device="cpu"`` runs the plain PyTorch versions.
@@ -27,14 +30,25 @@ from .data.mel_dataset import MelWaveNetDataset
 from .models.convert import from_jax_params, to_numpy_params
 from .models.generate import (
     GenState,
+    PendingWindow,
     StreamState,
     buffer_length,
+    commit_window,
     gen_step,
+    gen_step_window,
     generate,
     generate_fast,
     init_gen_state,
     synthesize,
 )
+from .models.iaf import (
+    IAFConfig,
+    init_student,
+    student_generate,
+    student_sample,
+    student_synthesize,
+)
+from .models.speculative import speculative_generate
 from .models.wavenet import (
     embed_inputs,
     forward,
@@ -54,6 +68,7 @@ from .ops.mulaw import (
     mu_law_expansion,
     quantize_data,
 )
+from .training.distill import distill_loss, distill_step
 from .training.optimizers import (
     MultiSteps,
     lr_schedule,
@@ -83,7 +98,10 @@ __all__ = [
     "WaveNetDataset", "MelWaveNetDataset",
     "from_jax_params", "to_numpy_params",
     "GenState", "StreamState", "buffer_length", "gen_step", "generate",
-    "generate_fast", "init_gen_state", "synthesize",
+    "generate_fast", "init_gen_state", "synthesize", "PendingWindow",
+    "gen_step_window", "commit_window", "speculative_generate",
+    "IAFConfig", "init_student", "student_sample", "student_generate",
+    "student_synthesize", "distill_loss", "distill_step",
     "embed_inputs", "forward", "init_wavenet", "parameter_count",
     "upsample_cond", "wavenet_logits",
     "FusedGenState", "generate_fast_fused",

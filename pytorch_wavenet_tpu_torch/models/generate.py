@@ -7,7 +7,11 @@ The counterpart of the JAX package's ``models/generate.py``:
 * :func:`generate_fast` — Fast-WaveNet generation over exactly-sized ring
   buffers, one :func:`gen_step` per sample;
 * :func:`synthesize` — the vocoder: mel frames upsampled to per-sample
-  conditioning rows, then a conditioned rollout of any of the backends.
+  conditioning rows, then a conditioned rollout of any of the backends;
+* the window API, :func:`gen_step_window` and :func:`commit_window`: k
+  steps in one trunk pass over the rings, committed afterwards for as many
+  positions as turn out to be real (speculative decoding's verifier, and
+  ``generate_fast(window_prime=True)``'s bulk prime).
 
 Conditioning follows the JAX package's timeline: ``cond`` ``(S, total,
 M)`` with ``total = num_given - 1 + num_samples``, row t conditioning the
@@ -80,7 +84,7 @@ def init_gen_state(cfg: WaveNetConfig, num_streams: int = 1,
 
 def gen_step(params: Params, cfg: WaveNetConfig, state: GenState,
              cur_class: torch.Tensor, cond: torch.Tensor | None = None,
-             global_cond: torch.Tensor | None = None
+             global_cond: torch.Tensor | None = None, record: list | None = None
              ) -> tuple[torch.Tensor, GenState]:
     """One autoregressive step for all streams: logits ``(S, classes)``
     and the advanced state. ``cond``: this step's local conditioning ``(S,
@@ -88,7 +92,10 @@ def gen_step(params: Params, cfg: WaveNetConfig, state: GenState,
 
     The ring slot of this step is written IN PLACE (the returned state
     shares the buffers of ``state``); the tap slots read here never equal
-    the written slot, so the order of read and write does not matter."""
+    the written slot, so the order of read and write does not matter.
+    ``record``, when given, receives each layer's input ``h`` ``(S, R)``
+    in layer order: the values written to the rings (speculative decoding
+    commits them later with :func:`commit_window`)."""
     k = cfg.kernel_size
     cdt = cfg.compute_dtype
     t = state.t
@@ -109,6 +116,8 @@ def gen_step(params: Params, cfg: WaveNetConfig, state: GenState,
             idx = (t - (k - 1 - j) * d) % P
             z = z + _mm(buf[:, idx].to(torch.float32), lp["w_in"][l, j], cdt)
         buf[:, t % P] = h.to(buf.dtype)
+        if record is not None:
+            record.append(h)
         if cond is not None:
             z = z + _mm(cond, lp["w_cond"][l], cdt)
         if global_cond is not None:
@@ -132,6 +141,126 @@ def gen_step(params: Params, cfg: WaveNetConfig, state: GenState,
     y = torch.relu(_mm(y, params["end1"]["w"], cdt) + params["end1"]["b"])
     logits = _mm(y, params["end2"]["w"], cdt) + params["end2"]["b"]
     return logits, GenState(buffers=state.buffers, t=t + 1)
+
+
+def _ring_span(buf: torch.Tensor, start: int, n: int) -> torch.Tensor:
+    """Ring slots ``start, start+1, ...`` (mod P) of ``buf (S, P, R)``, ``n
+    <= P`` of them: one slice, or two when they wrap (views and one
+    concatenation; no index tensor goes to the device)."""
+    P = buf.shape[1]
+    if start + n <= P:
+        return buf[:, start:start + n]
+    return torch.cat([buf[:, start:], buf[:, :start + n - P]], dim=1)
+
+
+class PendingWindow(NamedTuple):
+    """The uncommitted ring writes of :func:`gen_step_window`: each layer's
+    input over the window's positions, and the state's cursor when the
+    window was computed. Speculative decoding decides how many positions
+    were real after seeing the logits and commits that many."""
+
+    h_wins: tuple  # L tensors, (S, k, R) each
+    t: int
+
+
+def gen_step_window(params: Params, cfg: WaveNetConfig, state: GenState,
+                    window: torch.Tensor, cond: torch.Tensor | None = None,
+                    global_cond: torch.Tensor | None = None
+                    ) -> tuple[torch.Tensor, PendingWindow]:
+    """``k`` autoregressive steps in one trunk pass over the ring state.
+
+    ``window``: int ``(S, k)`` input classes for times ``t .. t+k-1``;
+    ``cond``: ``(S, k, cond_channels)``, row i for position i;
+    ``global_cond``: ``(S, gcond_channels)``. Returns logits ``(S, k,
+    classes)``, row i predicting time ``t+i+1``, and a
+    :class:`PendingWindow`; :func:`commit_window` advances the state by as
+    many positions as turn out to be real. The rings are only read here.
+
+    Each layer's tap product is one ``(S*k, R)`` product: for a tap that
+    looks back ``m`` steps, positions ``i < m`` read ring slot ``(t+i-m) %
+    P`` (times before the window) and positions ``i >= m`` the window's own
+    input ``h[i-m]``. The taps add up in :func:`gen_step`'s order, so the
+    logits equal ``k`` chained :func:`gen_step` calls up to the rounding of
+    the wider products."""
+    k = cfg.kernel_size
+    cdt = cfg.compute_dtype
+    t = state.t
+    S, win = window.shape
+    h = params["start"]["w"][window.long()]  # (S, k, R)
+    if "b" in params["start"]:
+        h = h + params["start"]["b"]
+    h = h.to(torch.float32)
+
+    skip = torch.zeros((S, win, cfg.skip_channels), dtype=torch.float32,
+                       device=h.device)
+    lp = params["layers"]
+    h_wins = []
+    for l, d in enumerate(cfg.dilations):
+        buf = state.buffers[l]
+        P = buf.shape[1]
+        h_wins.append(h)
+        z = _mm(h, lp["w_in"][l, k - 1], cdt)
+        for j in range(k - 1):
+            m = (k - 1 - j) * d  # this tap's lookback; m < P
+            parts = [_ring_span(buf, (t - m) % P, min(m, win)).to(
+                torch.float32)]
+            if m < win:
+                parts.append(h[:, :win - m])
+            z = z + _mm(torch.cat(parts, dim=1), lp["w_in"][l, j], cdt)
+        if cond is not None:
+            z = z + _mm(cond, lp["w_cond"][l], cdt)
+        if global_cond is not None:
+            z = z + _mm(global_cond, lp["w_gcond"][l], cdt)[:, None, :]
+        if "b_in" in lp:
+            z = z + lp["b_in"][l]
+        f, g = z.chunk(2, dim=-1)
+        u = torch.tanh(f) * torch.sigmoid(g)
+
+        s = _mm(u, lp["w_skip"][l], cdt)
+        if "b_skip" in lp:
+            s = s + lp["b_skip"][l]
+        skip = skip + s
+
+        r = _mm(u, lp["w_res"][l], cdt)
+        if "b_res" in lp:
+            r = r + lp["b_res"][l]
+        h = r + h
+
+    y = torch.relu(skip)
+    y = torch.relu(_mm(y, params["end1"]["w"], cdt) + params["end1"]["b"])
+    logits = _mm(y, params["end2"]["w"], cdt) + params["end2"]["b"]
+    return logits, PendingWindow(h_wins=tuple(h_wins), t=t)
+
+
+def commit_window(state: GenState, pending: PendingWindow,
+                  valid) -> GenState:
+    """Advance ``state`` by the first ``valid`` positions of a computed
+    window (``0 <= valid <= k``; a 0-d tensor is read on the host): the
+    ring slots of positions ``i < valid`` take the pending inputs, the
+    cursor moves by ``valid``. Written IN PLACE, as :func:`gen_step`
+    writes; the returned state shares the buffers of ``state``.
+
+    A ring shorter than the window takes several of its positions in one
+    slot (``P = 2`` at dilation 1). Sequential steps leave the last of them
+    there, so only the last ``P`` valid positions are written, each to its
+    own slot: no index repeats within one write."""
+    v = int(valid)
+    win = pending.h_wins[0].shape[1] if pending.h_wins else 0
+    if not 0 <= v <= win:
+        raise ValueError(f"valid must be in [0, {win}], got {v}")
+    t = pending.t
+    for buf, h_win in zip(state.buffers, pending.h_wins):
+        P = buf.shape[1]
+        n = min(v, P)  # positions v-n .. v-1, each to its own slot
+        if n == 0:
+            continue
+        h = h_win[:, v - n:v].to(buf.dtype)
+        start = (t + v - n) % P
+        head = min(n, P - start)
+        buf[:, start:start + head] = h[:, :head]
+        if head < n:  # the slots wrap
+            buf[:, :n - head] = h[:, head:]
+    return GenState(buffers=state.buffers, t=t + v)
 
 
 def _sample(logits: torch.Tensor, u: torch.Tensor, classes: int,
@@ -179,7 +308,8 @@ def generate_fast(params: Params, cfg: WaveNetConfig,
                   return_state: bool = False,
                   device: str | torch.device = "cuda",
                   cond: torch.Tensor | None = None,
-                  global_cond: torch.Tensor | None = None):
+                  global_cond: torch.Tensor | None = None,
+                  window_prime: bool = False):
     """Fast-WaveNet generation.
 
     ``first_samples``: int ``(S, num_given)`` prime per stream (or
@@ -191,10 +321,36 @@ def generate_fast(params: Params, cfg: WaveNetConfig,
     ``global_cond`` ``(S, gcond_channels)``: the module docstring's
     timeline (a resumed call takes ``num_samples`` rows).
 
+    ``window_prime`` pushes a prime of more than one sample through
+    :func:`gen_step_window` passes of 128 positions (then
+    :func:`commit_window`) instead of one step each; the rollout then
+    resumes from that state, so its uniforms are drawn for ``num_samples``
+    steps only. The products are wider, so argmax rollouts agree with the
+    stepwise prime except at near-ties.
+
     Returns ``(waveform (S, num_samples) float32, classes (S, num_samples)
     int64)``, plus the new :class:`StreamState` with ``return_state``."""
     dev = resolve_device(device)
     params = params_to(params, dev)
+    if window_prime and state is None and first_samples is not None:
+        given = _prime_2d(cfg, first_samples, dev)
+        S, num_given = given.shape
+        if num_given > 1:
+            cond, global_cond = _cond_to(cfg, S, num_given - 1 + num_samples,
+                                         cond, global_cond, dev)
+            gstate = init_gen_state(cfg, S, dev)
+            pos, chunk = 0, 128
+            while pos < num_given - 1:
+                c = min(chunk, num_given - 1 - pos)
+                _, pend = gen_step_window(
+                    params, cfg, gstate, given[:, pos:pos + c],
+                    None if cond is None else cond[:, pos:pos + c],
+                    global_cond)
+                gstate = commit_window(gstate, pend, c)
+                pos += c
+            state = StreamState(gen=gstate, cls=given[:, -1])
+            first_samples = None
+            cond = None if cond is None else cond[:, num_given - 1:]
     if state is not None:
         if first_samples is not None:
             raise ValueError("pass either first_samples or state, not both")

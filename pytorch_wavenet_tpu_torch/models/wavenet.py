@@ -120,10 +120,12 @@ def parameter_count(params: Params) -> int:
 
 
 def params_to(params: Params, device: torch.device) -> Params:
-    """The same tree with every leaf on ``device`` (leaves already there
-    are not copied)."""
+    """The same tree (dicts, and tuples such as the student's flows) with
+    every leaf on ``device`` (leaves already there are not copied)."""
     if isinstance(params, dict):
         return {k: params_to(v, device) for k, v in params.items()}
+    if isinstance(params, tuple):
+        return tuple(params_to(v, device) for v in params)
     return params.to(device)
 
 

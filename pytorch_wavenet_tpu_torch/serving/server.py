@@ -19,9 +19,20 @@ The serving paths of the JAX package's ``scripts/serve.py``:
 snapshot trained with ``--ema-decay`` carries in its optimizer state
 (written by either package), on either path.
 
+``--student-snapshot`` serves a distilled IAF student
+(``training.distill_cli``, either package's snapshot; backend
+``iaf-student``): a clip is one parallel pass (``models/iaf.py``), with no
+autoregression. ``/synthesize`` draws the clip's length rounded up to a
+bucket of 8192 samples and cuts it, so a response is a prefix of its
+bucket's draw for one seed; ``/vocode`` on a conditioned student is
+``student_synthesize`` over the uploaded wav's mel frames. The student has
+no history to prime (``prime``/``prime_audio`` answer 400) and no
+temperature; ``--batcher`` and ``--ema`` are refused with it.
+
 Endpoints
   GET  /health       -> JSON {status, backend, receptive_field,
-                        parameter_count, classes, sample_rate}
+                        parameter_count, classes (None for a student),
+                        sample_rate}
   GET  /stats        -> JSON {backend} plus, with --batcher, the pool's
                         gauges and counters (ContinuousBatcher.stats)
   GET  /synthesize   -> audio/wav, streamed while it generates; query
@@ -48,6 +59,7 @@ Run:
   python -m pytorch_wavenet_tpu_torch.serving.server --snapshot model.ckpt --port 8765
   python -m pytorch_wavenet_tpu_torch.serving.server --snapshot model.ckpt --batcher --lanes 256 --batch-chunk 2048
   python -m pytorch_wavenet_tpu_torch.serving.server --snapshot model.ckpt --ema
+  python -m pytorch_wavenet_tpu_torch.serving.server --student-snapshot student.ckpt
   curl -sN 'localhost:8765/synthesize?num_samples=16000&temperature=0.9' > x.wav
   curl -s --data-binary @in.wav 'localhost:8765/vocode?seed=1' > out.wav
 """
@@ -73,6 +85,8 @@ from ..data.audio_io import load_audio
 from ..device import resolve_device
 from ..models.convert import from_jax_params
 from ..models.generate import synthesize
+from ..models.iaf import (load_student_snapshot, student_generate,
+                          student_parameter_count, student_synthesize)
 from ..models.wavenet import params_to
 from ..ops.cuda.gen_kernel import generate_fast_fused
 from ..ops.mel import log_mel_spectrogram
@@ -80,6 +94,11 @@ from ..ops.mulaw import dequantize_to_f32, quantize_data
 from ..training.optimizers import find_ema_state_dict
 from ..utils.checkpoints import load_checkpoint, load_latest_model_from
 from .batcher import ContinuousBatcher, PoolOverloaded
+
+
+# a student's clip length rounds up to this many samples, so that clips of
+# nearby lengths share one draw shape (the JAX package's jit buckets)
+_STUDENT_BUCKET = 8192
 
 
 def wav_header(num_samples: int, sr: int) -> bytes:
@@ -98,17 +117,22 @@ class Synthesizer:
     through the fused generation kernel, or, with ``batcher_opts``
     (:class:`ContinuousBatcher` keyword arguments), splices concurrent
     requests into one pooled rollout of the batched kernel (the plain
-    versions on the CPU)."""
+    versions on the CPU). With ``student``, ``cfg`` is an ``IAFConfig`` and
+    every clip is one parallel pass of the student (backend
+    ``iaf-student``)."""
 
     def __init__(self, params, cfg, sr: int = 16000,
                  device: str | torch.device = "cuda",
-                 batcher_opts: dict | None = None):
+                 batcher_opts: dict | None = None, student: bool = False):
         self.device = resolve_device(device)
         self.cfg = cfg
         self.sr = sr
         self.lock = threading.Lock()
         self.batcher = None
-        if batcher_opts is not None:
+        if student:
+            self.params = params_to(params, self.device)
+            self.backend = "iaf-student"
+        elif batcher_opts is not None:
             self.params = params
             self.batcher = ContinuousBatcher(params, cfg, device=self.device,
                                              **batcher_opts)
@@ -118,6 +142,16 @@ class Synthesizer:
             self.params = params_to(params, self.device)
             self.backend = ("cuda-fused" if self.device.type == "cuda"
                             else "cpu-plain")
+
+    def parameter_count(self) -> int:
+        if self.backend == "iaf-student":
+            return student_parameter_count(self.params)
+        return self.cfg.parameter_count()
+
+    @staticmethod
+    def bucket(n: int) -> int:
+        """A student clip's draw length: ``n`` rounded up to the bucket."""
+        return -(-n // _STUDENT_BUCKET) * _STUDENT_BUCKET
 
     def close(self):
         """Finish the pool's accepted requests, then stop it."""
@@ -197,6 +231,16 @@ class Synthesizer:
         if max_samples is not None and n > max_samples:
             raise ValueError(f"the upload makes {n} samples, more than the "
                              f"server's {max_samples}")
+        if self.backend == "iaf-student":
+            # the whole clip in one parallel pass at the bucket's length;
+            # rows past the last frame repeat it
+            with self.lock:
+                wav = student_synthesize(
+                    self.params, self.cfg,
+                    torch.Generator().manual_seed(seed), mel[None],
+                    hop_length, num_samples=self.bucket(n),
+                    device=self.device)
+                return wav[0, :n].cpu().numpy()
         if self.batcher is not None:
             if self.batcher.cond_hop != hop_length:
                 raise ValueError(
@@ -221,7 +265,18 @@ class Synthesizer:
         """Yield float32 waveform chunks (of at most ``chunk`` samples on
         the single-stream path; the pool's chunks with the batcher). The
         ring state carries across chunks; ``prime`` (flat class ids)
-        replaces the mid-class cold start."""
+        replaces the mid-class cold start. A student draws the whole clip
+        (at its bucket's length) in one pass, then yields it in chunks."""
+        if self.backend == "iaf-student":
+            with self.lock:
+                wav = student_generate(
+                    self.params, self.cfg,
+                    torch.Generator().manual_seed(seed),
+                    self.bucket(num_samples), device=self.device)
+                wav = wav[0, :num_samples].cpu().numpy()
+            for i in range(0, num_samples, chunk):
+                yield wav[i:i + chunk]
+            return
         if self.batcher is not None:
             yield from self._stream_batched(num_samples, temperature, seed,
                                             prime)
@@ -277,6 +332,12 @@ def make_handler(synth: Synthesizer, max_samples: int):
                 "chunk": pick("chunk", int, 2048),
                 "prime": None,
             }
+            if synth.backend == "iaf-student":
+                if (body.get("prime") is not None
+                        or body.get("prime_audio") is not None):
+                    raise ValueError("the IAF student has no autoregressive "
+                                     "history to prime")
+                return req
             classes = synth.cfg.classes
             if body.get("prime") is not None:
                 req["prime"] = np.asarray(body["prime"], np.int64)
@@ -341,8 +402,8 @@ def make_handler(synth: Synthesizer, max_samples: int):
                     "status": "ok",
                     "backend": synth.backend,
                     "receptive_field": synth.cfg.receptive_field,
-                    "parameter_count": synth.cfg.parameter_count(),
-                    "classes": synth.cfg.classes,
+                    "parameter_count": synth.parameter_count(),
+                    "classes": getattr(synth.cfg, "classes", None),
                     "sample_rate": synth.sr,
                 })
             if path == "/stats":
@@ -449,6 +510,11 @@ def parse_args(argv=None):
     p.add_argument("--ema", action="store_true",
                    help="serve the snapshot's EMA weights "
                         "(training.train --ema-decay)")
+    p.add_argument("--student-snapshot", default=None,
+                   help="serve a distilled IAF student (training.distill_cli "
+                        "checkpoint): a clip is one parallel pass; a "
+                        "conditioned student also serves /vocode; prime and "
+                        "temperature do not apply (the request's seed does)")
     return p.parse_args(argv)
 
 
@@ -457,6 +523,17 @@ def main(argv=None, on_ready=None):
     until ``server.shutdown()``. ``on_ready(server)`` is called once the
     socket is bound (its port is ``server.server_address[1]``)."""
     args = parse_args(argv)
+    if args.student_snapshot:
+        if args.ema:
+            raise SystemExit("--ema applies to WaveNet snapshots")
+        if args.batcher:
+            raise SystemExit("--batcher is the AR lane pool; the student "
+                             "already synthesizes whole clips in one pass")
+        params, scfg, step = load_student_snapshot(args.student_snapshot,
+                                                   device=args.device)
+        print(f"student at step {step}")
+        synth = Synthesizer(params, scfg, args.sr, args.device, student=True)
+        return _serve(args, synth, on_ready)
     if args.snapshot:
         blob = load_checkpoint(args.snapshot, args.device)
     else:
@@ -490,11 +567,15 @@ def main(argv=None, on_ready=None):
             batcher_opts["ring_dtype"] = torch.bfloat16
     synth = Synthesizer(params, cfg, args.sr, args.device,
                         batcher_opts=batcher_opts)
+    return _serve(args, synth, on_ready)
+
+
+def _serve(args, synth: Synthesizer, on_ready):
     # build the kernel and load it on the card before the first request
     next(synth.stream(1, 1.0, 0, 1))
     server = ThreadingHTTPServer((args.host, args.port),
                                  make_handler(synth, args.max_samples))
-    print(f"serving {synth.cfg.parameter_count():,}-param model on "
+    print(f"serving {synth.parameter_count():,}-param model on "
           f"http://{args.host}:{server.server_address[1]} "
           f"(backend: {synth.backend})", flush=True)
     if on_ready is not None:

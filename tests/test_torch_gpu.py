@@ -1172,3 +1172,144 @@ def test_native_codec_loads_on_card_machine(card):
     q = native.mu_law_quantize(x, 256)
     assert q.dtype == np.uint8 and np.all(np.diff(q.astype(int)) >= 0)
     assert np.abs(q.astype(int) - quantize_data(x, 256)).max() <= 1
+
+
+# ------------------------------------------ speculation and distillation
+
+
+def _gen_clone(state):
+    return pt.GenState(tuple(b.clone() for b in state.buffers), state.t)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("win", [1, 8, 20])
+def test_window_matches_sequential_steps_on_card(card, win):
+    """gen_step_window on the card against ``win`` chained gen_steps:
+    logits within 1e-5 x max(1, |y|), and rings after commit_window
+    bitwise (the committed values are the window's own layer inputs, which
+    equal the steps' up to the rounding of the wider products; with the
+    window's inputs written by the steps, the rings match bitwise)."""
+    cfg = pt.get_config("test_small")
+    params = pt.init_wavenet(cfg, torch.Generator().manual_seed(3), card)
+    hist = torch.from_numpy(_prime(cfg, 1, 4, 40)).to(card)
+    state = pt.init_gen_state(cfg, 1, card)
+    for i in range(hist.shape[1]):
+        _, state = pt.gen_step(params, cfg, state, hist[:, i])
+    window = torch.from_numpy(_prime(cfg, 1, 5, win)).to(card)
+    logits, pend = pt.gen_step_window(params, cfg, state, window)
+    seq, want = [], _gen_clone(state)
+    for i in range(win):
+        lg, want = pt.gen_step(params, cfg, want, window[:, i])
+        seq.append(lg)
+    seq = torch.stack(seq, dim=1)
+    assert bool(((logits - seq).abs() <= 1e-5 * seq.abs().clamp(min=1.0))
+                .all())
+    got = pt.commit_window(_gen_clone(state), pend, win)
+    assert got.t == want.t
+    for a, b in zip(got.buffers, want.buffers):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
+    # the draft's bookkeeping: recorded step inputs committed bitwise
+    from pytorch_wavenet_tpu_torch.models.generate import PendingWindow
+    work, recs = _gen_clone(state), []
+    for i in range(win):
+        rec = []
+        _, work = pt.gen_step(params, cfg, work, window[:, i], record=rec)
+        recs.append(rec)
+    h = tuple(torch.stack([r[l] for r in recs], dim=1)
+              for l in range(cfg.num_layers))
+    got = pt.commit_window(_gen_clone(state), PendingWindow(h, state.t), win)
+    assert all(torch.equal(a, b) for a, b in zip(got.buffers, want.buffers))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 4, 8])
+def test_speculation_matches_plain_rollout_on_card(card, k):
+    """Speculation's classes equal generate_fast(T=0) on the card off
+    near-ties (the first difference, if any, at a top-2 gap below 1e-4);
+    a draft equal to the teacher accepts exactly k."""
+    cfg = pt.get_config("test_small")
+    params = pt.init_wavenet(cfg, torch.Generator().manual_seed(6), card)
+    dcfg = pt.get_config("test_small", blocks=1)
+    draft = pt.init_wavenet(dcfg, torch.Generator().manual_seed(7), card)
+    prime = _prime(cfg, 1, 8)
+    n = 96
+    _, want = pt.generate_fast(params, cfg, None, n, prime, temperature=0.0,
+                               device=card)
+    for dp, dc in ((draft, dcfg), (params, cfg)):
+        _, cls, rate = pt.speculative_generate(params, cfg, dp, dc, None, n,
+                                               prime, k=k, device=card)
+        off = torch.nonzero(cls[0] != want[0])
+        if off.numel():
+            i = int(off[0])
+            full = torch.cat([torch.as_tensor(prime, device=card),
+                              want[:, :i]], dim=1)
+            top = pt.wavenet_logits(params, cfg, full, out_len=1)[0, 0]
+            gap = torch.topk(top, 2).values
+            assert float(gap[0] - gap[1]) < 1e-4
+        if dp is params:
+            assert rate == k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cond", [False, True], ids=["chaconne", "vocoder"])
+def test_k2_at_the_distillation_shape_on_card(card, cond):
+    """K2 at the distillation path's shape (N = 4, out 931, not a multiple
+    of the 64-position tile) against its plain version: units within 1e-5
+    x max(1, |u|)."""
+    name = "vocoder" if cond else "chaconne"
+    cfg = pt.get_config(name)
+    params = pt.init_wavenet(cfg, torch.Generator().manual_seed(9), card)
+    out_len = 4000 - cfg.receptive_field + 1
+    T = cfg.receptive_field + out_len - 1
+    g = torch.Generator().manual_seed(10)
+    h0 = (torch.rand((4, T, cfg.residual_channels), generator=g) * 2
+          - 1).to(card)
+    c = ((torch.rand((4, T, cfg.cond_channels), generator=g) * 2 - 1).to(card)
+         if cond else None)
+    before = tk.fwd_launches
+    uk, _ = tk.trunk_fwd_cuda(params, cfg, h0, out_len, cond=c)
+    torch.cuda.synchronize()
+    assert tk.fwd_launches == before + 1
+    assert uk.shape == (4, 931, cfg.num_layers * cfg.dilation_channels)
+    up, _ = tk.trunk_fwd_plain(params, cfg, h0, out_len, cond=c)
+    assert bool(((uk - up).abs() <= 1e-5 * up.abs().clamp(min=1.0)).all())
+
+
+@pytest.mark.gpu
+def test_student_on_card_matches_cpu(card):
+    """The student's draw on the card against the CPU's from the same
+    uniforms (one CPU generator), and a distillation step's loss with the
+    teacher through K2 against the plain trunk."""
+    import dataclasses
+
+    from pytorch_wavenet_tpu_torch.models import iaf
+    from pytorch_wavenet_tpu_torch.models.wavenet import params_to
+    from pytorch_wavenet_tpu_torch.training import distill
+
+    scfg = pt.IAFConfig(flows=2, layers=4, residual_channels=16,
+                        dilation_channels=16, skip_channels=16,
+                        end_channels=16, cond_channels=8)
+    params = pt.init_student(scfg, torch.Generator().manual_seed(11),
+                             init_scale=0.3, device="cpu")
+    params["flows"][-1]["end2"]["w"].uniform_(
+        -0.1, 0.1, generator=torch.Generator().manual_seed(15))
+    rows = torch.rand((2, 500, 8), generator=torch.Generator().manual_seed(1))
+    a = pt.student_generate(params, scfg, torch.Generator().manual_seed(12),
+                            500, 2, cond=rows, device="cpu")
+    b = pt.student_generate(params, scfg, torch.Generator().manual_seed(12),
+                            500, 2, cond=rows, device=card)
+    torch.testing.assert_close(b.cpu(), a, atol=1e-5, rtol=1e-5)
+    tcfg = pt.get_config("tiny_vocoder", trunk_kernel=True)
+    teacher = pt.init_wavenet(tcfg, torch.Generator().manual_seed(13), card)
+    scard = params_to(params, card)
+    u = iaf.base_uniforms(torch.Generator().manual_seed(14), (2, 500))
+    before = (tk.fwd_launches, tk.bwd_launches)
+    lk, _ = distill.distill_loss(scard, teacher, scfg, tcfg, u, 2, 500,
+                                 cond=rows.to(card), teacher_smooth=1e-3)
+    # the teacher's trunk is K2 alone: the frozen teacher has no backward
+    assert (tk.fwd_launches, tk.bwd_launches) == (before[0] + 1, before[1])
+    lp, _ = distill.distill_loss(scard, teacher, scfg,
+                                 dataclasses.replace(tcfg, trunk_kernel=False),
+                                 u, 2, 500, cond=rows.to(card),
+                                 teacher_smooth=1e-3)
+    assert abs(float(lk) - float(lp)) <= 1e-5 * max(1.0, abs(float(lp)))

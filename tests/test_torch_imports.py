@@ -14,7 +14,8 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for name in names:
     importlib.import_module(name)
 assert "pytorch_wavenet_tpu_torch.data.mel_dataset" in names
-for new in ("data.native", "utils.tensorboard"):
+for new in ("data.native", "utils.tensorboard", "models.speculative",
+            "models.iaf", "training.distill", "training.distill_cli"):
     assert "pytorch_wavenet_tpu_torch." + new in names
 banned = [m for m in sys.modules
           if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "msgpack",
@@ -139,6 +140,48 @@ def test_conditioned_paths_run_with_jax_blocked():
     the server's /vocode) import and run on the CPU with every import of
     JAX or of the JAX package made to fail, and build nothing."""
     out = subprocess.run([sys.executable, "-c", _BLOCKED_VOCODER], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+_BLOCKED_DISTILL = _BLOCKED.split("import pytorch_wavenet_tpu_torch.serving")[0] + """
+import torch
+import pytorch_wavenet_tpu_torch as pt
+from pytorch_wavenet_tpu_torch.models import iaf, speculative
+from pytorch_wavenet_tpu_torch.ops.cuda import build, trunk_kernel
+from pytorch_wavenet_tpu_torch.training import distill, distill_cli
+import pytorch_wavenet_tpu_torch.serving.server as srv
+cfg = pt.get_config("tiny", trunk_kernel=True)
+params = pt.init_wavenet(cfg, torch.Generator().manual_seed(0), "cpu")
+draft = pt.init_wavenet(pt.get_config("tiny", layers=2),
+                        torch.Generator().manual_seed(1), "cpu")
+_, cls, rate = pt.speculative_generate(params, cfg, draft,
+                                       pt.get_config("tiny", layers=2), None,
+                                       12, k=4, device="cpu")
+scfg = pt.IAFConfig(flows=2, layers=2, residual_channels=4,
+                    dilation_channels=4, skip_channels=4, end_channels=4)
+student = pt.init_student(scfg, torch.Generator().manual_seed(2),
+                          init_scale=0.2, device="cpu")
+tx = pt.reference_adam(1e-3, gradient_clipping=1.0)
+opt = tx.init(iaf.student_state_dict(student))
+_, opt, loss, aux = pt.distill_step(student, opt, params, scfg, cfg, tx,
+                                    torch.Generator().manual_seed(3), 2, 40)
+wav = pt.student_generate(student, scfg, None, 32, device="cpu")
+assert cls.shape == (1, 12) and 1.0 <= rate <= 4 and wav.shape == (1, 32)
+assert torch.isfinite(loss) and opt["count"] == 1 and srv.Synthesizer
+assert distill_cli.parse_args(["--teacher-snapshot", "x"]).device == "cuda"
+assert trunk_kernel.fwd_launches == 0 and not build._libs
+print("ok")
+"""
+
+
+def test_speculation_and_distillation_run_with_jax_blocked():
+    """Speculation, the student, a distillation step with the teacher's
+    trunk through K2's plain version, the distillation CLI's module and the
+    server's student backend import and run on the CPU with every import of
+    JAX or of the JAX package made to fail, and build nothing."""
+    out = subprocess.run([sys.executable, "-c", _BLOCKED_DISTILL], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
