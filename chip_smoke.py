@@ -185,11 +185,42 @@ Phases (any failure stops the run with a nonzero exit):
      phase 28's students, ``/synthesize`` of 16000 samples byte-equal to
      ``student_generate`` with the request's seed, ``/vocode`` of
      ``examples/generated_t1.0.wav`` on the conditioned student byte-equal
-     to ``student_synthesize``; request times.
+     to ``student_synthesize``; request times;
+ 30. ``generate_long`` at chaconne: K1 (1 stream) and K4 (256 lanes),
+     16384 samples in chunks of 4096, each bitwise equal to one call at
+     T = 0 and 0.9 with the same seed, a progress call after every chunk;
+     ``streaming=False`` on K1 against the plain ``generate_long`` at T = 0
+     on a 6-layer cut (classes off near-ties); temperatures (0, 0.9, 0,
+     1.0) in one plain ``generate_fast`` rollout on the card, the 0
+     streams bitwise the scalar T = 0 rollout; ``progress_callback``
+     leaving the plain rollout bitwise unchanged;
+ 31. reference snapshots: a chaconne-shaped whole-module pickle made here
+     (stub ``wavenet_model`` module, random weights) loaded on the card by
+     ``load_reference_snapshot``, round-tripping bitwise through
+     ``to_reference_state_dict``, served with ``--torch-snapshot``: a T = 0
+     response byte-equal to K1 on the converted params;
+ 32. ``/reload`` (the main path of this slice): ``--batcher --lanes 256
+     --batch-chunk 2048 --reload-interval 1`` on snapshot A; /reload to B
+     while a 64000-sample request streams (it completes, /stats failed 0);
+     the next request byte-equal to K4 on B; snapshot C written into the
+     directory rolled in by the follower (a request equal to K4 on C);
+     another config 400; then /reload on the single-stream server (K1);
+ 33. ``/profile``: a 2 s capture during 16 pooled requests, a second
+     capture 409, the Chrome trace naming K4's kernel with its device time
+     (launches and ms printed), the responses byte-equal to solo K4;
+ 34. ``--backend plain`` on the card (``cuda-plain``): 512 samples at
+     T = 0 byte-equal to ``generate_fast``, K1's classes off near-ties, no
+     kernel launched;
+ 35. the generate CLI in subprocesses started together: ``--snapshot`` at
+     1 stream (K1) and 16 (K4), ``--torch-snapshot``, ``--vocode-wav`` at
+     the vocoder, ``--ema`` on phase 25's snapshot, each wav byte-equal to
+     the library call it printed; ``--draft-snapshot`` without
+     ``--force-speculate`` refused. Each phase's seconds are printed.
 
 ``python3 chip_smoke.py --remainder-only`` runs phases 1, 2, 25 and 26 only,
-and ``--distill-only`` phases 1, 2, 25 (the teacher) and 27-29; both exit
-1 without a result (short calls while working on them).
+``--distill-only`` phases 1, 2, 25 (the teacher) and 27-29, and
+``--slice11-only`` phases 1, 2, 25 (the ``--ema`` snapshot) and 30-35; each
+exits 1 without a result (short calls while working on them).
 
 The line before the last is one JSON object listing the kernels; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -213,6 +244,7 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.error
 import urllib.request
 
 NEAR_TIE = 1e-4
@@ -3758,6 +3790,699 @@ def phase_student_serving(torch, np, pt, dev, card, students, n=16000):
     return out
 
 
+# ------------------------------------------- slice 11: generation, serving
+
+LONG_N = 16384         # phase 30's rollout length, in chunks of LONG_CHUNK
+LONG_CHUNK = 4096
+LONG_LANES = 256       # K4's lanes there (the pool's width)
+RELOAD_STREAM = 64000  # phase 32's request that streams across a reload
+REQ_N = 4096           # the other requests of phases 31-33
+PROFILE_N = 16000      # phase 33's 16 requests
+POOL_CHUNK = 2048       # the pool's chunk in phases 32-33
+POOL = ["--batcher", "--lanes", "256", "--batch-chunk", str(POOL_CHUNK)]
+CLI_N = 4096           # phase 35's samples a stream
+
+
+def _wav_pcm(np, wav):
+    w = np.asarray(wav)
+    check(np.isfinite(w).all(), "non-finite waveform")
+    return np.clip(w * 32767.0, -32768, 32767).astype("<i2")
+
+
+def _server(srv, argv, tag, timeout=600):
+    """``serving.server.main(argv)`` on a free port in a thread; returns
+    (base url, stop) where ``stop()`` shuts it down and joins it."""
+    box, ready = {}, threading.Event()
+
+    def on_ready(server):
+        box["server"] = server
+        ready.set()
+
+    th = threading.Thread(target=srv.main, kwargs=dict(
+        argv=argv + ["--port", "0"], on_ready=on_ready), daemon=True)
+    t0 = time.time()
+    th.start()
+    while not ready.wait(1):
+        check(th.is_alive() and time.time() - t0 < timeout,
+              f"[{tag}] the server did not come up")
+    server = box["server"]
+
+    def stop():
+        server.shutdown()
+        th.join(120)
+        check(not th.is_alive(), f"[{tag}] the server thread did not stop")
+
+    return f"http://127.0.0.1:{server.server_address[1]}", stop
+
+
+def _get(np, base, n, seed, temperature, chunk=2048):
+    url = (f"{base}/synthesize?num_samples={n}&seed={seed}"
+           f"&temperature={temperature}&chunk={chunk}")
+    with urllib.request.urlopen(url, timeout=900) as r:
+        return np.frombuffer(_read_wav(r.read(), n), "<i2")
+
+
+def _post_json(base, route, body=None):
+    """(status, JSON reply) of a POST."""
+    data = b"" if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(base + route, data=data, method="POST")
+    try:
+        with urllib.request.urlopen(req, timeout=900) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def _json_get(base, route):
+    with urllib.request.urlopen(base + route, timeout=60) as r:
+        return json.loads(r.read())
+
+
+def _k1_pcm(np, pt, params, cfg, n, seed, temperature, dev):
+    """A single-stream request's library call: K1 with the server's seed."""
+    from pytorch_wavenet_tpu_torch.serving.server import Synthesizer
+
+    wav, _ = pt.generate_fast_fused(params, cfg, Synthesizer.kernel_seed(seed),
+                                    n, None, temperature=temperature,
+                                    fuse_res=True, device=dev)
+    return _wav_pcm(np, wav[0].cpu().numpy())
+
+
+def _k4_pcm(np, pt, params, cfg, n, seed, temperature, dev):
+    """A pooled request's library call: its solo K4 rollout."""
+    from pytorch_wavenet_tpu_torch.ops.mulaw import dequantize_to_f32
+
+    cls = _solo_cls(pt, params, cfg, [[cfg.classes // 2]], n, temperature,
+                    [seed], dev)[0]
+    return _wav_pcm(np, dequantize_to_f32(cls, cfg.classes))
+
+
+def phase_generate_long(torch, np, pt, gk, ghbm, dev, cfg, params):
+    """Phase 30: ``generate_long`` through K1 (1 stream) and K4 (256
+    lanes), LONG_N samples in chunks of LONG_CHUNK, each bitwise equal to
+    one call at T = 0 and 0.9 with the same seed, progress calls at every
+    chunk; ``streaming=False`` on K1 against the plain ``generate_long`` at
+    T = 0 on a 6-layer cut of chaconne (classes off near-ties); per-stream
+    temperature and ``progress_callback`` on the plain ``generate_fast``.
+    Returns the K1 and K4 launches of the ``generate_long`` calls."""
+    rng = np.random.default_rng(SEED)
+    want = [(c, LONG_N) for c in range(LONG_CHUNK, LONG_N + 1, LONG_CHUNK)]
+    launched = {"K1": 0, "K4": 0}
+    for tag, fn, prime, kw in (
+            ("K1", pt.generate_fast_fused, None, dict(fuse_res=True)),
+            ("K4", pt.generate_fast_batched,
+             rng.integers(0, cfg.classes, (LONG_LANES, 64)),
+             dict(fuse_res=True, skip_slab=True))):
+        for temp in (0.0, 0.9):
+            t = time.time()
+            _, one = fn(params, cfg, SEED, LONG_N, prime, temperature=temp,
+                        device=dev, **kw)
+            calls = []
+            gk.launches = ghbm.launches = 0
+            _, chunked = pt.generate_long(
+                params, cfg, SEED, LONG_N, prime, temperature=temp,
+                chunk_size=LONG_CHUNK, backend=fn, device=dev,
+                progress_callback=lambda d, n: calls.append((d, n)), **kw)
+            torch.cuda.synchronize()
+            counts = {"K1": gk.launches, "K4": ghbm.launches}
+            check(counts[tag] == LONG_N // LONG_CHUNK
+                  and sum(counts.values()) == counts[tag],
+                  f"generate_long {tag}: launches {counts}")
+            launched[tag] += counts[tag]
+            check(torch.equal(chunked, one),
+                  f"generate_long {tag} T={temp} differs from one call")
+            check(calls == want, f"progress calls {calls}")
+            log(f"[generate_long] {tag}, streams {one.shape[0]}, T={temp}: "
+                f"{LONG_N} samples in {LONG_N // LONG_CHUNK} chunks equal one "
+                f"call bitwise; progress {calls[0]} .. {calls[-1]}; "
+                f"{time.time() - t:.2f} s for both")
+
+    # streaming=False: K1 re-primed per chunk against the plain rollout
+    scfg = pt.get_config("chaconne", layers=6, blocks=1)  # rf 64
+    sp = pt.init_wavenet(scfg, torch.Generator().manual_seed(SEED), dev)
+    prime = torch.from_numpy(rng.integers(0, scfg.classes, (1, 64))).to(dev)
+    gk.launches = 0
+    _, ck = pt.generate_long(sp, scfg, 0, 300, prime, temperature=0.0,
+                             chunk_size=100, backend=pt.generate_fast_fused,
+                             streaming=False, device=dev, fuse_res=True)
+    check(gk.launches == 3, f"streaming=False: {gk.launches} K1 launches")
+    launched["K1"] += gk.launches
+    _, cp = pt.generate_long(sp, scfg, None, 300, prime, temperature=0.0,
+                             chunk_size=100, streaming=False, device=dev)
+    gaps, _ = _spec_gaps(torch, pt, sp, scfg, prime, cp)
+    parted = _held_off_near_ties(ck.long(), cp, gaps, "streaming=False")
+    log(f"[generate_long] streaming=False, 6-layer chaconne (rf 64), 300 "
+        f"samples in chunks of 100 re-primed: K1 equals the plain version"
+        f"{' up to a near-tie' if parted else ''}")
+
+    # per-stream temperature and progress on the plain rollout
+    first = np.full((4, 1), cfg.classes // 2)
+    temps = torch.tensor([0.0, 0.9, 0.0, 1.0])
+    _, mixed = pt.generate_fast(params, cfg, torch.Generator().manual_seed(1),
+                                64, first, temperature=temps, device=dev)
+    _, cold = pt.generate_fast(params, cfg, None, 64, first, temperature=0.0,
+                               device=dev)
+    check(torch.equal(mixed[[0, 2]], cold[[0, 2]]),
+          "per-stream temperature: a 0-temperature stream differs from the "
+          "scalar T = 0 rollout")
+    calls = []
+    _, cb = pt.generate_fast(params, cfg, torch.Generator().manual_seed(2),
+                             64, first, temperature=1.0, device=dev,
+                             progress_callback=lambda d, n: calls.append(d),
+                             progress_interval=16)
+    _, nocb = pt.generate_fast(params, cfg, torch.Generator().manual_seed(2),
+                               64, first, temperature=1.0, device=dev)
+    check(torch.equal(cb, nocb) and calls == [16, 32, 48, 64],
+          f"progress_callback changed the rollout (calls {calls})")
+    log("[generate_long] plain generate_fast on the card: temperatures "
+        "(0, 0.9, 0, 1.0) in one rollout, the 0 streams bitwise the scalar "
+        "T = 0 rollout; progress_callback every 16 of 64 samples leaves it "
+        "bitwise unchanged")
+    return launched
+
+
+def _reference_module(torch, cfg, path):
+    """Pickle a module shaped like a reference pytorch-wavenet snapshot
+    (``wavenet_model.WaveNetModel``, the reference's attribute names, its
+    convs with random weights from SEED), with stub modules put into
+    ``sys.modules`` for the save and taken out again."""
+    import types
+
+    nn = torch.nn
+    stubs = {n: types.ModuleType(n) for n in ("wavenet_model",
+                                              "wavenet_modules")}
+
+    class WaveNetModel(nn.Module):
+        pass
+
+    class DilatedQueue:
+        pass
+
+    for cls, mod in ((WaveNetModel, "wavenet_model"),
+                     (DilatedQueue, "wavenet_modules")):
+        cls.__module__, cls.__qualname__ = mod, cls.__name__
+        setattr(stubs[mod], cls.__name__, cls)
+    torch.manual_seed(SEED)
+    m = WaveNetModel()
+    m.layers, m.blocks, m.kernel_size = cfg.layers, cfg.blocks, cfg.kernel_size
+    m.classes, m.output_length = cfg.classes, cfg.output_length
+    m.receptive_field = cfg.receptive_field
+    m.dilations, m.dilated_queues, init = [], [], 1
+    for d in cfg.dilations:
+        m.dilations.append((d, init))
+        q = DilatedQueue()
+        q.max_length, q.dilation = (cfg.kernel_size - 1) * d + 1, d
+        q.data = torch.zeros(cfg.residual_channels, q.max_length)
+        m.dilated_queues.append(q)
+        init = d
+    R, D, S, E, C = (cfg.residual_channels, cfg.dilation_channels,
+                     cfg.skip_channels, cfg.end_channels, cfg.classes)
+    m.start_conv = nn.Conv1d(C, R, 1, bias=cfg.bias)
+    for name, a, b, k in (("filter_convs", R, D, cfg.kernel_size),
+                          ("gate_convs", R, D, cfg.kernel_size),
+                          ("residual_convs", D, R, 1),
+                          ("skip_convs", D, S, 1)):
+        setattr(m, name, nn.ModuleList(nn.Conv1d(a, b, k, bias=cfg.bias)
+                                       for _ in range(cfg.num_layers)))
+    m.end_conv_1 = nn.Conv1d(S, E, 1, bias=True)
+    m.end_conv_2 = nn.Conv1d(E, C, 1, bias=True)
+    sys.modules.update(stubs)
+    try:
+        torch.save(m, path)
+    finally:
+        for n in stubs:
+            del sys.modules[n]
+    return {k: v.detach().numpy() for k, v in m.state_dict().items()}
+
+
+def phase_reference_snapshot(torch, np, pt, gk, dev, d):
+    """Phase 31: a chaconne-shaped whole-module reference pickle made here
+    loads on the card with ``load_reference_snapshot`` (the chaconne widths
+    and rf 3070 read off the module), round-trips bitwise through
+    ``to_reference_state_dict``, and ``serving.server --torch-snapshot``
+    serves it: /synthesize at T = 0 byte-equal to a K1 call on the converted
+    params. Returns (pickle path, K1 launches while serving)."""
+    from pytorch_wavenet_tpu_torch.models.convert import (
+        to_reference_state_dict)
+    from pytorch_wavenet_tpu_torch.serving import server as srv
+
+    chaconne = pt.get_config("chaconne")
+    path = os.path.join(d, "chaconne_reference.pt")
+    sd = _reference_module(torch, chaconne, path)
+    params, cfg = pt.load_reference_snapshot(path, device=dev)
+    check(cfg.receptive_field == chaconne.receptive_field and all(
+        getattr(cfg, f) == getattr(chaconne, f) for f in (
+            "layers", "blocks", "residual_channels", "dilation_channels",
+            "skip_channels", "end_channels", "classes", "bias")),
+        f"converted config {cfg}")
+    check(next(iter(params["layers"].values())).device.type == dev.type,
+          "converted params are not on the card")
+    back = to_reference_state_dict(params, cfg)
+    check(sorted(back) == sorted(sd) and all(
+        np.array_equal(back[k], sd[k]) for k in sd),
+        "to_reference_state_dict does not give the pickle's weights back")
+    n = REQ_N
+    gk.launches = 0
+    base, stop = _server(srv, ["--torch-snapshot", path], "torch-snapshot")
+    try:
+        got = _get(np, base, n, 31, 0.0)
+    finally:
+        stop()
+    launched = gk.launches
+    check(launched == 1 + math.ceil(n / 2048), f"--torch-snapshot: "
+          f"{launched} K1 launches, expected 1 + one per chunk")
+    check(np.array_equal(got, _k1_pcm(np, pt, params, cfg, n, 31, 0.0, dev)),
+          "--torch-snapshot response differs from K1 on the converted params")
+    log(f"[torch-snapshot] chaconne-shaped reference pickle: rf "
+        f"{cfg.receptive_field}, {len(sd)} tensors round-trip bitwise; "
+        f"served {n} samples at T=0 byte-equal to K1 on the converted "
+        f"params; K1 launches {launched}")
+    return path, launched
+
+
+def phase_reload(torch, np, pt, gk, ghbm, dev, cfg, params, d):
+    """Phase 32: ``--batcher --lanes 256 --batch-chunk 2048`` on snapshot A
+    with ``--snapshot-path`` and ``--reload-interval 1``: POST /reload to B
+    while a RELOAD_STREAM-sample request streams (it completes, /stats
+    failed 0), a later request byte-equal to K4 on B; snapshot C written
+    into the directory rolls in within a few polls (a request equal to K4
+    on C); a snapshot of another config gets 400; the plain version barred;
+    K4's launches in the server's run exactly those its requests need (the
+    library calls it is held to run outside that count). Then /reload once
+    on the single-stream server (K1). Returns the K1 and K4 launches."""
+    from pytorch_wavenet_tpu_torch.serving import server as srv
+
+    run, apart = os.path.join(d, "run"), os.path.join(d, "apart")
+    pb = pt.init_wavenet(cfg, torch.Generator().manual_seed(SEED + 1), dev)
+    pc = pt.init_wavenet(cfg, torch.Generator().manual_seed(SEED + 2), dev)
+    a = pt.save_checkpoint(run, "chaconne", 1, params, cfg=cfg)
+    b = pt.save_checkpoint(apart, "chaconne", 2, pb, cfg=cfg)
+    ocfg = pt.get_config("chaconne", residual_channels=16)
+    other = pt.save_checkpoint(apart, "narrow", 3, pt.init_wavenet(
+        ocfg, torch.Generator().manual_seed(3), dev), cfg=ocfg)
+    # the library calls the served clips are held to, before the count
+    want_b = _k4_pcm(np, pt, pb, cfg, REQ_N, 41, 0.9, dev)
+    want_c = _k4_pcm(np, pt, pc, cfg, REQ_N, 42, 0.0, dev)
+    real = ghbm.batched_plain
+    plain_calls = []
+
+    def barred(*args, **kwargs):
+        plain_calls.append(1)
+        raise RuntimeError("the plain version ran on the card path")
+
+    ghbm.batched_plain = barred
+    gk.launches = ghbm.launches = 0
+    try:
+        base, stop = _server(srv, [
+            "--snapshot", a, "--snapshot-path", run, *POOL,
+            "--reload-interval", "1"], "reload --batcher")
+        try:
+            box = {}
+            th = threading.Thread(target=lambda: box.update(
+                pcm=_get(np, base, RELOAD_STREAM, 40, 0.9)))
+            t = time.time()
+            th.start()
+            time.sleep(1.0)
+            code, reply = _post_json(base, "/reload", {"snapshot": b})
+            check(code == 200 and reply == {"reloaded": True, "step": 2},
+                  f"/reload: {code} {reply}")
+            after = _get(np, base, REQ_N, 41, 0.9)
+            check(th.is_alive(), "the long request ended before /reload "
+                  "and the request after it were served")
+            code, reply = _post_json(base, "/reload", {"snapshot": other})
+            check(code == 400 and "config" in reply["error"],
+                  f"/reload of another config: {code} {reply}")
+            th.join(900)
+            check(not th.is_alive() and box["pcm"].size == RELOAD_STREAM,
+                  "the request streaming across the reload did not finish")
+            streamed_s = time.time() - t
+            # the follower: snapshot C written into the served directory
+            pt.save_checkpoint(run, "chaconne", 5, pc, cfg=cfg)
+            t = time.time()
+            polls = 0
+            while True:
+                polls += 1
+                if np.array_equal(_get(np, base, REQ_N, 42, 0.0), want_c):
+                    break
+                check(time.time() - t < 30, "the follower did not roll in "
+                      "snapshot C within 30 s")
+                time.sleep(0.5)
+            rolled_s = time.time() - t
+            stats = _json_get(base, "/stats")
+        finally:
+            stop()
+    finally:
+        ghbm.batched_plain = real
+    k4, k1 = ghbm.launches, gk.launches
+
+    def lone(n):
+        """K4 launches of a lone pooled request of n samples: its prime
+        (sample 0), ceil((n - 1) / chunk) chunks, and the chunk launched
+        before its last one is handed out."""
+        return 2 + math.ceil((n - 1) / POOL_CHUNK)
+
+    # the pool's prewarm step and the server's one-sample warm-up, the long
+    # request, `after` (a prime; its chunks ride the long request's) and
+    # the follower's polls
+    want_k4 = 2 + lone(RELOAD_STREAM) + 1 + polls * lone(REQ_N)
+    check(not plain_calls and k1 == 0 and k4 == want_k4
+          and k4 == 1 + stats["prime_calls"] + stats["pool_steps"],
+          f"reload --batcher: K4 {k4} (want {want_k4}; /stats prime calls "
+          f"{stats['prime_calls']}, pool steps {stats['pool_steps']}), K1 "
+          f"{k1}, plain {len(plain_calls)}")
+    check(stats["failed"] == 0, f"/stats after the reloads: {stats}")
+    check(np.array_equal(after, want_b),
+          "a request after /reload differs from K4 on snapshot B")
+    log(f"[reload] --batcher --lanes 256: a {RELOAD_STREAM}-sample request "
+        f"streamed across /reload in {streamed_s:.1f} s (failed 0); the next "
+        f"request byte-equal to K4 on B; another config 400; snapshot C "
+        f"rolled in by the follower after {rolled_s:.1f} s ({polls} polls), "
+        f"equal to K4 on C; K4 launches {k4}, K1 {k1}, plain calls 0")
+
+    gk.launches = ghbm.launches = 0
+    base, stop = _server(srv, ["--snapshot", a], "reload single-stream")
+    try:
+        code, reply = _post_json(base, "/reload", {"snapshot": b})
+        got = _get(np, base, REQ_N, 43, 0.9)
+    finally:
+        stop()
+    k1 = gk.launches
+    check(code == 200 and reply["step"] == 2, f"/reload: {code} {reply}")
+    check(k1 == 1 + math.ceil(REQ_N / 2048) and ghbm.launches == 0,
+          f"single-stream: K1 {k1}")
+    check(np.array_equal(got, _k1_pcm(np, pt, pb, cfg, REQ_N, 43, 0.9, dev)),
+          "single-stream request after /reload differs from K1 on B")
+    log(f"[reload] single stream: the request after /reload byte-equal to "
+        f"K1 on B; K1 launches {k1}")
+    return k1, k4
+
+
+def _k4_trace_events(events):
+    """The trace's K4 launches: the cluster core's kernel with K1's ring
+    flag false (demangled ``gen_cluster_kernel<16, false, ...>`` or mangled
+    ``gen_cluster_kernelILi16ELb0...``)."""
+    import re
+
+    pat = re.compile(r"gen_cluster_kernel(<\d+, false|ILi\d+ELb0)")
+    return [e for e in events if e.get("cat") == "kernel"
+            and pat.search(e.get("name", ""))]
+
+
+def _capture_window(events, span):
+    """(start, end) in µs of the capture's own span in a trace written by
+    ``profiling.trace`` (the block it wrapped)."""
+    marks = [e for e in events if e.get("name") == span
+             and e.get("cat") == "user_annotation"]
+    check(len(marks) == 1, f"the trace holds {len(marks)} {span} spans")
+    lo = float(marks[0]["ts"])
+    return lo, lo + float(marks[0]["dur"])
+
+
+def _clipped_ms(events, lo, hi):
+    """Device ms of ``events`` inside [lo, hi] (µs): a launch that straddles
+    an edge counts only its part inside."""
+    return sum(max(0.0, min(hi, float(e["ts"]) + float(e.get("dur", 0)))
+                   - max(lo, float(e["ts"]))) for e in events) / 1e3
+
+
+def phase_profile(torch, np, pt, gk, ghbm, dev, cfg, params, d):
+    """Phase 33: ``--batcher --lanes 256 --batch-chunk 2048 --profile-dir``:
+    a first short capture, then POST /profile?seconds=2 while 16 requests
+    run on the pool; a second capture during it gets 409, the trace is a
+    Chrome trace JSON naming K4's kernel with device time, and the 16
+    responses are byte-equal to their solo K4 rollouts. The pool's busy
+    share is K4's device time inside the capture's window over the
+    window. Returns (K4 launches, the trace's K4 launches that overlap the
+    window, their device ms inside it, their whole device ms, the window
+    in ms)."""
+    from pytorch_wavenet_tpu_torch.ops.mulaw import dequantize_to_f32
+    from pytorch_wavenet_tpu_torch.serving import server as srv
+    from pytorch_wavenet_tpu_torch.utils.profiling import CAPTURE_SPAN
+
+    prof = os.path.join(d, "profiles")
+    snap = pt.save_checkpoint(os.path.join(d, "profile"), "chaconne", 1,
+                              params, cfg=cfg)
+    n, reqs = PROFILE_N, 16
+    temps = [(0.9, 0.0)[i % 2] for i in range(reqs)]
+    gk.launches = ghbm.launches = 0
+    base, stop = _server(srv, ["--snapshot", snap, *POOL, "--profile-dir",
+                               prof], "profile")
+    try:
+        # the process's first capture starts the device tracer (seconds on
+        # the card), so a short one goes before the measured capture
+        t = time.time()
+        first = _post_json(base, "/profile?seconds=0.1")
+        first_s = time.time() - t
+        check(first[0] == 200, f"the first /profile: {first}")
+        out = [None] * reqs
+
+        def fetch(i):
+            out[i] = _get(np, base, n, 700 + i, temps[i])
+
+        threads = [threading.Thread(target=fetch, args=(i,))
+                   for i in range(reqs)]
+        for th in threads:
+            th.start()
+        time.sleep(0.5)
+        box = {}
+        cap = threading.Thread(target=lambda: box.update(
+            r=_post_json(base, "/profile?seconds=2")))
+        cap.start()
+        time.sleep(0.3)
+        second = _post_json(base, "/profile?seconds=1")
+        cap.join(120)
+        for th in threads:
+            th.join(900)
+        stats = _json_get(base, "/stats")
+    finally:
+        stop()
+    k4 = ghbm.launches
+    check(second[0] == 409, f"a second capture got {second}")
+    code, reply = box["r"]
+    check(code == 200 and reply["seconds"] == 2.0, f"/profile: {code} {reply}")
+    check(all(o is not None for o in out) and stats["failed"] == 0,
+          f"requests during the capture: {stats}")
+    with open(reply["trace"]) as f:
+        events = json.load(f)["traceEvents"]
+    lo, hi = _capture_window(events, CAPTURE_SPAN)
+    ev = [e for e in _k4_trace_events(events)
+          if float(e["ts"]) < hi and float(e["ts"]) + float(e["dur"]) > lo]
+    dev_ms = _clipped_ms(ev, lo, hi)
+    whole_ms = sum(float(e["dur"]) for e in ev) / 1e3
+    window_ms = (hi - lo) / 1e3
+    check(ev and 0 < dev_ms <= window_ms,
+          f"K4 in the capture: {len(ev)} launches, {dev_ms} ms inside a "
+          f"{window_ms} ms window")
+    for temp in (0.9, 0.0):
+        idx = [i for i in range(reqs) if temps[i] == temp]
+        cls = _solo_cls(pt, params, cfg, [[cfg.classes // 2]] * len(idx), n,
+                        temp, [700 + i for i in idx], dev)
+        for row, i in enumerate(idx):
+            check(np.array_equal(out[i], _wav_pcm(np, dequantize_to_f32(
+                cls[row], cfg.classes))),
+                f"request {i} during the capture differs from its solo K4")
+    log(f"[profile] a first 0.1 s capture took {first_s:.2f} s; a 2 s "
+        f"capture during 16 pooled {n}-sample requests: a {window_ms:.3f} "
+        f"ms window, {len(ev)} K4 launches overlap it, {dev_ms:.3f} ms of "
+        f"their device time inside it (busy share "
+        f"{100 * dev_ms / window_ms:.1f} %; {whole_ms:.3f} ms whole) "
+        f"({os.path.basename(reply['trace'])}, {len(events)} events); a "
+        f"second capture got 409; the 16 responses byte-equal to their "
+        f"solo K4 rollouts; K4 launches {k4}, K1 {gk.launches}")
+    return k4, len(ev), dev_ms, whole_ms, window_ms
+
+
+def phase_backend_plain(torch, np, pt, gk, ghbm, dev, cfg, params, d):
+    """Phase 34: ``serving.server --backend plain`` on the card
+    (``cuda-plain``: ``generate_fast``, no kernel): a 512-sample request at
+    T = 0 byte-equal to the plain library call, whose classes equal K1's
+    off near-ties."""
+    from pytorch_wavenet_tpu_torch.serving import server as srv
+
+    snap = pt.save_checkpoint(os.path.join(d, "plain"), "chaconne", 1,
+                              params, cfg=cfg)
+    n = 512
+    gk.launches = ghbm.launches = 0
+    base, stop = _server(srv, ["--snapshot", snap, "--backend", "plain"],
+                         "backend plain")
+    try:
+        backend = _json_get(base, "/health")["backend"]
+        t = time.time()
+        got = _get(np, base, n, 5, 0.0, chunk=n)
+        dt = time.time() - t
+    finally:
+        stop()
+    check(backend == f"{dev.type}-plain", f"/health backend {backend}")
+    check(gk.launches == 0 and ghbm.launches == 0,
+          f"--backend plain launched K1 {gk.launches}, K4 {ghbm.launches}")
+    wav, cp = pt.generate_fast(params, cfg, torch.Generator().manual_seed(5),
+                               n, temperature=0.0, device=dev)
+    check(np.array_equal(got, _wav_pcm(np, wav[0].cpu().numpy())),
+          "--backend plain differs from the plain library call")
+    _, ck = pt.generate_fast_fused(params, cfg, 0, n, None, temperature=0.0,
+                                   fuse_res=True, device=dev)
+    prime = torch.full((1, 1), cfg.classes // 2, device=dev)
+    gaps, _ = _spec_gaps(torch, pt, params, cfg, prime, cp)
+    parted = _held_off_near_ties(ck.long(), cp, gaps, "--backend plain")
+    log(f"[backend plain] {backend}: {n} samples at T=0 in {dt:.2f} s "
+        f"({n / dt:.1f} samples/s), byte-equal to generate_fast, K1's "
+        f"classes{' up to a near-tie' if parted else ''}; no kernel launched")
+
+
+def _cli(args, out):
+    return subprocess.Popen(
+        [sys.executable, "-m", "pytorch_wavenet_tpu_torch.generate_cli",
+         *args, "--out", out], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+
+
+def phase_generate_cli(torch, np, pt, dev, cfg, params, d, ref_pickle,
+                       ema_snap):
+    """Phase 35: ``python -m pytorch_wavenet_tpu_torch.generate_cli`` in
+    subprocesses, all started together: ``--snapshot`` at 1 stream (K1) and
+    16 streams (K4), ``--torch-snapshot``, ``--vocode-wav`` at the vocoder
+    (K1 through ``synthesize``), ``--ema`` on phase 25's snapshot, each
+    wav byte-equal to the library call the CLI printed it took (its
+    launches printed); ``--draft-snapshot`` without ``--force-speculate``
+    exits non-zero with the refusal. Returns the launches the CLIs
+    printed."""
+    from pytorch_wavenet_tpu_torch.models.generate import synthesize
+    from pytorch_wavenet_tpu_torch.training.optimizers import (
+        find_ema_state_dict)
+
+    snap = pt.save_checkpoint(os.path.join(d, "cli"), "chaconne", 1, params,
+                              cfg=cfg)
+    vcfg, vparams = _vocoder(torch, pt, dev)
+    vsnap = pt.save_checkpoint(os.path.join(d, "cli"), "vocoder", 1, vparams,
+                               cfg=vcfg)
+
+    def mid(streams):
+        return np.full((streams, 1), cfg.classes // 2, np.int64)
+
+    n = ["--num-samples", str(CLI_N)]
+    runs = {
+        "k1": (["--snapshot", snap, *n, "--seed", "3", "--temperature",
+                "0.9"], "K1", 1),
+        "k4": (["--snapshot", snap, *n, "--seed", "4", "--temperature", "0.9",
+                "--num-streams", "16"], "K4", 16),
+        "torch": (["--torch-snapshot", ref_pickle, *n, "--seed", "5",
+                   "--temperature", "0"], "K1", 1),
+        "vocode": (["--snapshot", vsnap, "--vocode-wav", VOCODER_WAV,
+                    "--seed", "6", "--temperature", "0.9"], "K1", 1),
+        "ema": (["--snapshot", ema_snap, "--ema", *n, "--seed", "7",
+                 "--temperature", "1.0"], "K1", 1),
+    }
+    t = time.time()
+    procs = {k: _cli(a, os.path.join(d, f"cli_{k}.wav"))
+             for k, (a, _, _) in runs.items()}
+    procs["draft"] = _cli(["--snapshot", snap, "--draft-snapshot", snap],
+                          os.path.join(d, "cli_draft.wav"))
+    try:
+        done = {k: p.communicate(timeout=600) + (p.returncode,)
+                for k, p in procs.items()}
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    cli_s = time.time() - t
+    out, err, rc = done["draft"]
+    check(rc != 0 and "64-213x" in err and "--force-speculate" in err,
+          f"--draft-snapshot without --force-speculate: rc {rc}: {err[-400:]}")
+
+    # the library calls the CLIs said they took
+    rparams, rcfg = pt.load_reference_snapshot(ref_pickle, device=dev)
+    blob = pt.load_checkpoint(ema_snap, device=dev)
+    ema = pt.from_jax_params(find_ema_state_dict(blob["opt_state"]), dev)
+    with open(VOCODER_WAV, "rb") as f:
+        mel = _vocoder_mel(pt, f.read(), vcfg)
+    lib = {
+        "k1": pt.generate_fast_fused(params, cfg, 3, CLI_N, mid(1),
+                                     temperature=0.9, fuse_res=True,
+                                     device=dev)[0],
+        "k4": pt.generate_fast_batched(params, cfg, 4, CLI_N, mid(16),
+                                       temperature=0.9, fuse_res=True,
+                                       skip_slab=True, device=dev)[0],
+        "torch": pt.generate_fast_fused(rparams, rcfg, 5, CLI_N, mid(1),
+                                        temperature=0.0, fuse_res=True,
+                                        device=dev)[0],
+        "vocode": synthesize(vparams, vcfg, 6, mel, 256, mid(1),
+                             temperature=0.9,
+                             backend=pt.generate_fast_fused, fuse_res=True,
+                             device=dev)[0],
+        "ema": pt.generate_fast_fused(ema, blob["config"], 7, CLI_N, mid(1),
+                                      temperature=1.0, fuse_res=True,
+                                      device=dev)[0],
+    }
+    launches = {}
+    for k, (_, kernel, streams) in runs.items():
+        out, err, rc = done[k]
+        check(rc == 0, f"generate_cli {k}: rc {rc}: {err[-600:]}")
+        check(f"generation path: {kernel} " in out,
+              f"generate_cli {k} did not take {kernel}: {out[-400:]}")
+        launches[k] = int(out.split("kernel launches: ")[1].split()[0])
+        check(launches[k] >= 1, f"generate_cli {k}: no kernel launch")
+        wav = lib[k].cpu().numpy()
+        stem = os.path.join(d, f"cli_{k}")
+        files = ([stem + ".wav"] if streams == 1
+                 else [f"{stem}_{i}.wav" for i in range(streams)])
+        for i, path in enumerate(files):
+            ref = os.path.join(d, f"lib_{k}_{i}.wav")
+            pt.write_wav(ref, wav[i], 16000)
+            with open(path, "rb") as f, open(ref, "rb") as g:
+                check(f.read() == g.read(),
+                      f"generate_cli {k}: {path} differs from the library "
+                      f"call")
+    log(f"[generate_cli] 6 subprocesses in {cli_s:.1f} s: --snapshot 1 "
+        f"stream (K1) and 16 (K4), --torch-snapshot, --vocode-wav "
+        f"(vocoder), --ema, each wav byte-equal to its library call "
+        f"(launches {launches}); --draft-snapshot refused (rc "
+        f"{done['draft'][2]})")
+    return launches
+
+
+def slice11(torch, np, pt, gk, ghbm, dev, t_start, ema_snap):
+    """Phases 30-35 at chaconne's full width (the vocoder for the mel
+    mode), random weights from SEED. Returns their figures."""
+    cfg = pt.get_config("chaconne")
+    params = pt.init_wavenet(cfg, torch.Generator().manual_seed(SEED), dev)
+    secs, out = {}, {}
+    with tempfile.TemporaryDirectory() as d:
+        for name, fn in (
+                ("30 generate_long", lambda: phase_generate_long(
+                    torch, np, pt, gk, ghbm, dev, cfg, params)),
+                ("31 reference snapshot", lambda: phase_reference_snapshot(
+                    torch, np, pt, gk, dev, d)),
+                ("32 reload", lambda: phase_reload(
+                    torch, np, pt, gk, ghbm, dev, cfg, params, d)),
+                ("33 profile", lambda: phase_profile(
+                    torch, np, pt, gk, ghbm, dev, cfg, params, d)),
+                ("34 backend plain", lambda: phase_backend_plain(
+                    torch, np, pt, gk, ghbm, dev, cfg, params, d)),
+                ("35 generate CLI", lambda: phase_generate_cli(
+                    torch, np, pt, dev, cfg, params, d,
+                    out["31 reference snapshot"][0], ema_snap))):
+            t = time.time()
+            out[name] = fn()
+            secs[name] = time.time() - t
+            log(f"phase {name} took {secs[name]:.1f} s, done at "
+                f"{time.time() - t_start:.0f} s")
+    gl, (_, t_k1), (r_k1, r_k4), prof, _, cli = (out[k] for k in secs)
+    p_k4, tr_n, tr_ms, tr_whole, tr_window = prof
+    return dict(
+        k1={"generate_long": gl["K1"], "torch_snapshot": t_k1,
+            "reload": r_k1,
+            "generate_cli": {k: v for k, v in cli.items() if k != "k4"}},
+        k4={"generate_long": gl["K4"], "reload": r_k4, "profile": p_k4,
+            "generate_cli": {"k4": cli["k4"]}},
+        profile={"window_ms": tr_window, "k4_launches": tr_n,
+                 "k4_device_ms_in_window": tr_ms,
+                 "k4_device_ms_whole": tr_whole,
+                 "busy_share": tr_ms / tr_window},
+        seconds=secs)
+
+
 def slice10(torch, np, pt, gk, tk, dev, card, t_start, keep, teacher_snap):
     """Phases 27-29."""
     sp = phase_speculation(torch, np, pt, gk, dev, card)
@@ -3805,6 +4530,13 @@ def main():
         # a short call for work on phases 25-26 alone: no kernels line
         with tempfile.TemporaryDirectory() as keep:
             remainder(torch, np, pt, gk, ghbm, tk, dev, card, t_start, keep)
+        return 1
+    if sys.argv[1:] == ["--slice11-only"]:
+        # a short call for work on phases 30-35 alone (phase 25 first for
+        # the --ema snapshot): no kernels line
+        with tempfile.TemporaryDirectory() as keep:
+            rem = phase_training_remainder(torch, np, pt, tk, ghbm, dev, keep)
+            slice11(torch, np, pt, gk, ghbm, dev, t_start, rem["snapshot"])
         return 1
     if sys.argv[1:] == ["--distill-only"]:
         # a short call for work on phases 27-29 alone (phase 25 first for
@@ -3888,6 +4620,7 @@ def main():
             torch, np, pt, gk, ghbm, tk, dev, card, t_start, keep)
         sp, ds, ss = slice10(torch, np, pt, gk, tk, dev, card, t_start, keep,
                              rem["snapshot"])
+        s11 = slice11(torch, np, pt, gk, ghbm, dev, t_start, rem["snapshot"])
 
     kernels = [{
         "name": "gen_fused (K1, fuse_res)",
@@ -4153,6 +4886,13 @@ def main():
         speculation_k1_samples_per_s=sp["k1_samples_per_s"],
         student_synthesize_samples_per_s=ss["synthesize_samples_per_s"],
         student_vocode_samples_per_s=ss["vocode_samples_per_s"])
+    # this slice's main paths, phases 30-35, on the K1 and K4 entries: the
+    # launches of each path, counted around its own run (the CLIs' as the
+    # processes printed them), and the /profile capture's K4 figures
+    kernels[0]["slice11_launches"] = s11["k1"]
+    kernels[1].update(slice11_launches=s11["k4"],
+                      profile_capture=s11["profile"],
+                      slice11_phase_seconds=s11["seconds"])
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

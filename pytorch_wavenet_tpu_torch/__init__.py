@@ -27,7 +27,15 @@ from .config import PRESETS, WaveNetConfig, get_config
 from .data.audio_io import load_audio, write_wav
 from .data.dataset import BatchIterator, PrefetchBatchIterator, WaveNetDataset
 from .data.mel_dataset import MelWaveNetDataset
-from .models.convert import from_jax_params, to_numpy_params
+from .models.convert import (
+    config_from_state_dict,
+    from_jax_params,
+    from_reference_state_dict,
+    load_reference_snapshot,
+    load_torch_snapshot,
+    to_numpy_params,
+    to_reference_state_dict,
+)
 from .models.generate import (
     GenState,
     PendingWindow,
@@ -38,6 +46,7 @@ from .models.generate import (
     gen_step_window,
     generate,
     generate_fast,
+    generate_long,
     init_gen_state,
     synthesize,
 )
@@ -88,6 +97,7 @@ from .utils.checkpoints import (
     AsyncCheckpointer,
     latest_checkpoint,
     load_checkpoint,
+    load_checkpoint_sharded,
     load_latest_model_from,
     save_checkpoint,
 )
@@ -96,9 +106,11 @@ __all__ = [
     "PRESETS", "WaveNetConfig", "get_config",
     "load_audio", "write_wav", "BatchIterator", "PrefetchBatchIterator",
     "WaveNetDataset", "MelWaveNetDataset",
-    "from_jax_params", "to_numpy_params",
+    "from_jax_params", "to_numpy_params", "config_from_state_dict",
+    "from_reference_state_dict", "to_reference_state_dict",
+    "load_reference_snapshot", "load_torch_snapshot",
     "GenState", "StreamState", "buffer_length", "gen_step", "generate",
-    "generate_fast", "init_gen_state", "synthesize", "PendingWindow",
+    "generate_fast", "generate_long", "init_gen_state", "synthesize", "PendingWindow",
     "gen_step_window", "commit_window", "speculative_generate",
     "IAFConfig", "init_student", "student_sample", "student_generate",
     "student_synthesize", "distill_loss", "distill_step",
@@ -112,6 +124,7 @@ __all__ = [
     "TensorboardLogger", "AsyncCheckpointer",
     "dequantize_data", "dequantize_to_f32", "mu_law_encoding",
     "mu_law_expansion", "quantize_data",
-    "latest_checkpoint", "load_checkpoint", "load_latest_model_from",
+    "latest_checkpoint", "load_checkpoint", "load_checkpoint_sharded",
+    "load_latest_model_from",
     "save_checkpoint",
 ]

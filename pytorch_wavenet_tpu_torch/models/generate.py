@@ -8,6 +8,8 @@ The counterpart of the JAX package's ``models/generate.py``:
   buffers, one :func:`gen_step` per sample;
 * :func:`synthesize` — the vocoder: mel frames upsampled to per-sample
   conditioning rows, then a conditioned rollout of any of the backends;
+* :func:`generate_long` — a rollout of any length through any backend in
+  chunks, its state carried from one to the next;
 * the window API, :func:`gen_step_window` and :func:`commit_window`: k
   steps in one trunk pass over the rings, committed afterwards for as many
   positions as turn out to be real (speculative decoding's verifier, and
@@ -264,19 +266,29 @@ def commit_window(state: GenState, pending: PendingWindow,
 
 
 def _sample(logits: torch.Tensor, u: torch.Tensor, classes: int,
-            temperature: float, regularize: float) -> torch.Tensor:
+            temperature, regularize: float) -> torch.Tensor:
     """Temperature sampling with the optional quadratic regularizer toward
     the mid class; temperature <= 0 is the argmax (first index on ties).
-    Inverse-CDF over the tempered softmax, one uniform ``u`` per stream."""
+    Inverse-CDF over the tempered softmax, one uniform ``u`` per stream.
+
+    ``temperature`` may also be a per-stream ``(S,)`` tensor: streams at
+    different temperatures share one rollout, and a stream at temperature
+    <= 0 takes the argmax, bitwise the scalar temperature-0 rollout of that
+    stream."""
     if regularize != 0.0:
         c = torch.arange(classes, dtype=torch.float32, device=logits.device)
         logits = logits - (c - classes / 2.0) ** 2 * regularize
-    if temperature <= 0:
+    scalar = not isinstance(temperature, torch.Tensor)
+    if scalar and temperature <= 0:
         return torch.argmax(logits, dim=-1)
-    probs = torch.softmax(logits / temperature, dim=-1)
+    t = temperature if scalar else temperature.clamp(min=1e-6)[..., None]
+    probs = torch.softmax(logits / t, dim=-1)
     cdf = torch.cumsum(probs, dim=-1)
     idx = (u[..., None] > cdf).sum(dim=-1)
-    return torch.clamp(idx, max=classes - 1)
+    drawn = torch.clamp(idx, max=classes - 1)
+    if scalar:
+        return drawn
+    return torch.where(temperature > 0, drawn, torch.argmax(logits, dim=-1))
 
 
 def _prime_2d(cfg: WaveNetConfig, first_samples, device) -> torch.Tensor:
@@ -296,20 +308,21 @@ def classes_to_waveform(cls: torch.Tensor, classes: int) -> torch.Tensor:
 
 def _uniforms(generator, total: int, streams: int, device) -> torch.Tensor:
     if generator is None:
-        generator = torch.Generator().manual_seed(0)
+        generator = _default_generator()
     return torch.rand((total, streams), generator=generator).to(device)
 
 
 @torch.no_grad()
 def generate_fast(params: Params, cfg: WaveNetConfig,
                   generator: torch.Generator | None, num_samples: int,
-                  first_samples=None, temperature: float = 1.0,
+                  first_samples=None, temperature=1.0,
                   regularize: float = 0.0, state: StreamState | None = None,
                   return_state: bool = False,
                   device: str | torch.device = "cuda",
                   cond: torch.Tensor | None = None,
                   global_cond: torch.Tensor | None = None,
-                  window_prime: bool = False):
+                  window_prime: bool = False, progress_callback=None,
+                  progress_interval: int = 1000):
     """Fast-WaveNet generation.
 
     ``first_samples``: int ``(S, num_given)`` prime per stream (or
@@ -320,6 +333,16 @@ def generate_fast(params: Params, cfg: WaveNetConfig,
     ``cond`` ``(S, num_given - 1 + num_samples, cond_channels)`` and
     ``global_cond`` ``(S, gcond_channels)``: the module docstring's
     timeline (a resumed call takes ``num_samples`` rows).
+
+    ``temperature``: a float, or a per-stream ``(S,)`` tensor (streams at
+    temperature <= 0 take the argmax, bitwise their scalar temperature-0
+    rollout: :func:`_sample`).
+
+    ``progress_callback(done, total)`` is called every
+    ``progress_interval`` samples: the rollout is split into streaming-state
+    chunks at that cadence, one generator carried across them (None starts
+    the one a single call would use), so the output does not change at any
+    temperature; with ``cond`` each chunk takes its own rows.
 
     ``window_prime`` pushes a prime of more than one sample through
     :func:`gen_step_window` passes of 128 positions (then
@@ -351,6 +374,46 @@ def generate_fast(params: Params, cfg: WaveNetConfig,
             state = StreamState(gen=gstate, cls=given[:, -1])
             first_samples = None
             cond = None if cond is None else cond[:, num_given - 1:]
+    if progress_callback is None or num_samples <= progress_interval:
+        out = _rollout(params, cfg, generator, num_samples, first_samples,
+                       temperature, regularize, state, return_state, dev,
+                       cond, global_cond)
+        if progress_callback is not None:
+            progress_callback(num_samples, num_samples)
+        return out
+    if generator is None:
+        generator = _default_generator()
+    wavs, clss = [], []
+    done, cond_pos = 0, 0  # cond_pos: rows of the timeline consumed
+    while done < num_samples:
+        n = min(progress_interval, num_samples - done)
+        first = first_samples if done == 0 else None
+        cw = None
+        if cond is not None:
+            # only the first chunk can carry a prime of several samples;
+            # resumed chunks enter with one (the state's next class)
+            ng = 1 if first is None else _prime_2d(cfg, first, "cpu").shape[1]
+            cw = cond[:, cond_pos:cond_pos + ng - 1 + n]
+            cond_pos += ng - 1 + n
+        wav, cls, state = _rollout(params, cfg, generator, n, first,
+                                   temperature, regularize, state, True, dev,
+                                   cw, global_cond)
+        wavs.append(wav)
+        clss.append(cls)
+        done += n
+        progress_callback(done, num_samples)
+    wav, cls = torch.cat(wavs, dim=1), torch.cat(clss, dim=1)
+    return (wav, cls, state) if return_state else (wav, cls)
+
+
+def _default_generator() -> torch.Generator:
+    """The uniforms' generator of a call given none."""
+    return torch.Generator().manual_seed(0)
+
+
+def _rollout(params, cfg, generator, num_samples, first_samples, temperature,
+             regularize, state, return_state, dev, cond, global_cond):
+    """One uninterrupted :func:`generate_fast` rollout (params on ``dev``)."""
     if state is not None:
         if first_samples is not None:
             raise ValueError("pass either first_samples or state, not both")
@@ -363,6 +426,12 @@ def generate_fast(params: Params, cfg: WaveNetConfig,
         gstate = init_gen_state(cfg, given.shape[0], dev)
     S, num_given = given.shape
     total = num_given - 1 + num_samples
+    if not isinstance(temperature, (int, float)):
+        temperature = torch.as_tensor(temperature).to(
+            device=dev, dtype=torch.float32)
+        if tuple(temperature.shape) != (S,):
+            raise ValueError(f"temperature must be a float or have shape "
+                             f"({S},), not {tuple(temperature.shape)}")
     cond, global_cond = _cond_to(cfg, S, total, cond, global_cond, dev)
     uniforms = _uniforms(generator, total, S, dev)
 
@@ -487,3 +556,73 @@ def synthesize(params: Params, cfg: WaveNetConfig, generator_or_seed,
                    first.contiguous(), temperature=temperature,
                    regularize=regularize, cond=cond, global_cond=global_cond,
                    device=dev, **kw)
+
+
+def generate_long(params: Params, cfg: WaveNetConfig, generator_or_seed,
+                  num_samples: int, first_samples=None, temperature=1.0,
+                  regularize: float = 0.0, chunk_size: int = 65536,
+                  backend=None, progress_callback=None,
+                  streaming: bool = True,
+                  device: str | torch.device = "cuda", **kw):
+    """Generation of any length by chunking a backend.
+
+    ``backend``: :func:`generate_fast` (the default),
+    ``ops.cuda.gen_kernel.generate_fast_fused`` (K1) or
+    ``ops.cuda.gen_kernel_hbm.generate_fast_batched`` (K4); ``kw`` goes to
+    it (``fuse_res``, ``skip_slab``, ``ring_dtype``). It runs in
+    ``chunk_size`` pieces, and ``progress_callback(done, num_samples)`` is
+    called after each. With ``streaming`` (the default) the backend's state
+    flows from chunk to chunk (``state``/``return_state``), so the chunk
+    boundaries change nothing; ``streaming=False`` re-primes each chunk with
+    the last ``cfg.receptive_field`` samples of the history instead.
+
+    The noise across chunks departs from the JAX package, which splits its
+    key per chunk: K1 and K4 key their counter-hash noise by a seed and the
+    absolute step, so every chunk gets the same int seed (drawn once from
+    ``generator_or_seed``, a ``torch.Generator``, an int or None = 0, as a
+    single call draws it), and :func:`generate_fast` carries one
+    ``torch.Generator`` across the chunks (an int seeds a new one, None is
+    its default). A streamed rollout then equals the backend's single call
+    bitwise at every temperature. At temperature > 0 no rollout of the port
+    equals the JAX package's: the random streams differ.
+
+    Returns ``(waveform (S, num_samples) f32, classes (S, num_samples))``."""
+    if backend is None:
+        backend = generate_fast
+    rf = cfg.receptive_field
+    if chunk_size <= rf:
+        raise ValueError(f"chunk_size {chunk_size} must exceed rf {rf}")
+    dev = resolve_device(device)
+    if backend is generate_fast:
+        noise = (generator_or_seed
+                 if isinstance(generator_or_seed, torch.Generator)
+                 else _default_generator() if generator_or_seed is None
+                 else torch.Generator().manual_seed(int(generator_or_seed)))
+    else:
+        from ..ops.cuda.gen_kernel import _seed_from
+
+        noise = _seed_from(generator_or_seed)
+    prime = _prime_2d(cfg, first_samples, dev)
+
+    outs = []
+    done = 0
+    state = None
+    while done < num_samples:
+        n = min(chunk_size, num_samples - done)
+        if streaming:
+            _, cls, state = backend(
+                params, cfg, noise, n, prime if state is None else None,
+                temperature=temperature, regularize=regularize, state=state,
+                return_state=True, device=dev, **kw)
+        else:
+            _, cls = backend(params, cfg, noise, n, prime,
+                             temperature=temperature, regularize=regularize,
+                             device=dev, **kw)
+            # the next chunk continues from the history's tail
+            prime = torch.cat([prime, cls.to(prime.dtype)], dim=1)[:, -rf:]
+        outs.append(cls)
+        done += n
+        if progress_callback is not None:
+            progress_callback(done, num_samples)
+    out = torch.cat(outs, dim=1)
+    return classes_to_waveform(out, cfg.classes), out

@@ -279,7 +279,8 @@ class ContinuousBatcher:
         self._closing = False
         self._draining = False
         self._error: BaseException | None = None  # why the worker stopped
-        self._staged_params = None  # pending update_params swap
+        # pending update_params swap: (params, event set once installed)
+        self._staged_params = None
         self._prewarm_q: "queue.Queue[tuple]" = queue.Queue()
         # admission groups whose first samples are still on their way to
         # the host: [((host tensor, event), [(handle, act, row), ...]), ...]
@@ -388,12 +389,14 @@ class ContinuousBatcher:
             return frames
         return None
 
-    def update_params(self, params):
+    def update_params(self, params) -> threading.Event:
         """Swap the model weights at the next chunk boundary WITHOUT
         dropping streams. In-flight requests continue on the new weights
         from their next chunk (their ring history was computed by the old
         ones; for strictly-one-model rollouts, drain first). The tree must
-        have the same structure, shapes and dtypes as the current one."""
+        have the same structure, shapes and dtypes as the current one.
+        Returns an event set once the pool has installed the weights:
+        every request admitted after it runs on them."""
         old, new = dict(_leaves(self.params)), dict(_leaves(params))
         if old.keys() != new.keys():
             raise ValueError(f"params tree mismatch: {sorted(new)} != "
@@ -405,9 +408,13 @@ class ContinuousBatcher:
                     f"leaf {name} mismatch: {tuple(b.shape)}/{b.dtype} vs "
                     f"expected {tuple(a.shape)}/{a.dtype} (same config "
                     f"required)")
+        installed = threading.Event()
         with self._count_lock:  # vs the worker's take (lost-update race)
-            self._staged_params = params
+            if self._staged_params is not None:  # superseded: never installed
+                self._staged_params[1].set()
+            self._staged_params = (params, installed)
         self._wake.set()
+        return installed
 
     def stats(self) -> dict:
         """Point-in-time pool metrics (safe from any thread): static shape
@@ -944,7 +951,8 @@ class ContinuousBatcher:
                 staged = self._staged_params  # window is never dropped
                 self._staged_params = None
             if staged is not None:
-                self._install_params(staged)
+                self._install_params(staged[0])
+                staged[1].set()
         if self._w is None:
             self._install_params(self.params)
 

@@ -15,9 +15,26 @@ The serving paths of the JAX package's ``scripts/serve.py``:
   ``--bf16-rings`` stores the pool's ring in bf16 (half its bytes; a
   response then equals its solo rollout with bf16 rings).
 
+``--reload-interval N`` follows a training run: every N seconds the newest
+checkpoint under ``--snapshot-path`` is rolled in when it changed (its EMA
+weights with ``--reload-ema``); a failed reload is printed and the old
+weights keep serving.
+
 ``--ema`` serves the exponential moving average of the weights that a
 snapshot trained with ``--ema-decay`` carries in its optimizer state
 (written by either package), on either path.
+
+``--torch-snapshot`` serves a reference (pytorch-wavenet) snapshot, a
+whole-module pickle or a bare state dict (``--torch-layers``/
+``--torch-blocks`` give a bare one's split), converted on load
+(``models.convert.load_reference_snapshot``).
+
+``--backend``: ``auto`` serves single streams through K1 on the card and
+through its plain version on the CPU; ``plain`` serves
+``models.generate.generate_fast`` (plain PyTorch, one ``gen_step`` a
+sample, a ``torch.Generator`` seeded by the request) on either device, the
+one way the plain path runs on the card. With ``--batcher`` the pool is
+K4, and ``plain`` is refused.
 
 ``--student-snapshot`` serves a distilled IAF student
 (``training.distill_cli``, either package's snapshot; backend
@@ -41,6 +58,18 @@ Endpoints
   POST /synthesize   -> the same, parameters as a JSON body, plus "prime"
                         (mu-law class ids) or "prime_audio" (float samples
                         in [-1, 1]), cut to the last receptive_field samples
+  POST /reload       -> rolling weight update: the weights of a snapshot
+                        (body {"snapshot": path, "ema": bool}; default the
+                        newest under --snapshot-path) replace the served
+                        ones at the next chunk, streams keep flowing; the
+                        config must be the served one (400 otherwise;
+                        503 when the pool does not take the weights)
+                        -> JSON {reloaded, step}
+  POST /profile      -> a torch.profiler capture of the live server into
+                        --profile-dir (a Chrome trace JSON, CUDA kernels
+                        included), query seconds (3; clamped to [0.1, 60]);
+                        one capture at a time (409 during one), 400
+                        without --profile-dir; requests keep being served
   POST /vocode       -> audio/wav: copy-synthesis of the uploaded wav on a
                         conditioned model (400 on an unconditional one):
                         its log-mel frames drive a conditioned rollout of
@@ -60,6 +89,10 @@ Run:
   python -m pytorch_wavenet_tpu_torch.serving.server --snapshot model.ckpt --batcher --lanes 256 --batch-chunk 2048
   python -m pytorch_wavenet_tpu_torch.serving.server --snapshot model.ckpt --ema
   python -m pytorch_wavenet_tpu_torch.serving.server --student-snapshot student.ckpt
+  python -m pytorch_wavenet_tpu_torch.serving.server --torch-snapshot ref_model.pt
+  python -m pytorch_wavenet_tpu_torch.serving.server --snapshot-path snaps --batcher --reload-interval 30 --profile-dir profiles
+  curl -s -X POST -d '{"snapshot": "snaps/m_0000002000.ckpt"}' localhost:8765/reload
+  curl -s -X POST 'localhost:8765/profile?seconds=2'
   curl -sN 'localhost:8765/synthesize?num_samples=16000&temperature=0.9' > x.wav
   curl -s --data-binary @in.wav 'localhost:8765/vocode?seed=1' > out.wav
 """
@@ -75,6 +108,7 @@ import struct
 import sys
 import tempfile
 import threading
+import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from urllib.parse import parse_qs, urlparse
 
@@ -83,8 +117,8 @@ import torch
 
 from ..data.audio_io import load_audio
 from ..device import resolve_device
-from ..models.convert import from_jax_params
-from ..models.generate import synthesize
+from ..models.convert import from_jax_params, load_reference_snapshot
+from ..models.generate import generate_fast, synthesize
 from ..models.iaf import (load_student_snapshot, student_generate,
                           student_parameter_count, student_synthesize)
 from ..models.wavenet import params_to
@@ -92,7 +126,9 @@ from ..ops.cuda.gen_kernel import generate_fast_fused
 from ..ops.mel import log_mel_spectrogram
 from ..ops.mulaw import dequantize_to_f32, quantize_data
 from ..training.optimizers import find_ema_state_dict
-from ..utils.checkpoints import load_checkpoint, load_latest_model_from
+from ..utils import profiling
+from ..utils.checkpoints import (latest_checkpoint, load_checkpoint,
+                                 load_latest_model_from)
 from .batcher import ContinuousBatcher, PoolOverloaded
 
 
@@ -112,6 +148,10 @@ def wav_header(num_samples: int, sr: int) -> bytes:
     )
 
 
+BACKENDS = ("auto", "plain")
+RELOAD_TIMEOUT_S = 600.0  # for the pool to take reloaded weights
+
+
 class Synthesizer:
     """Owns the model on one device and runs rollouts chunk by chunk
     through the fused generation kernel, or, with ``batcher_opts``
@@ -119,16 +159,30 @@ class Synthesizer:
     requests into one pooled rollout of the batched kernel (the plain
     versions on the CPU). With ``student``, ``cfg`` is an ``IAFConfig`` and
     every clip is one parallel pass of the student (backend
-    ``iaf-student``)."""
+    ``iaf-student``).
+
+    ``backend`` (single stream): ``auto`` (K1 on the card, its plain
+    version on the CPU: ``cuda-fused``, ``cpu-plain``) or ``plain``
+    (``models.generate.generate_fast`` on either device: ``cuda-plain``,
+    ``cpu-plain``). The pool is K4, so only ``auto`` goes with
+    ``batcher_opts``."""
 
     def __init__(self, params, cfg, sr: int = 16000,
                  device: str | torch.device = "cuda",
-                 batcher_opts: dict | None = None, student: bool = False):
+                 batcher_opts: dict | None = None, student: bool = False,
+                 backend: str = "auto"):
         self.device = resolve_device(device)
         self.cfg = cfg
         self.sr = sr
         self.lock = threading.Lock()
         self.batcher = None
+        if backend not in BACKENDS:
+            raise ValueError(f"backend must be one of {BACKENDS}, not "
+                             f"{backend!r}")
+        if backend != "auto" and batcher_opts is not None:
+            raise ValueError("backend chooses the single-stream path; the "
+                             "batcher's pool is the kernel K4")
+        self.plain = backend == "plain"
         if student:
             self.params = params_to(params, self.device)
             self.backend = "iaf-student"
@@ -141,7 +195,8 @@ class Synthesizer:
         else:
             self.params = params_to(params, self.device)
             self.backend = ("cuda-fused" if self.device.type == "cuda"
-                            else "cpu-plain")
+                            and not self.plain
+                            else f"{self.device.type}-plain")
 
     def parameter_count(self) -> int:
         if self.backend == "iaf-student":
@@ -201,6 +256,53 @@ class Synthesizer:
         return int(torch.randint(
             0, 2**31 - 1, (1,), generator=torch.Generator().manual_seed(seed)))
 
+    def _single_stream(self, seed: int):
+        """The single-stream rollout function, its noise for a request's
+        ``seed`` and its keyword arguments: K1 (or its plain version on the
+        CPU) with ``fuse_res``, or under ``plain`` ``generate_fast`` with a
+        generator seeded by ``seed`` (carried across the chunks)."""
+        if self.plain:
+            return generate_fast, torch.Generator().manual_seed(seed), {}
+        return generate_fast_fused, self.kernel_seed(seed), {"fuse_res": True}
+
+    def reload(self, snapshot: str | None, snapshot_path: str,
+               ema: bool = False) -> int:
+        """Swap in the weights of ``snapshot`` (the newest checkpoint under
+        ``snapshot_path`` when None; its EMA weights under ``ema``) without
+        dropping streams: the pool takes them at its next chunk boundary
+        (``ContinuousBatcher.update_params``), a single stream at its next
+        chunk (the weights change under :attr:`lock`). Raises
+        ``ValueError`` for a student, a snapshot that is not a path string,
+        missing EMA weights or a config other than the served one, and
+        ``RuntimeError`` when the pool has not taken the weights within
+        :data:`RELOAD_TIMEOUT_S`; returns the snapshot's step."""
+        if self.backend == "iaf-student":
+            raise ValueError("reload serves WaveNet snapshots")
+        if snapshot is not None and not isinstance(snapshot, str):
+            # a JSON integer would reach open() as a file descriptor
+            raise ValueError("snapshot must be a path string")
+        blob = (load_checkpoint(snapshot, self.device) if snapshot
+                else load_latest_model_from(snapshot_path, self.device))
+        params = blob["params"]
+        if ema:
+            found = find_ema_state_dict(blob["opt_state"])
+            if found is None:
+                raise ValueError("snapshot carries no EMA weights")
+            params = from_jax_params(found, self.device)
+        if blob["config"] is not None and blob["config"] != self.cfg:
+            raise ValueError("snapshot config differs from the serving "
+                             "config")
+        if self.batcher is not None:
+            # the response waits for the pool to take them, so a request
+            # that follows it runs on the new weights
+            if not self.batcher.update_params(params).wait(
+                    timeout=RELOAD_TIMEOUT_S):
+                raise RuntimeError("the pool did not take the new weights")
+        else:
+            with self.lock:
+                self.params = params
+        return blob["step"]
+
     def mel_of(self, wav_bytes: bytes, hop_length: int,
                n_fft: int) -> np.ndarray:
         """Log-mel frames ``(F, cond_channels)`` of an uploaded wav,
@@ -223,8 +325,9 @@ class Synthesizer:
         rollout of ``F * hop`` samples (one mid-class prime sample);
         ``ValueError`` when that exceeds ``max_samples``.
         Single stream: ``models.generate.synthesize`` on the fused kernel
-        (fuse_res); with the batcher, the frames ride the pool
-        (``cond_frames``) and the request's seed keys its lane's noise.
+        (fuse_res; ``generate_fast`` under ``plain``); with the batcher,
+        the frames ride the pool (``cond_frames``) and the request's seed
+        keys its lane's noise.
         Returns float32 ``(F * hop,)``."""
         mel = self.mel_of(wav_bytes, hop_length, n_fft)
         n = mel.shape[0] * hop_length
@@ -252,12 +355,12 @@ class Synthesizer:
                 temperature=temperature, cond_frames=mel, seed=seed)
             wav, _ = h.result(timeout=3600)
             return wav
+        fn, noise, kw = self._single_stream(seed)
         with self.lock:
             wav, _ = synthesize(
-                self.params, self.cfg, self.kernel_seed(seed), mel,
-                hop_length, temperature=temperature,
-                backend=generate_fast_fused, fuse_res=True,
-                device=self.device)
+                self.params, self.cfg, noise, mel, hop_length,
+                temperature=temperature, backend=fn, device=self.device,
+                **kw)
             return wav[0].cpu().numpy()
 
     def stream(self, num_samples: int, temperature: float, seed: int,
@@ -285,23 +388,29 @@ class Synthesizer:
         first = (torch.full((1, 1), cfg.classes // 2, dtype=torch.int32)
                  if prime is None
                  else torch.as_tensor(np.asarray(prime, np.int32))[None])
-        kernel_seed = self.kernel_seed(seed)
+        fn, noise, kw = self._single_stream(seed)
         state = None
         done = 0
         while done < num_samples:
             n = min(chunk, num_samples - done)
             with self.lock:
-                wav, _, state = generate_fast_fused(
-                    self.params, cfg, kernel_seed, n,
+                wav, _, state = fn(
+                    self.params, cfg, noise, n,
                     first if state is None else None,
                     temperature=temperature, state=state, return_state=True,
-                    fuse_res=True, device=self.device)
+                    device=self.device, **kw)
                 out = wav[0].cpu().numpy()
             done += n
             yield out
 
 
-def make_handler(synth: Synthesizer, max_samples: int):
+def make_handler(synth: Synthesizer, max_samples: int,
+                 profile_dir: str | None = None,
+                 snapshot_path: str | None = None):
+    """The request handler class; ``profile_dir`` enables ``/profile``,
+    ``snapshot_path`` is where ``/reload`` looks without a body."""
+    profile_lock = threading.Lock()
+
     class Handler(BaseHTTPRequestHandler):
         protocol_version = "HTTP/1.1"
 
@@ -448,22 +557,71 @@ def make_handler(synth: Synthesizer, max_samples: int):
             self.wfile.write(wav_header(pcm.size, synth.sr))
             self.wfile.write(pcm.tobytes())
 
-        def do_POST(self):
-            path = urlparse(self.path).path
-            if path == "/vocode":
-                return self._vocode()
-            if path != "/synthesize":
-                return self._json(404, {"error": f"no route {path}"})
+        def _body(self):
+            """The request's JSON object body ({} without one), or None
+            after answering 400."""
             length = int(self.headers.get("Content-Length", 0) or 0)
             body = {}
             if length:
                 try:
                     body = json.loads(self.rfile.read(length) or b"{}")
                 except json.JSONDecodeError:
-                    return self._json(400, {"error": "body is not JSON"})
+                    self._json(400, {"error": "body is not JSON"})
+                    return None
             if not isinstance(body, dict):
-                return self._json(400, {"error": "body must be a JSON object"})
-            self._synthesize(body)
+                self._json(400, {"error": "body must be a JSON object"})
+                return None
+            return body
+
+        def _reload(self):
+            body = self._body()
+            if body is None:
+                return
+            try:
+                step = synth.reload(body.get("snapshot"), snapshot_path,
+                                    ema=bool(body.get("ema")))
+            except (OSError, ValueError, KeyError) as e:
+                return self._json(400, {"error": str(e)})
+            except RuntimeError as e:  # the pool did not take the weights
+                return self._json(503, {"error": str(e)})
+            return self._json(200, {"reloaded": True, "step": step})
+
+        def _profile(self):
+            """A capture of whatever the server does for ``seconds``; one
+            at a time, requests keep being served meanwhile."""
+            if profile_dir is None:
+                return self._json(
+                    400, {"error": "start the server with --profile-dir"})
+            q = parse_qs(urlparse(self.path).query)
+            try:
+                seconds = float(q.get("seconds", ["3"])[0])
+            except ValueError:
+                return self._json(400, {"error": "bad seconds"})
+            seconds = min(max(seconds, 0.1), 60.0)
+            if not profile_lock.acquire(blocking=False):
+                return self._json(409, {"error": "a capture is running"})
+            try:
+                with profiling.trace(profile_dir) as path:
+                    time.sleep(seconds)
+            except Exception as e:  # the trace failed: report, keep serving
+                return self._json(500, {"error": str(e)})
+            finally:
+                profile_lock.release()
+            return self._json(200, {"trace": path, "seconds": seconds})
+
+        def do_POST(self):
+            path = urlparse(self.path).path
+            if path == "/vocode":
+                return self._vocode()
+            if path == "/reload":
+                return self._reload()
+            if path == "/profile":
+                return self._profile()
+            if path != "/synthesize":
+                return self._json(404, {"error": f"no route {path}"})
+            body = self._body()
+            if body is not None:
+                self._synthesize(body)
 
     return Handler
 
@@ -474,6 +632,18 @@ def parse_args(argv=None):
     p.add_argument("--snapshot-path", default="snapshots",
                    help="serve the newest checkpoint in this directory")
     p.add_argument("--snapshot", default=None, help="explicit checkpoint file")
+    p.add_argument("--torch-snapshot", default=None,
+                   help="serve a reference pytorch-wavenet snapshot "
+                        "(whole-module pickle or bare state dict), converted "
+                        "on load")
+    p.add_argument("--torch-layers", type=int, default=None,
+                   help="layers per block of a bare state dict")
+    p.add_argument("--torch-blocks", type=int, default=None,
+                   help="blocks of a bare state dict")
+    p.add_argument("--backend", choices=BACKENDS, default="auto",
+                   help="single stream: auto = K1 on the card, its plain "
+                        "version on the CPU; plain = the plain PyTorch "
+                        "rollout (generate_fast)")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8765, help="0 = any free port")
     p.add_argument("--sr", type=int, default=16000)
@@ -515,6 +685,17 @@ def parse_args(argv=None):
                         "checkpoint): a clip is one parallel pass; a "
                         "conditioned student also serves /vocode; prime and "
                         "temperature do not apply (the request's seed does)")
+    p.add_argument("--reload-interval", type=float, default=0,
+                   help="follow a training run: every N seconds roll the "
+                        "newest checkpoint under --snapshot-path into the "
+                        "running server when it changed")
+    p.add_argument("--reload-ema", action="store_true",
+                   help="with --reload-interval: roll in the snapshots' EMA "
+                        "weights")
+    p.add_argument("--profile-dir", default=None,
+                   help="enable POST /profile?seconds=N: a torch.profiler "
+                        "capture of the live server written here as a "
+                        "Chrome trace")
     return p.parse_args(argv)
 
 
@@ -529,12 +710,26 @@ def main(argv=None, on_ready=None):
         if args.batcher:
             raise SystemExit("--batcher is the AR lane pool; the student "
                              "already synthesizes whole clips in one pass")
+        if args.torch_snapshot:
+            raise SystemExit("--student-snapshot and --torch-snapshot name "
+                             "two models: serve one")
+        if args.reload_interval > 0:
+            raise SystemExit("--reload-interval follows WaveNet snapshot "
+                             "directories; the student backend cannot reload")
         params, scfg, step = load_student_snapshot(args.student_snapshot,
                                                    device=args.device)
         print(f"student at step {step}")
         synth = Synthesizer(params, scfg, args.sr, args.device, student=True)
         return _serve(args, synth, on_ready)
-    if args.snapshot:
+    if args.torch_snapshot:
+        if args.ema:
+            raise SystemExit("--ema applies to the framework's WaveNet "
+                             "snapshots, not a reference snapshot")
+        params, cfg = load_reference_snapshot(
+            args.torch_snapshot, layers=args.torch_layers,
+            blocks=args.torch_blocks, device=args.device)
+        blob = {"params": params, "config": cfg, "opt_state": None}
+    elif args.snapshot:
         blob = load_checkpoint(args.snapshot, args.device)
     else:
         blob = load_latest_model_from(args.snapshot_path, args.device)
@@ -551,6 +746,9 @@ def main(argv=None, on_ready=None):
         print("serving EMA weights")
     batcher_opts = None
     if args.batcher:
+        if args.backend == "plain":
+            raise SystemExit("--backend chooses the single-stream path; "
+                             "--batcher's pool is the kernel K4")
         batcher_opts = dict(lanes=args.lanes, chunk=args.batch_chunk,
                             light_chunk=args.light_chunk,
                             max_pending=args.max_pending, fuse_res=True,
@@ -565,16 +763,48 @@ def main(argv=None, on_ready=None):
                 torch.bfloat16 if args.cond_wire == "bf16" else torch.float32)
         if args.bf16_rings:
             batcher_opts["ring_dtype"] = torch.bfloat16
-    synth = Synthesizer(params, cfg, args.sr, args.device,
-                        batcher_opts=batcher_opts)
+    if batcher_opts is not None:
+        synth = Synthesizer(params, cfg, args.sr, args.device,
+                            batcher_opts=batcher_opts)
+    else:
+        synth = Synthesizer(params, cfg, args.sr, args.device,
+                            backend=args.backend)
     return _serve(args, synth, on_ready)
+
+
+def _follow(synth: Synthesizer, snapshot_path: str, interval: float,
+            ema: bool, stop: threading.Event):
+    """Roll each newer checkpoint under ``snapshot_path`` into ``synth``
+    until ``stop`` is set; a failed reload is printed and retried at the
+    next poll, the old weights serving meanwhile."""
+    seen = latest_checkpoint(snapshot_path)
+    while not stop.wait(interval):
+        newest = latest_checkpoint(snapshot_path)
+        if newest and newest != seen:
+            try:
+                step = synth.reload(newest, snapshot_path, ema=ema)
+                print(f"rolled in {newest} (step {step})", flush=True)
+                seen = newest
+            except (ValueError, KeyError, OSError, RuntimeError) as e:
+                print(f"reload of {newest} failed: {e}", flush=True)
 
 
 def _serve(args, synth: Synthesizer, on_ready):
     # build the kernel and load it on the card before the first request
     next(synth.stream(1, 1.0, 0, 1))
-    server = ThreadingHTTPServer((args.host, args.port),
-                                 make_handler(synth, args.max_samples))
+    stop = threading.Event()
+    follower = None
+    if args.reload_interval > 0:
+        follower = threading.Thread(
+            target=_follow, args=(synth, args.snapshot_path,
+                                  args.reload_interval, args.reload_ema,
+                                  stop),
+            daemon=True, name="snapshot-follower")
+        follower.start()
+    server = ThreadingHTTPServer(
+        (args.host, args.port),
+        make_handler(synth, args.max_samples, args.profile_dir,
+                     args.snapshot_path))
     print(f"serving {synth.parameter_count():,}-param model on "
           f"http://{args.host}:{server.server_address[1]} "
           f"(backend: {synth.backend})", flush=True)
@@ -586,6 +816,9 @@ def _serve(args, synth: Synthesizer, on_ready):
         pass
     finally:
         server.server_close()
+        stop.set()
+        if follower is not None:
+            follower.join()
         synth.close()  # finish in-flight clips, then stop the pool
 
 

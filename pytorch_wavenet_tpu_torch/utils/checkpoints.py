@@ -10,8 +10,16 @@ reads what the other writes. The codec is the port's own
 (``training/optimizers.py::ReferenceAdam.state_dict``), nil when there is
 none; a loaded blob hands it back as nested numpy, which the JAX package
 reads with ``load_checkpoint(path, opt_state_template=tx.init(params))``
-and the port's optimizer with ``load_state_dict``. Sharded checkpoint
-directories (``.ckpt.sharded``) are not read.
+and the port's optimizer with ``load_state_dict``.
+
+The JAX package's multi-host runs write sharded checkpoints: a directory
+``{name}_{step:010d}.ckpt.sharded/`` holding ``manifest.msgpack`` (step,
+config, extra and the params/opt_state skeleton, each array leaf a
+``{shape, dtype}`` placeholder) and one ``shards_p{k}.msgpack`` per
+process (flat ``{leaf path: [{index, data}, ...]}``). One process reads
+them all and assembles full arrays (:func:`load_checkpoint_sharded`);
+:func:`latest_checkpoint` ranks complete directories beside files. The
+writer is the JAX package's (``save_checkpoint_sharded``).
 
 :class:`AsyncCheckpointer` keeps the copy to the host, the encoding and the
 write off the training thread (the JAX package's ``AsyncCheckpointer``).
@@ -24,6 +32,7 @@ import contextlib
 import os
 import time
 
+import numpy as np
 import torch
 
 from ..config import WaveNetConfig
@@ -32,7 +41,9 @@ from ..models.convert import from_jax_params, to_numpy_params
 from .msgpack_lite import packb, unpackb
 
 CKPT_SUFFIX = ".ckpt"
+SHARDED_SUFFIX = ".ckpt.sharded"
 FORMAT = "pytorch_wavenet_tpu/1"
+_LEAF_KEY = "__sharded_array__"
 
 
 def checkpoint_path(directory: str, name: str, step: int) -> str:
@@ -64,20 +75,109 @@ def save_checkpoint(directory: str, name: str, step: int, params,
     return path
 
 
+def _read_msgpack(path: str):
+    with open(path, "rb") as f:
+        return unpackb(f.read())
+
+
+def _sharded_files(path: str) -> tuple[dict | None, list[str] | None]:
+    """(manifest, shard file list) if the sharded checkpoint at ``path`` is
+    complete, else (manifest or None, None)."""
+    mpath = os.path.join(path, "manifest.msgpack")
+    if not os.path.isfile(mpath):
+        return None, None
+    manifest = _read_msgpack(mpath)
+    files = [os.path.join(path, f"shards_p{k}.msgpack")
+             for k in range(int(manifest["process_count"]))]
+    if not all(os.path.isfile(f) for f in files):
+        return manifest, None
+    return manifest, files
+
+
+def _assemble(skel, flat: dict):
+    """The manifest's skeleton with every placeholder replaced by the
+    array its shard entries make up; raises unless the entries cover every
+    element."""
+    if skel is None:
+        return None
+
+    def walk(node, prefix):
+        if isinstance(node, dict) and set(node) == {_LEAF_KEY}:
+            shape, dtype = node[_LEAF_KEY]
+            shape = tuple(int(s) for s in shape)
+            key = prefix[:-1]
+            # the codec widens bfloat16 to float32 (utils/msgpack_lite.py)
+            arr = np.empty(shape, np.float32 if dtype == "bfloat16"
+                           else np.dtype(dtype))
+            covered = np.zeros(shape, dtype=bool)
+            for e in flat.get(key, []):
+                sl = tuple(slice(int(a), int(b)) for a, b in e["index"])
+                arr[sl] = np.asarray(e["data"]).reshape(arr[sl].shape)
+                covered[sl] = True
+            if not covered.all():
+                raise ValueError(
+                    f"sharded checkpoint is missing data for {key!r} "
+                    f"({int(covered.sum())}/{covered.size} elements "
+                    f"covered)")
+            return arr
+        if isinstance(node, dict):
+            return {k: walk(v, f"{prefix}{k}/") for k, v in node.items()}
+        return node
+
+    return walk(skel, "")
+
+
+def load_checkpoint_sharded(path: str) -> dict:
+    """Assemble a sharded checkpoint directory into full host arrays: a
+    dict with ``step``, ``config``, ``params`` and ``opt_state`` (nested
+    numpy, optax's state-dict layout, or None) and ``extra``. Raises
+    ``FileNotFoundError`` without a manifest or with a shard file
+    missing."""
+    manifest, files = _sharded_files(path)
+    if manifest is None:
+        raise FileNotFoundError(f"no manifest under {path}")
+    if files is None:
+        raise FileNotFoundError(
+            f"sharded checkpoint {path} is incomplete (expects "
+            f"{manifest['process_count']} shard files)")
+    flat: dict[str, list] = {}
+    for f in files:
+        for key, entries in _read_msgpack(f)["shards"].items():
+            # msgpack may restore the entry list as a dict of str indices
+            if isinstance(entries, dict):
+                entries = [entries[k] for k in sorted(entries, key=int)]
+            flat.setdefault(key, []).extend(entries)
+
+    def tree(root):
+        n = len(root) + 1
+        return _assemble(manifest[root], {
+            k[n:]: v for k, v in flat.items() if k.startswith(root + "/")})
+
+    return {
+        "step": int(manifest["step"]),
+        "config": (WaveNetConfig.from_json(manifest["config"])
+                   if manifest["config"] else None),
+        "params": tree("params"),
+        "opt_state": tree("opt_state"),
+        "extra": manifest.get("extra", {}),
+    }
+
+
 def load_checkpoint(path: str, device: str | torch.device = "cuda") -> dict:
-    """Read a checkpoint file: a dict with ``step``, ``config``
-    (WaveNetConfig or None), ``params`` (torch tensors on ``device``),
-    ``opt_state`` (nested numpy or None) and ``extra``."""
+    """Read a checkpoint file, or a sharded checkpoint directory: a dict
+    with ``step``, ``config`` (WaveNetConfig or None), ``params`` (torch
+    tensors on ``device``), ``opt_state`` (nested numpy or None) and
+    ``extra``."""
     dev = resolve_device(device)
     if os.path.isdir(path):
-        raise ValueError(f"{path} is a sharded checkpoint directory; the "
-                         "port reads single-file checkpoints only")
-    with open(path, "rb") as f:
-        blob = unpackb(f.read())
+        blob = load_checkpoint_sharded(path)
+    else:
+        blob = _read_msgpack(path)
+        blob["config"] = (WaveNetConfig.from_json(blob["config"])
+                          if blob["config"] else None)
     return {
         "step": int(blob["step"]),
-        "config": (WaveNetConfig.from_json(blob["config"])
-                   if blob["config"] else None),
+        "config": blob["config"],
         "params": from_jax_params(blob["params"], dev),
         "opt_state": blob.get("opt_state"),
         "extra": blob.get("extra", {}),
@@ -85,14 +185,18 @@ def load_checkpoint(path: str, device: str | torch.device = "cuda") -> dict:
 
 
 def latest_checkpoint(location: str) -> str | None:
-    """Newest ``.ckpt`` file in ``location`` by (step, mtime); None when
-    there is none."""
+    """Newest checkpoint in ``location`` by (step, mtime): ``.ckpt`` files
+    and complete ``.ckpt.sharded`` directories alike (a directory still
+    missing a shard file is never picked); None when there is none."""
     if not os.path.isdir(location):
         return None
     files = []
     for f in os.listdir(location):
         p = os.path.join(location, f)
-        if f.endswith(CKPT_SUFFIX) and os.path.isfile(p):
+        if f.endswith(SHARDED_SUFFIX) and os.path.isdir(p):
+            if _sharded_files(p)[1] is not None:
+                files.append((p, f[: -len(SHARDED_SUFFIX)]))
+        elif f.endswith(CKPT_SUFFIX) and os.path.isfile(p):
             files.append((p, f[: -len(CKPT_SUFFIX)]))
     if not files:
         return None

@@ -1313,3 +1313,86 @@ def test_student_on_card_matches_cpu(card):
                                  u, 2, 500, cond=rows.to(card),
                                  teacher_smooth=1e-3)
     assert abs(float(lk) - float(lp)) <= 1e-5 * max(1.0, abs(float(lp)))
+
+
+# ------------------------------------------- generation and serving remainder
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("temperature", [0.0, 0.9])
+@pytest.mark.parametrize("backend", ["k1", "k4"])
+def test_generate_long_streams_bitwise_on_card(card, backend, temperature):
+    """``generate_long`` through K1 and K4 equals one call bitwise at every
+    temperature: the same int seed keys each chunk's noise."""
+    cfg = pt.get_config("test_small")
+    params = pt.init_wavenet(cfg, torch.Generator().manual_seed(4), card)
+    fn, streams, kw = {
+        "k1": (pt.generate_fast_fused, 2, dict(fuse_res=True)),
+        "k4": (pt.generate_fast_batched, 40,
+               dict(fuse_res=True, skip_slab=True)),
+    }[backend]
+    prime = _prime(cfg, streams, 6, 50)
+    _, one = fn(params, cfg, 17, 3000, prime, temperature=temperature,
+                device=card, **kw)
+    calls = []
+    _, chunked = pt.generate_long(
+        params, cfg, 17, 3000, prime, temperature=temperature,
+        chunk_size=1100, backend=fn, device=card,
+        progress_callback=lambda d, t: calls.append((d, t)), **kw)
+    assert torch.equal(chunked, one)
+    assert calls == [(1100, 3000), (2200, 3000), (3000, 3000)]
+
+
+@pytest.mark.gpu
+def test_reload_through_the_pool_on_card(card, tmp_path):
+    """``Synthesizer.reload`` hands the pool (K4) new weights; a request
+    admitted after it equals its solo rollout on them bitwise."""
+    from pytorch_wavenet_tpu_torch.serving.server import Synthesizer
+
+    cfg = pt.get_config("test_small")
+    pa = pt.init_wavenet(cfg, torch.Generator().manual_seed(5), card)
+    pb = pt.init_wavenet(cfg, torch.Generator().manual_seed(6), card)
+    path = pt.save_checkpoint(str(tmp_path), "b", 2, pb, cfg=cfg)
+    synth = Synthesizer(pa, cfg, device=card, batcher_opts=dict(
+        lanes=16, chunk=128, fuse_res=True))
+    try:
+        assert synth.reload(path, str(tmp_path)) == 2
+        prime = np.asarray([cfg.classes // 2], np.int32)
+        _, got = synth.batcher.submit(prime, 300, temperature=0.9,
+                                      seed=11).result(timeout=300)
+        assert synth.batcher.stats()["failed"] == 0
+    finally:
+        synth.close()
+    _, solo = pt.generate_fast_batched(pb, cfg, 0, 300, prime[None],
+                                       temperature=0.9, lane_seed=[11],
+                                       fuse_res=True, device=card)
+    assert np.array_equal(got, solo[0].cpu().numpy())
+
+
+@pytest.mark.gpu
+def test_profiling_trace_names_k1_on_card(card, tmp_path):
+    """A ``profiling.trace`` capture holds K1's launch (the cluster core's
+    kernel with its K1 flag) with a device duration, overlapping the
+    capture's marked window."""
+    import json
+    import re
+
+    from pytorch_wavenet_tpu_torch.utils import profiling
+
+    cfg = pt.get_config("test_small")
+    params = pt.init_wavenet(cfg, torch.Generator().manual_seed(7), card)
+    pt.generate_fast_fused(params, cfg, 0, 4, device=card)  # build, load
+    with profiling.trace(str(tmp_path)) as path:
+        pt.generate_fast_fused(params, cfg, 0, 256, temperature=0.0,
+                               device=card)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    k1 = [e for e in events if re.search(
+        r"gen_cluster_kernel(<\d+, true|ILi\d+ELb1)", e.get("name", ""))]
+    assert k1 and all(e.get("dur", 0) > 0 for e in k1)
+    # the capture's window, which the launch overlaps
+    span = [e for e in events if e.get("name") == profiling.CAPTURE_SPAN
+            and e.get("cat") == "user_annotation"]
+    assert len(span) == 1
+    lo, hi = span[0]["ts"], span[0]["ts"] + span[0]["dur"]
+    assert all(e["ts"] < hi and e["ts"] + e["dur"] > lo for e in k1)

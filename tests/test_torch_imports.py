@@ -15,7 +15,8 @@ for name in names:
     importlib.import_module(name)
 assert "pytorch_wavenet_tpu_torch.data.mel_dataset" in names
 for new in ("data.native", "utils.tensorboard", "models.speculative",
-            "models.iaf", "training.distill", "training.distill_cli"):
+            "models.iaf", "training.distill", "training.distill_cli",
+            "utils.profiling", "generate_cli"):
     assert "pytorch_wavenet_tpu_torch." + new in names
 banned = [m for m in sys.modules
           if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "msgpack",
@@ -185,3 +186,75 @@ def test_speculation_and_distillation_run_with_jax_blocked():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+_BLOCKED_SLICE11 = _BLOCKED.split("import pytorch_wavenet_tpu_torch.serving")[0] + """
+import os, tempfile
+import numpy as np
+import torch
+import pytorch_wavenet_tpu_torch as pt
+from pytorch_wavenet_tpu_torch import generate_cli
+from pytorch_wavenet_tpu_torch.models import convert
+from pytorch_wavenet_tpu_torch.ops.cuda import build, gen_kernel
+from pytorch_wavenet_tpu_torch.utils import checkpoints as ck, profiling
+from pytorch_wavenet_tpu_torch.utils.msgpack_lite import packb
+import pytorch_wavenet_tpu_torch.serving.server as srv
+cfg = pt.get_config("tiny")
+params = pt.init_wavenet(cfg, torch.Generator().manual_seed(0), "cpu")
+d = tempfile.mkdtemp()
+_, a = pt.generate_long(params, cfg, 3, 40, chunk_size=16, fuse_res=True,
+                        backend=pt.generate_fast_fused, device="cpu")
+_, b = pt.generate_fast_fused(params, cfg, 3, 40, fuse_res=True, device="cpu")
+assert torch.equal(a, b)
+sd = convert.to_reference_state_dict(params, cfg)
+torch.save({k: torch.from_numpy(np.ascontiguousarray(v))
+            for k, v in sd.items()}, os.path.join(d, "ref.pt"))
+back, rcfg = pt.load_reference_snapshot(os.path.join(d, "ref.pt"),
+                                        layers=cfg.layers, blocks=cfg.blocks,
+                                        device="cpu")
+for k in params:
+    for n in params[k]:
+        assert torch.equal(back[k][n], params[k][n]), (k, n)
+# a one-process sharded checkpoint in the JAX package's layout
+npp = pt.to_numpy_params(params)
+skel = {k: {n: {"__sharded_array__": [list(v.shape), str(v.dtype)]}
+            for n, v in d_.items()} for k, d_ in npp.items()}
+shards = {f"params/{k}/{n}": [{"index": [[0, s] for s in v.shape],
+                               "data": v}]
+          for k, d_ in npp.items() for n, v in d_.items()}
+sdir = os.path.join(d, "snaps", "m_0000000004.ckpt.sharded")
+os.makedirs(sdir)
+open(os.path.join(sdir, "shards_p0.msgpack"), "wb").write(
+    packb({"process": 0, "shards": shards}))
+open(os.path.join(sdir, "manifest.msgpack"), "wb").write(packb({
+    "format": "pytorch_wavenet_tpu/sharded/1", "step": 4,
+    "config": cfg.to_json(), "process_count": 1, "params": skel,
+    "opt_state": None, "extra": {}}))
+assert ck.latest_checkpoint(os.path.join(d, "snaps")) == sdir
+blob = pt.load_checkpoint(sdir, "cpu")
+assert blob["step"] == 4 and blob["config"] == cfg
+assert all(torch.equal(blob["params"][k][n], params[k][n])
+           for k in params for n in params[k])
+with profiling.trace(os.path.join(d, "prof")) as path:
+    pass
+assert os.path.isfile(path)
+out = os.path.join(d, "x.wav")
+wav = generate_cli.main(["--snapshot-path", os.path.join(d, "snaps"),
+                         "--num-samples", "8", "--out", out,
+                         "--device", "cpu"])
+assert wav.shape == (1, 8) and os.path.isfile(out)
+assert srv.Synthesizer.reload and srv.BACKENDS
+assert gen_kernel.launches == 0 and not build._libs
+print("ok")
+"""
+
+
+def test_generation_and_serving_remainder_run_with_jax_blocked():
+    """The sharded-checkpoint reader, ``generate_long``, the reference
+    converters, profiling, the server's remainder and the generate CLI
+    import and run on the CPU with every import of JAX or of the JAX
+    package made to fail, and build nothing."""
+    out = subprocess.run([sys.executable, "-c", _BLOCKED_SLICE11], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "ok"
