@@ -20,9 +20,9 @@ Phases (any failure stops the run with a nonzero exit):
      written as a checkpoint, served by ``serving.server.main`` on a free
      port; three /synthesize requests; the kernel's launch count read
      around exactly this phase;
-  5. times with CUDA events: K1 at the serving chunk, at the bench shape
-     (saber, full-rf prime, 65536 samples, temperature 1) and for
-     chaconne; the plain version; the bound from the shapes;
+  5. times with CUDA events: K1 at the serving chunk and for chaconne
+     (a full-rf prime, temperature 1; the bench shape, saber, is phase
+     36's); the plain version; the bound from the shapes;
   6. kernel K4 (batched many-stream generation) against its plain version
      at chaconne width, 256 lanes and 200 (a tail tile), exact and
      ``fuse_res + skip_slab``: a teacher-forced prime, rollouts at
@@ -215,12 +215,35 @@ Phases (any failure stops the run with a nonzero exit):
      1 stream (K1) and 16 (K4), ``--torch-snapshot``, ``--vocode-wav`` at
      the vocoder, ``--ema`` on phase 25's snapshot, each wav byte-equal to
      the library call it printed; ``--draft-snapshot`` without
-     ``--force-speculate`` refused. Each phase's seconds are printed.
+     ``--force-speculate`` refused. Each phase's seconds are printed;
+ 36. the single-card tools (phases 36-41), each run in this process through
+     its ``main`` with its output logged under its name and its launches
+     per kernel counted from zero around it: the port's one-line metric
+     ``pytorch_wavenet_tpu_torch.bench`` (K1 at saber, 65536 samples, 3
+     launches);
+ 37. ``scripts.serving_bench`` at chaconne, 256 lanes, chunk 2048, 256
+     requests in flight until 512 of 16000 samples complete (f32 rings),
+     then with ``--device-profile`` (bf16 rings): K4's device time inside
+     the traced window at most the window;
+ 38. ``serving_bench`` at the vocoder with mel frames (``--cond --cond-hop
+     256``), 256 requests;
+ 39. ``scripts.serving_soak`` at chaconne, 256 lanes, for SOAK_SECONDS with
+     ``update_params`` every SOAK_RELOAD s, then for SOAK_CHECK_SECONDS
+     without reloads, greedy requests held bitwise against their solo K4
+     rollouts: the script's invariants, no request failed, every reload
+     installed, some requests checked;
+ 40. ``scripts.benchmark`` at chaconne (BENCHMARK_ARGS: the train step on
+     K2/K3, K1 exact and fuse_res, K4's sweep up to 512 streams), the
+     launches of each part exact;
+ 41. ``scripts.distill_demo`` in both modes at its default widths with
+     DEMO_STEPS (K2/K3 in the teacher's training, K2 in distillation, the
+     rollouts on K1), metrics finite, the student snapshot read back.
 
 ``python3 chip_smoke.py --remainder-only`` runs phases 1, 2, 25 and 26 only,
-``--distill-only`` phases 1, 2, 25 (the teacher) and 27-29, and
-``--slice11-only`` phases 1, 2, 25 (the ``--ema`` snapshot) and 30-35; each
-exits 1 without a result (short calls while working on them).
+``--distill-only`` phases 1, 2, 25 (the teacher) and 27-29,
+``--slice11-only`` phases 1, 2, 25 (the ``--ema`` snapshot) and 30-35, and
+``--slice12-only`` phases 1, 2 and 36-41; each exits 1 without a result
+(short calls while working on them).
 
 The line before the last is one JSON object listing the kernels; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -734,7 +757,6 @@ def phase_times(torch, pt, gk, dev, card):
     log(f"[time] plain version, same chaconne chunk: {plain:.1f} ms, "
         f"{1e3 * plain / total:.1f} us/step [{card}]")
     log("[time] library call: none (no single PyTorch call computes the loop)")
-    timed(saber, saber.receptive_field, 65536, 1.0, 2)
     timed(chaconne, chaconne.receptive_field, 16384, 1.0, 2)
     # where a step's time goes: chaconne widths at 1, 2 and 3 blocks; the
     # slope is the cost of one layer, the intercept that of the embed, the
@@ -3237,7 +3259,7 @@ def phase_remainder_times(torch, pt, dev, card, reps=10):
 
 # ------------------------------------------ speculation and distillation
 
-SPEC_N = 2048           # phase 27's rollout length
+SPEC_N = 128            # phase 27's rollout length
 SPEC_PRIME = 512        # its prime (random classes, window-primed)
 DISTILL_LENGTH = 4000   # the distillation CLI's draw length and batch
 DISTILL_BATCH = 4
@@ -4177,34 +4199,6 @@ def phase_reload(torch, np, pt, gk, ghbm, dev, cfg, params, d):
     return k1, k4
 
 
-def _k4_trace_events(events):
-    """The trace's K4 launches: the cluster core's kernel with K1's ring
-    flag false (demangled ``gen_cluster_kernel<16, false, ...>`` or mangled
-    ``gen_cluster_kernelILi16ELb0...``)."""
-    import re
-
-    pat = re.compile(r"gen_cluster_kernel(<\d+, false|ILi\d+ELb0)")
-    return [e for e in events if e.get("cat") == "kernel"
-            and pat.search(e.get("name", ""))]
-
-
-def _capture_window(events, span):
-    """(start, end) in µs of the capture's own span in a trace written by
-    ``profiling.trace`` (the block it wrapped)."""
-    marks = [e for e in events if e.get("name") == span
-             and e.get("cat") == "user_annotation"]
-    check(len(marks) == 1, f"the trace holds {len(marks)} {span} spans")
-    lo = float(marks[0]["ts"])
-    return lo, lo + float(marks[0]["dur"])
-
-
-def _clipped_ms(events, lo, hi):
-    """Device ms of ``events`` inside [lo, hi] (µs): a launch that straddles
-    an edge counts only its part inside."""
-    return sum(max(0.0, min(hi, float(e["ts"]) + float(e.get("dur", 0)))
-                   - max(lo, float(e["ts"]))) for e in events) / 1e3
-
-
 def phase_profile(torch, np, pt, gk, ghbm, dev, cfg, params, d):
     """Phase 33: ``--batcher --lanes 256 --batch-chunk 2048 --profile-dir``:
     a first short capture, then POST /profile?seconds=2 while 16 requests
@@ -4217,7 +4211,8 @@ def phase_profile(torch, np, pt, gk, ghbm, dev, cfg, params, d):
     in ms)."""
     from pytorch_wavenet_tpu_torch.ops.mulaw import dequantize_to_f32
     from pytorch_wavenet_tpu_torch.serving import server as srv
-    from pytorch_wavenet_tpu_torch.utils.profiling import CAPTURE_SPAN
+    from pytorch_wavenet_tpu_torch.utils.profiling import (
+        CAPTURE_SPAN, capture_window, clipped_ms, k4_events)
 
     prof = os.path.join(d, "profiles")
     snap = pt.save_checkpoint(os.path.join(d, "profile"), "chaconne", 1,
@@ -4264,10 +4259,10 @@ def phase_profile(torch, np, pt, gk, ghbm, dev, cfg, params, d):
           f"requests during the capture: {stats}")
     with open(reply["trace"]) as f:
         events = json.load(f)["traceEvents"]
-    lo, hi = _capture_window(events, CAPTURE_SPAN)
-    ev = [e for e in _k4_trace_events(events)
+    lo, hi = capture_window(events, CAPTURE_SPAN)
+    ev = [e for e in k4_events(events)
           if float(e["ts"]) < hi and float(e["ts"]) + float(e["dur"]) > lo]
-    dev_ms = _clipped_ms(ev, lo, hi)
+    dev_ms = clipped_ms(ev, lo, hi)
     whole_ms = sum(float(e["dur"]) for e in ev) / 1e3
     window_ms = (hi - lo) / 1e3
     check(ev and 0 < dev_ms <= window_ms,
@@ -4442,6 +4437,273 @@ def phase_generate_cli(torch, np, pt, dev, cfg, params, d, ref_pickle,
     return launches
 
 
+# ------------------------------------------------------------- slice 12
+
+SB_ARGS = ["--lanes", "256", "--chunk", "2048", "--concurrency", "256",
+           "--num-samples", "16000", "--skip-slab",
+           "--json"]      # phases 37-38's closed-loop load
+SB_REQUESTS = 512          # phase 37's requests at chaconne
+SB_VOCODER_REQUESTS = 256  # phase 38's requests at the vocoder
+SOAK_SECONDS = 20          # phase 39's soak, reloads every SOAK_RELOAD s
+SOAK_RELOAD = 5
+SOAK_CHECK_SECONDS = 12    # then without reloads, greedy requests checked
+SOAK_CHECK_RATE = "0.25"   # against their solo K4 rollouts at this rate
+BENCHMARK_ARGS = ["--config", "chaconne", "--gen-samples", "256",
+                  "--max-streams", "512", "--hbm-kernel-only"]
+DEMO_STEPS = ("200", "60")  # phase 41's teacher and distillation steps
+DEMO_EVAL = "16000"         # its evaluation rollouts' samples a stream
+# the tools' runs on K4 with bf16 rings (the tools' default), the others
+# f32
+BF16_RING_TOOLS = ("serving_bench chaconne, profiled",
+                   "serving_bench vocoder", "serving_soak reloads",
+                   "serving_soak checked")
+
+
+def _tool(gk, ghbm, tk, main, argv, tag):
+    """One tool's ``main(argv)`` in this process, its standard output
+    logged line by line under ``tag`` (so no line of it can pass for the
+    run's result), its launches per kernel counted from zero around it; a
+    ``SystemExit`` (a broken invariant, a refused argument) fails the
+    run. Returns (main's result, launches per kernel, seconds)."""
+    import contextlib
+    import io
+
+    gk.launches = ghbm.launches = tk.fwd_launches = tk.bwd_launches = 0
+    buf = io.StringIO()
+    t = time.time()
+    try:
+        with contextlib.redirect_stdout(buf):
+            out = main(argv)
+    except SystemExit as e:
+        raise SmokeFailure(f"{tag}: exited: {e}") from e
+    finally:
+        for line in buf.getvalue().splitlines():
+            log(f"[{tag}] {line}")
+    secs = time.time() - t
+    n = {"K1": gk.launches, "K4": ghbm.launches, "K2": tk.fwd_launches,
+         "K3": tk.bwd_launches}
+    log(f"[{tag}] launches " + ", ".join(f"{k} {v}" for k, v in n.items())
+        + f"; {secs:.1f} s")
+    return out, n, secs
+
+
+def phase_bench(torch, gk, ghbm, tk, card):
+    """Phase 36: the port's one-line metric (``pytorch_wavenet_tpu_torch.
+    bench``): K1 at saber, 65536 samples, a warm call and two timed; one
+    JSON line with bench.py's keys."""
+    from pytorch_wavenet_tpu_torch import bench
+
+    r, n, _ = _tool(gk, ghbm, tk, bench.main, [], "bench")
+    check(n == {"K1": 3, "K4": 0, "K2": 0, "K3": 0} and r["launches"] == 3,
+          f"bench launches {n}")
+    check(r["samples_per_s"] > 0, f"bench: {r}")
+    log(f"[bench] {r['samples_per_s']:.1f} samples/s, {r['us_per_step']:.2f} "
+        f"us/step (host clock, best of 2) [{card}]")
+    return dict(r, launches=n)
+
+
+def phase_serving_bench(torch, gk, ghbm, tk, card):
+    """Phases 37-38: ``scripts.serving_bench`` at chaconne, 256 lanes,
+    chunk 2048, 256 requests in flight until 512 complete (f32 rings), then
+    again with ``--device-profile`` (bf16 rings, its default): K4's device
+    time inside the traced window, no more than the window; then the
+    vocoder with mel frames on the wire (``--cond --cond-hop 256``). Every
+    request completes and none fails."""
+    from pytorch_wavenet_tpu_torch.scripts import serving_bench as sb
+
+    out = {}
+    for tag, requests, extra in (
+            ("chaconne", SB_REQUESTS, ["--config", "chaconne",
+                                       "--ring-dtype", "f32"]),
+            ("chaconne, profiled", SB_REQUESTS, [
+                "--config", "chaconne", "--ring-dtype", "bf16",
+                "--device-profile"]),
+            ("vocoder", SB_VOCODER_REQUESTS, [
+                "--config", "vocoder", "--cond", "--cond-hop", "256",
+                "--ring-dtype", "bf16"])):
+        argv = [*SB_ARGS, "--requests", str(requests), *extra]
+        s, n, secs = _tool(gk, ghbm, tk, sb.main, argv,
+                           f"serving_bench {tag}")
+        check(s["completed"] == requests and s["failed"] == 0,
+              f"serving_bench {tag}: {s}")
+        check(n["K4"] > 0 and n["K1"] == n["K2"] == 0,
+              f"serving_bench {tag} launches {n}")
+        if "profiled" in tag:
+            check("device_busy_s" in s, "the profile holds no K4 launch")
+            check(s["device_busy_s"] <= s["wall_s"] * 1.05
+                  and s["device_bound_samples_per_s"]
+                  >= s["agg_samples_per_s"] * 0.95,
+                  f"device busy {s['device_busy_s']} s in {s['wall_s']} s")
+        log(f"[serving_bench {tag}] {s['agg_samples_per_s']:,} samples/s "
+            f"aggregate, TTFA p50/p95 {s['ttfa_p50_ms']}/{s['ttfa_p95_ms']} "
+            f"ms, wire {s['wire_bytes_per_sample']} B/sample"
+            + (f", K4 busy {s['device_busy_s']} s of {s['wall_s']} s, "
+               f"device-bound {s['device_bound_samples_per_s']:,} samples/s"
+               if "device_busy_s" in s else "") + f" [{card}]")
+        out[tag] = dict(summary=s, launches=n, seconds=secs)
+    return out
+
+
+def phase_soak(torch, gk, ghbm, tk, card):
+    """Phase 39: ``scripts.serving_soak`` at chaconne, 256 lanes, chunk
+    2048, bf16 rings, 16 workers of mixed lengths, temperatures and cancels:
+    for SOAK_SECONDS with ``update_params`` every SOAK_RELOAD s, then for
+    SOAK_CHECK_SECONDS without reloads, a SOAK_CHECK_RATE share of the
+    greedy requests held bitwise against their solo K4 rollouts at the
+    pool's settings (the script skips that check under reloads). In both:
+    nothing hangs, fails or errs, the counters agree, the pool drains with
+    every lane free; each reload installed; some requests checked and none
+    mismatched (the script raises on its own invariants)."""
+    from pytorch_wavenet_tpu_torch.scripts import serving_soak
+
+    common = ["--config", "chaconne", "--lanes", "256", "--chunk", "2048",
+              "--ring-dtype", "bf16", "--skip-slab", "--json"]
+    out = {}
+    for tag, extra in (
+            ("reloads", ["--seconds", str(SOAK_SECONDS),
+                         "--reload-every", str(SOAK_RELOAD)]),
+            ("checked", ["--seconds", str(SOAK_CHECK_SECONDS),
+                         "--check-rate", SOAK_CHECK_RATE])):
+        r, n, secs = _tool(gk, ghbm, tk, serving_soak.main, common + extra,
+                           f"serving_soak {tag}")
+        check(r["hung"] == r["mismatched"] == r["worker_errors"] == 0
+              and r["failed"] == r["pool_failed"] == 0
+              and r["pool_outstanding"] == 0 and r["pool_free"] == 256
+              and r["completed"] > 0, f"serving_soak {tag}: {r}")
+        if tag == "reloads":
+            check(r["reloads"] >= 1
+                  and r["reloads_installed"] == r["reloads"],
+                  f"serving_soak reloads: {r}")
+        else:
+            check(r["checked"] > 0 and r["reloads"] == 0,
+                  f"serving_soak checked: {r}")
+        check(n["K4"] > 0 and n["K1"] == n["K2"] == 0,
+              f"soak {tag} launches {n}")
+        log(f"[serving_soak {tag}] {r['completed']} completed, "
+            f"{r['cancelled']} cancelled, {r['failed']} failed, "
+            f"{r['checked']} checked bitwise ({r['mismatched']} mismatched), "
+            f"{r['reloads_installed']} reloads installed, {r['pool_steps']} "
+            f"pool steps, RSS growth {r['rss_growth_mb']} MB over "
+            f"{r['wall_s']} s [{card}]")
+        out[tag] = dict(report=r, launches=n, seconds=secs)
+    return out
+
+
+def phase_benchmark(torch, pt, gk, ghbm, tk, card):
+    """Phase 40: ``scripts.benchmark`` at chaconne with BENCHMARK_ARGS: the
+    train step at batch 16 (K2/K3, 21 steps), the plain lines, K1 exact and
+    fuse_res (3 calls each), K4's sweep up to 512 streams (a short warm
+    call and 4 timed each), the student and the gather. The default sweep
+    (to 16384 bf16 lanes, 16384 samples) takes about 17 minutes alone."""
+    from pytorch_wavenet_tpu_torch.scripts import benchmark
+
+    lines, n, secs = _tool(gk, ghbm, tk, benchmark.main, BENCHMARK_ARGS,
+                           "benchmark")
+    args = benchmark.parse_args(BENCHMARK_ARGS)
+    rows = benchmark.sweep_rows(pt.get_config(args.config), args.max_streams)
+    check(n == {"K1": 6, "K4": 5 * len(rows), "K2": 21, "K3": 21},
+          f"benchmark launches {n} ({len(rows)} sweep rows)")
+    check(sum(line.startswith("gen fused-HBM") for line in lines)
+          == len(rows) and any("(fuse_res)" in line for line in lines),
+          "benchmark lines")
+    return dict(lines=lines, launches=n, seconds=secs)
+
+
+def phase_distill_demo(torch, gk, ghbm, tk, dev, card, d):
+    """Phase 41: ``scripts.distill_demo`` in both modes at its default
+    widths (the teacher 9x2 layers, width 32, skip 512, output 1024; the
+    student 4 flows x 10 layers, width 64) with DEMO_STEPS and DEMO_EVAL
+    samples a stream in the evaluation: the teacher
+    trained through K2/K3 (a launch each a step), distilled with the
+    teacher scored through K2 (a launch a step), its rollouts on K1; the
+    metrics finite and the student snapshot read back."""
+    from pytorch_wavenet_tpu_torch.models import iaf
+    from pytorch_wavenet_tpu_torch.scripts import distill_demo
+
+    teacher, distill = (int(s) for s in DEMO_STEPS)
+    out = {}
+    for mode in ("uncond", "vocoder"):
+        m, n, secs = _tool(gk, ghbm, tk, distill_demo.main, [
+            "--mode", mode, "--teacher-steps", DEMO_STEPS[0],
+            "--distill-steps", DEMO_STEPS[1], "--eval-steps", "10",
+            "--eval-samples", DEMO_EVAL, "--json",
+            "--out-dir", d], f"distill_demo {mode}")
+        check(all(math.isfinite(v) for k, v in m.items() if k != "mode"),
+              f"distill_demo {mode}: {m}")
+        check(n["K2"] == teacher + distill and n["K3"] == teacher
+              and n["K1"] + n["K4"] >= 1,
+              f"distill_demo {mode} launches {n}")
+        _, scfg, step = iaf.load_student_snapshot(os.path.join(
+            d, f"demo_student_{mode}_{distill:010d}.ckpt"), device=dev)
+        check(step == distill and scfg.flows == 4, f"student {scfg}")
+        log(f"[distill_demo {mode}] KL {m['kl_start']} -> {m['kl_end']}, "
+            f"rms ratio {m['rms_ratio']}, log-mel L2 student "
+            f"{m['logmel_l2_student']} (init {m['logmel_l2_init']}, teacher "
+            f"{m['logmel_l2_teacher']}), {secs:.1f} s [{card}]")
+        out[mode] = dict(metrics=m, launches=n, seconds=secs)
+    return out
+
+
+def slice12_entries(kernels, s12):
+    """This slice's main paths, phases 36-41, on the kernels line: each
+    tool's launches per kernel, counted from zero around its own run, on
+    the entry of each kernel it drove (K4's by the ring dtype of the run:
+    BF16_RING_TOOLS on the bf16-ring entry), and the tools' own figures."""
+    k4_bf16 = next(e for e in kernels
+                   if e["name"].startswith("gen_batched (K4, bf16 rings"))
+    for entry, key, tools in (
+            (kernels[0], "K1", None), (kernels[2], "K2", None),
+            (kernels[3], "K3", None),
+            (kernels[1], "K4", lambda t: t not in BF16_RING_TOOLS),
+            (k4_bf16, "K4", lambda t: t in BF16_RING_TOOLS)):
+        entry["slice12_launches"] = {
+            tool: n[key] for tool, n in s12["launches"].items()
+            if n[key] and (tools is None or tools(tool))}
+    kernels[0]["bench"] = s12["bench"]
+    kernels[1].update(serving_bench=s12["serving_bench"],
+                      serving_soak=s12["soak"],
+                      slice12_phase_seconds=s12["seconds"])
+    kernels[2].update(distill_demo=s12["distill_demo"])
+
+
+def slice12(torch, np, pt, gk, ghbm, tk, dev, card, t_start):
+    """Phases 36-41, the single-card tools at full width. Returns their
+    figures."""
+    secs, out = {}, {}
+    with tempfile.TemporaryDirectory() as d:
+        for name, fn in (
+                ("36 bench", lambda: phase_bench(torch, gk, ghbm, tk, card)),
+                ("37-38 serving_bench", lambda: phase_serving_bench(
+                    torch, gk, ghbm, tk, card)),
+                ("39 serving_soak", lambda: phase_soak(
+                    torch, gk, ghbm, tk, card)),
+                ("40 benchmark", lambda: phase_benchmark(
+                    torch, pt, gk, ghbm, tk, card)),
+                ("41 distill_demo", lambda: phase_distill_demo(
+                    torch, gk, ghbm, tk, dev, card, d))):
+            t = time.time()
+            out[name] = fn()
+            secs[name] = time.time() - t
+            log(f"phase {name} took {secs[name]:.1f} s, done at "
+                f"{time.time() - t_start:.0f} s")
+    bench_, sbench, soak, bmark, demo = (out[k] for k in secs)
+    launches = {
+        "bench": bench_["launches"],
+        **{f"serving_bench {k}": v["launches"] for k, v in sbench.items()},
+        **{f"serving_soak {k}": v["launches"] for k, v in soak.items()},
+        "benchmark": bmark["launches"],
+        **{f"distill_demo {k}": v["launches"] for k, v in demo.items()},
+    }
+    return dict(
+        launches=launches,
+        bench={k: bench_[k] for k in ("samples_per_s", "us_per_step")},
+        serving_bench={k: v["summary"] for k, v in sbench.items()},
+        soak={k: v["report"] for k, v in soak.items()},
+        benchmark_lines=bmark["lines"],
+        distill_demo={k: v["metrics"] for k, v in demo.items()},
+        seconds=secs)
+
+
 def slice11(torch, np, pt, gk, ghbm, dev, t_start, ema_snap):
     """Phases 30-35 at chaconne's full width (the vocoder for the mel
     mode), random weights from SEED. Returns their figures."""
@@ -4538,6 +4800,10 @@ def main():
             rem = phase_training_remainder(torch, np, pt, tk, ghbm, dev, keep)
             slice11(torch, np, pt, gk, ghbm, dev, t_start, rem["snapshot"])
         return 1
+    if sys.argv[1:] == ["--slice12-only"]:
+        # a short call for work on phases 36-41 alone: no kernels line
+        slice12(torch, np, pt, gk, ghbm, tk, dev, card, t_start)
+        return 1
     if sys.argv[1:] == ["--distill-only"]:
         # a short call for work on phases 27-29 alone (phase 25 first for
         # the teacher): no kernels line
@@ -4621,6 +4887,7 @@ def main():
         sp, ds, ss = slice10(torch, np, pt, gk, tk, dev, card, t_start, keep,
                              rem["snapshot"])
         s11 = slice11(torch, np, pt, gk, ghbm, dev, t_start, rem["snapshot"])
+    s12 = slice12(torch, np, pt, gk, ghbm, tk, dev, card, t_start)
 
     kernels = [{
         "name": "gen_fused (K1, fuse_res)",
@@ -4893,6 +5160,8 @@ def main():
     kernels[1].update(slice11_launches=s11["k4"],
                       profile_capture=s11["profile"],
                       slice11_phase_seconds=s11["seconds"])
+    slice12_entries(kernels, s12)
+    log(f"the run took {time.time() - t_start:.0f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

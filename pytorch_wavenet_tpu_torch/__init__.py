@@ -17,6 +17,11 @@ and backward (``ops/cuda/trunk_kernel.py``); speculative decoding over the
 window API (``models/speculative.py``), and Parallel-WaveNet distillation
 (``models/iaf.py``, ``training/distill.py`` and its CLI, the teacher
 scored through the forward kernel) with the server's student backend; the
+reference's L0 shims (``ops/dilated.py``, ``ops/queues.py``), graph and
+parameter summaries (``utils/visualize.py``), and the single-card tools
+(``bench.py``, the one-line metric; ``scripts/``: ``benchmark``,
+``serving_bench``, ``serving_soak``, ``distill_demo``, ``make_demo_data``,
+each run as ``python -m pytorch_wavenet_tpu_torch.scripts.<name>``); the
 kernel sources are in ``csrc/``. Importing the package
 builds nothing and touches no device; kernels build with ``nvcc`` at first
 use. Entry points take ``device`` (default ``"cuda"``, which raises when no
@@ -24,7 +29,7 @@ card is present); ``device="cpu"`` runs the plain PyTorch versions.
 """
 
 from .config import PRESETS, WaveNetConfig, get_config
-from .data.audio_io import load_audio, write_wav
+from .data.audio_io import list_all_audio_files, load_audio, write_wav
 from .data.dataset import BatchIterator, PrefetchBatchIterator, WaveNetDataset
 from .data.mel_dataset import MelWaveNetDataset
 from .models.convert import (
@@ -69,6 +74,8 @@ from .models.wavenet import (
 from .ops.cuda.gen_kernel import FusedGenState, generate_fast_fused
 from .ops.cuda.gen_kernel_hbm import HbmGenState, generate_fast_batched
 from .ops.cuda.trunk_kernel import fused_trunk
+from .ops.dilated import constant_pad_1d, dilate
+from .ops.queues import DilatedQueue
 from .serving.batcher import ContinuousBatcher
 from .ops.mulaw import (
     dequantize_data,
@@ -80,6 +87,7 @@ from .ops.mulaw import (
 from .training.distill import distill_loss, distill_step
 from .training.optimizers import (
     MultiSteps,
+    ema_params,
     lr_schedule,
     reference_adam,
     sgd_normalized,
@@ -104,7 +112,8 @@ from .utils.checkpoints import (
 
 __all__ = [
     "PRESETS", "WaveNetConfig", "get_config",
-    "load_audio", "write_wav", "BatchIterator", "PrefetchBatchIterator",
+    "load_audio", "write_wav", "list_all_audio_files", "BatchIterator",
+    "PrefetchBatchIterator",
     "WaveNetDataset", "MelWaveNetDataset",
     "from_jax_params", "to_numpy_params", "config_from_state_dict",
     "from_reference_state_dict", "to_reference_state_dict",
@@ -118,8 +127,10 @@ __all__ = [
     "upsample_cond", "wavenet_logits",
     "FusedGenState", "generate_fast_fused",
     "HbmGenState", "generate_fast_batched", "ContinuousBatcher",
-    "fused_trunk", "reference_adam", "lr_schedule", "sgd_normalized",
-    "with_ema", "MultiSteps", "WaveNetTrainer", "cross_entropy_loss",
+    "fused_trunk", "constant_pad_1d", "dilate", "DilatedQueue",
+    "reference_adam", "lr_schedule", "sgd_normalized",
+    "with_ema", "ema_params", "MultiSteps", "WaveNetTrainer",
+    "cross_entropy_loss",
     "eval_step", "generate_audio", "train_step", "Logger",
     "TensorboardLogger", "AsyncCheckpointer",
     "dequantize_data", "dequantize_to_f32", "mu_law_encoding",

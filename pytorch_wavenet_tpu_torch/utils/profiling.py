@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import contextlib
 import os
+import re
 import time
 from dataclasses import dataclass, field
 
@@ -20,6 +21,10 @@ from ..config import WaveNetConfig
 
 
 CAPTURE_SPAN = "profiling.trace"
+# K4's CUDA kernel in a trace: the cluster core with K1's ring flag false
+# (demangled ``gen_cluster_kernel<16, false, ...>`` or mangled
+# ``gen_cluster_kernelILi16ELb0...``)
+_K4_KERNEL = re.compile(r"gen_cluster_kernel(<\d+, false|ILi\d+ELb0)")
 
 
 @contextlib.contextmanager
@@ -59,6 +64,30 @@ def trace(log_dir: str = "profiles"):
             torch.cuda.synchronize()
         prof.stop()
         prof.export_chrome_trace(path)
+
+
+def k4_events(events: list) -> list:
+    """The K4 launches among a Chrome trace's ``traceEvents``."""
+    return [e for e in events if e.get("cat") == "kernel"
+            and _K4_KERNEL.search(e.get("name", ""))]
+
+
+def capture_window(events: list, span: str = CAPTURE_SPAN):
+    """(start, end) in µs of the capture's own span in a trace written by
+    :func:`trace` (the block it wrapped)."""
+    marks = [e for e in events if e.get("name") == span
+             and e.get("cat") == "user_annotation"]
+    if len(marks) != 1:
+        raise ValueError(f"the trace holds {len(marks)} {span} spans")
+    lo = float(marks[0]["ts"])
+    return lo, lo + float(marks[0]["dur"])
+
+
+def clipped_ms(events: list, lo: float, hi: float) -> float:
+    """Device ms of ``events`` inside [lo, hi] (µs): a launch that
+    straddles an edge counts only its part inside."""
+    return sum(max(0.0, min(hi, float(e["ts"]) + float(e.get("dur", 0)))
+                   - max(lo, float(e["ts"]))) for e in events) / 1e3
 
 
 @dataclass

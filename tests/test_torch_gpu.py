@@ -1396,3 +1396,45 @@ def test_profiling_trace_names_k1_on_card(card, tmp_path):
     assert len(span) == 1
     lo, hi = span[0]["ts"], span[0]["ts"] + span[0]["dur"]
     assert all(e["ts"] < hi and e["ts"] + e["dur"] > lo for e in k1)
+
+
+@pytest.mark.gpu
+def test_bench_prints_its_metric_through_k1_on_card(card, capsys):
+    """The port's one-line metric: one JSON line with bench.py's keys and
+    metric name, a positive rate, every call through K1 (a warm call and
+    two timed ones)."""
+    import json
+
+    from pytorch_wavenet_tpu_torch import bench
+
+    before = gk.launches
+    r = bench.main(["--num-samples", "4096"])
+    out = capsys.readouterr()
+    lines = out.out.strip().splitlines()
+    assert len(lines) == 1
+    blob = json.loads(lines[0])
+    assert set(blob) == {"metric", "value", "unit", "vs_baseline"}
+    assert blob["metric"] == "fast_generation_throughput_1stream_10x4"
+    assert blob["unit"] == "samples/s" and blob["value"] > 0
+    assert r["launches"] == 3 and gk.launches - before == 3
+    assert out.err.startswith("# ") and "us/step" in out.err
+
+
+@pytest.mark.gpu
+def test_serving_soak_on_card_holds_its_invariants(card):
+    """A two-second soak on the card (K4 under mixed lengths, cancels and
+    temperatures), every greedy request checked bitwise against its solo
+    K4 rollout."""
+    from pytorch_wavenet_tpu_torch.scripts import serving_soak
+
+    before = ghbm.launches
+    r = serving_soak.main(["--config", "chaconne", "--lanes", "32",
+                           "--chunk", "256", "--seconds", "2",
+                           "--max-samples", "1024", "--workers", "4",
+                           "--check-rate", "1", "--skip-slab", "--json"])
+    assert r["hung"] == r["mismatched"] == r["worker_errors"] == 0
+    assert r["failed"] == r["pool_failed"] == 0 and r["checked"] > 0
+    assert r["pool_outstanding"] == 0 and r["pool_free"] == 32
+    assert 0 <= r["pool_admitted"] - r["pool_completed"] - r["pool_failed"] \
+        <= r["pool_cancelled"]
+    assert r["completed"] > 0 and ghbm.launches > before

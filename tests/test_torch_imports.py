@@ -16,7 +16,10 @@ for name in names:
 assert "pytorch_wavenet_tpu_torch.data.mel_dataset" in names
 for new in ("data.native", "utils.tensorboard", "models.speculative",
             "models.iaf", "training.distill", "training.distill_cli",
-            "utils.profiling", "generate_cli"):
+            "utils.profiling", "generate_cli", "bench", "utils.visualize",
+            "ops.dilated", "ops.queues", "scripts.make_demo_data",
+            "scripts.benchmark", "scripts.serving_bench",
+            "scripts.serving_soak", "scripts.distill_demo"):
     assert "pytorch_wavenet_tpu_torch." + new in names
 banned = [m for m in sys.modules
           if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "msgpack",
@@ -255,6 +258,44 @@ def test_generation_and_serving_remainder_run_with_jax_blocked():
     import and run on the CPU with every import of JAX or of the JAX
     package made to fail, and build nothing."""
     out = subprocess.run([sys.executable, "-c", _BLOCKED_SLICE11], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "ok"
+
+
+_BLOCKED_TOOLS = _BLOCKED.split("import pytorch_wavenet_tpu_torch.serving")[0] + """
+import sys
+import torch
+import pytorch_wavenet_tpu_torch as pt
+from pytorch_wavenet_tpu_torch import bench
+from pytorch_wavenet_tpu_torch.ops import dilated, queues
+from pytorch_wavenet_tpu_torch.ops.cuda import build, gen_kernel, gen_kernel_hbm
+from pytorch_wavenet_tpu_torch.scripts import (benchmark, distill_demo,
+                                               make_demo_data, serving_bench,
+                                               serving_soak)
+from pytorch_wavenet_tpu_torch.utils import visualize
+# importing a tool runs nothing: no argument parsed, no device touched
+assert bench.METRIC and benchmark.SWEEP and serving_soak.parse_args([])
+assert serving_bench.parse_args([]).device == "cuda"
+assert distill_demo.parse_args([]).teacher_steps == 4000
+assert make_demo_data.synthesize(0.01, 0).size == 9600
+q = pt.DilatedQueue.create(4, 2).enqueue(torch.ones(2))
+assert float(q.dequeue()[0].sum()) == 2.0 and pt.dilate is dilated.dilate
+cfg = pt.get_config("tiny")
+params = pt.init_wavenet(cfg, torch.Generator().manual_seed(0), "cpu")
+assert "total" in visualize.param_summary(params)
+assert gen_kernel.launches == 0 and gen_kernel_hbm.launches == 0
+assert not build._libs and queues.DilatedQueue is pt.DilatedQueue
+print("ok")
+"""
+
+
+def test_tools_and_shims_import_with_jax_blocked():
+    """The one-line metric, the single-card tools, the L0 shims and the
+    visualization utilities import and run their host parts with every
+    import of JAX or of the JAX package made to fail, and importing a tool
+    runs nothing."""
+    out = subprocess.run([sys.executable, "-c", _BLOCKED_TOOLS], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-1] == "ok"

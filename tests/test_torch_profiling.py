@@ -72,3 +72,28 @@ def test_trace_is_written_when_the_block_raises(tmp_path):
         with tprof.trace(d) as path:
             raise RuntimeError("boom")
     assert os.path.isfile(path)
+
+
+def test_k4_events_clipped_to_the_capture_window():
+    """K4's launches picked by kernel name (K1's cluster core and other
+    kernels left out), the capture's span found, and device time clipped
+    to it: a launch across an edge counts its part inside."""
+    span = {"name": tprof.CAPTURE_SPAN, "cat": "user_annotation",
+            "ts": 100.0, "dur": 1000.0}
+    k4 = [{"cat": "kernel", "name": name, "ts": ts, "dur": dur}
+          for name, ts, dur in (
+              ("void gen_cluster_kernel<16, false, float>(Args)", 50, 100),
+              ("_Z18gen_cluster_kernelILi8ELb0EfEv", 500, 200),
+              ("void gen_cluster_kernel<8, false, bf16>(Args)", 1000, 300))]
+    other = [{"cat": "kernel", "name": "gen_cluster_kernel<16, true>",
+              "ts": 200, "dur": 50},
+             {"cat": "kernel", "name": "_Z18gen_cluster_kernelILi16ELb1Ev",
+              "ts": 300, "dur": 50},
+             {"cat": "cpu_op", "name": "gen_cluster_kernel<8, false>",
+              "ts": 300, "dur": 50}]
+    events = [span, *other, *k4]
+    assert tprof.k4_events(events) == k4
+    assert tprof.capture_window(events) == (100.0, 1100.0)
+    assert tprof.clipped_ms(k4, 100.0, 1100.0) == (50 + 200 + 100) / 1e3
+    with pytest.raises(ValueError, match="2"):
+        tprof.capture_window([span, span])
