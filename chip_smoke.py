@@ -84,9 +84,10 @@ Phases (any failure stops the run with a nonzero exit):
      rollout of the same frames; launches counted around each, the plain
      versions barred;
  17. times with CUDA events at the vocoder: K1 (one stream) and K4 (256
-     lanes) on a resumed 2048-step chunk without conditioning, with cond
-     rows and with cond and gcond, the cost of each, bounds, a K4 step's
-     phase split, and the plain versions on the conditioned chunk;
+     lanes) on a resumed VOCODER_CHUNK-step chunk without conditioning,
+     with cond rows and with cond and gcond, the cost of each, bounds, a
+     K4 step's phase split, and the plain versions on the conditioned
+     chunk;
  18. kernels K2 and K3 with local conditioning (80 mel channels) against
      their plain versions at the vocoder, batch 4, out 1024, f32 and bf16
      saves: u, every gradient, dW_cond and dcond; two conditioned K3 calls
@@ -118,10 +119,11 @@ Phases (any failure stops the run with a nonzero exit):
  23. kernel K4 with bf16 and int8 rings against its plain version at
      chaconne, 256 lanes, fuse_res + skip_slab, int8 scales from
      ``calibrate_ring_scales``: teacher-forced, then the pool's resumed
-     2048-step chunk step by step from the kernel's state (classes off
-     near-ties, ring writes within one bf16 ulp or int8 count), the 2048
-     one-step launches and three resumed chunks equal to one launch
-     bitwise; the vocoder with cond + gcond at bf16 rings; times and the
+     chunk (RING_LOCKSTEP steps) step by step from the kernel's state
+     (classes off near-ties, ring writes within one bf16 ulp or int8
+     count), the one-step launches and three resumed chunks equal to one
+     launch bitwise, timed on that chunk; the vocoder with cond + gcond at
+     bf16 rings (256 steps in lockstep); times and the
      phase split (the vocoder on phase 17's chunk, f32 and bf16 rings in
      alternation); then ``generate_fast_batched(ring_dtype=int8)`` in two
      chunks with its launches counted;
@@ -237,13 +239,35 @@ Phases (any failure stops the run with a nonzero exit):
      launches of each part exact;
  41. ``scripts.distill_demo`` in both modes at its default widths with
      DEMO_STEPS (K2/K3 in the teacher's training, K2 in distillation, the
-     rollouts on K1), metrics finite, the student snapshot read back.
+     rollouts on K1), metrics finite, the student snapshot read back;
+ 42. the multi-rank layer (phases 42-45; every rank a process, all of them
+     sharing the one card through gloo, the backend printed; the ranks of
+     42, 44 and 45 spawned together, 2 and 4 of them):
+     ``parallel_train_step`` at chaconne_wide, global batch 16, meshes
+     2x1 and 1x2 for 3 steps and 2x2 for 1, against the one-rank
+     ``train_step`` on the global batch (losses within S13_LOSS_RTOL, the
+     first step's gradients within GRAD_TOL x max(1, scale), params
+     within 2 lr a step), K2/K3 launched once a step on every rank;
+ 43. the train CLI under ``torch.distributed.run`` on 2 ranks (1x2) at
+     chaconne_wide, 10 steps with sharded snapshots at 5 and 10 (each
+     rank's K2/K3 launches from the line rank 0 prints); a 2-rank run
+     resumed from the step-5 snapshot ends bitwise at the step-10 one, and
+     a 1-rank ``--resume`` loads the sharded snapshot and trains on;
+ 44. ``sharded_pool_step`` at chaconne, 256 lanes over 2 ranks, a resumed
+     2048-step chunk through K4 (one launch a rank), classes and ring
+     bitwise equal to one unsharded K4 call;
+ 45. ``time_sharded_loss`` at chaconne (T 4096 in 2 blocks) against the
+     unsharded loss and gradients, ``generate_pipelined`` over 2 stages
+     bitwise ``generate_fast`` on each group (plain PyTorch on the card),
+     and ``scripts.scaling_bench`` at 1 and 2 ranks (its K2/K3 launches
+     per rank checked).
 
 ``python3 chip_smoke.py --remainder-only`` runs phases 1, 2, 25 and 26 only,
 ``--distill-only`` phases 1, 2, 25 (the teacher) and 27-29,
-``--slice11-only`` phases 1, 2, 25 (the ``--ema`` snapshot) and 30-35, and
-``--slice12-only`` phases 1, 2 and 36-41; each exits 1 without a result
-(short calls while working on them).
+``--slice11-only`` phases 1, 2, 25 (the ``--ema`` snapshot) and 30-35,
+``--slice12-only`` phases 1, 2 and 36-41, and ``--slice13-only`` phases 1,
+2 and 42-45; each exits 1 without a result (short calls while working on
+them).
 
 The line before the last is one JSON object listing the kernels; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -1861,6 +1885,9 @@ def phase_step_alternation(torch, pt, dev, card, rounds=4):
 # ------------------------------------------------------------- the vocoder
 
 VOCODER_WAV = "examples/generated_t1.0.wav"
+# steps of the vocoder chunks that phases 17 and 23 time, the plain
+# versions included (2048 until the multi-rank phases needed the time)
+VOCODER_CHUNK = 1024
 GCOND = 16  # global channels given the vocoder preset for the kernel checks
 
 
@@ -2313,13 +2340,13 @@ def _vocoder_chunk(torch, ghbm, cfg, params, dev, lanes, steps,
 
 
 def phase_vocoder_times(torch, pt, gk, ghbm, dev, card):
-    """K1 (one stream) and K4 (256 lanes) on a resumed 2048-step chunk at
-    the vocoder, without conditioning, with cond rows, and with cond and
+    """K1 (one stream) and K4 (256 lanes) on a resumed VOCODER_CHUNK-step
+    chunk at the vocoder, without conditioning, with cond rows, and with cond and
     gcond; the plain versions on the conditioned chunk; bounds. Returns
     the conditioned measurements for the kernels line."""
     cfg, params = _vocoder(torch, pt, dev, GCOND)
     M, L, D = cfg.cond_channels, cfg.num_layers, cfg.dilation_channels
-    steps, clock = 2048, max(gk.periods(cfg))
+    steps, clock = VOCODER_CHUNK, max(gk.periods(cfg))
     out = {}
     # K1: one stream, fuse_res (the serving call), resumed at t0 = clock
     w = gk.prepare_weights(params, cfg, True)
@@ -2339,7 +2366,7 @@ def phase_vocoder_times(torch, pt, gk, ghbm, dev, card):
         extra_b = 4 * steps * L * 2 * D * (("cond" in kw) + ("gcond" in kw))
         b_ms, b_by = bound_ms(pt, gk, params, cfg, 1, 1, steps,
                               extra_bytes=extra_b)
-        log(f"[time] K1 vocoder fuse_res, one stream, resumed 2048-step "
+        log(f"[time] K1 vocoder fuse_res, one stream, resumed {steps}-step "
             f"chunk, {what}: " + ", ".join(f"{m:.2f}" for m in ms)
             + f" ms; {us[what]:.2f} us/step; bound {b_ms:.4f} ms ({b_by}) "
             f"[{card}]")
@@ -2382,7 +2409,7 @@ def phase_vocoder_times(torch, pt, gk, ghbm, dev, card):
                              + L * 2 * D * lanes * has_g),
             extra_flops=lanes * steps * 2 * M * 2 * D * L * has_c)
         log(f"[time] K4 vocoder fuse_res+skip_slab, 256 lanes, resumed "
-            f"2048-step chunk, T=0.9 lane_seed, {what}: "
+            f"{steps}-step chunk, T=0.9 lane_seed, {what}: "
             + ", ".join(f"{m:.2f}" for m in ms)
             + f" ms; {us[what]:.2f} us/step, "
             f"{lanes * steps / min(ms) * 1e3:.0f} samples/s; bound "
@@ -2400,7 +2427,7 @@ def phase_vocoder_times(torch, pt, gk, ghbm, dev, card):
                       gcond=gcond)
     torch.cuda.synchronize()
     log("[time] K4 vocoder 256 lanes cond + gcond, per step: "
-        + ", ".join(f"{n} {v / 2048e3:.2f} us"
+        + ", ".join(f"{n} {v / (steps * 1e3):.2f} us"
                     for n, v in zip(ghbm.PHASES, tm.tolist()))
         + f" [{card}]")
     plain = _time(torch, lambda: ghbm.batched_plain(
@@ -2560,6 +2587,10 @@ def phase_bf16_k23_vs_plain(torch, pt, tk, dev):
 
 
 RING_DTYPES = ("bf16", "int8")
+# steps of phase 23's chaconne chunk, checked one step at a time against
+# the plain version (2048 until the multi-rank phases needed the time;
+# from t0 = 513 it still wraps the longest ring, 513 slots, once over)
+RING_LOCKSTEP = 768
 
 
 def _lockstep(torch, ghbm, cfg, w, prime, ring, t0, steps, lane_rows, tag,
@@ -2615,14 +2646,14 @@ def phase_ring_k4_vs_plain(torch, pt, ghbm, dev, card):
     256 lanes, fuse_res + skip_slab (the pool's flags), int8 scales from
     ``calibrate_ring_scales`` on a greedy receptive-field prime. A
     teacher-forced 64-step prime at t0 = 449, then the pool's call, a
-    resumed 2048-step chunk at t0 = 513, T in {0, 0.9, 1} with lane_seed,
-    run in one launch and again in lockstep with the plain version
-    (:func:`_lockstep`): the 2048 one-step launches equal the one launch
-    bitwise (classes and ring), and every step agrees with the plain
+    resumed RING_LOCKSTEP-step chunk at t0 = 513, T in {0, 0.9, 1} with
+    lane_seed, run in one launch and again in lockstep with the plain
+    version (:func:`_lockstep`): the one-step launches equal the one
+    launch bitwise (classes and ring), and every step agrees with the plain
     version; three resumed chunks equal one shot bitwise. Then the vocoder
-    with cond + gcond at bf16 rings (256 lanes, 512 steps in lockstep).
+    with cond + gcond at bf16 rings (256 lanes, 256 steps in lockstep).
     Times (CUDA events, min of 2) and the kernel's phase split at 256
-    lanes; the vocoder on phase 17's 2048-step chunk, f32 and bf16 rings
+    lanes; the vocoder on phase 17's chunk, f32 and bf16 rings
     in alternation, and its phase split at bf16 rings. Returns ``{ring: figures}`` for the kernels line and
     the scales."""
     cfg = pt.get_config("chaconne")
@@ -2656,15 +2687,16 @@ def phase_ring_k4_vs_plain(torch, pt, ghbm, dev, card):
         state = ring.clone()
         first = start[:, -1:].contiguous()
         one_ring = state.clone()
-        one = ghbm.batched_cuda(w, cfg, first, one_ring, clock, 2048, *hot,
+        n = RING_LOCKSTEP
+        one = ghbm.batched_cuda(w, cfg, first, one_ring, clock, n, *hot,
                                 0, 0.0, True, True, True)
         lock_ring = state.clone()
         cls, plain_ms, (mm, nt, off, worst) = _lockstep(
-            torch, ghbm, cfg, w, first, lock_ring, clock, 2048, hot, tag)
+            torch, ghbm, cfg, w, first, lock_ring, clock, n, hot, tag)
         check(torch.equal(cls, one) and torch.equal(lock_ring, one_ring),
-              f"{tag}: 2048 one-step launches differ from one launch")
+              f"{tag}: {n} one-step launches differ from one launch")
         parts, r3, p, t0 = [], state.clone(), first, clock
-        for m in (1, 1000, 1047):
+        for m in (1, n // 2, n - 1 - n // 2):
             parts.append(ghbm.batched_cuda(w, cfg, p, r3, t0, m, *hot, 0,
                                            0.0, True, True, True))
             p, t0 = parts[-1][:, -1:].contiguous(), t0 + m
@@ -2674,43 +2706,43 @@ def phase_ring_k4_vs_plain(torch, pt, ghbm, dev, card):
         unit = "bf16 ulp" if rname == "bf16" else "int8 count"
         log(f"[{tag}] teacher-forced 64 steps at t0={clock - 64}: "
             f"{mmf[0]} class mismatches, {mmf[2]} ring values one {unit} "
-            f"off; the pool's resumed 2048-step chunk at t0={clock} (T in "
+            f"off; the pool's resumed {n}-step chunk at t0={clock} (T in "
             f"0/0.9/1, lane_seed), step by step from the kernel's state: "
             f"{mm} class mismatches, all at near-ties ({nt} near-ties, gap "
             f"< {NEAR_TIE}), {off} ring values written one {unit} off the "
             f"plain version's (largest difference {worst:.3g}), none beyond; "
-            f"2048 one-step launches equal the one launch bitwise, and so do "
-            f"three resumed chunks (1 + 1000 + 1047)")
+            f"{n} one-step launches equal the one launch bitwise, and so do "
+            f"three resumed chunks (1 + {n // 2} + {n - 1 - n // 2})")
         # times: the same chunk, min of 2, and the phase split
-        b_ms, b_by = bound_ms(pt, ghbm, params, cfg, lanes, 1, 2048,
+        b_ms, b_by = bound_ms(pt, ghbm, params, cfg, lanes, 1, n,
                               lane_rows=3, ring_bytes=rdt.itemsize,
                               skip_bf16=True)
         r = state.clone()
         ms = min(_time(torch, lambda: ghbm.batched_cuda(
-            w, cfg, first, r, clock, 2048, *hot, 0, 0.0, True, True, True),
+            w, cfg, first, r, clock, n, *hot, 0, 0.0, True, True, True),
             2))
         tm = torch.zeros(len(ghbm.PHASES), dtype=torch.int64, device=dev)
         r = state.clone()
-        ghbm.batched_cuda(w, cfg, first, r, clock, 2048, *hot, 0, 0.0, True,
+        ghbm.batched_cuda(w, cfg, first, r, clock, n, *hot, 0, 0.0, True,
                           True, True, timers=tm)
         torch.cuda.synchronize()
         log(f"[time] K4 chaconne {rname} rings, fuse_res+skip_slab, "
-            f"{lanes} lanes, resumed 2048-step chunk: {ms:.2f} ms, "
-            f"{1e3 * ms / 2048:.2f} us/step, {lanes * 2048 / ms * 1e3:.0f} "
+            f"{lanes} lanes, resumed {n}-step chunk: {ms:.2f} ms, "
+            f"{1e3 * ms / n:.2f} us/step, {lanes * n / ms * 1e3:.0f} "
             f"samples/s; bound {b_ms:.4f} ms ({b_by}; the ring's "
             f"{rdt.itemsize} bytes an element, the skip row's bf16 "
             f"operands at the bf16 rate), {100 * b_ms / ms:.2f} % of it; the plain version "
-            f"{plain_ms:.1f} ms (the lockstep's 2048 steps) [{card}]")
+            f"{plain_ms:.1f} ms (the lockstep's {n} steps) [{card}]")
         log(f"[time] K4 {rname} rings, 256 lanes, per step: "
-            + ", ".join(f"{n} {v / 2048e3:.2f} us"
-                        for n, v in zip(ghbm.PHASES, tm.tolist()))
+            + ", ".join(f"{ph} {v / (n * 1e3):.2f} us"
+                        for ph, v in zip(ghbm.PHASES, tm.tolist()))
             + f" [{card}]")
         out[rname] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                           bound_by=b_by, err=worst, mismatches=mm,
                           near_ties=nt, flips=off)
     # the vocoder with cond + gcond at bf16 rings
     vcfg, vparams = _vocoder(torch, pt, dev, GCOND)
-    rdt, steps = torch.bfloat16, 512
+    rdt, steps = torch.bfloat16, 256
     w = ghbm.prepare_weights(vparams, vcfg, True, True, rdt)
     vrows, vclock = ghbm.ring_rows(vcfg), max(ghbm.periods(vcfg))
     cond = _normal(torch, (64 + steps, vcfg.cond_channels, lanes), 12, dev)
@@ -2740,29 +2772,30 @@ def phase_ring_k4_vs_plain(torch, pt, ghbm, dev, card):
         f"near-ties ({nt} near-ties), {off} ring values one bf16 ulp off "
         f"(largest {worst:.3g}), none beyond; the one-step launches equal "
         f"the one launch bitwise")
-    # times: phase 17's 2048-step chunk, f32 and bf16 rings in alternation
+    # times: phase 17's chunk, f32 and bf16 rings in alternation
     us = {"f32": [], "bf16": []}
+    vn = VOCODER_CHUNK
     for rname in ("f32", "bf16", "bf16", "f32"):
         vw, vp, vr, vt, vs, vo, vc, vg = _vocoder_chunk(
-            torch, ghbm, vcfg, vparams, dev, lanes, 2048,
+            torch, ghbm, vcfg, vparams, dev, lanes, vn,
             None if rname == "f32" else torch.bfloat16)
-        us[rname] += [1e3 * m / 2048 for m in _time(
+        us[rname] += [1e3 * m / vn for m in _time(
             torch, lambda: ghbm.batched_cuda(
-                vw, vcfg, vp, vr, vclock, 2048, vt, vs, vo, 0, 0.0, True,
+                vw, vcfg, vp, vr, vclock, vn, vt, vs, vo, 0, 0.0, True,
                 True, True, cond=vc, gcond=vg), 2)]
     log(f"[time] K4 vocoder fuse_res+skip_slab, 256 lanes, phase 17's "
-        f"resumed 2048-step chunk with cond + gcond, f32 and bf16 rings in "
+        f"resumed {vn}-step chunk with cond + gcond, f32 and bf16 rings in "
         f"alternation (f32, bf16, bf16, f32; 2 calls each): f32 rings "
         + ", ".join(f"{u:.2f}" for u in us["f32"]) + " us/step, bf16 rings "
         + ", ".join(f"{u:.2f}" for u in us["bf16"]) + f" [{card}]")
     vw, vp, vr, vt, vs, vo, vc, vg = _vocoder_chunk(
-        torch, ghbm, vcfg, vparams, dev, lanes, 2048, torch.bfloat16)
+        torch, ghbm, vcfg, vparams, dev, lanes, vn, torch.bfloat16)
     tm = torch.zeros(len(ghbm.PHASES), dtype=torch.int64, device=dev)
-    ghbm.batched_cuda(vw, vcfg, vp, vr, vclock, 2048, vt, vs, vo, 0, 0.0,
+    ghbm.batched_cuda(vw, vcfg, vp, vr, vclock, vn, vt, vs, vo, 0, 0.0,
                       True, True, True, timers=tm, cond=vc, gcond=vg)
     torch.cuda.synchronize()
     log("[time] K4 vocoder 256 lanes cond + gcond, bf16 rings, per step: "
-        + ", ".join(f"{n} {v / 2048e3:.2f} us"
+        + ", ".join(f"{n} {v / (vn * 1e3):.2f} us"
                     for n, v in zip(ghbm.PHASES, tm.tolist()))
         + f" [{card}]")
     out["bf16"]["vocoder_us_per_step"] = min(us["bf16"])
@@ -4444,9 +4477,9 @@ SB_ARGS = ["--lanes", "256", "--chunk", "2048", "--concurrency", "256",
            "--json"]      # phases 37-38's closed-loop load
 SB_REQUESTS = 512          # phase 37's requests at chaconne
 SB_VOCODER_REQUESTS = 256  # phase 38's requests at the vocoder
-SOAK_SECONDS = 20          # phase 39's soak, reloads every SOAK_RELOAD s
+SOAK_SECONDS = 10          # phase 39's soak, reloads every SOAK_RELOAD s
 SOAK_RELOAD = 5
-SOAK_CHECK_SECONDS = 12    # then without reloads, greedy requests checked
+SOAK_CHECK_SECONDS = 8     # then without reloads, greedy requests checked
 SOAK_CHECK_RATE = "0.25"   # against their solo K4 rollouts at this rate
 BENCHMARK_ARGS = ["--config", "chaconne", "--gen-samples", "256",
                   "--max-streams", "512", "--hbm-kernel-only"]
@@ -4770,6 +4803,526 @@ def remainder(torch, np, pt, gk, ghbm, tk, dev, card, t_start, keep):
     return rem, hk, served, rt
 
 
+# ------------------------------------------------------------- slice 13
+
+S13_CONFIG = "chaconne_wide"  # phase 42's config: the training main path's
+S13_BATCH = 16                # its global batch
+S13_LR = 1e-4
+S13_MESHES = (((2, 1), 3), ((1, 2), 3), ((2, 2), 1))  # (data, model), steps
+POOL13_LANES, POOL13_CHUNK, POOL13_T0 = 256, 2048, 513  # phase 44's pool
+TIME13_T = 4096   # phase 45: chaconne's halo 512 and rf 3070 in 2 blocks
+PIPE13_PRIME, PIPE13_N = 8, 64  # phase 45's pipelined rollout
+S13_CLI_STEPS = 10            # phase 43: a sharded snapshot at half of them
+S13_TIMEOUT = 300             # seconds a group of ranks may take
+# the one-rank reference and the mesh sum gradients in other orders, and
+# Adam moves an entry whose near-zero gradient flips sign by at most 2 lr a
+# step: params within 2 * S13_LR * steps, entries beyond 1e-5 counted
+S13_LOSS_RTOL = 1e-5
+
+
+def _s13_batch(np, cfg):
+    rng = np.random.default_rng(SEED)
+    return (rng.integers(0, cfg.classes, (S13_BATCH, cfg.item_length),
+                         dtype=np.int32),
+            rng.integers(0, cfg.classes, (S13_BATCH, cfg.output_length),
+                         dtype=np.int32))
+
+
+def _s13_init(torch, pt, cfg, dev):
+    return pt.init_wavenet(cfg, torch.Generator().manual_seed(SEED), dev)
+
+
+def _s13_train(torch, np, pt, dev, shape, steps):
+    """Phase 42 on one rank: ``steps`` steps of the data- and
+    model-parallel train step on the global batch (the first through
+    ``train_step`` with the mesh, the work of ``parallel_train_step`` with
+    its gradients kept), K2/K3 launches counted around them."""
+    from pytorch_wavenet_tpu_torch.ops.cuda import trunk_kernel as tk
+    from pytorch_wavenet_tpu_torch.parallel import sharding, training
+    from pytorch_wavenet_tpu_torch.parallel.mesh import make_mesh
+    from pytorch_wavenet_tpu_torch.training.optimizers import reference_adam
+
+    cfg = pt.get_config(S13_CONFIG, trunk_kernel=True)
+    mesh = make_mesh(*shape)
+    x, y = _s13_batch(np, cfg)
+    tx = reference_adam(S13_LR)
+    p, o = training.make_sharded_train_state(
+        cfg, _s13_init(torch, pt, cfg, dev), tx, mesh)
+    tk.fwd_launches = tk.bwd_launches = 0
+    xb, yb = training.put_batch(mesh, x, y, dev)
+    loss, g = pt.train_step(p, o, cfg, tx, xb, yb, mesh=mesh)
+    losses = [loss]
+    for _ in range(steps - 1):
+        losses.append(training.parallel_train_step(
+            p, o, cfg, tx, x, y, mesh=mesh, device=dev)[2])
+    torch.cuda.synchronize()
+    launches = [tk.fwd_launches, tk.bwd_launches]
+    cpu = lambda t: {k: {kk: v.cpu() for kk, v in d.items()}
+                     for k, d in t.items()}
+    return {"losses": [float(v) for v in losses], "launches": launches,
+            "grads": cpu(sharding.gather_params(g, cfg, mesh)),
+            "params": cpu(sharding.gather_params(p, cfg, mesh))}
+
+
+def _s13_pool_inputs(torch, np, cfg):
+    rng = np.random.default_rng(SEED)
+    prime = rng.integers(0, cfg.classes, (POOL13_LANES, POOL13_T0),
+                         dtype=np.int32)
+    temps, seeds, clocks = _lane_rows(torch, "cpu", POOL13_LANES)
+    return prime, temps, seeds, clocks
+
+
+def _s13_pool_state(torch, np, pt, dev, cfg, params):
+    """The whole pool after a prime of POOL13_T0 classes a lane (t =
+    POOL13_T0), and its lane rows."""
+    prime, temps, seeds, clocks = _s13_pool_inputs(torch, np, cfg)
+    _, _, st = pt.generate_fast_batched(
+        params, cfg, 0, 1, prime, temperature=temps, lane_seed=seeds,
+        lane_clock=clocks, return_state=True, fuse_res=True, skip_slab=True,
+        device=dev)
+    return st, temps, seeds, clocks
+
+
+def _s13_pool(torch, np, pt, dev):
+    """Phase 44 on one rank: ``sharded_pool_step`` on this rank's 128
+    lanes, one resumed POOL13_CHUNK-step K4 launch counted; the classes
+    and the ring gathered."""
+    from pytorch_wavenet_tpu_torch.ops.cuda import gen_kernel_hbm as ghbm
+    from pytorch_wavenet_tpu_torch.parallel import training
+    from pytorch_wavenet_tpu_torch.parallel.mesh import (DATA_AXIS,
+                                                         all_gather,
+                                                         make_mesh)
+
+    cfg = pt.get_config("chaconne")
+    params = _s13_init(torch, pt, cfg, dev)
+    mesh = make_mesh(2, 1)
+    st, temps, seeds, clocks = _s13_pool_state(torch, np, pt, dev, cfg,
+                                               params)
+    local = training.shard_pool_state(st, mesh)
+    del st
+    ghbm.launches = 0
+    t = time.time()
+    cls, st = training.sharded_pool_step(
+        params, cfg, mesh, 0, POOL13_CHUNK, local, temperature=temps,
+        lane_seed=seeds, lane_clock=clocks, fuse_res=True, skip_slab=True,
+        device=dev)
+    torch.cuda.synchronize()
+    secs = time.time() - t
+    launches = ghbm.launches
+    return {"cls": cls.cpu(), "launches": launches, "seconds": secs,
+            "ring": all_gather(st.ring, mesh, DATA_AXIS, dim=1).cpu(),
+            "next": all_gather(st.cls, mesh, DATA_AXIS).cpu(), "t": st.t}
+
+
+def _s13_time_inputs(np, cfg):
+    rng = np.random.default_rng(SEED)
+    return (rng.integers(0, cfg.classes, (1, TIME13_T), dtype=np.int32),
+            rng.integers(0, cfg.classes, (1, TIME13_T), dtype=np.int32))
+
+
+def _s13_time(torch, np, pt, dev):
+    """Phase 45 on one rank: ``time_sharded_loss`` at chaconne over 2 time
+    blocks (the halo through gloo), the loss and its gradients."""
+    from pytorch_wavenet_tpu_torch.parallel.mesh import make_mesh
+    from pytorch_wavenet_tpu_torch.parallel.time_sharding import (
+        time_sharded_loss)
+    from pytorch_wavenet_tpu_torch.training.optimizers import _leaves
+
+    cfg = pt.get_config("chaconne")
+    params = _s13_init(torch, pt, cfg, dev)
+    leaves = [v.requires_grad_(True) for _, v in _leaves(params)]
+    x, tgt = _s13_time_inputs(np, cfg)
+    t = time.time()
+    loss = time_sharded_loss(params, cfg, x, tgt, make_mesh(2, 1))
+    grads = torch.autograd.grad(loss, leaves)
+    torch.cuda.synchronize()
+    return {"loss": float(loss.detach()), "seconds": time.time() - t,
+            "grads": [v.cpu() for v in grads]}
+
+
+def _s13_pipe(torch, np, pt, dev):
+    """Phase 45 on one rank: ``generate_pipelined`` at chaconne over 2
+    stages (15 layers each), 4 streams at T = 0."""
+    from pytorch_wavenet_tpu_torch.parallel.pipeline import (
+        generate_pipelined, make_pipeline_mesh)
+
+    cfg = pt.get_config("chaconne")
+    params = _s13_init(torch, pt, cfg, dev)
+    prime = np.random.default_rng(SEED).integers(0, cfg.classes,
+                                                 (4, PIPE13_PRIME))
+    t = time.time()
+    _, cls = generate_pipelined(params, cfg, make_pipeline_mesh(2), SEED,
+                                PIPE13_N, prime, temperature=0.0, device=dev)
+    return {"cls": cls.cpu(), "prime": prime, "seconds": time.time() - t}
+
+
+def _s13_rank(rank, world, store, out_dir, jobs):
+    """One rank of phases 42, 44 and 45 (a spawned process; the ranks share
+    the card through gloo): each job's result saved to
+    ``{out_dir}/{job}_r{rank}.pt``. Any exception exits nonzero."""
+    import numpy as np
+    import torch
+
+    import pytorch_wavenet_tpu_torch as pt
+    from pytorch_wavenet_tpu_torch.parallel.mesh import init_distributed
+
+    dev = init_distributed("cuda", init_method=f"file://{store}", rank=rank,
+                           world_size=world, local_rank=rank)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for job in jobs:
+        if job.startswith("train"):
+            shape, steps = dict((f"train{d}x{m}", ((d, m), s))
+                                for (d, m), s in S13_MESHES)[job]
+            out = _s13_train(torch, np, pt, dev, shape, steps)
+        else:
+            out = {"pool": _s13_pool, "time": _s13_time,
+                   "pipe": _s13_pipe}[job](torch, np, pt, dev)
+        torch.save(out, os.path.join(out_dir, f"{job}_r{rank}.pt"))
+    torch.distributed.destroy_process_group()
+
+
+def _s13_spawn(groups, out_dir):
+    """Start every group of ranks (``[(world, jobs), ...]``) at once, each
+    on its own ``file://`` store; fail unless every rank exits 0 within
+    S13_TIMEOUT (ranks still running then are killed)."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    procs = []
+    for g, (world, jobs) in enumerate(groups):
+        store = os.path.join(out_dir, f"store{g}")
+        procs += [(f"{world} ranks {jobs} rank {r}", ctx.Process(
+            target=_s13_rank, args=(r, world, store, out_dir, jobs)))
+            for r in range(world)]
+    for _, p in procs:
+        p.start()
+    deadline = time.time() + S13_TIMEOUT
+    for _, p in procs:
+        p.join(timeout=max(deadline - time.time(), 1))
+    for _, p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    bad = [(name, p.exitcode) for name, p in procs if p.exitcode != 0]
+    check(not bad, f"ranks failed or timed out: {bad}")
+
+
+def _s13_load(torch, out_dir, job, rank=0):
+    return torch.load(os.path.join(out_dir, f"{job}_r{rank}.pt"),
+                      weights_only=False)
+
+
+def phase_parallel_train(torch, np, pt, dev, card, out_dir):
+    """Phase 42: the ranks' results against the one-rank ``train_step`` on
+    the global batch (the same params from SEED, the same batch): losses
+    within S13_LOSS_RTOL, the first step's gradients within GRAD_TOL x
+    max(1, scale), params within 2 lr a step; K2/K3 launched once a step
+    on every rank."""
+    from pytorch_wavenet_tpu_torch.training.optimizers import (_leaves, _map,
+                                                               reference_adam)
+
+    cfg = pt.get_config(S13_CONFIG, trunk_kernel=True)
+    x, y = _s13_batch(np, cfg)
+    p = _map(lambda v: v.requires_grad_(True), _s13_init(torch, pt, cfg,
+                                                         dev))
+    tx = reference_adam(S13_LR)
+    o = tx.init(p)
+    ref_losses, ref_params = [], {}
+    for i in range(max(s for _, s in S13_MESHES)):
+        loss, g = pt.train_step(p, o, cfg, tx, torch.from_numpy(x).to(dev),
+                                torch.from_numpy(y).to(dev))
+        if i == 0:
+            ref_grads = [v.to("cpu", copy=True) for _, v in _leaves(g)]
+        ref_losses.append(float(loss))
+        ref_params[i + 1] = [v.detach().to("cpu", copy=True)
+                             for _, v in _leaves(p)]
+    out = {}
+    for (d, m), steps in S13_MESHES:
+        job = f"train{d}x{m}"
+        ranks = [_s13_load(torch, out_dir, job, r) for r in range(d * m)]
+        got = ranks[0]
+        launches = [r["launches"] for r in ranks]
+        check(all(n == [steps, steps] for n in launches),
+              f"{job}: K2/K3 launches per rank {launches}, expected "
+              f"{steps} each")
+        rel = max(abs(a - b) / abs(b) for a, b in
+                  zip(got["losses"], ref_losses))
+        check(rel <= S13_LOSS_RTOL, f"{job}: losses {got['losses']} against "
+              f"one rank's {ref_losses[:steps]} (rel {rel:.3g})")
+        g_err = _grad_err([v for _, v in _leaves(got["grads"])], ref_grads)
+        check(g_err <= GRAD_TOL, f"{job}: gradients off by {g_err:.3g} of "
+              f"their scale")
+        diffs = [(a - b).abs() for (_, a), b in
+                 zip(_leaves(got["params"]), ref_params[steps])]
+        p_err = max(float(v.max()) for v in diffs)
+        beyond = sum(int((v > 1e-5).sum()) for v in diffs)
+        total = sum(v.numel() for v in diffs)
+        bound = 2 * S13_LR * steps * (1 + 1e-3)  # f32 rounding of 2 lr
+        check(p_err <= bound, f"{job}: params off by {p_err:.3g} (bound "
+              f"{bound:.3g})")
+        log(f"[parallel] parallel_train_step {d}x{m} at {S13_CONFIG}, global "
+            f"batch {S13_BATCH}, {steps} step(s), {d * m} ranks sharing "
+            f"the card through gloo [{card}]: K2/K3 launches per rank "
+            f"{launches}; losses rel {rel:.3g} of one rank's, first step's "
+            f"gradients {g_err:.3g} of scale, params within {p_err:.3g} "
+            f"({beyond} of {total} entries beyond 1e-5)")
+        out[f"{d}x{m}"] = dict(launches=launches, loss_rel_err=rel,
+                               grad_err=g_err, param_err=p_err,
+                               param_entries_beyond_1e5=beyond)
+    return out
+
+
+def phase_pool_step_sharded(torch, np, pt, dev, card, out_dir):
+    """Phase 44: the 2 ranks' ``sharded_pool_step`` (128 lanes each)
+    against one unsharded K4 call on all 256 lanes from the same state:
+    classes, ring, next classes and clock bitwise."""
+    cfg = pt.get_config("chaconne")
+    params = _s13_init(torch, pt, cfg, dev)
+    st, temps, seeds, clocks = _s13_pool_state(torch, np, pt, dev, cfg,
+                                               params)
+    _, cls, ref = pt.generate_fast_batched(
+        params, cfg, 0, POOL13_CHUNK, None, temperature=temps, state=st,
+        lane_seed=seeds, lane_clock=clocks, return_state=True,
+        fuse_res=True, skip_slab=True, device=dev)
+    ranks = [_s13_load(torch, out_dir, "pool", r) for r in range(2)]
+    got = ranks[0]
+    launches = [r["launches"] for r in ranks]
+    check(launches == [1, 1], f"sharded_pool_step: K4 launches per rank "
+          f"{launches}, expected 1 each")
+    check(torch.equal(got["cls"], cls.cpu()), "sharded pool classes differ "
+          "from the unsharded call")
+    check(torch.equal(got["ring"], ref.ring.cpu()), "sharded pool ring "
+          "differs from the unsharded call")
+    check(torch.equal(got["next"], ref.cls.cpu()) and got["t"] == ref.t,
+          "sharded pool state differs from the unsharded call")
+    log(f"[parallel] sharded_pool_step at chaconne, {POOL13_LANES} lanes over "
+        f"2 ranks sharing the card through gloo, a resumed {POOL13_CHUNK}-step "
+        f"chunk at t0 = {POOL13_T0} (fuse_res + skip_slab, hot lanes seeded): "
+        f"K4 launches per rank {launches}; classes, ring and next classes "
+        f"bitwise equal to one K4 call on all {POOL13_LANES} lanes; "
+        f"{max(r['seconds'] for r in ranks):.2f} s per rank with the gather "
+        f"[{card}]")
+    return dict(launches=launches, seconds=[r["seconds"] for r in ranks])
+
+
+def phase_time_pipe(torch, np, pt, dev, card, out_dir):
+    """Phase 45a: the time-sharded loss and gradients against the
+    unsharded ones, and the pipelined rollout against ``generate_fast``
+    on each group, bitwise (all plain PyTorch on the card)."""
+    from pytorch_wavenet_tpu_torch.training.optimizers import _leaves
+
+    cfg = pt.get_config("chaconne")
+    params = _s13_init(torch, pt, cfg, dev)
+    leaves = [v.requires_grad_(True) for _, v in _leaves(params)]
+    x, tgt = (torch.from_numpy(a).to(dev) for a in _s13_time_inputs(np, cfg))
+    rf = cfg.receptive_field
+    logits = pt.wavenet_logits(params, cfg, x, out_len=TIME13_T)
+    nll = -torch.gather(torch.log_softmax(logits, -1), -1,
+                        tgt[..., None].long())[..., 0]
+    loss = nll[:, rf - 1:].sum() / (TIME13_T - rf + 1)
+    grads = torch.autograd.grad(loss, leaves)
+    got = _s13_load(torch, out_dir, "time")
+    loss = float(loss.detach())
+    rel = abs(got["loss"] - loss) / abs(loss)
+    g_err = _grad_err(got["grads"], [v.cpu() for v in grads])
+    check(rel <= S13_LOSS_RTOL and g_err <= GRAD_TOL,
+          f"time_sharded_loss: loss rel {rel:.3g}, gradients {g_err:.3g}")
+    pipe = _s13_load(torch, out_dir, "pipe")
+    want = torch.cat([pt.generate_fast(
+        params, cfg, None, PIPE13_N, pipe["prime"][2 * g:2 * g + 2],
+        temperature=0.0, device=dev)[1].cpu() for g in range(2)])
+    check(torch.equal(pipe["cls"], want), "generate_pipelined differs from "
+          "generate_fast on its groups")
+    log(f"[parallel] time_sharded_loss at chaconne, T {TIME13_T} in 2 blocks "
+        f"(halo 512 through gloo): loss rel {rel:.3g}, gradients "
+        f"{g_err:.3g} of scale against the unsharded trunk, "
+        f"{got['seconds']:.2f} s; generate_pipelined at chaconne over 2 "
+        f"stages, 4 streams, {PIPE13_N} samples after {PIPE13_PRIME}: "
+        f"bitwise generate_fast on each group, {pipe['seconds']:.2f} s "
+        f"[{card}]")
+    return dict(time_loss_rel=rel, time_grad_err=g_err,
+                time_seconds=got["seconds"], pipe_seconds=pipe["seconds"])
+
+
+def _torchrun(args, tag):
+    """The train CLI on 2 ranks of this card under ``torch.distributed.run``
+    (its output logged under ``tag``); returns rank 0's launches line."""
+    import re
+
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", "2", "-m",
+           "pytorch_wavenet_tpu_torch.training.train"] + args
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    r = subprocess.run(cmd, cwd=here, env=env, capture_output=True,
+                       text=True, timeout=S13_TIMEOUT)
+    for line in (r.stdout + r.stderr).splitlines():
+        log(f"[{tag}] {line}")
+    check(r.returncode == 0, f"{tag}: torchrun exited {r.returncode}")
+    m = re.search(r"kernel launches per rank: K2 \[(.*?)\], K3 \[(.*?)\], "
+                  r"K4 \[(.*?)\]", r.stdout)
+    check(m is not None, f"{tag}: no launches line")
+    return [[int(v) for v in g.split(",")] for g in m.groups()]
+
+
+def phase_train_cli_mesh(torch, np, pt, tk, card):
+    """Phase 43: the train CLI at chaconne_wide on 2 ranks (1 x 2: the head
+    split) for S13_CLI_STEPS steps with a sharded snapshot halfway; a
+    2-rank run resumed from it ends bitwise at the uninterrupted run's
+    final snapshot; a 1-rank ``--resume`` loads the sharded snapshot."""
+    import glob
+    import shutil
+
+    from pytorch_wavenet_tpu_torch.training import train
+    from pytorch_wavenet_tpu_torch.utils.checkpoints import (
+        load_checkpoint, sharded_checkpoint_path)
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    wavs = sorted(glob.glob(os.path.join(here, "examples", "*.wav")))
+    half = S13_CLI_STEPS // 2
+    name = f"{S13_CONFIG}_model"
+    with tempfile.TemporaryDirectory() as d:
+        data = os.path.join(d, "audio")
+        os.makedirs(data)
+        for w in wavs:
+            shutil.copy(w, data)
+        base = ["--data-dir", data, "--config", S13_CONFIG, "--batch-size",
+                str(S13_BATCH), "--seed", str(SEED), "--lr", "1e-3",
+                "--log-interval", str(half), "--validation-interval",
+                "1000", "--snapshot-interval", str(half)]
+        mesh = ["--mesh-data", "1", "--mesh-model", "2"]
+        t = time.time()
+        a = _torchrun(base + mesh + ["--snapshot-path", os.path.join(d, "a"),
+                                     "--max-steps", str(S13_CLI_STEPS)],
+                      "train CLI 2 ranks")
+        secs = time.time() - t
+        for r in ("b", "c"):
+            shutil.copytree(sharded_checkpoint_path(os.path.join(d, "a"),
+                                                    name, half),
+                            sharded_checkpoint_path(os.path.join(d, r), name,
+                                                    half))
+        b = _torchrun(base + mesh + ["--snapshot-path", os.path.join(d, "b"),
+                                     "--max-steps", str(S13_CLI_STEPS),
+                                     "--resume"], "train CLI 2 ranks resumed")
+        ends = [load_checkpoint(sharded_checkpoint_path(
+            os.path.join(d, r), name, S13_CLI_STEPS), device="cpu")
+            for r in ("a", "b")]
+        tk.fwd_launches = tk.bwd_launches = 0
+        one = train.main(base + ["--snapshot-path", os.path.join(d, "c"),
+                                 "--max-steps", str(half + 2), "--resume"])
+        torch.cuda.synchronize()
+        c = [tk.fwd_launches, tk.bwd_launches]
+    check(a[:2] == [[S13_CLI_STEPS] * 2] * 2, f"train CLI 2 ranks: K2/K3 "
+          f"launches per rank {a[:2]}, expected {S13_CLI_STEPS} each")
+    check(b[:2] == [[half] * 2] * 2, f"resumed: K2/K3 launches per rank "
+          f"{b[:2]}, expected {half} each")
+    check(c == [2, 2] and one.step == half + 2 and one.mesh is None,
+          f"1-rank --resume from the sharded snapshot: step {one.step}, "
+          f"K2/K3 launches {c}")
+    pa, pb = (pt.to_numpy_params(e["params"]) for e in ends)
+    same = all(np.array_equal(pa[k][kk], pb[k][kk]) for k in pa
+               for kk in pa[k])
+    check(same and ends[0]["step"] == ends[1]["step"] == S13_CLI_STEPS,
+          "the resumed 2-rank run does not end bitwise at the uninterrupted "
+          "run")
+    log(f"[parallel] train CLI at {S13_CONFIG} under torchrun, 2 ranks (1 x "
+        f"2) sharing the card through gloo, batch {S13_BATCH}: "
+        f"{S13_CLI_STEPS} steps in {secs:.1f} s (process start, dataset, "
+        f"sharded snapshots at {half} and {S13_CLI_STEPS}), K2/K3 launches per "
+        f"rank {a[0]}/{a[1]}; resumed from the step-{half} sharded snapshot: "
+        f"launches {b[0]}/{b[1]}, the step-{S13_CLI_STEPS} snapshot bitwise the "
+        f"uninterrupted run's; 1-rank --resume from it to step {half + 2}: "
+        f"K2/K3 launches {c} [{card}]")
+    return dict(two_ranks=a[:2], resumed=b[:2], one_rank=c, seconds=secs)
+
+
+def phase_scaling_bench():
+    """Phase 45b: ``scripts.scaling_bench`` at chaconne on 1 and 2 ranks
+    (its ranks' K2/K3 launches from their own counts)."""
+    from pytorch_wavenet_tpu_torch.scripts import scaling_bench
+
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        lines = scaling_bench.main(["--config", "chaconne", "--max-ranks",
+                                    "2", "--steps", "5"])
+    for line in buf.getvalue().splitlines():
+        log(f"[scaling_bench] {line}")
+    check([r["data"] for r in lines] == [1, 2], f"scaling_bench sizes "
+          f"{[r['data'] for r in lines]}")
+    for r in lines:
+        want = [6] * r["data"]  # a warm step and 5 timed, on every rank
+        check(r["k2_launches"] == want and r["k3_launches"] == want,
+              f"scaling_bench {r['data']} ranks: K2/K3 launches "
+              f"{r['k2_launches']}/{r['k3_launches']}, expected {want}")
+    return lines
+
+
+def slice13(torch, np, pt, tk, dev, card, t_start):
+    """Phases 42-45: the multi-rank layer with its ranks sharing the card
+    through gloo. Returns their figures."""
+    secs, out = {}, {}
+    with tempfile.TemporaryDirectory() as d:
+        t = time.time()
+        jobs2 = [f"train{a}x{b}" for (a, b), _ in S13_MESHES if a * b == 2]
+        _s13_spawn([(2, jobs2 + ["pool", "time", "pipe"]),
+                    (4, ["train2x2"])], d)
+        secs["ranks"] = time.time() - t
+        log(f"phases 42, 44, 45: 6 ranks in two groups took "
+            f"{secs['ranks']:.1f} s, done at {time.time() - t_start:.0f} s")
+        for name, fn in (
+                ("42 parallel_train_step", lambda: phase_parallel_train(
+                    torch, np, pt, dev, card, d)),
+                ("44 sharded_pool_step", lambda: phase_pool_step_sharded(
+                    torch, np, pt, dev, card, d)),
+                ("45 time sharding, pipeline", lambda: phase_time_pipe(
+                    torch, np, pt, dev, card, d)),
+                ("43 train CLI", lambda: phase_train_cli_mesh(
+                    torch, np, pt, tk, card)),
+                ("45 scaling_bench", phase_scaling_bench)):
+            t = time.time()
+            out[name] = fn()
+            secs[name] = time.time() - t
+            log(f"phase {name} took {secs[name]:.1f} s, done at "
+                f"{time.time() - t_start:.0f} s")
+    return dict(train=out["42 parallel_train_step"],
+                pool=out["44 sharded_pool_step"],
+                time_pipe=out["45 time sharding, pipeline"],
+                cli=out["43 train CLI"],
+                scaling=out["45 scaling_bench"], seconds=secs)
+
+
+def slice13_entries(kernels, s13):
+    """This slice's main paths on the kernels line: K2's and K3's launches
+    on every rank in phases 42, 43 and 45, K4's in phase 44, and the
+    phases' figures."""
+    cli = s13["cli"]
+    for entry, i, key in ((kernels[2], 0, "k2_launches"),
+                          (kernels[3], 1, "k3_launches")):
+        per_rank = {f"parallel_train_step {k}": [n[i] for n in v["launches"]]
+                    for k, v in s13["train"].items()}
+        per_rank["train CLI 1x2"] = cli["two_ranks"][i]
+        per_rank["train CLI 1x2 resumed"] = cli["resumed"][i]
+        per_rank["train CLI 1 rank --resume"] = [cli["one_rank"][i]]
+        for r in s13["scaling"]:
+            per_rank[f"scaling_bench {r['data']} ranks"] = r[key]
+        entry["slice13_launches_per_rank"] = per_rank
+    kernels[1]["slice13_launches_per_rank"] = {
+        "sharded_pool_step 2 ranks": s13["pool"]["launches"]}
+    kernels[2]["slice13"] = {
+        "parallel_train_step": {k: {m: v[m] for m in (
+            "loss_rel_err", "grad_err", "param_err")}
+            for k, v in s13["train"].items()},
+        "scaling_bench": [{k: r[k] for k in ("data", "batch", "ms",
+                                             "audio_s", "scaling_pct")}
+                          for r in s13["scaling"]],
+        "time_pipe": s13["time_pipe"], "phase_seconds": s13["seconds"]}
+
+
 def main():
     import numpy as np
     import torch
@@ -4803,6 +5356,10 @@ def main():
     if sys.argv[1:] == ["--slice12-only"]:
         # a short call for work on phases 36-41 alone: no kernels line
         slice12(torch, np, pt, gk, ghbm, tk, dev, card, t_start)
+        return 1
+    if sys.argv[1:] == ["--slice13-only"]:
+        # a short call for work on phases 42-45 alone: no kernels line
+        slice13(torch, np, pt, tk, dev, card, t_start)
         return 1
     if sys.argv[1:] == ["--distill-only"]:
         # a short call for work on phases 27-29 alone (phase 25 first for
@@ -4888,6 +5445,7 @@ def main():
                              rem["snapshot"])
         s11 = slice11(torch, np, pt, gk, ghbm, dev, t_start, rem["snapshot"])
     s12 = slice12(torch, np, pt, gk, ghbm, tk, dev, card, t_start)
+    s13 = slice13(torch, np, pt, tk, dev, card, t_start)
 
     kernels = [{
         "name": "gen_fused (K1, fuse_res)",
@@ -4945,11 +5503,12 @@ def main():
             "train_targets_per_s": tt["targets_per_s"],
         })
     for name, src, line, launched, (err, mm, nt), t in (
-            ("gen_fused (K1, vocoder, cond + gcond)", "gen_kernel.cu",
-             "gen_kernel.py:558", v1_launched, c1, vt["K1"]),
-            ("gen_batched (K4, vocoder, cond + gcond, 256 lanes)",
-             "gen_kernel_hbm.cu", "gen_kernel_hbm.py:1037", v4_launched, c4,
-             vt["K4"])):
+            (f"gen_fused (K1, vocoder, cond + gcond, {VOCODER_CHUNK}-step "
+             "chunk)", "gen_kernel.cu", "gen_kernel.py:558", v1_launched, c1,
+             vt["K1"]),
+            (f"gen_batched (K4, vocoder, cond + gcond, 256 lanes, "
+             f"{VOCODER_CHUNK}-step chunk)", "gen_kernel_hbm.cu",
+             "gen_kernel_hbm.py:1037", v4_launched, c4, vt["K4"])):
         kernels.append({
             "name": name,
             "route": "cuda",
@@ -5025,7 +5584,7 @@ def main():
         r = rings[rname]
         kernels.append({
             "name": f"gen_batched (K4, {rname} rings, fuse_res + skip_slab, "
-                    f"256 lanes, 2048-step chunk)",
+                    f"256 lanes, {RING_LOCKSTEP}-step chunk)",
             "route": "cuda",
             "source": f"pytorch_wavenet_tpu_torch/csrc/gen_kernel_hbm_"
                       f"{rname}.cu",
@@ -5161,6 +5720,7 @@ def main():
                       profile_capture=s11["profile"],
                       slice11_phase_seconds=s11["seconds"])
     slice12_entries(kernels, s12)
+    slice13_entries(kernels, s13)
     log(f"the run took {time.time() - t_start:.0f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

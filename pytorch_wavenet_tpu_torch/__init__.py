@@ -22,6 +22,10 @@ parameter summaries (``utils/visualize.py``), and the single-card tools
 (``bench.py``, the one-line metric; ``scripts/``: ``benchmark``,
 ``serving_bench``, ``serving_soak``, ``distill_demo``, ``make_demo_data``,
 each run as ``python -m pytorch_wavenet_tpu_torch.scripts.<name>``); the
+multi-rank layer on ``torch.distributed`` (``parallel/``: meshes, the
+data- and model-parallel train step, sharded generation and pool step,
+time sharding, pipelined generation; the trainer's and the training CLI's
+mesh mode with sharded snapshots; ``scripts.scaling_bench``); the
 kernel sources are in ``csrc/``. Importing the package
 builds nothing and touches no device; kernels build with ``nvcc`` at first
 use. Entry points take ``device`` (default ``"cuda"``, which raises when no

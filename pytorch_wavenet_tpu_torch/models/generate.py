@@ -98,20 +98,34 @@ def gen_step(params: Params, cfg: WaveNetConfig, state: GenState,
     ``record``, when given, receives each layer's input ``h`` ``(S, R)``
     in layer order: the values written to the rings (speculative decoding
     commits them later with :func:`commit_window`)."""
-    k = cfg.kernel_size
-    cdt = cfg.compute_dtype
     t = state.t
     h = params["start"]["w"][cur_class.long()]
     if "b" in params["start"]:
         h = h + params["start"]["b"]
     h = h.to(torch.float32)
-
-    S = h.shape[0]
-    skip = torch.zeros((S, cfg.skip_channels), dtype=torch.float32,
+    skip = torch.zeros((h.shape[0], cfg.skip_channels), dtype=torch.float32,
                        device=h.device)
+    h, skip = advance_layers(params, cfg, state.buffers, t, h, skip,
+                             range(cfg.num_layers), cond, global_cond, record)
+    return step_head(params, cfg, skip), GenState(buffers=state.buffers,
+                                                  t=t + 1)
+
+
+def advance_layers(params: Params, cfg: WaveNetConfig, buffers, t: int,
+                   h: torch.Tensor, skip: torch.Tensor, layers,
+                   cond: torch.Tensor | None = None,
+                   global_cond: torch.Tensor | None = None,
+                   record: list | None = None):
+    """:func:`gen_step`'s walk over ``layers`` (a run of layer indices,
+    ``buffers[i]`` the ring of ``layers[i]``) at time ``t``: each ring
+    slot written in place; returns the residual ``h`` and the running
+    ``skip`` after the last of them (a pipeline stage runs its own run of
+    layers with it)."""
+    k = cfg.kernel_size
+    cdt = cfg.compute_dtype
     lp = params["layers"]
-    for l, d in enumerate(cfg.dilations):
-        buf = state.buffers[l]
+    for buf, l in zip(buffers, layers):
+        d = cfg.dilations[l]
         P = buf.shape[1]
         z = _mm(h, lp["w_in"][l, k - 1], cdt)
         for j in range(k - 1):
@@ -138,11 +152,17 @@ def gen_step(params: Params, cfg: WaveNetConfig, state: GenState,
         if "b_res" in lp:
             r = r + lp["b_res"][l]
         h = r + h
+    return h, skip
 
+
+def step_head(params: Params, cfg: WaveNetConfig, skip: torch.Tensor
+              ) -> torch.Tensor:
+    """relu -> end1 -> relu -> end2 on one step's summed skip ``(S, S_ch)``:
+    the logits ``(S, classes)``."""
+    cdt = cfg.compute_dtype
     y = torch.relu(skip)
     y = torch.relu(_mm(y, params["end1"]["w"], cdt) + params["end1"]["b"])
-    logits = _mm(y, params["end2"]["w"], cdt) + params["end2"]["b"]
-    return logits, GenState(buffers=state.buffers, t=t + 1)
+    return _mm(y, params["end2"]["w"], cdt) + params["end2"]["b"]
 
 
 def _ring_span(buf: torch.Tensor, start: int, n: int) -> torch.Tensor:
@@ -412,8 +432,11 @@ def _default_generator() -> torch.Generator:
 
 
 def _rollout(params, cfg, generator, num_samples, first_samples, temperature,
-             regularize, state, return_state, dev, cond, global_cond):
-    """One uninterrupted :func:`generate_fast` rollout (params on ``dev``)."""
+             regularize, state, return_state, dev, cond, global_cond,
+             uniform_cols=None):
+    """One uninterrupted :func:`generate_fast` rollout (params on ``dev``).
+    ``uniform_cols`` ``(cols, S_all)``: the streams are the columns
+    ``cols`` of a call on ``S_all`` streams, whose uniforms they take."""
     if state is not None:
         if first_samples is not None:
             raise ValueError("pass either first_samples or state, not both")
@@ -433,7 +456,11 @@ def _rollout(params, cfg, generator, num_samples, first_samples, temperature,
             raise ValueError(f"temperature must be a float or have shape "
                              f"({S},), not {tuple(temperature.shape)}")
     cond, global_cond = _cond_to(cfg, S, total, cond, global_cond, dev)
-    uniforms = _uniforms(generator, total, S, dev)
+    if uniform_cols is None:
+        uniforms = _uniforms(generator, total, S, dev)
+    else:
+        cols, s_all = uniform_cols
+        uniforms = _uniforms(generator, total, s_all, dev)[:, cols]
 
     cur = given[:, 0]
     samples = []

@@ -29,6 +29,7 @@ import torch.nn.functional as F
 
 from ..config import WaveNetConfig
 from ..device import resolve_device
+from ..parallel.sharding import copy_to_model, reduce_from_model
 
 Params = Dict[str, Any]
 
@@ -192,7 +193,8 @@ def check_cond(cfg: WaveNetConfig, lead: tuple, cond, global_cond) -> None:
 
 def wavenet_logits(params: Params, cfg: WaveNetConfig, x: torch.Tensor,
                    out_len: int | None = None, cond: torch.Tensor | None = None,
-                   global_cond: torch.Tensor | None = None) -> torch.Tensor:
+                   global_cond: torch.Tensor | None = None, mesh=None
+                   ) -> torch.Tensor:
     """Teacher-forced trunk; logits ``(N, out_len, classes)``.
 
     ``x``: int ``(N, T)`` classes or float one-hot ``(N, T, classes)`` with
@@ -206,7 +208,18 @@ def wavenet_logits(params: Params, cfg: WaveNetConfig, x: torch.Tensor,
     the fused one (:func:`_logits_fused`, local conditioning in its
     kernels, an f32 or bf16 ``cfg.stream_dtype``); it takes ``kernel_size
     >= 2``, and raises on the rest and on a passed ``global_cond`` (the JAX
-    package falls back to its plain trunk there)."""
+    package falls back to its plain trunk there).
+
+    ``mesh`` (``parallel.mesh.make_mesh``): ``x`` is this rank's block of
+    the batch and the trunk runs on it whatever the mesh (K2/K3 on the
+    card), the counterpart of the JAX package's per-data-shard
+    ``shard_map``; ``params`` are this rank's blocks
+    (``parallel.sharding.shard_params``). With ``model > 1`` the skip
+    projection is column-parallel (its input through
+    :func:`~pytorch_wavenet_tpu_torch.parallel.sharding.copy_to_model`)
+    and ``end1`` row-parallel (its partial products through
+    :func:`~pytorch_wavenet_tpu_torch.parallel.sharding.reduce_from_model`,
+    ``end1.b`` added after the sum)."""
     if out_len is None:
         out_len = cfg.output_length
     if x.shape[1] < out_len:
@@ -224,13 +237,14 @@ def wavenet_logits(params: Params, cfg: WaveNetConfig, x: torch.Tensor,
                 "cfg.trunk_kernel takes no global conditioning (the trunk "
                 "kernels K2/K3 have no w_gcond product); use "
                 "cfg.trunk_kernel=False for a global_cond")
-        return _logits_fused(params, cfg, x, out_len, cond)
+        return _logits_fused(params, cfg, x, out_len, cond, mesh)
     h = embed_inputs(params, cfg, x).to(cfg.stream_dtype)
     N, T, _ = h.shape
     lp = params["layers"]
     fuse = cfg.fuse_skip if cfg.fuse_skip is not None else (out_len >= 128)
-    skip = None if fuse else torch.zeros(
-        (N, out_len, cfg.skip_channels), dtype=torch.float32, device=h.device)
+    skip = None if fuse else torch.zeros(  # this rank's skip block
+        (N, out_len, lp["w_skip"].shape[-1]), dtype=torch.float32,
+        device=h.device)
     gated_units = []
 
     for l, d in enumerate(cfg.dilations):
@@ -250,7 +264,8 @@ def wavenet_logits(params: Params, cfg: WaveNetConfig, x: torch.Tensor,
         if fuse:
             gated_units.append(u[:, T - out_len:, :])
         else:
-            s = _mm(u[:, T - out_len:, :], lp["w_skip"][l], cdt)
+            s = _mm(copy_to_model(u[:, T - out_len:, :], mesh),
+                    lp["w_skip"][l], cdt)
             if "b_skip" in lp:
                 s = s + lp["b_skip"][l]
             skip = skip + s
@@ -260,33 +275,38 @@ def wavenet_logits(params: Params, cfg: WaveNetConfig, x: torch.Tensor,
         h = (r + h).to(cfg.stream_dtype)
 
     if fuse:
-        return skip_head(params, cfg, torch.cat(gated_units, dim=-1))
-    return _head(params, cfg, skip)
+        return skip_head(params, cfg, torch.cat(gated_units, dim=-1), mesh)
+    return _head(params, cfg, skip, mesh)
 
 
-def _head(params: Params, cfg: WaveNetConfig, skip: torch.Tensor) -> torch.Tensor:
-    """relu -> end1 -> relu -> end2 on the summed skip ``(N, out, S)``."""
+def _head(params: Params, cfg: WaveNetConfig, skip: torch.Tensor,
+          mesh=None) -> torch.Tensor:
+    """relu -> end1 -> relu -> end2 on the summed skip ``(N, out, S)``
+    (this rank's block of S under a model-parallel mesh)."""
     cdt = cfg.compute_dtype
     y = torch.relu(skip)
-    y = torch.relu(_mm(y, params["end1"]["w"], cdt) + params["end1"]["b"])
+    y = reduce_from_model(_mm(y, params["end1"]["w"], cdt), mesh)
+    y = torch.relu(y + params["end1"]["b"])
     return _mm(y, params["end2"]["w"], cdt) + params["end2"]["b"]
 
 
-def skip_head(params: Params, cfg: WaveNetConfig, units: torch.Tensor) -> torch.Tensor:
+def skip_head(params: Params, cfg: WaveNetConfig, units: torch.Tensor,
+              mesh=None) -> torch.Tensor:
     """Logits from every layer's gated units ``(N, out, L*D)`` over the
     output window: the skip projection as one ``K = L*D`` product, then
-    the head."""
+    the head (column- and row-parallel under a model-parallel ``mesh``)."""
     lp = params["layers"]
     L, D = cfg.num_layers, cfg.dilation_channels
-    skip = _mm(units, lp["w_skip"].reshape(L * D, -1), cfg.compute_dtype)
+    skip = _mm(copy_to_model(units, mesh), lp["w_skip"].reshape(L * D, -1),
+               cfg.compute_dtype)
     if "b_skip" in lp:
         skip = skip + lp["b_skip"].sum(dim=0)
-    return _head(params, cfg, skip)
+    return _head(params, cfg, skip, mesh)
 
 
 def _logits_fused(params: Params, cfg: WaveNetConfig, x: torch.Tensor,
-                  out_len: int, cond: torch.Tensor | None = None
-                  ) -> torch.Tensor:
+                  out_len: int, cond: torch.Tensor | None = None,
+                  mesh=None) -> torch.Tensor:
     """The ``cfg.trunk_kernel`` path: the embedded window (and its cond
     rows) through
     :func:`~pytorch_wavenet_tpu_torch.ops.cuda.trunk_kernel.fused_trunk`
@@ -302,7 +322,7 @@ def _logits_fused(params: Params, cfg: WaveNetConfig, x: torch.Tensor,
         if cond is not None:
             cond = cond[:, cond.shape[1] - win:]
     u = fused_trunk(params, cfg, h0, out_len, cond=cond)  # (N, out, L*D)
-    return skip_head(params, cfg, u)
+    return skip_head(params, cfg, u, mesh)
 
 
 def forward(params: Params, cfg: WaveNetConfig, x: torch.Tensor) -> torch.Tensor:

@@ -24,7 +24,8 @@ batch-1 script, wavenet_model.py:237), so there is no baseline column.
 The load is closed-loop, as in the JAX package. ``--device cpu`` runs the
 kernel's plain version (the JAX script's ``--interpret``); the TPU-only
 ``--stage-layers`` and ``--head-tiles`` are not ported, and
-``--mesh-data`` not yet.
+``--mesh-data`` not yet (it waits for the batcher's ``mesh``; the pool
+step it would drive is ``parallel.training.sharded_pool_step``).
 
   # capacity: saturate a 256-lane pool
   python -m pytorch_wavenet_tpu_torch.scripts.serving_bench --config chaconne \\

@@ -47,9 +47,13 @@ splice keep that dtype, so a pooled request equals its solo rollout at the
 same ring dtype. int8 rings, which need calibrated scales, are not taken
 (nor does the JAX package's batcher pass scales).
 
-Not ported yet: ``mesh``. The TPU's width bucketing, its multiple-of-128
-lane checks and the compiles ``prewarm`` existed for have no counterpart:
-a prime runs a group at its own size.
+Not ported yet: ``mesh``. Its pool step is
+``parallel.training.sharded_pool_step`` (each rank's lane block through
+K4, bitwise the unsharded step); the pool on a mesh still needs rank 0's
+scheduler to send each step's lane rows to a follower loop on the other
+ranks. The TPU's width bucketing, its multiple-of-128 lane checks and the
+compiles ``prewarm`` existed for have no counterpart: a prime runs a group
+at its own size.
 """
 
 from __future__ import annotations

@@ -5,8 +5,13 @@ Every optimizer here is a transform with one small interface, which the
 trainer calls:
 
 * ``init(params)`` -> a state (nested dicts of tensors and ints);
-* ``step(params, grads, state)`` updates ``params`` and the state in place
-  (the JAX package returns new ones) and returns the state;
+* ``step(params, grads, state, mesh=None)`` updates ``params`` and the
+  state in place (the JAX package returns new ones) and returns the state.
+  Under a model-parallel ``mesh`` (``parallel.mesh``) the params and grads
+  are this rank's blocks, and a norm (the global-norm clip,
+  ``sgd_normalized``'s per-leaf norm) is the logical leaf's: a sharded
+  leaf's squares are summed over the ``model`` group, a replicated leaf's
+  counted once, so every mesh takes the step one rank takes;
 * ``state_dict(state)`` -> the state in optax's state-dict layout (what
   ``flax.serialization.to_state_dict`` gives for the JAX optimizer), numpy
   leaves; ``load_state_dict(blob, params)`` takes it back, tensors on the
@@ -45,6 +50,9 @@ import math
 
 import numpy as np
 import torch
+
+from ..parallel.mesh import MODEL_AXIS, all_reduce, axis_size
+from ..parallel.sharding import model_sharded
 
 f32 = np.float32
 
@@ -88,6 +96,27 @@ def _take(tree, like, what="state"):
         raise ValueError(f"{what} shape {tuple(t.shape)} does not match the "
                          f"param {tuple(like.shape)}")
     return t.to(like.device)
+
+
+def _sq_sum(pairs, mesh) -> torch.Tensor:
+    """The sum of squares of the logical leaves of ``(path, tensor)``
+    ``pairs``: on one rank (or ``model = 1``) the plain sum; under a
+    model-parallel mesh the sharded leaves' local sums are added over the
+    ``model`` group (one collective), the replicated ones counted once."""
+    if axis_size(mesh, MODEL_AXIS) == 1:
+        return sum(torch.sum(x * x) for _, x in pairs)
+    rep = sum(torch.sum(x * x) for p, x in pairs if not model_sharded(p))
+    sh = sum(torch.sum(x * x) for p, x in pairs if model_sharded(p))
+    return rep + all_reduce(sh, mesh, MODEL_AXIS)
+
+
+def _leaf_sq(path, x: torch.Tensor, mesh) -> torch.Tensor:
+    """The sum of squares of one logical leaf (its blocks' sums added
+    over ``model`` when it is sharded)."""
+    sq = torch.sum(x.to(torch.float32) ** 2)
+    if model_sharded(path):
+        sq = all_reduce(sq, mesh, MODEL_AXIS)
+    return sq
 
 
 def _count(x) -> np.ndarray:
@@ -204,13 +233,14 @@ class ReferenceAdam:
         return state
 
     @torch.no_grad()
-    def step(self, params, grads, state: dict) -> dict:
+    def step(self, params, grads, state: dict, mesh=None) -> dict:
         p = [x for _, x in _leaves(params)]
+        paths = [path for path, _ in _leaves(grads)]
         g = [x.to(torch.float32) for _, x in _leaves(grads)]
         mu = [x for _, x in _leaves(state["mu"])]
         nu = [x for _, x in _leaves(state["nu"])]
         if self.gradient_clipping is not None:
-            norm = torch.sqrt(sum(torch.sum(x * x) for x in g))
+            norm = torch.sqrt(_sq_sum(list(zip(paths, g)), mesh))
             clip = float(self.gradient_clipping)
             keep = norm < clip
             g = [torch.where(keep, x, (x / norm) * clip) for x in g]
@@ -298,13 +328,13 @@ class SGDNormalized:
         return {"momentum": _zeros(params) if self.momentum != 0 else None}
 
     @torch.no_grad()
-    def step(self, params, grads, state: dict) -> dict:
+    def step(self, params, grads, state: dict, mesh=None) -> dict:
         p = [x for _, x in _leaves(params)]
-        g = [x for _, x in _leaves(grads)]
+        g = list(_leaves(grads))
         bufs = ([x for _, x in _leaves(state["momentum"])]
                 if self.momentum != 0 else [None] * len(p))
-        for w, x, buf in zip(p, g, bufs):
-            n = torch.sqrt(torch.sum(x.to(torch.float32) ** 2))
+        for w, (path, x), buf in zip(p, g, bufs):
+            n = torch.sqrt(_leaf_sq(path, x, mesh))
             d = (self.lr / torch.clamp(n, min=1e-12)) * x
             if self.weight_decay != 0:
                 d = d + self.weight_decay * w
@@ -352,8 +382,8 @@ class WithEma:
                             params)}
 
     @torch.no_grad()
-    def step(self, params, grads, state: dict) -> dict:
-        self.inner.step(params, grads, state["inner"])
+    def step(self, params, grads, state: dict, mesh=None) -> dict:
+        self.inner.step(params, grads, state["inner"], mesh)
         d = self.decay
         for (_, e), (_, p) in zip(_leaves(state["ema"]), _leaves(params)):
             e.copy_(d * e + (1.0 - d) * p)
@@ -413,14 +443,14 @@ class MultiSteps:
                 "acc_grads": _zeros(params), "skip_state": {}}
 
     @torch.no_grad()
-    def step(self, params, grads, state: dict) -> dict:
+    def step(self, params, grads, state: dict, mesh=None) -> dict:
         n = state["mini_step"]
         acc = [a for _, a in _leaves(state["acc_grads"])]
         for a, (_, g) in zip(acc, _leaves(grads)):
             a.copy_(a + (g - a) / (n + 1))
         if n == self.k - 1:
             self.inner.step(params, state["acc_grads"],
-                            state["inner_opt_state"])
+                            state["inner_opt_state"], mesh)
             state["gradient_step"] += 1
             for a in acc:
                 a.zero_()

@@ -33,8 +33,24 @@ and gradient histograms). Every ``--generate-interval`` steps
 ``generate_and_log_samples`` runs on the logger's daemon thread: it loads
 the newest snapshot and generates ``--generate-length`` samples at
 temperatures 0.5 and 1.0 in one rollout (K4 on the card), logged as audio
-with ``--log-dir``. Training runs on one card: the JAX script's mesh
-flags have no counterpart here.
+with ``--log-dir``.
+
+Data- and model-parallel training: one rank a process, launched by
+torchrun,
+
+  python -m torch.distributed.run --standalone --nproc-per-node N \\
+      -m pytorch_wavenet_tpu_torch.training.train ... --mesh-data D \\
+      --mesh-model M
+
+(``D x M`` must be the world size; ``--mesh-data 0``, the default, puts
+every rank not on the model axis on the data axis). ``--batch-size`` is
+the global batch, each rank takes its data index's block; snapshots are
+sharded (each rank writes its blocks), ``--resume`` reads either format
+under any mesh. Only rank 0 prints and writes TensorBoard; the audio hook
+runs on rank 0 with the full params, gathered by every rank on the
+training thread. The backend is NCCL when every rank has a card of its
+own, gloo when ranks share one or run on the CPU (``--device cpu``); it
+is printed.
 """
 
 from __future__ import annotations
@@ -109,6 +125,10 @@ def parse_args(argv=None):
                    help="continue from the newest snapshot")
     p.add_argument("--max-steps", type=int, default=None)
     p.add_argument("--device", default="cuda")
+    p.add_argument("--mesh-data", type=int, default=0,
+                   help="data-axis size (0 = every rank not on the model "
+                        "axis)")
+    p.add_argument("--mesh-model", type=int, default=1)
     return p.parse_args(argv)
 
 
@@ -119,13 +139,26 @@ def main(argv=None):
     from ..data.mel_dataset import MelWaveNetDataset
     from ..device import resolve_device
     from ..models.wavenet import init_wavenet
+    from ..parallel.mesh import init_distributed, make_mesh, mesh_shape
     from ..utils.checkpoints import load_latest_model_from
-    from ..utils.logging import Logger, TensorboardLogger
+    from ..utils.logging import Logger, RankLogger, TensorboardLogger
     from .optimizers import build_optimizer, lr_schedule
     from .trainer import WaveNetTrainer, generate_audio
 
     args = parse_args(argv)
-    dev = resolve_device(args.device)
+    world = int(os.environ.get("WORLD_SIZE", 1))
+    mesh, rank = None, 0
+    if world > 1:
+        dev = init_distributed(args.device)
+        rank = torch.distributed.get_rank()
+    else:
+        dev = resolve_device(args.device)
+    if world > 1 or args.mesh_data > 1 or args.mesh_model > 1:
+        # raises unless --mesh-data x --mesh-model is the world size
+        mesh = make_mesh(args.mesh_data or None, args.mesh_model)
+    say = print if rank == 0 else (lambda *a, **k: None)
+    if mesh is not None:
+        say(f"mesh: {mesh_shape(mesh)}")
     overrides = {"trunk_kernel": not args.no_trunk_kernel}
     if args.cond_upsample:
         overrides["cond_upsample"] = tuple(
@@ -135,15 +168,17 @@ def main(argv=None):
         overrides["stream_dtype"] = torch.bfloat16
     cfg = config_mod.get_config(args.config, **overrides)
     params = init_wavenet(cfg, torch.Generator().manual_seed(args.seed), dev)
-    print(f"config: {args.config} {cfg}")
-    print(f"receptive field: {cfg.receptive_field}")
-    print(f"parameter count: {cfg.parameter_count():,}")
+    say(f"config: {args.config} {cfg}")
+    say(f"receptive field: {cfg.receptive_field}")
+    say(f"parameter count: {cfg.parameter_count():,}")
     ds_kwargs = dict(
         dataset_file=args.dataset_file or os.path.join(args.data_dir,
                                                        "dataset.npz"),
         item_length=cfg.item_length, target_length=cfg.output_length,
         file_location=args.data_dir, classes=cfg.classes,
         test_stride=args.test_stride)
+    if mesh is not None and rank > 0:
+        torch.distributed.barrier()  # rank 0 builds the dataset file first
     if cfg.cond_channels:
         # mel frames per window; the step expands them on the device
         # (learnably with --cond-upsample, whose factors must multiply to
@@ -152,19 +187,26 @@ def main(argv=None):
                                  n_fft=args.n_fft, hop_length=args.hop_length)
     else:
         data = WaveNetDataset(**ds_kwargs)
-    print(f"the dataset has {len(data)} items")
+    if mesh is not None and rank == 0:
+        torch.distributed.barrier()
+    say(f"the dataset has {len(data)} items")
 
-    def generate_and_log_samples(step):
+    def generate_and_log_samples(step, params=None):
         """The audio hook (reference: train_script.py:46-61), on the
         logger's daemon thread: the newest snapshot, one rollout at
         temperatures 0.5 and 1.0 seeded by the step, the clips logged. The
         checkpointer may be writing a newer snapshot meanwhile; writes are
         atomic (tmp + rename), so the hook reads the previous snapshot or
-        the new one, each whole (the JAX script's order)."""
-        blob = load_latest_model_from(args.snapshot_path, device=dev)
+        the new one, each whole (the JAX script's order). Under a mesh the
+        logger hands it the full params, gathered at this step."""
+        if params is None:
+            blob = load_latest_model_from(args.snapshot_path, device=dev)
+            params, hook_cfg = blob["params"], blob["config"] or cfg
+        else:
+            hook_cfg = cfg
         temps = (0.5, 1.0)
         print("start generating...")
-        clips = generate_audio(blob["params"], blob["config"] or cfg,
+        clips = generate_audio(params, hook_cfg,
                                length=args.generate_length,
                                temperatures=temps, seed=step, device=dev)
         if isinstance(logger, TensorboardLogger):
@@ -178,8 +220,13 @@ def main(argv=None):
                   validation_interval=args.validation_interval,
                   generate_interval=args.generate_interval,
                   generate_function=generate_and_log_samples)
-    logger = (TensorboardLogger(**log_kw, log_dir=args.log_dir)
-              if args.log_dir is not None else Logger(**log_kw))
+    if rank > 0:
+        logger = RankLogger(**{k: v for k, v in log_kw.items()
+                               if k != "generate_function"})
+    elif args.log_dir is not None:
+        logger = TensorboardLogger(**log_kw, log_dir=args.log_dir)
+    else:
+        logger = Logger(**log_kw)
     # the JAX script's refusals, in its order
     if args.optimizer == "sgd_normalized" and not isinstance(
             lr_schedule(args.lr, args.lr_schedule, args.warmup_steps,
@@ -194,17 +241,38 @@ def main(argv=None):
         cfg, params, data, optimizer=optimizer, logger=logger,
         snapshot_path=args.snapshot_path,
         snapshot_name=args.snapshot_name or f"{args.config}_model",
-        snapshot_interval=args.snapshot_interval, seed=args.seed, device=dev)
+        snapshot_interval=args.snapshot_interval, seed=args.seed, device=dev,
+        mesh=mesh)
     start = 0
     if args.resume:
         start = trainer.resume()
-        print(f"resuming at step {start}")
-    print("start training...")
+        say(f"resuming at step {start}")
+    say("start training...")
     trainer.train(batch_size=args.batch_size, epochs=args.epochs,
                   continue_training_at_step=start, max_steps=args.max_steps)
     if isinstance(logger, TensorboardLogger):
         logger.flush()
+    if mesh is not None:
+        _print_launches(mesh, rank)
     return trainer
+
+
+def _print_launches(mesh, rank: int) -> None:
+    """Rank 0 prints every rank's kernel launches in this process
+    (``kernel launches per rank: K2 [...], K3 [...], K4 [...]``, rank
+    order): a multi-rank run's counts live in its ranks' processes."""
+    from ..ops.cuda import gen_kernel_hbm as ghbm
+    from ..ops.cuda import trunk_kernel as tk
+    from ..parallel.mesh import DATA_AXIS, MODEL_AXIS, all_gather
+
+    counts = torch.tensor([[tk.fwd_launches, tk.bwd_launches,
+                            ghbm.launches]])
+    counts = all_gather(all_gather(counts, mesh, MODEL_AXIS), mesh,
+                        DATA_AXIS)
+    if rank == 0:
+        k2, k3, k4 = counts.T.tolist()
+        print(f"kernel launches per rank: K2 {k2}, K3 {k3}, K4 {k4}",
+              flush=True)
 
 
 if __name__ == "__main__":

@@ -12,14 +12,16 @@ none; a loaded blob hands it back as nested numpy, which the JAX package
 reads with ``load_checkpoint(path, opt_state_template=tx.init(params))``
 and the port's optimizer with ``load_state_dict``.
 
-The JAX package's multi-host runs write sharded checkpoints: a directory
-``{name}_{step:010d}.ckpt.sharded/`` holding ``manifest.msgpack`` (step,
-config, extra and the params/opt_state skeleton, each array leaf a
-``{shape, dtype}`` placeholder) and one ``shards_p{k}.msgpack`` per
-process (flat ``{leaf path: [{index, data}, ...]}``). One process reads
-them all and assembles full arrays (:func:`load_checkpoint_sharded`);
-:func:`latest_checkpoint` ranks complete directories beside files. The
-writer is the JAX package's (``save_checkpoint_sharded``).
+Sharded checkpoints (the JAX package's ``pytorch_wavenet_tpu/sharded/1``)
+are a directory ``{name}_{step:010d}.ckpt.sharded/`` holding
+``manifest.msgpack`` (step, config, extra, ``process_count`` and the
+params/opt_state skeleton, each array leaf a ``{shape, dtype}``
+placeholder) and one ``shards_p{k}.msgpack`` per process (flat ``{leaf
+path: [{index, data}, ...]}``, ``index`` the block's ``[[start, stop],
+...]`` in the global array). :func:`save_checkpoint_sharded` writes one
+rank's file (rank 0 also the manifest) from its local blocks; either
+package's reader assembles full arrays (:func:`load_checkpoint_sharded`);
+:func:`latest_checkpoint` ranks complete directories beside files.
 
 :class:`AsyncCheckpointer` keeps the copy to the host, the encoding and the
 write off the training thread (the JAX package's ``AsyncCheckpointer``).
@@ -43,11 +45,16 @@ from .msgpack_lite import packb, unpackb
 CKPT_SUFFIX = ".ckpt"
 SHARDED_SUFFIX = ".ckpt.sharded"
 FORMAT = "pytorch_wavenet_tpu/1"
+SHARDED_FORMAT = "pytorch_wavenet_tpu/sharded/1"
 _LEAF_KEY = "__sharded_array__"
 
 
 def checkpoint_path(directory: str, name: str, step: int) -> str:
     return os.path.join(directory, f"{name}_{step:010d}{CKPT_SUFFIX}")
+
+
+def sharded_checkpoint_path(directory: str, name: str, step: int) -> str:
+    return os.path.join(directory, f"{name}_{step:010d}{SHARDED_SUFFIX}")
 
 
 def save_checkpoint(directory: str, name: str, step: int, params,
@@ -68,10 +75,80 @@ def save_checkpoint(directory: str, name: str, step: int, params,
                       else None),
         "extra": extra or {},
     }
+    _write_atomic(path, packb(blob))
+    return path
+
+
+def _write_atomic(path: str, data: bytes) -> None:
     tmp = path + f".tmp.{os.getpid()}"
     with open(tmp, "wb") as f:
-        f.write(packb(blob))
+        f.write(data)
     os.replace(tmp, path)
+
+
+def save_checkpoint_sharded(directory: str, name: str, step: int, params,
+                            opt_state=None, cfg: WaveNetConfig | None = None,
+                            extra: dict | None = None, mesh=None) -> str:
+    """Write this rank's shard file of a sharded checkpoint (rank 0 also
+    the manifest); call it on every rank of ``mesh``. ``params`` are the
+    rank's blocks (``parallel.sharding.shard_params``), ``opt_state`` the
+    optimizer state of those blocks in optax's state-dict layout (or
+    None). A block's global index follows from the partition specs and the
+    rank's coordinates; the blocks of data index 0 are written (a
+    replicated leaf by rank 0 alone), so each element is written once. No
+    collective is called, so it can run on a worker thread. Returns the
+    directory."""
+    import torch.distributed as dist
+
+    from ..parallel.mesh import DATA_AXIS, MODEL_AXIS, axis_index, axis_size
+    from ..parallel.sharding import param_pspecs, state_specs
+
+    path = sharded_checkpoint_path(directory, name, step)
+    os.makedirs(path, exist_ok=True)
+    m = axis_size(mesh, MODEL_AXIS)
+    world = axis_size(mesh, DATA_AXIS) * m
+    rank = dist.get_rank() if world > 1 else 0
+    owner = axis_index(mesh, DATA_AXIS) == 0
+    mi = axis_index(mesh, MODEL_AXIS)
+    shards: dict = {}
+
+    def walk(tree, spec, key):
+        """The skeleton of ``tree``, this rank's owned blocks into
+        ``shards``."""
+        if isinstance(tree, dict):
+            return {k: walk(v, spec[k], f"{key}/{k}")
+                    for k, v in tree.items()}
+        if tree is None:
+            return None
+        arr = np.asarray(tree)
+        shape, index = list(arr.shape), [[0, n] for n in arr.shape]
+        sharded = MODEL_AXIS in spec
+        if sharded:
+            d = spec.index(MODEL_AXIS)
+            shape[d] = arr.shape[d] * m
+            index[d] = [mi * arr.shape[d], (mi + 1) * arr.shape[d]]
+        if (owner if sharded else rank == 0):  # each element once
+            shards[key] = [{"index": index, "data": arr}]
+        return {_LEAF_KEY: [shape, str(arr.dtype)]}
+
+    params_np = to_numpy_params(params)
+    opt_np = to_numpy_params(opt_state)
+    skel = {"params": walk(params_np, param_pspecs(cfg, params), "params"),
+            "opt_state": walk(opt_np, state_specs(opt_np, params),
+                              "opt_state")}
+    _write_atomic(os.path.join(path, f"shards_p{rank}.msgpack"),
+                  packb({"process": rank, "shards": shards}))
+    if rank == 0:
+        _write_atomic(os.path.join(path, "manifest.msgpack"), packb({
+            "format": SHARDED_FORMAT,
+            "time": time.time(),
+            "step": int(step),
+            "config": cfg.to_json() if cfg is not None else None,
+            "process_count": world,
+            "params": skel["params"],
+            "opt_state": skel["opt_state"],
+            "extra": extra or {},
+        }))
     return path
 
 
@@ -213,12 +290,14 @@ def latest_checkpoint(location: str) -> str | None:
 
 
 def load_latest_model_from(location: str,
-                           device: str | torch.device = "cuda") -> dict:
+                           device: str | torch.device = "cuda",
+                           verbose: bool = True) -> dict:
     """Load the newest checkpoint in ``location``."""
     path = latest_checkpoint(location)
     if path is None:
         raise FileNotFoundError(f"no checkpoints under {location}")
-    print("load model " + path)
+    if verbose:
+        print("load model " + path)
     return load_checkpoint(path, device)
 
 
@@ -245,13 +324,22 @@ class AsyncCheckpointer:
     its own (so the copy does not queue behind the next steps' kernels),
     turns the optimizer state into optax's layout with ``state_dict`` and
     writes the file atomically. The file holds the values from the moment
-    of the save, whatever steps run meanwhile."""
+    of the save, whatever steps run meanwhile.
 
-    def __init__(self):
+    With a ``mesh`` of more than one rank (the trainer's mesh mode) each
+    rank's worker writes the rank's blocks with
+    :func:`save_checkpoint_sharded` (which calls no collective), as the JAX
+    package routes a tree that no process holds whole."""
+
+    def __init__(self, mesh=None):
+        from ..parallel.mesh import mesh_shape
+
         self._ex = concurrent.futures.ThreadPoolExecutor(
             max_workers=1, thread_name_prefix="ckpt")
         self._pending: concurrent.futures.Future | None = None
         self._stream = None  # the worker's copy stream on the card
+        self.mesh = mesh
+        self.sharded = int(np.prod(list(mesh_shape(mesh).values()))) > 1
 
     def save(self, directory: str, name: str, step: int, params,
              opt_state=None, cfg: WaveNetConfig | None = None,
@@ -260,7 +348,8 @@ class AsyncCheckpointer:
         """Queue a checkpoint of ``params`` and ``opt_state`` as they are
         now. ``state_dict``: turns the (cloned) optimizer state into optax's
         layout on the worker (an optimizer's ``state_dict``); without it
-        ``opt_state`` is written as given. Returns the future of the path."""
+        ``opt_state`` is written as given. Returns the future of the path
+        (also its ``path`` attribute, known at once)."""
         self.wait()
         params_c, opt_c = _clone(params), _clone(opt_state)
         dev = next((t.device for t in _tensors(params_c)), None)
@@ -279,10 +368,16 @@ class AsyncCheckpointer:
             with ctx:
                 opt = (state_dict(opt_c) if state_dict and opt_c is not None
                        else opt_c)
+                if self.sharded:
+                    return save_checkpoint_sharded(
+                        directory, name, step, params_c, opt_state=opt,
+                        cfg=cfg, extra=extra, mesh=self.mesh)
                 return save_checkpoint(directory, name, step, params_c,
                                        cfg=cfg, extra=extra, opt_state=opt)
 
         self._pending = self._ex.submit(write)
+        self._pending.path = (sharded_checkpoint_path if self.sharded
+                              else checkpoint_path)(directory, name, step)
         return self._pending
 
     def wait(self) -> str | None:

@@ -4,7 +4,9 @@ Cadenced hooks off the training step: the windowed average loss every
 ``log_interval`` steps, validation every ``validation_interval`` (through
 the ``trainer`` back-reference, which the trainer sets) and an audio
 callback every ``generate_interval`` on a daemon thread, skipped while the
-previous one still runs. The loss may be a device scalar: it is read on the
+previous one still runs (under a mesh the callback also takes the full
+params, gathered by every rank first; :class:`RankLogger` is the silent
+logger of the other ranks). The loss may be a device scalar: it is read on the
 host only at the log cadence, so the loop does not wait for the card every
 step.
 
@@ -64,14 +66,33 @@ class Logger:
         print(f"validation accuracy: {avg_accuracy * 100}%")
 
     def generate(self, current_step: int):
+        # under a mesh every rank gathers the full params here, on the
+        # training thread (a collective from the callback's thread would
+        # interleave with the step's), and the callback takes them
+        args = [current_step]
+        if getattr(self.trainer, "mesh", None) is not None:
+            args.append(self.trainer.full_params())
         if self.generate_function is None:
             return
         if self.generate_thread is not None and self.generate_thread.is_alive():
             print("Last generate is still running, skipping this one")
             return
         self.generate_thread = threading.Thread(
-            target=self.generate_function, args=[current_step], daemon=True)
+            target=self.generate_function, args=args, daemon=True)
         self.generate_thread.start()
+
+
+class RankLogger(Logger):
+    """The logger of a rank other than 0 in a mesh run: the same cadence
+    and the same collectives (validation, the audio hook's gather) as rank
+    0's logger, and no output."""
+
+    def log_loss(self, current_step: int):
+        pass
+
+    def validate(self, current_step: int):
+        if self.trainer is not None:
+            self.trainer.validate()
 
 
 class TensorboardLogger(Logger):

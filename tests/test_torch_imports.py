@@ -19,7 +19,10 @@ for new in ("data.native", "utils.tensorboard", "models.speculative",
             "utils.profiling", "generate_cli", "bench", "utils.visualize",
             "ops.dilated", "ops.queues", "scripts.make_demo_data",
             "scripts.benchmark", "scripts.serving_bench",
-            "scripts.serving_soak", "scripts.distill_demo"):
+            "scripts.serving_soak", "scripts.distill_demo",
+            "parallel.mesh", "parallel.sharding", "parallel.training",
+            "parallel.data_sharding", "parallel.time_sharding",
+            "parallel.pipeline", "scripts.scaling_bench"):
     assert "pytorch_wavenet_tpu_torch." + new in names
 banned = [m for m in sys.modules
           if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "msgpack",
@@ -299,3 +302,34 @@ def test_tools_and_shims_import_with_jax_blocked():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-1] == "ok"
+
+
+_BLOCKED_PARALLEL = _BLOCKED.split("import pytorch_wavenet_tpu_torch.serving")[0] + """
+import torch
+import torch.distributed as dist
+import pytorch_wavenet_tpu_torch as pt
+from pytorch_wavenet_tpu_torch.parallel import (data_sharding, mesh, pipeline,
+                                                sharding, time_sharding,
+                                                training)
+from pytorch_wavenet_tpu_torch.scripts import scaling_bench
+from pytorch_wavenet_tpu_torch.ops.cuda import build
+m = mesh.make_mesh(1, 1)
+cfg = pt.get_config("tiny")
+params = pt.init_wavenet(cfg, torch.Generator().manual_seed(0), "cpu")
+back = sharding.gather_params(sharding.shard_params(params, cfg, m), cfg, m)
+assert all(torch.equal(back[k][kk], params[k][kk]) for k in params
+           for kk in params[k])
+assert not dist.is_initialized() and not build._libs
+assert scaling_bench.main and pipeline.PIPE_AXIS == "pipe"
+print("ok")
+"""
+
+
+def test_parallel_path_imports_with_jax_blocked():
+    """The multi-rank layer and ``scaling_bench`` import with every import
+    of JAX or of the JAX package made to fail; on the trivial mesh the
+    blocks are the params and no process group is formed."""
+    out = subprocess.run([sys.executable, "-c", _BLOCKED_PARALLEL], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
