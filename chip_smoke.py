@@ -260,14 +260,30 @@ Phases (any failure stops the run with a nonzero exit):
      unsharded loss and gradients, ``generate_pipelined`` over 2 stages
      bitwise ``generate_fast`` on each group (plain PyTorch on the card),
      and ``scripts.scaling_bench`` at 1 and 2 ranks (its K2/K3 launches
-     per rank checked).
+     per rank checked);
+ 46. the lane pool on a mesh (its 2 ranks spawned with phase 44's, sharing
+     the card through gloo): ``ContinuousBatcher(mesh=)`` on rank 0 and
+     ``follow_pool`` on rank 1 at chaconne, 256 lanes (128 a rank), chunk
+     2048, fuse_res + skip_slab: 64 requests of 16000 samples with
+     full-rf primes at T 0, 0.9 and 1.0 (seeded), half admitted once the
+     first chunk is out, each bitwise one K4 call of the 64 as lanes; the
+     same load on a one-rank pool (bitwise, timed beside it and beside
+     phases 8 and 24); ``update_params`` while a request streams, then 130
+     requests on lanes of both ranks bitwise K4 on the new weights; the
+     vocoder's frames mode (8 requests of 4096 samples at hop 256 on 8
+     lanes) bitwise; each rank's K4 launches (a prewarm step, its pool
+     steps, its prime calls; the plain version barred) and the cross-rank
+     bytes a pool step and an admission; then ``serving.server --batcher
+     --mesh-data 2`` under ``torch.distributed.run``: 4 seeded requests
+     byte-equal to the one-process server's, SIGINT to rank 0, both ranks
+     exit 0 with their K4 launches printed.
 
 ``python3 chip_smoke.py --remainder-only`` runs phases 1, 2, 25 and 26 only,
 ``--distill-only`` phases 1, 2, 25 (the teacher) and 27-29,
 ``--slice11-only`` phases 1, 2, 25 (the ``--ema`` snapshot) and 30-35,
-``--slice12-only`` phases 1, 2 and 36-41, and ``--slice13-only`` phases 1,
-2 and 42-45; each exits 1 without a result (short calls while working on
-them).
+``--slice12-only`` phases 1, 2 and 36-41, ``--slice13-only`` phases 1,
+2 and 42-45, and ``--slice14-only`` phases 1, 2 and 46; each exits 1
+without a result (short calls while working on them).
 
 The line before the last is one JSON object listing the kernels; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -781,14 +797,14 @@ def phase_times(torch, pt, gk, dev, card):
     log(f"[time] plain version, same chaconne chunk: {plain:.1f} ms, "
         f"{1e3 * plain / total:.1f} us/step [{card}]")
     log("[time] library call: none (no single PyTorch call computes the loop)")
-    timed(chaconne, chaconne.receptive_field, 16384, 1.0, 2)
+    timed(chaconne, chaconne.receptive_field, 16384, 1.0, 1)
     # where a step's time goes: chaconne widths at 1, 2 and 3 blocks; the
     # slope is the cost of one layer, the intercept that of the embed, the
     # head and the sampling
     us = []
     for blocks in (1, 2, 3):
         c = pt.get_config("chaconne", blocks=blocks)
-        us.append(1e3 * timed(c, 1, 2048, 0.9, 2)[7] / 2048)
+        us.append(1e3 * timed(c, 1, 2048, 0.9, 1)[7] / 2048)
     per_layer = (us[2] - us[0]) / 20
     log(f"[time] K1 chaconne widths, 10/20/30 layers: "
         + ", ".join(f"{u:.2f}" for u in us) + f" us/step; {per_layer:.2f} "
@@ -1336,7 +1352,7 @@ def phase_k4_times(torch, pt, ghbm, dev, card):
     for lanes in (128, 256, 1024):
         ops = setup(cfg, lanes)
         params = ops[0]
-        ms = _time(torch, call(ghbm.batched_cuda, ops, 2048), 2)
+        ms = _time(torch, call(ghbm.batched_cuda, ops, 2048), 1)
         best = min(ms)
         b_ms, b_by = bound_ms(pt, ghbm, params, cfg, lanes, 1, 2048,
                               lane_rows=3)
@@ -2400,7 +2416,7 @@ def phase_vocoder_times(torch, pt, gk, ghbm, dev, card):
                      ("cond + gcond", dict(cond=cond, gcond=gcond))):
         ms = _time(torch, lambda: ghbm.batched_cuda(
             w, cfg, prime, ring, clock, steps, temps, seeds, toffs, 0, 0.0,
-            True, True, True, **kw), 2)
+            True, True, True, **kw), 1)
         us[what] = 1e3 * min(ms) / steps
         has_c, has_g = "cond" in kw, "gcond" in kw
         b_ms, b_by = bound_ms(
@@ -3104,7 +3120,7 @@ def phase_hook_k4(torch, pt, ghbm, dev, card, steps=1024, full=16000):
     plain = min(_time(torch, lambda: ghbm.batched_plain(*args(ring, steps)),
                       1))
     full_ms = min(_time(torch, lambda: ghbm.batched_cuda(*args(ring, full)),
-                        2))
+                        1, warm=False))
     b_ms, b_by = bound_ms(pt, ghbm, params, cfg, lanes, 1, steps)
     log(f"[time] K4 at the hook's shape (chaconne_wide, {lanes} lanes, "
         f"exact, {steps} steps): {ms:.3f} ms (min of 5), "
@@ -4975,6 +4991,8 @@ def _s13_rank(rank, world, store, out_dir, jobs):
             shape, steps = dict((f"train{d}x{m}", ((d, m), s))
                                 for (d, m), s in S13_MESHES)[job]
             out = _s13_train(torch, np, pt, dev, shape, steps)
+        elif job == "pool46":
+            out = _s14_pool(torch, np, pt, dev, rank)
         else:
             out = {"pool": _s13_pool, "time": _s13_time,
                    "pipe": _s13_pipe}[job](torch, np, pt, dev)
@@ -5262,33 +5280,34 @@ def phase_scaling_bench():
     return lines
 
 
-def slice13(torch, np, pt, tk, dev, card, t_start):
+def slice13(torch, np, pt, tk, dev, card, t_start, d, extra=()):
     """Phases 42-45: the multi-rank layer with its ranks sharing the card
-    through gloo. Returns their figures."""
+    through gloo, their results under ``d``; ``extra`` jobs join the
+    2-rank group (phase 46's). Returns their figures."""
     secs, out = {}, {}
-    with tempfile.TemporaryDirectory() as d:
+    t = time.time()
+    jobs2 = [f"train{a}x{b}" for (a, b), _ in S13_MESHES if a * b == 2]
+    _s13_spawn([(2, jobs2 + ["pool", "time", "pipe"] + list(extra)),
+                (4, ["train2x2"])], d)
+    secs["ranks"] = time.time() - t
+    log(f"phases 42, 44, 45{', 46' if extra else ''}: 6 ranks in two "
+        f"groups took {secs['ranks']:.1f} s, done at "
+        f"{time.time() - t_start:.0f} s")
+    for name, fn in (
+            ("42 parallel_train_step", lambda: phase_parallel_train(
+                torch, np, pt, dev, card, d)),
+            ("44 sharded_pool_step", lambda: phase_pool_step_sharded(
+                torch, np, pt, dev, card, d)),
+            ("45 time sharding, pipeline", lambda: phase_time_pipe(
+                torch, np, pt, dev, card, d)),
+            ("43 train CLI", lambda: phase_train_cli_mesh(
+                torch, np, pt, tk, card)),
+            ("45 scaling_bench", phase_scaling_bench)):
         t = time.time()
-        jobs2 = [f"train{a}x{b}" for (a, b), _ in S13_MESHES if a * b == 2]
-        _s13_spawn([(2, jobs2 + ["pool", "time", "pipe"]),
-                    (4, ["train2x2"])], d)
-        secs["ranks"] = time.time() - t
-        log(f"phases 42, 44, 45: 6 ranks in two groups took "
-            f"{secs['ranks']:.1f} s, done at {time.time() - t_start:.0f} s")
-        for name, fn in (
-                ("42 parallel_train_step", lambda: phase_parallel_train(
-                    torch, np, pt, dev, card, d)),
-                ("44 sharded_pool_step", lambda: phase_pool_step_sharded(
-                    torch, np, pt, dev, card, d)),
-                ("45 time sharding, pipeline", lambda: phase_time_pipe(
-                    torch, np, pt, dev, card, d)),
-                ("43 train CLI", lambda: phase_train_cli_mesh(
-                    torch, np, pt, tk, card)),
-                ("45 scaling_bench", phase_scaling_bench)):
-            t = time.time()
-            out[name] = fn()
-            secs[name] = time.time() - t
-            log(f"phase {name} took {secs[name]:.1f} s, done at "
-                f"{time.time() - t_start:.0f} s")
+        out[name] = fn()
+        secs[name] = time.time() - t
+        log(f"phase {name} took {secs[name]:.1f} s, done at "
+            f"{time.time() - t_start:.0f} s")
     return dict(train=out["42 parallel_train_step"],
                 pool=out["44 sharded_pool_step"],
                 time_pipe=out["45 time sharding, pipeline"],
@@ -5321,6 +5340,455 @@ def slice13_entries(kernels, s13):
                                              "audio_s", "scaling_pct")}
                           for r in s13["scaling"]],
         "time_pipe": s13["time_pipe"], "phase_seconds": s13["seconds"]}
+
+
+# ------------------------------------------------------------- slice 14
+
+S14_LANES, S14_CHUNK = 256, 2048  # phase 46's pool: 128 lanes a rank
+S14_REQS, S14_N = 64, 16000       # its load, half admitted mid-flight
+S14_TEMPS = (0.0, 0.9, 1.0)
+S14_BURST, S14_BURST_N = 130, 2049  # after update_params: both ranks' lanes
+S14_VOC_LANES, S14_VOC_REQS, S14_VOC_N = 8, 8, 4096  # frames mode, hop 256
+S14_SERVE_N = 4096                # the torchrun server's 4 requests
+
+
+def _s14_inputs(np, cfg):
+    """The 64 requests: full-receptive-field primes, temperatures cycling
+    through S14_TEMPS, distinct seeds."""
+    rng = np.random.default_rng(SEED + 46)
+    primes = rng.integers(0, cfg.classes, (S14_REQS, cfg.receptive_field),
+                          dtype=np.int32)
+    temps = np.asarray([S14_TEMPS[i % 3] for i in range(S14_REQS)],
+                       np.float32)
+    return primes, temps, np.arange(S14_REQS, dtype=np.int32) + 4600
+
+
+def _s14_voc_inputs(np, cfg):
+    """The vocoder case's frames (one timeline a request), temperatures
+    and seeds."""
+    rng = np.random.default_rng(SEED + 47)
+    frames = (0.5 * rng.standard_normal(
+        (S14_VOC_REQS, S14_VOC_N // 256 + 1, cfg.cond_channels))
+    ).astype(np.float32)
+    temps = np.asarray([S14_TEMPS[i % 3] for i in range(S14_VOC_REQS)],
+                       np.float32)
+    return frames, temps, np.arange(S14_VOC_REQS, dtype=np.int32) + 4700
+
+
+def _s14_params_b(torch, pt, cfg, dev):
+    """The weights phase 46's update_params installs."""
+    return pt.init_wavenet(cfg, torch.Generator().manual_seed(SEED + 1), dev)
+
+
+def _s14_drive(np, b, primes, temps, seeds):
+    """Phase 46's load on a pool: the first half of the requests at once,
+    the second half once the pool's first chunk has been handed out (so
+    they join mid-flight). Returns (classes, times to first audio, wall
+    seconds)."""
+    first = [None] * len(primes)
+    handles = []
+
+    def submit(i):
+        t = time.perf_counter()
+
+        def on_chunk(_c, i=i, t=t):
+            if first[i] is None:
+                first[i] = time.perf_counter() - t
+
+        handles.append(b.submit(primes[i], S14_N, temperature=float(temps[i]),
+                                seed=int(seeds[i]), on_chunk=on_chunk))
+
+    t0 = time.perf_counter()
+    half = len(primes) // 2
+    for i in range(half):
+        submit(i)
+    while (sum(p.size for p in handles[0]._parts) < 1 + S14_CHUNK
+           and not handles[0].done()):
+        time.sleep(0.005)
+    for i in range(half, len(primes)):
+        submit(i)
+    cls = [h.result(timeout=900)[1] for h in handles]
+    return cls, first, time.perf_counter() - t0
+
+
+def _s14_barred(ghbm):
+    """Bar K4's plain version in this process (the card path launches the
+    kernel); returns the list its calls land in."""
+    calls = []
+
+    def barred(*a, **k):
+        calls.append(1)
+        raise RuntimeError("the plain version ran on the card path")
+
+    ghbm.batched_plain = barred
+    return calls
+
+
+def _s14_pool(torch, np, pt, dev, rank):
+    """Phase 46 on one rank: the pool on a 2-rank mesh at chaconne (rank 0
+    schedules, rank 1 follows), then the vocoder's frames-mode pool; each
+    rank's K4 launches counted from zero around each pool."""
+    from pytorch_wavenet_tpu_torch.ops.cuda import gen_kernel_hbm as ghbm
+    from pytorch_wavenet_tpu_torch.parallel.mesh import make_mesh
+    from pytorch_wavenet_tpu_torch.serving import (ContinuousBatcher,
+                                                   follow_pool)
+
+    mesh = make_mesh(2, 1)
+    cfg = pt.get_config("chaconne")
+    params = _s13_init(torch, pt, cfg, dev)
+    vcfg, vparams = _vocoder(torch, pt, dev)
+    opts = dict(lanes=S14_LANES, chunk=S14_CHUNK, fuse_res=True,
+                skip_slab=True, device=dev, mesh=mesh)
+    vopts = dict(opts, lanes=S14_VOC_LANES, cond_hop=256)
+    plain = _s14_barred(ghbm)
+    out = {}
+    t = time.time()
+    if rank > 0:
+        for name, c, p, o in (("chaconne", cfg, params, opts),
+                              ("vocoder", vcfg, vparams, vopts)):
+            ghbm.launches = 0
+            counts = follow_pool(p, c, **o)
+            torch.cuda.synchronize()
+            out[name] = dict(counts, launches=ghbm.launches)
+        out.update(plain_calls=len(plain), seconds=time.time() - t)
+        return out
+    primes, temps, seeds = _s14_inputs(np, cfg)
+    ghbm.launches = 0
+    b = ContinuousBatcher(params, cfg, **opts)
+    try:
+        b.prewarm()
+        cls, first, wall = _s14_drive(np, b, primes, temps, seeds)
+        stats = b.stats()
+        # update_params while a request streams; the burst after the event
+        # covers the lanes of both ranks (the JAX lane choice fills rank
+        # 1's block first)
+        x = b.submit([cfg.classes // 2], 3 * S14_CHUNK, temperature=0.0,
+                     seed=1)
+        while sum(p.size for p in x._parts) < 1 + S14_CHUNK and not x.done():
+            time.sleep(0.005)
+        installed = b.update_params(_s14_params_b(torch, pt, cfg,
+                                                  dev)).wait(300)
+        hs = [b.submit([cfg.classes // 2], S14_BURST_N,
+                       temperature=S14_TEMPS[i % 3], seed=9000 + i)
+              for i in range(S14_BURST)]
+        burst = [h.result(timeout=900)[1] for h in hs]
+        x.result(timeout=900)
+        after = b.stats()
+    finally:
+        b.close()
+    torch.cuda.synchronize()
+    out["chaconne"] = dict(cls=np.stack(cls), first=first, wall=wall,
+                           stats=stats, after=after, installed=installed,
+                           burst=np.stack(burst), launches=ghbm.launches)
+    frames, vtemps, vseeds = _s14_voc_inputs(np, vcfg)
+    ghbm.launches = 0
+    vb = ContinuousBatcher(vparams, vcfg, **vopts)
+    try:
+        vb.prewarm()
+        t0 = time.perf_counter()
+        hs = [vb.submit([vcfg.classes // 2], S14_VOC_N,
+                        temperature=float(vtemps[i]), seed=int(vseeds[i]),
+                        cond_frames=frames[i]) for i in range(S14_VOC_REQS)]
+        vcls = [h.result(timeout=900)[1] for h in hs]
+        vwall = time.perf_counter() - t0
+        vstats = vb.stats()
+    finally:
+        vb.close()
+    torch.cuda.synchronize()
+    out["vocoder"] = dict(cls=np.stack(vcls), wall=vwall, stats=vstats,
+                          launches=ghbm.launches)
+    out.update(plain_calls=len(plain), seconds=time.time() - t)
+    return out
+
+
+def _s14_served(first, wall, n_req, n):
+    ttfa = sorted(first)
+    return dict(samples_per_s=n_req * n / wall, wall_s=wall,
+                ttfa_median_ms=1e3 * ttfa[n_req // 2],
+                ttfa_max_ms=1e3 * ttfa[-1])
+
+
+def phase_pool_mesh(torch, np, pt, ghbm, dev, card, out_dir, one_rank):
+    """Phase 46a: the 2 ranks' pools against one K4 call of the same
+    requests (bitwise), the same load on a one-rank pool in this process
+    (bitwise, timed), the update and the vocoder's frames mode (bitwise),
+    each rank's K4 launches against its pool steps and prime calls, and
+    the cross-rank bytes. ``one_rank``: phases 8 and 24's served figures
+    (None when they did not run)."""
+    from pytorch_wavenet_tpu_torch.ops.mel import (expand_frames_window,
+                                                   frames_window_len)
+    from pytorch_wavenet_tpu_torch.serving import ContinuousBatcher
+
+    ranks = [_s13_load(torch, out_dir, "pool46", r) for r in range(2)]
+    r0, r1 = ranks
+    check(r0["plain_calls"] == r1["plain_calls"] == 0,
+          "the plain version ran on a rank's pool")
+    cfg = pt.get_config("chaconne")
+    params = _s13_init(torch, pt, cfg, dev)
+    primes, temps, seeds = _s14_inputs(np, cfg)
+    c = r0["chaconne"]
+    # the reference: one K4 call with the 64 requests as its lanes
+    _, ref = pt.generate_fast_batched(
+        params, cfg, 0, S14_N, primes, temperature=temps, lane_seed=seeds,
+        fuse_res=True, skip_slab=True, device=dev)
+    ref = ref.cpu().numpy()
+    diff = [i for i in range(S14_REQS) if not np.array_equal(c["cls"][i],
+                                                             ref[i])]
+    check(not diff, f"mesh pool requests {diff} differ from one K4 call")
+    # the same load on one rank, in this process
+    b = ContinuousBatcher(params, cfg, lanes=S14_LANES, chunk=S14_CHUNK,
+                          fuse_res=True, skip_slab=True, device=dev)
+    try:
+        b.prewarm()
+        cls1, first1, wall1 = _s14_drive(np, b, primes, temps, seeds)
+    finally:
+        b.close()
+    diff = [i for i in range(S14_REQS) if not np.array_equal(cls1[i],
+                                                             ref[i])]
+    check(not diff, f"one-rank pool requests {diff} differ from one K4 call")
+    mesh_served = _s14_served(c["first"], c["wall"], S14_REQS, S14_N)
+    one_served = _s14_served(first1, wall1, S14_REQS, S14_N)
+    # update_params: the burst after the event, on the new weights
+    check(c["installed"], "update_params: the event was not set")
+    _, bref = pt.generate_fast_batched(
+        _s14_params_b(torch, pt, cfg, dev), cfg, 0, S14_BURST_N,
+        [[cfg.classes // 2]] * S14_BURST,
+        temperature=np.asarray([S14_TEMPS[i % 3] for i in range(S14_BURST)],
+                               np.float32),
+        lane_seed=[9000 + i for i in range(S14_BURST)], fuse_res=True,
+        skip_slab=True, device=dev)
+    check(np.array_equal(c["burst"], bref.cpu().numpy()),
+          "requests after update_params differ from K4 on the new weights")
+    # the vocoder, frames mode: rows expanded over each whole timeline
+    vcfg, vparams = _vocoder(torch, pt, dev)
+    frames, vtemps, vseeds = _s14_voc_inputs(np, vcfg)
+    need = frames_window_len(S14_VOC_N, 256)
+    idx = np.minimum(np.arange(max(frames.shape[1], need)),
+                     frames.shape[1] - 1)
+    rows = expand_frames_window(
+        None, torch.from_numpy(frames[:, idx]).to(dev), 256,
+        torch.zeros(S14_VOC_REQS, dtype=torch.long, device=dev), S14_VOC_N)
+    _, vref = pt.generate_fast_batched(
+        vparams, vcfg, 0, S14_VOC_N, [[vcfg.classes // 2]] * S14_VOC_REQS,
+        temperature=vtemps, lane_seed=vseeds, cond=rows, fuse_res=True,
+        skip_slab=True, device=dev)
+    v = r0["vocoder"]
+    check(np.array_equal(v["cls"], vref.cpu().numpy()),
+          "vocoder frames-mode requests on the mesh differ from one K4 call")
+    # each rank's K4 launches: a prewarm step (two with cond), one a pool
+    # step, one a prime call of its own
+    launches = {}
+    for name, st, warm in (("chaconne", c["after"], 1),
+                           ("vocoder", v["stats"], 2)):
+        f = r1[name]
+        got = [r0[name]["launches"], f["launches"]]
+        want = [warm + st["pool_steps"] + st["prime_calls"],
+                warm + f["pool_steps"] + f["prime_calls"]]
+        check(got == want and f["pool_steps"] == st["pool_steps"]
+              and min(got) > 0, f"{name}: K4 launches per rank {got}, "
+              f"expected {want} (pool steps {st['pool_steps']}, "
+              f"{f['pool_steps']})")
+        launches[name] = got
+    st = c["stats"]
+    per_step = st["mesh_step_bytes"] / st["pool_steps"]
+    per_admit = st["mesh_admit_bytes"] / st["admitted"]
+    log(f"[mesh pool] chaconne, {S14_LANES} lanes over 2 ranks sharing the "
+        f"card through gloo, chunk {S14_CHUNK}, fuse_res + skip_slab: "
+        f"{S14_REQS} requests of {S14_N} (full-rf primes, T 0/0.9/1.0 "
+        f"seeded, half admitted mid-flight) bitwise equal to one K4 call of "
+        f"the {S14_REQS} as lanes, and to the one-rank pool's; "
+        f"{S14_BURST} requests after update_params (lanes of both ranks) "
+        f"bitwise K4 on the new weights; the vocoder's frames mode, "
+        f"{S14_VOC_REQS} requests of {S14_VOC_N} over {S14_VOC_LANES} "
+        f"lanes, bitwise [{card}]")
+    log(f"[mesh pool] K4 launches per rank: chaconne {launches['chaconne']}, "
+        f"vocoder {launches['vocoder']} (a prewarm step, the pool steps, "
+        f"the rank's prime calls); plain calls 0")
+    log(f"[mesh pool] cross-rank bytes: {per_step:.0f} a pool step (header, "
+        f"lane rows when changed, rank 1's {S14_LANES // 2} x chunk classes "
+        f"as uint8), {per_admit:.0f} an admission (prime classes), weights "
+        f"{c['after']['mesh_params_bytes']} B at install and update; "
+        f"rank 0 waited {st['t_gather']:.3f} s for rank 1 over "
+        f"{st['pool_steps']} steps")
+    for tag, s in (("2 ranks", mesh_served), ("1 rank, same load",
+                                              one_served)):
+        log(f"[mesh pool] {tag}: {s['samples_per_s']:.0f} samples/s served, "
+            f"time to first audio median {s['ttfa_median_ms']:.0f} ms, max "
+            f"{s['ttfa_max_ms']:.0f} ms, {s['wall_s']:.2f} s [{card}]")
+    for tag, s in (one_rank or {}).items():
+        log(f"[mesh pool] beside it, {tag} (one rank through HTTP, 64 "
+            f"unprimed requests at once): {s['samples_per_s']:.0f} samples/s, "
+            f"time to first audio median {s['ttfa_median_ms']:.0f} ms, max "
+            f"{s['ttfa_max_ms']:.0f} ms")
+    return dict(launches=launches, bytes_per_step=per_step,
+                bytes_per_admission=per_admit,
+                params_bytes=c["after"]["mesh_params_bytes"],
+                gather_wait_s=st["t_gather"], pool_steps=st["pool_steps"],
+                mesh=mesh_served, one_rank=one_served,
+                rank_seconds=[r["seconds"] for r in ranks])
+
+
+def _s14_reader(proc, lines, found):
+    """Collect a torchrun child's output lines; set ``found`` once rank
+    0's pid and URL are known."""
+    for line in proc.stdout:
+        lines.append(line)
+        if "(pid " in line:
+            found["pid"] = int(line.split("(pid ")[1].split(")")[0])
+        if "serving " in line and "http://" in line:
+            found["url"] = "http://" + line.split("http://")[1].split()[0]
+        if "pid" in found and "url" in found:
+            found["ready"].set()
+
+
+def _s14_fetch(base, bodies):
+    out = [None] * len(bodies)
+
+    def fetch(i):
+        req = urllib.request.Request(
+            base + "/synthesize", data=json.dumps(bodies[i]).encode(),
+            headers={"Content-Type": "application/json"}, method="POST")
+        with urllib.request.urlopen(req, timeout=900) as r:
+            out[i] = r.read()
+
+    threads = [threading.Thread(target=fetch, args=(i,))
+               for i in range(len(bodies))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(900)
+    check(all(o is not None for o in out), "a request did not finish")
+    return out
+
+
+def phase_serve_mesh(torch, np, pt, dev, card):
+    """Phase 46b: ``serving.server --batcher --mesh-data 2`` under
+    ``torch.distributed.run`` at chaconne: 4 seeded /synthesize requests
+    byte-equal to the one-process server's, then SIGINT to rank 0 and a
+    clean exit of both ranks with their K4 launches."""
+    import signal
+
+    from pytorch_wavenet_tpu_torch.serving import server as srv
+
+    cfg = pt.get_config("chaconne")
+    params = _s13_init(torch, pt, cfg, dev)
+    prime = np.random.default_rng(SEED + 48).integers(0, cfg.classes, 512)
+    bodies = [{"num_samples": S14_SERVE_N, "temperature": t, "seed": 700 + i}
+              for i, t in enumerate((0.0, 0.9, 1.0, 0.9))]
+    bodies[1]["prime"] = bodies[3]["prime"] = prime.tolist()
+    pool = ["--batcher", "--lanes", str(S14_LANES), "--batch-chunk",
+            str(S14_CHUNK)]
+    here = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as d:
+        path = pt.save_checkpoint(d, "chaconne", 0, params, cfg=cfg)
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc-per-node", "2", "-m",
+               "pytorch_wavenet_tpu_torch.serving.server", "--snapshot", path,
+               "--port", "0", "--mesh-data", "2"] + pool
+        env = dict(os.environ, PYTHONPATH=here + os.pathsep
+                   + os.environ.get("PYTHONPATH", ""))
+        t = time.time()
+        proc = subprocess.Popen(cmd, cwd=here, env=env, text=True,
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT)
+        lines, found = [], {"ready": threading.Event()}
+        reader = threading.Thread(target=_s14_reader,
+                                  args=(proc, lines, found), daemon=True)
+        reader.start()
+        try:
+            base, stop = _server(srv, ["--snapshot", path] + pool,
+                                 "serve one rank")
+            try:
+                want = _s14_fetch(base, bodies)
+            finally:
+                stop()
+            while not found["ready"].wait(1):
+                check(proc.poll() is None and time.time() - t < S13_TIMEOUT,
+                      "the 2-rank server did not come up")
+            up = time.time() - t
+            t1 = time.time()
+            got = _s14_fetch(found["url"], bodies)
+            wall = time.time() - t1
+            stats = _json_get(found["url"], "/stats")
+        finally:
+            if "pid" in found:
+                os.kill(found["pid"], signal.SIGINT)
+            try:
+                proc.wait(timeout=120)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+            reader.join(10)
+    for line in lines:
+        log(f"[serve mesh] {line.rstrip()}")
+    check(proc.returncode == 0, f"the 2-rank server exited {proc.returncode}")
+    for i, (a, b) in enumerate(zip(got, want)):
+        _read_wav(a, S14_SERVE_N)
+        check(a == b, f"2-rank server response {i} differs from the "
+              f"one-process server's")
+    text = "".join(lines)
+    m = [ln for ln in lines if "kernel launches per rank: K4" in ln]
+    check(len(m) == 1, "no launches line from the 2-rank server")
+    k4 = json.loads(m[0].split("K4 ")[1])
+    m = [ln.split("pool steps per rank: ")[1] for ln in lines
+         if "pool steps per rank: " in ln]
+    check(len(m) == 1, "no pool steps line from the 2-rank server")
+    steps, primes = (json.loads(x) for x in
+                     m[0].strip().split("; prime calls per rank: "))
+    # each rank: the prewarm's step, one a pool step, one a prime call of
+    # its own (the 4 requests take the last lanes, rank 1's)
+    want = [1 + s + p for s, p in zip(steps, primes)]
+    check(k4 == want and steps[0] == steps[1] > 0 and sum(primes) > 0,
+          f"K4 launches per rank {k4}, expected {want} (pool steps "
+          f"{steps}, prime calls {primes})")
+    check(stats["mesh_ranks"] == 2 and stats["failed"] == 0,
+          f"/stats: {stats}")
+    log(f"[serve mesh] chaconne under torchrun, --mesh-data 2, {S14_LANES} "
+        f"lanes: up in {up:.1f} s, 4 seeded requests of {S14_SERVE_N} in "
+        f"{wall:.2f} s byte-equal to the one-process server's; K4 launches "
+        f"per rank {k4} (pool steps {steps}, prime calls {primes}, a "
+        f"prewarm step); both ranks exited 0 [{card}]")
+    check("Traceback" not in text, "a rank printed a traceback")
+    return dict(k4=k4, up_s=up, wall_s=wall)
+
+
+def slice14(torch, np, pt, ghbm, dev, card, t_start, out_dir, one_rank):
+    """Phase 46 after its ranks ran (in phase 44's spawn wave): the pool on
+    a 2-rank mesh and the server under torchrun. Returns their figures."""
+    t = time.time()
+    pool = phase_pool_mesh(torch, np, pt, ghbm, dev, card, out_dir, one_rank)
+    checks = time.time() - t
+    t = time.time()
+    served = phase_serve_mesh(torch, np, pt, dev, card)
+    serve_s = time.time() - t
+    secs = {"ranks": max(pool["rank_seconds"]), "checks": checks,
+            "server": serve_s}
+    log(f"phase 46 took {sum(secs.values()):.1f} s (ranks "
+        f"{secs['ranks']:.1f}, checks and the one-rank pool {checks:.1f}, "
+        f"torchrun server {serve_s:.1f}), done at "
+        f"{time.time() - t_start:.0f} s")
+    return dict(pool=pool, server=served, seconds=secs)
+
+
+def slice14_entries(kernels, s14):
+    """Phase 46 on K4's entry: each rank's launches in the mesh pool, the
+    vocoder's and the torchrun server's, and the pool's figures."""
+    p = s14["pool"]
+    kernels[1]["slice14_launches_per_rank"] = {
+        "mesh pool chaconne 2 ranks": p["launches"]["chaconne"],
+        "mesh pool vocoder frames 2 ranks": p["launches"]["vocoder"],
+        "serve --mesh-data 2": s14["server"]["k4"]}
+    kernels[1]["slice14"] = {
+        "served_samples_per_s_2_ranks": p["mesh"]["samples_per_s"],
+        "served_samples_per_s_1_rank": p["one_rank"]["samples_per_s"],
+        "ttfa_ms_2_ranks": [p["mesh"]["ttfa_median_ms"],
+                            p["mesh"]["ttfa_max_ms"]],
+        "ttfa_ms_1_rank": [p["one_rank"]["ttfa_median_ms"],
+                           p["one_rank"]["ttfa_max_ms"]],
+        "cross_rank_bytes_per_step": p["bytes_per_step"],
+        "cross_rank_bytes_per_admission": p["bytes_per_admission"],
+        "gather_wait_s": p["gather_wait_s"],
+        "phase_seconds": s14["seconds"]}
 
 
 def main():
@@ -5359,7 +5827,16 @@ def main():
         return 1
     if sys.argv[1:] == ["--slice13-only"]:
         # a short call for work on phases 42-45 alone: no kernels line
-        slice13(torch, np, pt, tk, dev, card, t_start)
+        with tempfile.TemporaryDirectory() as d:
+            slice13(torch, np, pt, tk, dev, card, t_start, d)
+        return 1
+    if sys.argv[1:] == ["--slice14-only"]:
+        # a short call for work on phase 46 alone: no kernels line
+        with tempfile.TemporaryDirectory() as d:
+            t = time.time()
+            _s13_spawn([(2, ["pool46"])], d)
+            log(f"phase 46's 2 ranks took {time.time() - t:.1f} s")
+            slice14(torch, np, pt, ghbm, dev, card, t_start, d, None)
         return 1
     if sys.argv[1:] == ["--distill-only"]:
         # a short call for work on phases 27-29 alone (phase 25 first for
@@ -5445,7 +5922,11 @@ def main():
                              rem["snapshot"])
         s11 = slice11(torch, np, pt, gk, ghbm, dev, t_start, rem["snapshot"])
     s12 = slice12(torch, np, pt, gk, ghbm, tk, dev, card, t_start)
-    s13 = slice13(torch, np, pt, tk, dev, card, t_start)
+    with tempfile.TemporaryDirectory() as d:
+        s13 = slice13(torch, np, pt, tk, dev, card, t_start, d, ["pool46"])
+        s14 = slice14(torch, np, pt, ghbm, dev, card, t_start, d, {
+            "phase 8 (f32 rings)": served,
+            "phase 24 (bf16 rings)": r_served})
 
     kernels = [{
         "name": "gen_fused (K1, fuse_res)",
@@ -5721,6 +6202,7 @@ def main():
                       slice11_phase_seconds=s11["seconds"])
     slice12_entries(kernels, s12)
     slice13_entries(kernels, s13)
+    slice14_entries(kernels, s14)
     log(f"the run took {time.time() - t_start:.0f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

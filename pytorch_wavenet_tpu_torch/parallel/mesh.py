@@ -32,6 +32,7 @@ from __future__ import annotations
 
 import contextlib
 import os
+from datetime import timedelta
 from typing import NamedTuple
 
 import torch
@@ -57,7 +58,8 @@ class TrivialMesh:
 def init_distributed(device: str | torch.device = "cuda",
                      init_method: str | None = None, rank: int | None = None,
                      world_size: int | None = None,
-                     local_rank: int | None = None, verbose: bool = True):
+                     local_rank: int | None = None, verbose: bool = True,
+                     timeout: float | None = None):
     """Form the default process group (once per process) and return this
     rank's device: ``cuda:{local_rank % device_count}``, or the CPU for
     ``device="cpu"``. A CUDA device without a card raises.
@@ -67,7 +69,9 @@ def init_distributed(device: str | torch.device = "cuda",
     ``env://`` (torchrun's ``MASTER_ADDR``/``MASTER_PORT``); tests pass a
     ``file://`` store. The backend is ``nccl`` when the host's ranks
     (``LOCAL_WORLD_SIZE``, else the world size) each have a card, else
-    ``gloo``; rank 0 prints it. Any failure to form the group raises."""
+    ``gloo``; rank 0 prints it. ``timeout``: the group's timeout in
+    seconds (torch's default when None). Any failure to form the group
+    raises."""
     env = os.environ
     rank = int(env.get("RANK", 0)) if rank is None else int(rank)
     world_size = (int(env.get("WORLD_SIZE", 1)) if world_size is None
@@ -88,8 +92,10 @@ def init_distributed(device: str | torch.device = "cuda",
     own_cards = (dev.type == "cuda"
                  and local_world <= torch.cuda.device_count())
     backend = "nccl" if own_cards else "gloo"
-    dist.init_process_group(backend, init_method=init_method or "env://",
-                            rank=rank, world_size=world_size)
+    dist.init_process_group(
+        backend, init_method=init_method or "env://", rank=rank,
+        world_size=world_size,
+        timeout=None if timeout is None else timedelta(seconds=timeout))
     if verbose and rank == 0:
         why = ("every rank has a card of its own" if own_cards else
                "ranks on the CPU" if dev.type == "cpu" else

@@ -23,9 +23,14 @@ batch-1 script, wavenet_model.py:237), so there is no baseline column.
 
 The load is closed-loop, as in the JAX package. ``--device cpu`` runs the
 kernel's plain version (the JAX script's ``--interpret``); the TPU-only
-``--stage-layers`` and ``--head-tiles`` are not ported, and
-``--mesh-data`` not yet (it waits for the batcher's ``mesh``; the pool
-step it would drive is ``parallel.training.sharded_pool_step``).
+``--stage-layers`` and ``--head-tiles`` are not ported.
+
+``--mesh-data N`` (under ``torch.distributed.run`` with N ranks) splits
+the pool's ``--lanes`` into N blocks, one a rank: rank 0 schedules the
+pool (``ContinuousBatcher(mesh=)``), runs the load and prints the line,
+with the cross-rank bytes of ``stats()`` (``mesh_*``) and rank 0's wait
+for its followers (``t_gather``); every other rank runs its block
+(``serving.batcher.follow_pool``) until rank 0 closes the pool.
 
   # capacity: saturate a 256-lane pool
   python -m pytorch_wavenet_tpu_torch.scripts.serving_bench --config chaconne \\
@@ -37,6 +42,10 @@ step it would drive is ``parallel.training.sharded_pool_step``).
   python -m pytorch_wavenet_tpu_torch.scripts.serving_bench --config tiny \\
       --lanes 3 --chunk 32 --concurrency 2 --requests 4 --num-samples 64 \\
       --device cpu
+  # the pool on 2 ranks (add --device cpu without a card)
+  python -m torch.distributed.run --standalone --nproc-per-node 2 \\
+      -m pytorch_wavenet_tpu_torch.scripts.serving_bench --config chaconne \\
+      --lanes 256 --concurrency 256 --requests 512 --mesh-data 2 --json
 """
 
 from __future__ import annotations
@@ -99,6 +108,10 @@ def parse_args(argv=None):
                         "time in it and the device-bound aggregate")
     p.add_argument("--device", default="cuda",
                    help="cuda (K4) or cpu (its plain version)")
+    p.add_argument("--mesh-data", type=int, default=0,
+                   help="shard the lane pool over this many ranks, under "
+                        "torch.distributed.run with as many (--lanes is "
+                        "the pool total)")
     return p.parse_args(argv)
 
 
@@ -167,14 +180,24 @@ def k4_busy_ms(trace_path: str) -> tuple[float, int, float]:
 
 
 def main(argv=None) -> dict:
-    """Run the load; returns the summary (the ``--json`` line)."""
+    """Run the load; returns the summary (the ``--json`` line), or on a
+    follower rank of ``--mesh-data`` its counters."""
     args = parse_args(argv)
     from .. import get_config, init_wavenet
     from ..device import card_description, resolve_device
-    from ..serving import ContinuousBatcher
+    from ..serving import ContinuousBatcher, follow_pool
+    from ..serving.batcher import MESH_TIMEOUT
     from ..utils.checkpoints import load_checkpoint
 
-    dev = resolve_device(args.device)
+    mesh, rank = None, 0
+    if args.mesh_data > 1:
+        from ..parallel.mesh import init_distributed, make_mesh
+
+        dev = init_distributed(args.device, timeout=MESH_TIMEOUT)
+        mesh = make_mesh(args.mesh_data, 1)
+        rank = torch.distributed.get_rank()
+    else:
+        dev = resolve_device(args.device)
     if args.snapshot:
         ck = load_checkpoint(args.snapshot, dev)
         params, cfg = ck["params"], ck["config"]
@@ -185,11 +208,8 @@ def main(argv=None) -> dict:
     if args.cond and cfg.cond_channels == 0:
         raise SystemExit("--cond needs a conditioned config "
                          "(cfg.cond_channels > 0), e.g. --config vocoder")
-    print(f"device {dev.type} ("
-          f"{card_description() if dev.type == 'cuda' else 'cpu'})",
-          flush=True)
-    batcher = ContinuousBatcher(
-        params, cfg, lanes=args.lanes, chunk=args.chunk, seed=args.seed,
+    opts = dict(
+        lanes=args.lanes, chunk=args.chunk, seed=args.seed,
         ring_dtype=torch.bfloat16 if args.ring_dtype == "bf16"
         else torch.float32,
         fuse_res=not args.exact_chain, skip_slab=args.skip_slab,
@@ -199,10 +219,23 @@ def main(argv=None) -> dict:
         else torch.float32,
         device=dev,
     )
+    if mesh is not None:
+        opts["mesh"] = mesh
     try:
-        return _drive(args, cfg, batcher)
+        if rank > 0:  # this rank's lane block until rank 0 closes the pool
+            return follow_pool(params, cfg, **opts)
+        print(f"device {dev.type} ("
+              f"{card_description() if dev.type == 'cuda' else 'cpu'})"
+              + (f", the pool on {args.mesh_data} ranks" if mesh else ""),
+              flush=True)
+        batcher = ContinuousBatcher(params, cfg, **opts)
+        try:
+            return _drive(args, cfg, batcher)
+        finally:
+            batcher.close()
     finally:
-        batcher.close()
+        if mesh is not None:
+            torch.distributed.destroy_process_group()
 
 
 def _drive(args, cfg, batcher) -> dict:
@@ -314,6 +347,14 @@ def _drive(args, cfg, batcher) -> dict:
         **{k: v for k, v in stats.items()
            if k in ("pool_steps", "prime_calls") or k.startswith("t_")},
     }
+    if "mesh_ranks" in stats:  # the traffic between the ranks
+        summary["mesh_ranks"] = stats["mesh_ranks"]
+        for k in ("mesh_bytes_out", "mesh_bytes_in", "mesh_step_bytes",
+                  "mesh_admit_bytes"):
+            summary[k] = stats[k] - stats0[k]
+        steps = stats["pool_steps"] - stats0["pool_steps"]
+        summary["mesh_step_bytes_per_step"] = round(
+            summary["mesh_step_bytes"] / max(steps, 1))
     print(
         f"{len(latency)}/{args.requests} x {args.num_samples} samples, "
         f"{args.concurrency} in flight over {args.lanes} lanes "

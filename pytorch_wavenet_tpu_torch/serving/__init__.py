@@ -3,6 +3,7 @@ from .batcher import (
     GenerationHandle,
     PoolOverloaded,
     RequestCancelled,
+    follow_pool,
 )
 
 __all__ = [
@@ -10,4 +11,5 @@ __all__ = [
     "GenerationHandle",
     "PoolOverloaded",
     "RequestCancelled",
+    "follow_pool",
 ]

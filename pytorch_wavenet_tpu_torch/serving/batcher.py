@@ -47,11 +47,28 @@ splice keep that dtype, so a pooled request equals its solo rollout at the
 same ring dtype. int8 rings, which need calibrated scales, are not taken
 (nor does the JAX package's batcher pass scales).
 
-Not ported yet: ``mesh``. Its pool step is
-``parallel.training.sharded_pool_step`` (each rank's lane block through
-K4, bitwise the unsharded step); the pool on a mesh still needs rank 0's
-scheduler to send each step's lane rows to a follower loop on the other
-ranks. The TPU's width bucketing, its multiple-of-128 lane checks and the
+**The pool on a mesh** (``mesh=``, a data-axis mesh from
+``parallel.mesh.make_mesh``): the lanes split into one block per rank,
+global lane g on rank ``g // (lanes / data)``. Rank 0 builds the
+:class:`ContinuousBatcher` and is the scheduler: it owns the request
+queue, the pool clock and delivery. Every other rank runs
+:func:`follow_pool` (``serving/_mesh_pool.py``), a loop over rank 0's
+messages. Each rank holds its own block's ring and K4's operands and runs
+the same step, prime, splice and frame-expansion code (the
+:class:`_LaneWork` base of both sides); each pool step is one K4 launch a
+rank on its block. Only what a step needs crosses ranks: a fixed header
+(the chunk width, the clock) and the block's lane rows when they changed;
+an admission's prime classes, temperature and seed go to the lane's owner,
+which primes and splices on its own device (ring columns never cross);
+conditioning goes to the owner only (rows, or frame slabs at the wire
+dtype); each follower sends its block's classes, in the wire dtype, to
+rank 0 alone. Rank 0 waits for them where it waits for its own copy, so
+one chunk stays in flight. Weights cross at install: rank 0 sends its
+params at first use and at every ``update_params``, whose event is set
+once every rank has installed them. A follower's failure fails the riders
+and every rank re-bootstraps; a follower that dies stops the pool with
+the error within ``MESH_TIMEOUT`` seconds. Responses are bitwise those of one
+rank. The TPU's width bucketing, its multiple-of-128 lane checks and the
 compiles ``prewarm`` existed for have no counterpart: a prime runs a group
 at its own size.
 """
@@ -80,6 +97,15 @@ from ..ops.cuda.gen_kernel_hbm import (
 )
 from ..ops.mel import expand_frames_window, frames_window_len
 from ..ops.mulaw import dequantize_to_f32
+from ..parallel.mesh import DATA_AXIS, MODEL_AXIS, axis_size
+from ..parallel.sharding import batch_sharding
+
+
+# seconds rank 0 waits for a follower's reply (and a follower for rank 0's
+# next message) before the pool on a mesh stops with an error, read when
+# either side is built; the server and serving_bench make it their process
+# group's timeout too
+MESH_TIMEOUT = 300.0
 
 
 class RequestCancelled(RuntimeError):
@@ -173,40 +199,36 @@ def _leaves(tree, prefix=""):
         yield prefix, tree
 
 
-class ContinuousBatcher:
-    """A persistent lane pool over the batched generation kernel.
+def _data_blocks(mesh, lanes: int) -> tuple[int, int]:
+    """``(ranks on the data axis, lanes a rank)`` of a pool of ``lanes``
+    over ``mesh`` (``(1, lanes)`` without one); refuses what does not
+    split into equal blocks over data alone."""
+    n = axis_size(mesh, DATA_AXIS)
+    if axis_size(mesh, MODEL_AXIS) != 1:
+        raise ValueError("the lane pool splits over the mesh data axis "
+                         "only; its model axis must have size 1")
+    if lanes % n:
+        raise ValueError(f"lanes={lanes} not divisible by the mesh data axis "
+                         f"({n} ranks)")
+    rows = batch_sharding(mesh, lanes)
+    return n, rows.stop - rows.start
 
-    ``lanes`` is the pool's stream width (any count >= 1). ``chunk`` is the
-    splice granularity: requests join and leave every ``chunk`` samples,
-    which is also a streaming consumer's time to first audio.
-    ``light_chunk`` (< ``chunk``) is dispatched instead while at most
-    ``light_threshold * lanes`` requests are active or waiting; outputs do
-    not depend on the chunk widths.
 
-    ``submit`` only enqueues; all device work happens on one background
-    thread. ``close()`` abandons outstanding handles with a RuntimeError;
-    ``close(drain=True)`` finishes accepted work first.
+class _LaneWork:
+    """The device side of a lane pool, on one rank's block of
+    ``self._width`` lanes: the kernel's operands, the block's state and
+    clock mirror, and the prime, splice, frame expansion and pool step.
+    :class:`ContinuousBatcher` (rank 0, or the whole pool on one rank) and
+    the mesh's followers run this one copy."""
 
-    On ``device="cpu"`` the pool runs the kernel's plain version; on a CUDA
-    device it launches the kernel, and a failed build or launch fails the
-    riders (the pool restarts) rather than falling back."""
+    _stream = None
 
-    def __init__(self, params: Params, cfg: WaveNetConfig, *, lanes: int = 128,
-                 chunk: int = 128, seed: int = 0, fuse_res: bool = False,
-                 skip_slab: bool = False, regularize: float = 0.0,
-                 max_pending: int | None = None,
-                 light_chunk: int | None = None,
-                 light_threshold: float = 0.25,
-                 cond_hop: int | None = None,
-                 cond_wire_dtype: torch.dtype = torch.float32,
-                 ring_dtype: torch.dtype = torch.float32,
-                 device: str | torch.device = "cuda"):
-        """``cond_hop``: the pool takes mel frames at this hop
-        (``submit(cond_frames=)``); with the model's learnable upsampler
-        its factors must multiply to it. ``cond_wire_dtype``: f32, or
-        bf16, which halves the frames' upload and makes a response equal
-        the solo rollout of bf16-rounded frames. ``ring_dtype``: the pool
-        ring's dtype, f32 or bf16 (half the ring's bytes)."""
+    def _configure(self, params, cfg: WaveNetConfig, lanes: int, chunk: int,
+                   light_chunk, cond_hop, cond_wire_dtype, ring_dtype,
+                   device, fuse_res: bool, skip_slab: bool,
+                   regularize: float):
+        """Check the pool's options and set the block's fields (its width
+        ``_width`` is the caller's to set)."""
         self.device = resolve_device(device)
         if self.device.type == "cuda" and self.device.index is None:
             self.device = torch.device("cuda", torch.cuda.current_device())
@@ -242,12 +264,352 @@ class ContinuousBatcher:
         self.params = params  # installed on the device by the worker
         self.lanes = lanes
         self.chunk = chunk  # the pool clock is int32: ~2^31 samples a pool
-        self.light_chunk = light_chunk
-        self.light_threshold = float(light_threshold)
-        self.max_pending = max_pending
         self._kw = dict(fuse_res=fuse_res, skip_slab=skip_slab,
                         regularize=float(regularize))
         self._periods = periods(cfg)
+        self._state: HbmGenState | None = None  # created lazily
+        self._w = None  # the kernel's operands for the current params
+        self._rowmap = None  # per-ring-row layer constants for the splice
+        # host mirror of the pool clock (state.t): bootstrap value + chunk
+        # per pool step
+        self._clock = 0
+        # device copies of the block's per-lane step rows; they change only
+        # at admission, completion and cancel
+        self._dev_args = None
+        self._host_args = None
+
+    def _global_t(self) -> int:
+        # host mirror: reading state.t never waits for the device
+        return 0 if self._state is None else self._clock
+
+    def _upload(self, array: np.ndarray) -> torch.Tensor:
+        """A host array on the pool's device. On a card the copy goes
+        through pinned memory without blocking: a copy from pageable memory
+        would wait for the chunk in flight."""
+        t = torch.from_numpy(np.ascontiguousarray(array))
+        if self.device.type == "cpu":
+            return t.clone()
+        return t.pin_memory().to(self.device, non_blocking=True)
+
+    def _download(self, x: torch.Tensor):
+        """Start ``x``'s copy to the host; returns ``(host tensor, event)``
+        (event None on the CPU). Read the host tensor only after
+        :meth:`_wait`."""
+        if self.device.type == "cpu":
+            return x.clone(), None
+        host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+        host.copy_(x, non_blocking=True)
+        ev = torch.cuda.Event()
+        ev.record(self._stream)
+        return host, ev
+
+    @staticmethod
+    def _wait(pending) -> np.ndarray:
+        host, ev = pending
+        if ev is not None:
+            ev.synchronize()
+        return host.numpy()
+
+    def _install_params(self, params):
+        """Move ``params`` to the device and prepare the kernel's operands
+        (once per parameter version)."""
+        self.params = params
+        dev_params = params_to(params, self.device)
+        self._w = prepare_weights(dev_params, self.cfg,
+                                  self._kw["fuse_res"], self._kw["skip_slab"],
+                                  self.ring_dtype)
+        if self._factors:
+            self._cond_up = {"cond_up": dev_params["cond_up"]}
+
+    def _step(self, prime, ring, t0, total, temps, seeds, toffs, cond=None):
+        """One kernel call; ``cond`` ``(lanes, total, M)`` rows or None."""
+        if cond is not None:
+            cond = cond.permute(1, 2, 0).contiguous()  # (total, M, lanes)
+        return run_batched(self._w, self.cfg, prime, ring, t0, total, temps,
+                           seeds, toffs, 0, self._kw["regularize"],
+                           self._kw["fuse_res"], self._kw["skip_slab"], True,
+                           cond=cond)
+
+    def _frame_window(self, frames: np.ndarray, off: int, count: int):
+        """The frame slab and phase that expand a timeline's rows ``[off,
+        off + count)``: frames from ``off // hop`` on, the last one
+        replicated past the timeline's end."""
+        hop = self.cond_hop
+        Fs = frames_window_len(count, hop, self._factors)
+        fs = off // hop
+        idx = np.minimum(fs + np.arange(Fs), frames.shape[0] - 1)
+        return frames[idx], off - fs * hop
+
+    def _wire_frames(self, slabs: list) -> torch.Tensor:
+        """Frame slabs ``(len(slabs), Fs, M)`` at the wire dtype (host)."""
+        wire = torch.from_numpy(np.ascontiguousarray(np.stack(slabs)))
+        return wire.to(self._cond_wire)
+
+    def _expand_wire(self, wire: torch.Tensor, phases, count: int
+                     ) -> torch.Tensor:
+        """Upload frame slabs at the wire dtype and expand them to
+        ``(len(wire), count, M)`` f32 rows on the device."""
+        self._n["bytes_up"] += wire.numel() * wire.element_size()
+        dev = (wire.clone() if self.device.type == "cpu"
+               else wire.pin_memory().to(self.device, non_blocking=True))
+        phase = self._upload(np.asarray(phases, np.int64))
+        return expand_frames_window(self._cond_up, dev.to(torch.float32),
+                                    self.cond_hop, phase, count,
+                                    self._factors)
+
+    def _expand(self, slabs: list, phases: list, count: int) -> torch.Tensor:
+        return self._expand_wire(self._wire_frames(slabs), phases, count)
+
+    def _cond_host(self, count: int, riders):
+        """The host side of one call's conditioning: ``(rows, payload)``
+        for ``riders`` (``(row, _Active)``), advancing them: ``payload`` is
+        ``(their next count rows (k, count, M) f32,)``, or on a frames pool
+        ``(frame slabs at the wire dtype, phases)``."""
+        idx = np.asarray([row for row, _ in riders], np.int64)
+        if self.cond_hop is None:
+            rows = np.zeros((len(riders), count, self.cfg.cond_channels),
+                            np.float32)
+            for i, (_, act) in enumerate(riders):
+                k = min(count, act.cond.shape[0])
+                rows[i, :k] = act.cond[:k]
+                act.cond = act.cond[k:]
+            return idx, (rows,)
+        windows = [self._frame_window(act.cond, act.cond_off, count)
+                   for _, act in riders]
+        for _, act in riders:
+            act.cond_off += count
+        return idx, (self._wire_frames([w for w, _ in windows]),
+                     np.asarray([p for _, p in windows], np.int64))
+
+    def _cond_device(self, lanes: int, count: int, idx, payload
+                     ) -> torch.Tensor:
+        """``(lanes, count, M)`` conditioning rows on the device from
+        :meth:`_cond_host`'s parts: its rows (or the frames expanded) at
+        rows ``idx``, zeros elsewhere."""
+        M = self.cfg.cond_channels
+        if self.cond_hop is None:
+            rows = np.zeros((lanes, count, M), np.float32)
+            rows[idx] = payload[0]
+            self._n["bytes_up"] += rows.nbytes
+            return self._upload(rows)
+        rows = self._expand_wire(payload[0], payload[1], count)
+        full = torch.zeros((lanes, count, M), dtype=torch.float32,
+                           device=self.device)
+        return full.index_copy_(0, self._upload(np.asarray(idx, np.int64)),
+                                rows)
+
+    def _chunk_cond(self, lanes: int, count: int, riders) -> torch.Tensor:
+        """``(lanes, count, M)`` conditioning rows of one call: each
+        conditioned rider's next ``count`` rows at its row (``riders``:
+        ``(row, _Active)``), zeros elsewhere; advances the riders."""
+        return self._cond_device(lanes, count,
+                                 *self._cond_host(count, riders))
+
+    def _prime_block(self, primes: np.ndarray, temps: np.ndarray,
+                     seeds: np.ndarray, cond=None):
+        """Prime ``primes`` ``(k, ng)`` in ONE kernel call at its own size
+        (``cond``: :meth:`_cond_host`'s parts for the prime's rows, or
+        None). Returns (ring columns (rows, k), their shared local clock t,
+        first samples (k,) on the device: each request's output sample
+        0)."""
+        ng = primes.shape[1]
+        prime = self._upload(primes)
+        temps = self._upload(temps)
+        seeds = self._upload(seeds)
+        toffs = torch.zeros(len(primes), dtype=torch.int32, device=self.device)
+        ring = torch.empty((ring_rows(self.cfg), len(primes)),
+                           dtype=self.ring_dtype, device=self.device)
+        if cond is not None:  # the prime consumes rows [0, ng)
+            cond = self._cond_device(len(primes), ng, *cond)
+        self._n["prime_calls"] += 1
+        self._n["bytes_up"] += prime.numel() * 4
+        t0 = time.perf_counter()
+        cls = self._step(prime, ring, 0, ng, temps, seeds, toffs, cond)
+        self._t["t_prime_dispatch"] += time.perf_counter() - t0
+        # the local clock is deterministic (ng - 1 ingested + 1 generated):
+        # nothing here waits for the device
+        return ring, ng, cls[:, ng - 1].contiguous()
+
+    def _splice_rows(self):
+        """Per ring row (layer l, slot s, channel r): the layer's first
+        slot, its period, s and r, as device tensors (built once)."""
+        if self._rowmap is None:
+            R = self.cfg.residual_channels
+            first, per, slot = [], [], []
+            for f, P in zip(ring_offsets(self.cfg), self._periods):
+                first += [f] * P * R
+                per += [P] * P * R
+                slot += np.repeat(np.arange(P), R).tolist()
+            r = np.tile(np.arange(R), sum(self._periods))
+            self._rowmap = tuple(self._upload(np.asarray(a, np.int64))
+                                 for a in (first, per, slot, r))
+        return self._rowmap
+
+    def _align_and_insert(self, primed: torch.Tensor, t_local: int,
+                          lanes: list[int], firsts: torch.Tensor):
+        """The admission splice, on the device: re-base each layer's ring
+        slots from the request-local clock to the pool's (slot = t mod P,
+        so shifting the clock by delta gathers slot ``(s - delta) mod P``),
+        zero the slots a short prime never wrote (slot s of a period-P ring
+        was written iff s < t_local when t_local < P: a select, so whatever
+        an unwritten slot holds never reaches the pool), and scatter the
+        columns into the block's ring at the target lanes (block columns);
+        ``firsts`` become the lanes' next inputs."""
+        first, per, slot, r = self._splice_rows()
+        R = self.cfg.residual_channels
+        t0 = time.perf_counter()
+        src_slot = torch.remainder(slot - (self._global_t() - t_local), per)
+        written = src_slot < torch.clamp(per, max=t_local)
+        cols = primed.index_select(0, (first + src_slot) * R + r)
+        cols = torch.where(written[:, None], cols, 0.0)
+        idx = self._upload(np.asarray(lanes, np.int64))
+        self._state.ring.index_copy_(1, idx, cols)
+        self._state.cls.index_copy_(0, idx, firsts)
+        self._t["t_splice"] += time.perf_counter() - t0
+
+    def _prime_into(self, cols: list[int], primes: np.ndarray,
+                    temps: np.ndarray, seeds: np.ndarray, cond=None):
+        """An admission on this block: prime ``primes`` (:meth:`_prime_block`)
+        and splice them into the block's columns ``cols`` at its clock.
+        Returns the pending copy of their first samples."""
+        ring, t_local, firsts = self._prime_block(primes, temps, seeds, cond)
+        self._align_and_insert(ring, t_local, cols, firsts)
+        return self._download(firsts)
+
+    def _ensure_state(self):
+        """Bootstrap the block's state: an all-zero ring with the pool
+        clock already PAST every warm-up predicate. The kernel gates a tap
+        with lookback m on ``ta >= m``; a pool admits lanes at any clock, so
+        those predicates must never fire again: starting at t = max(period)
+        makes them always true, and missing history is represented by
+        zeroed ring slots instead, which is what the predicate would have
+        contributed."""
+        if self._state is not None:
+            return
+        self._clock = max(self._periods)
+        self._state = HbmGenState(
+            ring=torch.zeros((ring_rows(self.cfg), self._width),
+                             dtype=self.ring_dtype, device=self.device),
+            t=self._clock,
+            cls=torch.full((self._width,), self.cfg.classes // 2,
+                           dtype=torch.int32, device=self.device),
+        )
+
+    def _step_pool(self, n: int, temps, seeds, toffs,
+                   cond=None) -> torch.Tensor:
+        """One pool step of ``n`` samples on the block's state, in place;
+        advances the host clock mirror. Returns the classes (lanes of the
+        block, n) on the device."""
+        st = self._state
+        cls = self._step(st.cls.view(-1, 1), st.ring, st.t, n, temps, seeds,
+                         toffs, cond)
+        self._state = HbmGenState(st.ring, st.t + n,
+                                  cls[:, n - 1].contiguous())
+        self._clock += n  # admissions after this launch rebase against it
+        return cls
+
+    def _device_rows(self, temps, seeds, toffs):
+        """The block's per-lane temperature, seed and clock rows on the
+        device, uploaded again only when they changed."""
+        if self._host_args is None or not (
+                np.array_equal(temps, self._host_args[0])
+                and np.array_equal(seeds, self._host_args[1])
+                and np.array_equal(toffs, self._host_args[2])):
+            self._host_args = (temps.copy(), seeds.copy(), toffs.copy())
+            self._dev_args = tuple(self._upload(a) for a in self._host_args)
+            self._n["bytes_up"] += sum(a.nbytes for a in self._host_args)
+        return self._dev_args
+
+    def _wire_dtype(self):
+        """Narrowest dtype that holds a class id: the device-to-host chunk
+        copy shrinks 4x for 256-class models (uint8); the host widens it
+        again on delivery."""
+        if self.cfg.classes <= 256:
+            return torch.uint8
+        if self.cfg.classes <= 32768:
+            return torch.int16
+        return torch.int32
+
+    def _prewarm_block(self):
+        """Step the block once with and without conditioning (and expand a
+        frame window on a frames pool), on the current lane rows; the clock
+        advances by ``chunk`` a step, on every rank alike."""
+        self._ensure_state()
+        conds = [None]
+        if self.cfg.cond_channels:
+            conds.append(torch.zeros(
+                (self._width, self.chunk, self.cfg.cond_channels),
+                device=self.device))
+            if self.cond_hop is not None:  # the expansion too
+                frames = np.zeros((self.chunk // self.cond_hop + 1,
+                                   self.cfg.cond_channels), np.float32)
+                self._expand([self._frame_window(frames, 0, self.chunk)[0]],
+                             [0], self.chunk)
+        for cond in conds:
+            cls = self._step_pool(self.chunk, *self._lane_args(), cond=cond)
+            self._wait(self._download(cls[:, -1]))
+
+    def _device_context(self):
+        """Bind the calling thread to the pool's device and one stream."""
+        if self.device.type != "cuda":
+            return nullcontext()
+        torch.cuda.set_device(self.device)
+        self._stream = torch.cuda.Stream(self.device)
+        return torch.cuda.stream(self._stream)
+
+
+class ContinuousBatcher(_LaneWork):
+    """A persistent lane pool over the batched generation kernel.
+
+    ``lanes`` is the pool's stream width (any count >= 1). ``chunk`` is the
+    splice granularity: requests join and leave every ``chunk`` samples,
+    which is also a streaming consumer's time to first audio.
+    ``light_chunk`` (< ``chunk``) is dispatched instead while at most
+    ``light_threshold * lanes`` requests are active or waiting; outputs do
+    not depend on the chunk widths.
+
+    ``submit`` only enqueues; all device work happens on one background
+    thread. ``close()`` abandons outstanding handles with a RuntimeError;
+    ``close(drain=True)`` finishes accepted work first.
+
+    On ``device="cpu"`` the pool runs the kernel's plain version; on a CUDA
+    device it launches the kernel, and a failed build or launch fails the
+    riders (the pool restarts) rather than falling back.
+
+    ``mesh``: a data-axis mesh over the process group (the module
+    docstring); ``lanes`` is the pool's total, split into equal blocks.
+    Build the batcher on global rank 0 and call :func:`follow_pool` with
+    the same options on every other rank; a follower silent for
+    ``MESH_TIMEOUT`` seconds stops the pool with an error. Without a mesh,
+    or on a mesh of one rank, the pool runs on this process alone."""
+
+    _link = None  # the followers on a mesh of more than one rank
+
+    def __init__(self, params: Params, cfg: WaveNetConfig, *, lanes: int = 128,
+                 chunk: int = 128, seed: int = 0, fuse_res: bool = False,
+                 skip_slab: bool = False, regularize: float = 0.0,
+                 max_pending: int | None = None,
+                 light_chunk: int | None = None,
+                 light_threshold: float = 0.25,
+                 cond_hop: int | None = None,
+                 cond_wire_dtype: torch.dtype = torch.float32,
+                 ring_dtype: torch.dtype = torch.float32,
+                 device: str | torch.device = "cuda",
+                 mesh=None):
+        """``cond_hop``: the pool takes mel frames at this hop
+        (``submit(cond_frames=)``); with the model's learnable upsampler
+        its factors must multiply to it. ``cond_wire_dtype``: f32, or
+        bf16, which halves the frames' upload and makes a response equal
+        the solo rollout of bf16-rounded frames. ``ring_dtype``: the pool
+        ring's dtype, f32 or bf16 (half the ring's bytes)."""
+        self._configure(params, cfg, lanes, chunk, light_chunk, cond_hop,
+                        cond_wire_dtype, ring_dtype, device, fuse_res,
+                        skip_slab, regularize)
+        self.mesh = mesh
+        n_data, self._width = _data_blocks(mesh, lanes)
+        self.light_chunk = light_chunk
+        self.light_threshold = float(light_threshold)
+        self.max_pending = max_pending
         self._submit_q: "queue.Queue[_Pending]" = queue.Queue()
         self._active: list[_Active] = []
         self._free = list(range(lanes))
@@ -257,9 +619,6 @@ class ContinuousBatcher:
         self._seeds = np.zeros(lanes, np.int32)
         self._toffs = np.zeros(lanes, np.int32)
         self._auto_seed = int(seed) & 0xFFFFFFFF
-        self._state: HbmGenState | None = None  # created lazily
-        self._w = None  # the kernel's operands for the current params
-        self._rowmap = None  # per-ring-row layer constants for the splice
         # observability counters (worker-thread writes; stats() reads a
         # consistent-enough snapshot for monitoring)
         self._n = dict(admitted=0, completed=0, cancelled=0, failed=0,
@@ -272,13 +631,16 @@ class ContinuousBatcher:
         self._t = dict(t_dispatch=0.0, t_deliver=0.0, t_admit=0.0,
                        t_idle=0.0, t_prime_dispatch=0.0, t_prime_sync=0.0,
                        t_splice=0.0)
+        if n_data > 1:
+            from ._mesh_pool import Followers
+
+            self._link = Followers(mesh, self._width)
+        # events of update_params waiting for the install (on every rank)
+        self._installing: list[threading.Event] = []
         # accepted-but-unfinished requests (queue, in admission, active):
         # the drain condition
         self._outstanding = 0
         self._count_lock = threading.Lock()
-        # host mirror of the pool clock (state.t): bootstrap value + chunk
-        # per pool step
-        self._clock = 0
         self._wake = threading.Event()
         self._closing = False
         self._draining = False
@@ -289,13 +651,8 @@ class ContinuousBatcher:
         # admission groups whose first samples are still on their way to
         # the host: [((host tensor, event), [(handle, act, row), ...]), ...]
         self._deferred: list = []
-        # device copies of the per-lane step rows; they change only at
-        # admission, completion and cancel
-        self._dev_args = None
-        self._host_args = None
         # serializes the _closing check against close()'s final drain
         self._lifecycle = threading.Lock()
-        self._stream = None
         self._thread = threading.Thread(target=self._run, daemon=True,
                                         name="wavenet-batcher")
         self._thread.start()
@@ -399,8 +756,9 @@ class ContinuousBatcher:
         from their next chunk (their ring history was computed by the old
         ones; for strictly-one-model rollouts, drain first). The tree must
         have the same structure, shapes and dtypes as the current one.
-        Returns an event set once the pool has installed the weights:
-        every request admitted after it runs on them."""
+        Returns an event set once the pool has installed the weights (on a
+        mesh: every rank has): every request admitted after it runs on
+        them."""
         old, new = dict(_leaves(self.params)), dict(_leaves(params))
         if old.keys() != new.keys():
             raise ValueError(f"params tree mismatch: {sorted(new)} != "
@@ -426,12 +784,16 @@ class ContinuousBatcher:
         ``free``, ``queued``, ``outstanding``, ``pool_clock``), lifetime
         counters (``admitted``, ``completed``, ``cancelled``, ``failed``,
         ``samples_out``, ``pool_steps``, ``prime_calls``, ``bytes_down``,
-        ``bytes_up``) and the worker's phase seconds (``t_*``). Served by
-        the server's ``/stats``."""
+        ``bytes_up``) and the worker's phase seconds (``t_*``). On a mesh
+        also ``mesh_ranks``, the bytes rank 0 sent its followers and took
+        from them (``mesh_bytes_out``, ``mesh_bytes_in``; weights apart,
+        ``mesh_params_bytes``), their sum a pool step
+        (``mesh_bytes_per_step``), and ``t_gather``, rank 0's wait for its
+        followers' replies. Served by the server's ``/stats``."""
         active = len(self._active)
         with self._count_lock:
             outstanding = self._outstanding
-        return {
+        out = {
             "lanes": self.lanes, "chunk": self.chunk,
             "light_chunk": self.light_chunk, "active": active,
             "free": self.lanes - active, "queued": self._submit_q.qsize(),
@@ -439,11 +801,15 @@ class ContinuousBatcher:
             "pool_clock": self._global_t(), **self._n,
             **{k: round(v, 3) for k, v in self._t.items()},
         }
+        if self._link is not None:
+            out.update(self._link.stats(self._n["pool_steps"]))
+        return out
 
     def prewarm(self, timeout: float = 600.0):
         """Build the kernel, install the weights and step the empty pool
-        once, on the worker, before traffic (the first request then pays
-        none of it). The counters and phase times restart at zero."""
+        once, on the worker (on a mesh: on every rank), before traffic
+        (the first request then pays none of it). The counters and phase
+        times restart at zero."""
         done = threading.Event()
         box: dict = {}
         with self._lifecycle:
@@ -466,7 +832,8 @@ class ContinuousBatcher:
         work: every active and queued handle gets a RuntimeError at the
         next chunk boundary. ``drain=True`` refuses new submissions but
         keeps stepping until every accepted request completes (or
-        ``timeout`` seconds pass, after which the rest is abandoned)."""
+        ``timeout`` seconds pass, after which the rest is abandoned). On a
+        mesh the followers are then stopped (their loops return)."""
         if drain:
             with self._lifecycle:
                 self._draining = True  # submit() now refuses
@@ -497,187 +864,72 @@ class ContinuousBatcher:
         with self._count_lock:
             self._outstanding -= 1
 
-    def _global_t(self) -> int:
-        # host mirror: reading state.t never waits for the device
-        return 0 if self._state is None else self._clock
+    def _lane_args(self):
+        """This rank's block of the per-lane temperature, seed and clock
+        rows on the device (the whole pool without a mesh; rank 0's block
+        is the first)."""
+        w = self._width
+        return self._device_rows(self._temps[:w], self._seeds[:w],
+                                 self._toffs[:w])
 
-    def _upload(self, array: np.ndarray) -> torch.Tensor:
-        """A host array on the pool's device. On a card the copy goes
-        through pinned memory without blocking: a copy from pageable memory
-        would wait for the chunk in flight."""
-        t = torch.from_numpy(np.ascontiguousarray(array))
-        if self.device.type == "cpu":
-            return t.clone()
-        return t.pin_memory().to(self.device, non_blocking=True)
-
-    def _download(self, x: torch.Tensor):
-        """Start ``x``'s copy to the host; returns ``(host tensor, event)``
-        (event None on the CPU). Read the host tensor only after
-        :meth:`_wait`."""
-        if self.device.type == "cpu":
-            return x.clone(), None
-        host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
-        host.copy_(x, non_blocking=True)
-        ev = torch.cuda.Event()
-        ev.record(self._stream)
-        return host, ev
-
-    @staticmethod
-    def _wait(pending) -> np.ndarray:
-        host, ev = pending
-        if ev is not None:
-            ev.synchronize()
-        return host.numpy()
-
-    def _install_params(self, params):
-        """Move ``params`` to the device and prepare the kernel's operands
-        (once per parameter version)."""
-        self.params = params
-        dev_params = params_to(params, self.device)
-        self._w = prepare_weights(dev_params, self.cfg,
-                                  self._kw["fuse_res"], self._kw["skip_slab"],
-                                  self.ring_dtype)
-        if self._factors:
-            self._cond_up = {"cond_up": dev_params["cond_up"]}
-
-    def _step(self, prime, ring, t0, total, temps, seeds, toffs, cond=None):
-        """One kernel call; ``cond`` ``(lanes, total, M)`` rows or None."""
-        if cond is not None:
-            cond = cond.permute(1, 2, 0).contiguous()  # (total, M, lanes)
-        return run_batched(self._w, self.cfg, prime, ring, t0, total, temps,
-                           seeds, toffs, 0, self._kw["regularize"],
-                           self._kw["fuse_res"], self._kw["skip_slab"], True,
-                           cond=cond)
-
-    def _frame_window(self, frames: np.ndarray, off: int, count: int):
-        """The frame slab and phase that expand a timeline's rows ``[off,
-        off + count)``: frames from ``off // hop`` on, the last one
-        replicated past the timeline's end."""
-        hop = self.cond_hop
-        Fs = frames_window_len(count, hop, self._factors)
-        fs = off // hop
-        idx = np.minimum(fs + np.arange(Fs), frames.shape[0] - 1)
-        return frames[idx], off - fs * hop
-
-    def _expand(self, slabs: list, phases: list, count: int) -> torch.Tensor:
-        """Upload frame slabs at the wire dtype and expand them to
-        ``(len(slabs), count, M)`` f32 rows on the device."""
-        wire = torch.from_numpy(np.ascontiguousarray(np.stack(slabs)))
-        wire = wire.to(self._cond_wire)
-        self._n["bytes_up"] += wire.numel() * wire.element_size()
-        dev = (wire.clone() if self.device.type == "cpu"
-               else wire.pin_memory().to(self.device, non_blocking=True))
-        phase = self._upload(np.asarray(phases, np.int64))
-        return expand_frames_window(self._cond_up, dev.to(torch.float32),
-                                    self.cond_hop, phase, count,
-                                    self._factors)
-
-    def _chunk_cond(self, lanes: int, count: int, riders) -> torch.Tensor:
-        """``(lanes, count, M)`` conditioning rows of one call: each
-        conditioned rider's next ``count`` rows at its row (``riders``:
-        ``(row, _Active)``), zeros elsewhere; advances the riders."""
-        M = self.cfg.cond_channels
-        if self.cond_hop is None:
-            rows = np.zeros((lanes, count, M), np.float32)
-            for row, act in riders:
-                k = min(count, act.cond.shape[0])
-                rows[row, :k] = act.cond[:k]
-                act.cond = act.cond[k:]
-            self._n["bytes_up"] += rows.nbytes
-            return self._upload(rows)
-        windows = [self._frame_window(act.cond, act.cond_off, count)
-                   for _, act in riders]
-        for _, act in riders:
-            act.cond_off += count
-        rows = self._expand([w for w, _ in windows], [p for _, p in windows],
-                            count)
-        full = torch.zeros((lanes, count, M), dtype=torch.float32,
-                           device=self.device)
-        idx = self._upload(np.asarray([row for row, _ in riders], np.int64))
-        return full.index_copy_(0, idx, rows)
-
-    def _prime_states(self, pends: list[_Pending]):
-        """Prime a group of equal-length requests in ONE kernel call at the
-        group's own size. Returns (ring columns (rows, n), their shared
-        local clock t, first samples (n,) on the device: each request's
-        output sample 0)."""
-        ng = pends[0].prime.size
-        prime = self._upload(np.stack([p.prime for p in pends]))
-        temps = self._upload(np.array([p.temperature for p in pends],
-                                      np.float32))
-        seeds = self._upload(np.array([p.seed for p in pends], np.int32))
-        toffs = torch.zeros(len(pends), dtype=torch.int32, device=self.device)
-        ring = torch.empty((ring_rows(self.cfg), len(pends)),
-                           dtype=self.ring_dtype, device=self.device)
-        cond = None
+    def _prime_args(self, pends: list[_Pending]):
+        """Equal-length requests as :meth:`_prime_block`'s arguments:
+        primes ``(k, ng)``, temperatures, seeds and the conditioning of the
+        prime's rows (or None)."""
         riders = [(i, _Active(None, 0, 0, p.cond)) for i, p in
                   enumerate(pends) if p.cond is not None]
-        if riders:  # the prime consumes rows [0, ng) of each timeline
-            cond = self._chunk_cond(len(pends), ng, riders)
-        self._n["prime_calls"] += 1
-        self._n["bytes_up"] += prime.numel() * 4
-        t0 = time.perf_counter()
-        cls = self._step(prime, ring, 0, ng, temps, seeds, toffs, cond)
-        self._t["t_prime_dispatch"] += time.perf_counter() - t0
-        # the local clock is deterministic (ng - 1 ingested + 1 generated):
-        # nothing here waits for the device
-        return ring, ng, cls[:, ng - 1].contiguous()
+        return (np.stack([p.prime for p in pends]),
+                np.array([p.temperature for p in pends], np.float32),
+                np.array([p.seed for p in pends], np.int32),
+                self._cond_host(pends[0].prime.size, riders) if riders
+                else None)
 
-    def _splice_rows(self):
-        """Per ring row (layer l, slot s, channel r): the layer's first
-        slot, its period, s and r, as device tensors (built once)."""
-        if self._rowmap is None:
-            R = self.cfg.residual_channels
-            first, per, slot = [], [], []
-            for f, P in zip(ring_offsets(self.cfg), self._periods):
-                first += [f] * P * R
-                per += [P] * P * R
-                slot += np.repeat(np.arange(P), R).tolist()
-            r = np.tile(np.arange(R), sum(self._periods))
-            self._rowmap = tuple(self._upload(np.asarray(a, np.int64))
-                                 for a in (first, per, slot, r))
-        return self._rowmap
+    def _by_owner(self, lanes) -> dict[int, list[tuple[int, int]]]:
+        """``{data index: [(position in lanes, block column), ...]}`` of
+        global ``lanes`` (one block, index 0, without a mesh)."""
+        out: dict[int, list[tuple[int, int]]] = {}
+        for i, lane in enumerate(lanes):
+            d, col = divmod(lane, self._width)
+            out.setdefault(d, []).append((i, col))
+        return out
 
-    def _align_and_insert(self, primed: torch.Tensor, t_local: int,
-                          lanes: list[int], firsts: torch.Tensor):
-        """The admission splice, on the device: re-base each layer's ring
-        slots from the request-local clock to the pool's (slot = t mod P,
-        so shifting the clock by delta gathers slot ``(s - delta) mod P``),
-        zero the slots a short prime never wrote (slot s of a period-P ring
-        was written iff s < t_local when t_local < P: a select, so whatever
-        an unwritten slot holds never reaches the pool), and scatter the
-        columns into the pool ring at the target lanes; ``firsts`` become
-        the lanes' next inputs."""
-        first, per, slot, r = self._splice_rows()
-        R = self.cfg.residual_channels
-        t0 = time.perf_counter()
-        src_slot = torch.remainder(slot - (self._global_t() - t_local), per)
-        written = src_slot < torch.clamp(per, max=t_local)
-        cols = primed.index_select(0, (first + src_slot) * R + r)
-        cols = torch.where(written[:, None], cols, 0.0)
-        idx = self._upload(np.asarray(lanes, np.int64))
-        self._state.ring.index_copy_(1, idx, cols)
-        self._state.cls.index_copy_(0, idx, firsts)
-        self._t["t_splice"] += time.perf_counter() - t0
+    def _gather(self, local, idx, parts, dtype, shape):
+        """The pending host copy of a result ``shape`` that the ranks
+        computed: this rank's ``local`` copy (at ``idx``; None when it has
+        no part) and the followers' replies ``parts`` (``(reply, idx)``).
+        Without followers' parts, ``local`` itself."""
+        if not parts:
+            return local
+        return self._link.gather(local, idx, parts, dtype, shape)
 
-    def _ensure_state(self):
-        """Bootstrap the shared state: an all-zero ring with the pool clock
-        already PAST every warm-up predicate. The kernel gates a tap with
-        lookback m on ``ta >= m``; a pool admits lanes at any clock, so
-        those predicates must never fire again: starting at t = max(period)
-        makes them always true, and missing history is represented by
-        zeroed ring slots instead, which is what the predicate would have
-        contributed."""
-        if self._state is not None:
-            return
-        self._clock = max(self._periods)
-        self._state = HbmGenState(
-            ring=torch.zeros((ring_rows(self.cfg), self.lanes),
-                             dtype=self.ring_dtype, device=self.device),
-            t=self._clock,
-            cls=torch.full((self.lanes,), self.cfg.classes // 2,
-                           dtype=torch.int32, device=self.device),
-        )
+    def _collect(self, replies):
+        """Wait for the followers' ``replies`` (raises a failure)."""
+        for rep in replies:
+            self._link.collect(rep)
+
+    def _admit_group(self, group: list[_Pending], lanes: list[int]):
+        """Prime ``group`` (equal prime lengths) into ``lanes``: each lane's
+        owner primes its requests in one kernel call and splices them into
+        its block at this clock (the followers are sent theirs first).
+        Returns the pending copy of the first samples, in group order."""
+        clock = self._global_t()
+        owners = self._by_owner(lanes)
+
+        def work(items):  # (positions in group, block columns, prime args)
+            return (torch.tensor([i for i, _ in items]),
+                    [c for _, c in items],
+                    self._prime_args([group[i] for i, _ in items]))
+
+        parts = []
+        for d, items in owners.items():
+            if d > 0:
+                idx, cols, args = work(items)
+                parts.append((self._link.admit(d, clock, cols, *args), idx))
+        local = idx = None
+        if 0 in owners:
+            idx, cols, args = work(owners[0])
+            local = self._prime_into(cols, *args)
+        return self._gather(local, idx, parts, torch.int32, (len(group),))
 
     # --------------------------------------------------------------- loop
 
@@ -699,22 +951,18 @@ class ContinuousBatcher:
         for group in by_len.values():
             p0 = self._t["t_prime_dispatch"]
             s0 = self._t["t_splice"]
-            try:
-                cols, t_local, firsts = self._prime_states(group)
-            except BaseException as e:  # surface to callers, keep serving
-                self._n["failed"] += len(group)
-                for p in group:
-                    p.handle._finish(e)
-                continue
+            # the JAX package's lane choice
             lanes = [self._free.pop() for _ in group]
             try:
-                self._align_and_insert(cols, t_local, lanes, firsts)
-            except BaseException as e:
-                self._free.extend(lanes)
+                firsts = self._admit_group(group, lanes)
+            except BaseException as e:  # surface to callers, keep serving
+                self._free.extend(reversed(lanes))
                 self._n["failed"] += len(group)
                 for p in group:
                     p.handle._finish(e)
                 continue
+            # the local clock is deterministic: ng - 1 ingested + 1 generated
+            t_local = group[0].prime.size
             self._n["admitted"] += len(group)
             prime_s = self._t["t_prime_dispatch"] - p0
             splice_s = self._t["t_splice"] - s0
@@ -748,7 +996,7 @@ class ContinuousBatcher:
                 recs.append((pend.handle, act, i))
             # first samples go to the host behind the prime; _run waits for
             # them after the next chunk is launched
-            self._deferred.append((self._download(firsts), recs))
+            self._deferred.append((firsts, recs))
 
     def _deliver_firsts(self):
         """Wait for deferred admission outputs and deliver each new
@@ -822,7 +1070,11 @@ class ContinuousBatcher:
 
     def _fail_all(self, error: BaseException):
         """A device step failed: the shared state is suspect, so fail every
-        rider and restart the pool from a fresh bootstrap."""
+        rider and restart the pool from a fresh bootstrap (on a mesh: every
+        rank, after ``RESET``). A follower found gone stops the pool
+        before any handle resolves, so no caller sees it take work again."""
+        if self._link is not None and self._link.broken is not None:
+            self._stop(self._link.broken)
         # count only unresolved handles: _deliver_firsts already counted
         # and finished the riders it owned
         for act in self._active:
@@ -840,42 +1092,12 @@ class ContinuousBatcher:
         self._temps[:] = 0.0
         self._state = None
         self._dev_args = self._host_args = None
-
-    def _step_pool(self, n: int, temps, seeds, toffs,
-                   cond=None) -> torch.Tensor:
-        """One pool step of ``n`` samples on the shared state, in place;
-        advances the host clock mirror. Returns the classes (lanes, n) on
-        the device."""
-        st = self._state
-        cls = self._step(st.cls.view(-1, 1), st.ring, st.t, n, temps, seeds,
-                         toffs, cond)
-        self._state = HbmGenState(st.ring, st.t + n,
-                                  cls[:, n - 1].contiguous())
-        self._clock += n  # admissions after this launch rebase against it
-        return cls
-
-    def _lane_args(self):
-        """The per-lane temperature, seed and clock rows on the device,
-        uploaded again only when they changed."""
-        if self._host_args is None or not (
-                np.array_equal(self._temps, self._host_args[0])
-                and np.array_equal(self._seeds, self._host_args[1])
-                and np.array_equal(self._toffs, self._host_args[2])):
-            self._host_args = (self._temps.copy(), self._seeds.copy(),
-                               self._toffs.copy())
-            self._dev_args = tuple(self._upload(a) for a in self._host_args)
-            self._n["bytes_up"] += sum(a.nbytes for a in self._host_args)
-        return self._dev_args
-
-    def _wire_dtype(self):
-        """Narrowest dtype that holds a class id: the device-to-host chunk
-        copy shrinks 4x for 256-class models (uint8); the host widens it
-        again on delivery."""
-        if self.cfg.classes <= 256:
-            return torch.uint8
-        if self.cfg.classes <= 32768:
-            return torch.int16
-        return torch.int32
+        if self._link is not None:
+            try:
+                self._link.reset()
+            except BaseException as e:  # a follower is gone: stop the pool
+                self._stop(e)
+            self._w = None  # every rank installs rank 0's weights again
 
     def _pick_chunk(self) -> int:
         """Chunk width for the next dispatch: ``light_chunk`` while the pool
@@ -895,16 +1117,32 @@ class ContinuousBatcher:
         runs. ``riders`` snapshots the active list as of this launch;
         ``rows`` maps a rider to its row when only the active lanes are
         copied (lightly loaded pools; None = rows are lanes); ``n`` is the
-        chunk width."""
+        chunk width. On a mesh each follower is sent the step first (its
+        block's lane rows when they changed, its riders' conditioning), and
+        the pending copy gathers every block's classes."""
         n = self._pick_chunk()
         self._n["pool_steps"] += 1
-        riders_c = [(a.lane, a) for a in self._active if a.cond is not None]
-        cond = (self._chunk_cond(self.lanes, n, riders_c) if riders_c
-                else None)
-        cls = self._step_pool(n, *self._lane_args(), cond=cond)
         riders = list(self._active)
+        w = self._width
+        conds: dict[int, list] = {}  # owner: [(block column, rider)]
+        for a in riders:
+            if a.cond is not None:
+                d, col = divmod(a.lane, w)
+                conds.setdefault(d, []).append((col, a))
+        parts = []
+        if self._link is not None:
+            clock = self._global_t()
+            for d in self._link.followers:
+                blk = slice(d * w, (d + 1) * w)
+                rows = (self._temps[blk], self._seeds[blk], self._toffs[blk])
+                cond = self._cond_host(n, conds[d]) if d in conds else None
+                parts.append((self._link.step(d, n, clock, rows, cond,
+                                              self._wire_dtype()), blk))
+        own = conds.get(0)
+        cond = self._chunk_cond(w, n, own) if own else None
+        cls = self._step_pool(n, *self._lane_args(), cond=cond)
         rows = None
-        if riders and len(riders) * 2 <= self.lanes:
+        if self._link is None and riders and len(riders) * 2 <= self.lanes:
             # lightly loaded pool: copy only the active lanes' rows (free
             # lanes' greedy output is discarded anyway)
             sel = self._upload(np.asarray([a.lane for a in riders], np.int64))
@@ -912,7 +1150,9 @@ class ContinuousBatcher:
             rows = {id(a): i for i, a in enumerate(riders)}
         wire = cls.to(self._wire_dtype())
         self._n["bytes_down"] += wire.numel() * wire.element_size()
-        return self._download(wire), riders, rows, n
+        pending = self._gather(self._download(wire), slice(0, w), parts,
+                               wire.dtype, (self.lanes, n))
+        return pending, riders, rows, n
 
     def _deliver_chunk(self, pending, riders, rows=None, n=None):
         """Wait for a dispatched chunk's copy and hand it to its riders. A
@@ -949,61 +1189,52 @@ class ContinuousBatcher:
         self._active = still
 
     def _take_params(self):
-        """Install the weights at first use and after update_params."""
+        """Install the weights at first use and after update_params (on a
+        mesh: on every rank, the event set once all have them)."""
+        staged = None
         if self._staged_params is not None:
             with self._count_lock:  # atomic take: a reload racing this
                 staged = self._staged_params  # window is never dropped
                 self._staged_params = None
-            if staged is not None:
-                self._install_params(staged[0])
-                staged[1].set()
-        if self._w is None:
-            self._install_params(self.params)
+        if staged is not None:
+            params = staged[0]
+            self._installing.append(staged[1])
+        elif self._w is None:
+            params = self.params
+        else:
+            return
+        # the followers take the leaves while this rank prepares its own
+        replies = self._link.install(params) if self._link is not None else ()
+        self._install_params(params)
+        self._collect(replies)
+        for ev in self._installing:
+            ev.set()
+        self._installing = []
 
     def _serve_prewarm(self):
         while not self._prewarm_q.empty():
             done, box = self._prewarm_q.get()
             try:
                 self._take_params()
-                self._ensure_state()
-                # both kernel variants: with and without conditioning
-                conds = [None]
-                if self.cfg.cond_channels:
-                    conds.append(torch.zeros(
-                        (self.lanes, self.chunk, self.cfg.cond_channels),
-                        device=self.device))
-                    if self.cond_hop is not None:  # the expansion too
-                        frames = np.zeros((self.chunk // self.cond_hop + 1,
-                                           self.cfg.cond_channels),
-                                          np.float32)
-                        self._expand([self._frame_window(frames, 0,
-                                                         self.chunk)[0]],
-                                     [0], self.chunk)
-                for cond in conds:
-                    cls = self._step_pool(self.chunk, *self._lane_args(),
-                                          cond=cond)
-                    self._wait(self._download(cls[:, -1]))
+                replies = (self._link.prewarm() if self._link is not None
+                           else ())
+                self._prewarm_block()
+                self._collect(replies)
                 # warm-up work is not serving work
                 self._n["prime_calls"] = 0
                 self._n["pool_steps"] = 0
                 for k in self._t:
                     self._t[k] = 0.0
+                if self._link is not None:
+                    self._link.clear_counts()
             except BaseException as e:
                 box["error"] = e
                 self._fail_all(e)
             finally:
                 done.set()
 
-    def _device_context(self):
-        """Bind the worker thread to the pool's device and one stream."""
-        if self.device.type != "cuda":
-            return nullcontext()
-        torch.cuda.set_device(self.device)
-        self._stream = torch.cuda.Stream(self.device)
-        return torch.cuda.stream(self._stream)
-
     def _stop(self, error: BaseException):
-        """The worker cannot start: refuse all work, now and later."""
+        """The worker cannot go on: refuse all work, now and later."""
         with self._lifecycle:
             self._closing = True
             self._error = error
@@ -1016,12 +1247,16 @@ class ContinuousBatcher:
 
     def _run(self):
         try:
-            ctx = self._device_context()
-        except BaseException as e:
-            self._stop(e)
-            return
-        with ctx, torch.no_grad():
-            self._loop()
+            try:
+                ctx = self._device_context()
+            except BaseException as e:
+                self._stop(e)
+                return
+            with ctx, torch.no_grad():
+                self._loop()
+        finally:
+            if self._link is not None:
+                self._link.stop()  # the followers' loops return
 
     def _loop(self):
         # Nothing may escape this loop while the pool is open: an exception
@@ -1060,6 +1295,8 @@ class ContinuousBatcher:
                     self._wake.wait(timeout=0.1)
                     self._wake.clear()
                     self._t["t_idle"] += time.perf_counter() - t3
+                    if self._link is not None:
+                        self._link.keepalive()
             except BaseException as e:
                 pending = None
                 self._fail_all(e)
@@ -1077,3 +1314,24 @@ class ContinuousBatcher:
         while not self._submit_q.empty():
             self._submit_q.get().handle._finish(
                 RuntimeError("batcher closed"))
+
+
+def follow_pool(params: Params, cfg: WaveNetConfig, mesh, **pool_opts):
+    """Run this rank's block of a pool on ``mesh`` until rank 0's
+    :class:`ContinuousBatcher` closes it (the server and ``serving_bench``
+    call it on every rank but 0). ``pool_opts`` are the batcher's keyword
+    arguments, the same on every rank (the scheduling ones, ``seed``,
+    ``max_pending``, ``light_chunk``, ``light_threshold``, are rank 0's).
+    ``params`` give the weights' structure: rank 0 sends its own values at
+    first use and at every ``update_params``. Returns the follower's
+    counters; raises when rank 0 is gone."""
+    import torch.distributed as dist
+
+    from ._mesh_pool import _Follower
+
+    f = _Follower(params, cfg, mesh, **pool_opts)
+    if f._n_data < 2 or dist.get_rank() == 0:
+        raise ValueError("follow_pool runs on every rank of a data mesh of "
+                         "2 or more ranks but rank 0, whose "
+                         "ContinuousBatcher(mesh=) schedules the pool")
+    return f.run()

@@ -14,6 +14,15 @@ The serving paths of the JAX package's ``scripts/serve.py``:
   256 or more. ``--max-pending`` answers 503 beyond that queue depth.
   ``--bf16-rings`` stores the pool's ring in bf16 (half its bytes; a
   response then equals its solo rollout with bf16 rings).
+* ``--batcher --mesh-data N`` under ``torch.distributed.run`` with N
+  ranks: the pool's ``--lanes`` (its total) split into N blocks, one a
+  rank. Rank 0 serves HTTP and schedules the pool
+  (``ContinuousBatcher(mesh=)``); every other rank runs its block
+  (``serving.batcher.follow_pool``) until rank 0 stops, then exits. Each
+  response is bitwise the one a single process gives. Stop the server
+  with SIGINT to rank 0 (its pid is printed); every rank then prints its
+  K4 launches. A launch of more than one rank without ``--batcher`` is
+  refused: only the pool spans ranks.
 
 ``--reload-interval N`` follows a training run: every N seconds the newest
 checkpoint under ``--snapshot-path`` is rolled in when it changed (its EMA
@@ -67,7 +76,8 @@ Endpoints
                         -> JSON {reloaded, step}
   POST /profile      -> a torch.profiler capture of the live server into
                         --profile-dir (a Chrome trace JSON, CUDA kernels
-                        included), query seconds (3; clamped to [0.1, 60]);
+                        included; under --mesh-data, rank 0's process
+                        only), query seconds (3; clamped to [0.1, 60]);
                         one capture at a time (409 during one), 400
                         without --profile-dir; requests keep being served
   POST /vocode       -> audio/wav: copy-synthesis of the uploaded wav on a
@@ -87,6 +97,7 @@ ignored there: the pool's chunk rules).
 Run:
   python -m pytorch_wavenet_tpu_torch.serving.server --snapshot model.ckpt --port 8765
   python -m pytorch_wavenet_tpu_torch.serving.server --snapshot model.ckpt --batcher --lanes 256 --batch-chunk 2048
+  python -m torch.distributed.run --standalone --nproc-per-node 2 -m pytorch_wavenet_tpu_torch.serving.server --snapshot model.ckpt --batcher --lanes 256 --batch-chunk 2048 --mesh-data 2
   python -m pytorch_wavenet_tpu_torch.serving.server --snapshot model.ckpt --ema
   python -m pytorch_wavenet_tpu_torch.serving.server --student-snapshot student.ckpt
   python -m pytorch_wavenet_tpu_torch.serving.server --torch-snapshot ref_model.pt
@@ -129,7 +140,8 @@ from ..training.optimizers import find_ema_state_dict
 from ..utils import profiling
 from ..utils.checkpoints import (latest_checkpoint, load_checkpoint,
                                  load_latest_model_from)
-from .batcher import ContinuousBatcher, PoolOverloaded
+from .batcher import (MESH_TIMEOUT, ContinuousBatcher, PoolOverloaded,
+                      follow_pool)
 
 
 # a student's clip length rounds up to this many samples, so that clips of
@@ -695,7 +707,15 @@ def parse_args(argv=None):
     p.add_argument("--profile-dir", default=None,
                    help="enable POST /profile?seconds=N: a torch.profiler "
                         "capture of the live server written here as a "
-                        "Chrome trace")
+                        "Chrome trace (under --mesh-data: rank 0's "
+                        "process, the HTTP front end, the scheduler and "
+                        "its own lane block)")
+    p.add_argument("--mesh-data", type=int, default=0,
+                   help="shard the batcher lane pool over this many ranks "
+                        "(a data-axis mesh, one rank a process, under "
+                        "torch.distributed.run with as many; --lanes is the "
+                        "POOL total, divisible by it). Per-request seeds "
+                        "make responses identical to one process's.")
     return p.parse_args(argv)
 
 
@@ -704,6 +724,24 @@ def main(argv=None, on_ready=None):
     until ``server.shutdown()``. ``on_ready(server)`` is called once the
     socket is bound (its port is ``server.server_address[1]``)."""
     args = parse_args(argv)
+    world = int(os.environ.get("WORLD_SIZE", 1))
+    if world > 1 and not args.batcher:
+        raise SystemExit(f"{world} ranks without --batcher: only the lane "
+                         f"pool spans ranks (--batcher --mesh-data "
+                         f"{world}); the other ranks would have nothing "
+                         f"to run")
+    mesh, rank, device = None, 0, args.device
+    if args.batcher and not args.student_snapshot and (
+            args.mesh_data > 1 or world > 1):
+        if args.mesh_data != world:
+            raise SystemExit(f"--mesh-data {args.mesh_data} runs under "
+                             f"torch.distributed.run with as many ranks "
+                             f"(this launch has {world})")
+        from ..parallel.mesh import init_distributed, make_mesh
+
+        device = init_distributed(args.device, timeout=MESH_TIMEOUT)
+        rank = torch.distributed.get_rank()
+        mesh = make_mesh(args.mesh_data, 1)
     if args.student_snapshot:
         if args.ema:
             raise SystemExit("--ema applies to WaveNet snapshots")
@@ -727,12 +765,12 @@ def main(argv=None, on_ready=None):
                              "snapshots, not a reference snapshot")
         params, cfg = load_reference_snapshot(
             args.torch_snapshot, layers=args.torch_layers,
-            blocks=args.torch_blocks, device=args.device)
+            blocks=args.torch_blocks, device=device)
         blob = {"params": params, "config": cfg, "opt_state": None}
     elif args.snapshot:
-        blob = load_checkpoint(args.snapshot, args.device)
+        blob = load_checkpoint(args.snapshot, device)
     else:
-        blob = load_latest_model_from(args.snapshot_path, args.device)
+        blob = load_latest_model_from(args.snapshot_path, device)
     if blob["config"] is None:
         raise SystemExit("the checkpoint carries no config")
     cfg = blob["config"]
@@ -742,8 +780,9 @@ def main(argv=None, on_ready=None):
         if ema is None:
             raise SystemExit("--ema: this snapshot carries no EMA weights "
                              "(train with --ema-decay)")
-        params = from_jax_params(ema, args.device)
-        print("serving EMA weights")
+        params = from_jax_params(ema, device)
+        if rank == 0:
+            print("serving EMA weights")
     batcher_opts = None
     if args.batcher:
         if args.backend == "plain":
@@ -763,13 +802,45 @@ def main(argv=None, on_ready=None):
                 torch.bfloat16 if args.cond_wire == "bf16" else torch.float32)
         if args.bf16_rings:
             batcher_opts["ring_dtype"] = torch.bfloat16
+    if mesh is not None:
+        batcher_opts["mesh"] = mesh
+        if rank > 0:  # this rank's lane block until rank 0 stops the pool
+            return _mesh_exit(mesh, follow_pool(params, cfg, device=device,
+                                                **batcher_opts))
     if batcher_opts is not None:
-        synth = Synthesizer(params, cfg, args.sr, args.device,
+        synth = Synthesizer(params, cfg, args.sr, device,
                             batcher_opts=batcher_opts)
     else:
-        synth = Synthesizer(params, cfg, args.sr, args.device,
+        synth = Synthesizer(params, cfg, args.sr, device,
                             backend=args.backend)
+    if mesh is not None:
+        print(f"mesh: rank 0 of {world} serves HTTP and schedules the pool "
+              f"(pid {os.getpid()}); ranks 1-{world - 1} run their lane "
+              f"blocks", flush=True)
+        _serve(args, synth, on_ready)
+        return _mesh_exit(mesh, synth.batcher.stats())
     return _serve(args, synth, on_ready)
+
+
+def _mesh_exit(mesh, counters: dict):
+    """After the pool has stopped: every rank's K4 launches, pool steps
+    and prime calls (this rank's ``counters``), printed by rank 0
+    (``kernel launches per rank: K4 [...]``, then ``pool steps per rank:
+    [...]; prime calls per rank: [...]``), and the process group closed.
+    A rank launches K4 once a pool step, once a prime call of its own and
+    once for the prewarm's step."""
+    from ..ops.cuda import gen_kernel_hbm as ghbm
+    from ..parallel.mesh import DATA_AXIS, all_gather
+
+    mine = torch.tensor([[ghbm.launches, counters["pool_steps"],
+                          counters["prime_calls"]]])
+    counts = all_gather(mine, mesh, DATA_AXIS).tolist()
+    if torch.distributed.get_rank() == 0:
+        k4, steps, primes = ([c[i] for c in counts] for i in range(3))
+        print(f"kernel launches per rank: K4 {k4}", flush=True)
+        print(f"pool steps per rank: {steps}; prime calls per rank: "
+              f"{primes}", flush=True)
+    torch.distributed.destroy_process_group()
 
 
 def _follow(synth: Synthesizer, snapshot_path: str, interval: float,

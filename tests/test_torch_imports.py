@@ -22,7 +22,8 @@ for new in ("data.native", "utils.tensorboard", "models.speculative",
             "scripts.serving_soak", "scripts.distill_demo",
             "parallel.mesh", "parallel.sharding", "parallel.training",
             "parallel.data_sharding", "parallel.time_sharding",
-            "parallel.pipeline", "scripts.scaling_bench"):
+            "parallel.pipeline", "scripts.scaling_bench",
+            "serving._mesh_pool"):
     assert "pytorch_wavenet_tpu_torch." + new in names
 banned = [m for m in sys.modules
           if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "msgpack",

@@ -445,11 +445,12 @@ def _save(out_dir: str, case: str, rank: int, arrays: dict) -> None:
 # --------------------------------------------------------------- harness
 
 
-def spawn(group: str, world: int, out_dir: str, dataset_file: str = "",
-          timeout: float = 240.0) -> None:
-    """Run ``group`` on ``world`` CPU ranks (one process each, a
-    ``file://`` store under ``out_dir``); raises with every rank's output
-    if any fails or the group outlives ``timeout``."""
+def start(group: str, world: int, out_dir: str, dataset_file: str = "",
+          timeout: float = 240.0, script: str | None = None) -> dict:
+    """Start ``group`` on ``world`` CPU ranks (one process each, a
+    ``file://`` store under ``out_dir``) of ``script`` (default this file;
+    its ``_main`` takes the same arguments) without waiting: pass the
+    result to :func:`finish`."""
     store = os.path.join(out_dir, f"{group}{world}.store")
     if os.path.exists(store):  # a store is good for one group only
         os.remove(store)
@@ -460,13 +461,22 @@ def spawn(group: str, world: int, out_dir: str, dataset_file: str = "",
     logs = [open(os.path.join(out_dir, f"{group}{world}_r{r}.log"), "w+")
             for r in range(world)]
     procs = [subprocess.Popen(
-        [sys.executable, "-u", os.path.abspath(__file__), store, str(world),
-         str(r), out_dir, group, str(timeout), dataset_file], cwd=REPO, env=env, stdout=logs[r],
-        stderr=subprocess.STDOUT) for r in range(world)]
-    deadline = time.time() + timeout
+        [sys.executable, "-u", os.path.abspath(script or __file__), store,
+         str(world), str(r), out_dir, group, str(timeout), dataset_file],
+        cwd=REPO, env=env, stdout=logs[r], stderr=subprocess.STDOUT)
+        for r in range(world)]
+    return dict(group=group, world=world, procs=procs, logs=logs,
+                deadline=time.time() + timeout)
+
+
+def finish(run: dict, may_fail=()) -> list[int]:
+    """Wait for a started group; raises with every rank's output if a rank
+    not in ``may_fail`` exits nonzero or the group outlives its timeout.
+    Returns the ranks' exit codes."""
+    procs, logs = run["procs"], run["logs"]
     try:
         for p in procs:
-            p.wait(timeout=max(deadline - time.time(), 1))
+            p.wait(timeout=max(run["deadline"] - time.time(), 1))
     except subprocess.TimeoutExpired:
         pass
     finally:
@@ -479,11 +489,21 @@ def spawn(group: str, world: int, out_dir: str, dataset_file: str = "",
         f.seek(0)
         texts.append(f.read())
         f.close()
-    if any(p.returncode != 0 for p in procs):
-        raise RuntimeError(f"{group} on {world} ranks failed: "
+    if any(p.returncode != 0 and r not in may_fail
+           for r, p in enumerate(procs)):
+        raise RuntimeError(f"{run['group']} on {run['world']} ranks failed: "
                            + "\n".join(f"--- rank {r} (rc {p.returncode})\n"
                                        f"{t[-3000:]}" for r, (p, t) in
                                        enumerate(zip(procs, texts))))
+    return [p.returncode for p in procs]
+
+
+def spawn(group: str, world: int, out_dir: str, dataset_file: str = "",
+          timeout: float = 240.0) -> None:
+    """Run ``group`` on ``world`` CPU ranks (one process each, a
+    ``file://`` store under ``out_dir``); raises with every rank's output
+    if any fails or the group outlives ``timeout``."""
+    finish(start(group, world, out_dir, dataset_file, timeout))
 
 
 def load(out_dir: str, case: str, rank: int = 0) -> dict:
