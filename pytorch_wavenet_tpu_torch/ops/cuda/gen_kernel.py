@@ -665,59 +665,67 @@ def generate_fast_fused(params: Params, cfg: WaveNetConfig,
     same function, reassociated (logits agree to about 1e-5).
 
     On ``device="cpu"`` this runs :func:`fused_plain`; on a CUDA device it
-    launches the kernel."""
-    dev = resolve_device(device)
-    params = params_to(params, dev)
-    C = cfg.classes
-    if state is not None:
-        if first_samples is not None:
-            raise ValueError("pass either first_samples or state, not both")
-        prime = state.cls.to(dev, torch.int32).reshape(-1, 1)
-        t0 = int(state.t)
-    else:
-        if first_samples is None:
-            first_samples = torch.full((1, 1), C // 2, dtype=torch.int32)
-        prime = torch.as_tensor(first_samples).to(dev, torch.int32)
-        if prime.dim() == 1:
-            prime = prime.reshape(1, -1)
-        t0 = 0
-    prime = prime.contiguous()
-    streams, num_given = prime.shape
-    total = num_given - 1 + num_samples
-    if not 1 <= streams <= MAX_STREAMS:
-        raise ValueError(f"{streams} streams: the fused kernel takes 1 to "
-                         f"{MAX_STREAMS}")
-    if num_given < 1 or num_samples < 1:
-        raise ValueError("need at least one prime class and one sample")
-    if t0 + total >= 2**31:
-        raise ValueError("absolute step count overflows int32")
-    if bool(((prime < 0) | (prime >= C)).any()):
-        raise ValueError(f"prime classes must lie in [0, {C})")
+    launches the kernel. The call is three profiler spans in a row:
+    ``k1.prepare`` (the operands), ``k1.launch`` (the kernel, or its plain
+    version) and ``k1.finish`` (the waveform and the state's views)."""
+    with torch.profiler.record_function("k1.prepare"):
+        dev = resolve_device(device)
+        params = params_to(params, dev)
+        C = cfg.classes
+        if state is not None:
+            if first_samples is not None:
+                raise ValueError("pass either first_samples or state, not "
+                                 "both")
+            prime = state.cls.to(dev, torch.int32).reshape(-1, 1)
+            t0 = int(state.t)
+        else:
+            if first_samples is None:
+                first_samples = torch.full((1, 1), C // 2,
+                                           dtype=torch.int32)
+            prime = torch.as_tensor(first_samples).to(dev, torch.int32)
+            if prime.dim() == 1:
+                prime = prime.reshape(1, -1)
+            t0 = 0
+        prime = prime.contiguous()
+        streams, num_given = prime.shape
+        total = num_given - 1 + num_samples
+        if not 1 <= streams <= MAX_STREAMS:
+            raise ValueError(f"{streams} streams: the fused kernel takes 1 "
+                             f"to {MAX_STREAMS}")
+        if num_given < 1 or num_samples < 1:
+            raise ValueError("need at least one prime class and one sample")
+        if t0 + total >= 2**31:
+            raise ValueError("absolute step count overflows int32")
+        if bool(((prime < 0) | (prime >= C)).any()):
+            raise ValueError(f"prime classes must lie in [0, {C})")
 
-    R = cfg.residual_channels
-    per = periods(cfg)
-    if state is not None:
-        if len(state.rings) != len(per) or any(
-                r.shape != (P * streams, R) for r, P in zip(state.rings, per)):
-            raise ValueError("state rings do not match the config")
-        rings = torch.cat([r.to(dev, torch.float32).reshape(-1)
-                           for r in state.rings])
-    else:
-        rings = torch.zeros(sum(per) * streams * R, dtype=torch.float32,
-                            device=dev)
-    cproj, gproj = project_cond(params, cfg, cond, global_cond, streams,
-                                total)
-    w = prepare_weights(params, cfg, fuse_res)
-    seed = _seed_from(generator_or_seed)
+        R = cfg.residual_channels
+        per = periods(cfg)
+        if state is not None:
+            if len(state.rings) != len(per) or any(
+                    r.shape != (P * streams, R)
+                    for r, P in zip(state.rings, per)):
+                raise ValueError("state rings do not match the config")
+            rings = torch.cat([r.to(dev, torch.float32).reshape(-1)
+                               for r in state.rings])
+        else:
+            rings = torch.zeros(sum(per) * streams * R,
+                                dtype=torch.float32, device=dev)
+        cproj, gproj = project_cond(params, cfg, cond, global_cond, streams,
+                                    total)
+        w = prepare_weights(params, cfg, fuse_res)
+        seed = _seed_from(generator_or_seed)
     run = fused_plain if dev.type == "cpu" else fused_cuda
-    all_cls = run(w, cfg, prime, rings, t0, total, temperature, regularize,
-                  seed, fuse_res, cond=cproj, gcond=gproj)
+    with torch.profiler.record_function("k1.launch"):
+        all_cls = run(w, cfg, prime, rings, t0, total, temperature,
+                      regularize, seed, fuse_res, cond=cproj, gcond=gproj)
+    with torch.profiler.record_function("k1.finish"):
+        cls = all_cls[:, num_given - 1:total]
+        wav = classes_to_waveform(cls, C)
+        if not return_state:
+            return wav, cls
+        new_state = FusedGenState(
+            rings=tuple(ring_views(rings, cfg, streams)), t=t0 + total,
+            cls=all_cls[:, total - 1].clone())
+        return wav, cls, new_state
 
-    cls = all_cls[:, num_given - 1:total]
-    wav = classes_to_waveform(cls, C)
-    if not return_state:
-        return wav, cls
-    new_state = FusedGenState(rings=tuple(ring_views(rings, cfg, streams)),
-                              t=t0 + total,
-                              cls=all_cls[:, total - 1].clone())
-    return wav, cls, new_state

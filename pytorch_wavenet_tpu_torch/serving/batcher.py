@@ -78,7 +78,8 @@ from __future__ import annotations
 import queue
 import threading
 import time
-from contextlib import nullcontext
+from collections import deque
+from contextlib import contextmanager, nullcontext
 from dataclasses import dataclass
 
 import numpy as np
@@ -222,6 +223,9 @@ class _LaneWork:
     the mesh's followers run this one copy."""
 
     _stream = None
+    # timing events of launches on the card not read yet: (key, start, end)
+    # in launch order; None where nothing is timed on the card
+    _card = None
 
     def _configure(self, params, cfg: WaveNetConfig, lanes: int, chunk: int,
                    light_chunk, cond_hop, cond_wire_dtype, ring_dtype,
@@ -309,6 +313,44 @@ class _LaneWork:
         if ev is not None:
             ev.synchronize()
         return host.numpy()
+
+    @contextmanager
+    def _phase(self, key: str):
+        """One phase of the worker: its host seconds add to ``self._t[key]``
+        (even when it raises) and it runs inside the profiler span
+        ``pool.<key without t_>``, which costs one dispatcher call when no
+        profiler records."""
+        t0 = time.perf_counter()
+        try:
+            with torch.profiler.record_function("pool." + key[2:]):
+                yield
+        finally:
+            self._t[key] += time.perf_counter() - t0
+
+    @contextmanager
+    def _on_card(self, key: str):
+        """Time the launches inside on the card's clock, for ``self._t[key]``:
+        a pair of timing events on the pool's stream, read by
+        :meth:`_read_card` after a later wait. Nothing is timed where
+        :attr:`_card` is None (the CPU, a mesh follower)."""
+        if self._card is None:
+            yield
+            return
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record(self._stream)
+        yield
+        end.record(self._stream)
+        self._card.append((key, start, end))
+
+    def _read_card(self):
+        """Add the timed launches that have finished to their ``_t`` keys
+        (seconds), oldest first. Called after a wait on the pool's stream:
+        every pair recorded before the awaited event is done, so nothing
+        here waits for the device."""
+        while self._card and self._card[0][2].query():
+            key, start, end = self._card.popleft()
+            self._t[key] += start.elapsed_time(end) / 1e3
 
     def _install_params(self, params):
         """Move ``params`` to the device and prepare the kernel's operands
@@ -423,9 +465,8 @@ class _LaneWork:
             cond = self._cond_device(len(primes), ng, *cond)
         self._n["prime_calls"] += 1
         self._n["bytes_up"] += prime.numel() * 4
-        t0 = time.perf_counter()
-        cls = self._step(prime, ring, 0, ng, temps, seeds, toffs, cond)
-        self._t["t_prime_dispatch"] += time.perf_counter() - t0
+        with self._phase("t_prime_dispatch"), self._on_card("t_prime_device"):
+            cls = self._step(prime, ring, 0, ng, temps, seeds, toffs, cond)
         # the local clock is deterministic (ng - 1 ingested + 1 generated):
         # nothing here waits for the device
         return ring, ng, cls[:, ng - 1].contiguous()
@@ -457,15 +498,15 @@ class _LaneWork:
         ``firsts`` become the lanes' next inputs."""
         first, per, slot, r = self._splice_rows()
         R = self.cfg.residual_channels
-        t0 = time.perf_counter()
-        src_slot = torch.remainder(slot - (self._global_t() - t_local), per)
-        written = src_slot < torch.clamp(per, max=t_local)
-        cols = primed.index_select(0, (first + src_slot) * R + r)
-        cols = torch.where(written[:, None], cols, 0.0)
-        idx = self._upload(np.asarray(lanes, np.int64))
-        self._state.ring.index_copy_(1, idx, cols)
-        self._state.cls.index_copy_(0, idx, firsts)
-        self._t["t_splice"] += time.perf_counter() - t0
+        with self._phase("t_splice"):
+            src_slot = torch.remainder(slot - (self._global_t() - t_local),
+                                       per)
+            written = src_slot < torch.clamp(per, max=t_local)
+            cols = primed.index_select(0, (first + src_slot) * R + r)
+            cols = torch.where(written[:, None], cols, 0.0)
+            idx = self._upload(np.asarray(lanes, np.int64))
+            self._state.ring.index_copy_(1, idx, cols)
+            self._state.cls.index_copy_(0, idx, firsts)
 
     def _prime_into(self, cols: list[int], primes: np.ndarray,
                     temps: np.ndarray, seeds: np.ndarray, cond=None):
@@ -624,13 +665,18 @@ class ContinuousBatcher(_LaneWork):
         self._n = dict(admitted=0, completed=0, cancelled=0, failed=0,
                        samples_out=0, pool_steps=0, prime_calls=0,
                        bytes_down=0, bytes_up=0)
-        # cumulative worker-loop phase seconds (host clock): dispatch,
-        # chunk delivery, admission, idle; t_prime_dispatch is the prime's
-        # enqueue, t_prime_sync the wait for its first samples. All keys
-        # pre-seeded: stats() iterates this dict from other threads.
+        # cumulative worker-loop phase seconds (host clock, each key one
+        # _phase): dispatch, chunk delivery, admission, idle;
+        # t_prime_dispatch is the prime's enqueue, t_prime_sync the wait
+        # for its first samples. t_prime_device and t_chunk_device are K4's
+        # time in prime and chunk calls on the card's clock (_on_card; 0.0
+        # on the CPU). All keys pre-seeded: stats() iterates this dict from
+        # other threads.
         self._t = dict(t_dispatch=0.0, t_deliver=0.0, t_admit=0.0,
                        t_idle=0.0, t_prime_dispatch=0.0, t_prime_sync=0.0,
-                       t_splice=0.0)
+                       t_splice=0.0, t_prime_device=0.0, t_chunk_device=0.0)
+        if self.device.type == "cuda":
+            self._card = deque()
         if n_data > 1:
             from ._mesh_pool import Followers
 
@@ -784,7 +830,13 @@ class ContinuousBatcher(_LaneWork):
         ``free``, ``queued``, ``outstanding``, ``pool_clock``), lifetime
         counters (``admitted``, ``completed``, ``cancelled``, ``failed``,
         ``samples_out``, ``pool_steps``, ``prime_calls``, ``bytes_down``,
-        ``bytes_up``) and the worker's phase seconds (``t_*``). On a mesh
+        ``bytes_up``), the worker's phase seconds on the host's clock
+        (``t_admit``, ``t_prime_dispatch``, ``t_splice``, ``t_dispatch``,
+        ``t_prime_sync``, ``t_deliver``, ``t_idle``; each also a
+        ``pool.<phase>`` profiler span), and K4's seconds on the card's
+        clock, from timing events around its launches: ``t_prime_device``
+        in prime calls, ``t_chunk_device`` in pool chunks (rank 0's block on
+        a mesh; 0.0 on the CPU). On a mesh
         also ``mesh_ranks``, the bytes rank 0 sent its followers and took
         from them (``mesh_bytes_out``, ``mesh_bytes_in``; weights apart,
         ``mesh_params_bytes``), their sum a pool step
@@ -1011,21 +1063,20 @@ class ContinuousBatcher(_LaneWork):
         the pool restart (_run -> _fail_all) is the right blast radius."""
         if not self._deferred:
             return
-        t0 = time.perf_counter()
         batches, self._deferred = self._deferred, []
-        try:
-            for pending, recs in batches:
-                firsts = self._wait(pending).astype(np.int32, copy=False)
-                self._deliver_firsts_of(firsts, recs)
-        except BaseException as e:
-            for _pending, recs in batches:
-                for handle, _act, _row in recs:
-                    if not handle.done():
-                        self._n["failed"] += 1
-                        handle._finish(e)
-            raise
-        finally:
-            self._t["t_prime_sync"] += time.perf_counter() - t0
+        with self._phase("t_prime_sync"):
+            try:
+                for pending, recs in batches:
+                    firsts = self._wait(pending).astype(np.int32, copy=False)
+                    self._deliver_firsts_of(firsts, recs)
+                self._read_card()
+            except BaseException as e:
+                for _pending, recs in batches:
+                    for handle, _act, _row in recs:
+                        if not handle.done():
+                            self._n["failed"] += 1
+                            handle._finish(e)
+                raise
 
     def _deliver_firsts_of(self, firsts: np.ndarray, recs):
         for handle, act, row in recs:
@@ -1088,6 +1139,8 @@ class ContinuousBatcher(_LaneWork):
                     self._n["failed"] += 1
                     handle._finish(error)
         self._deferred = []
+        if self._card:  # the failed launches' events are never read
+            self._card.clear()
         self._free = list(range(self.lanes))
         self._temps[:] = 0.0
         self._state = None
@@ -1140,7 +1193,8 @@ class ContinuousBatcher(_LaneWork):
                                               self._wire_dtype()), blk))
         own = conds.get(0)
         cond = self._chunk_cond(w, n, own) if own else None
-        cls = self._step_pool(n, *self._lane_args(), cond=cond)
+        with self._on_card("t_chunk_device"):
+            cls = self._step_pool(n, *self._lane_args(), cond=cond)
         rows = None
         if self._link is None and riders and len(riders) * 2 <= self.lanes:
             # lightly loaded pool: copy only the active lanes' rows (free
@@ -1161,6 +1215,7 @@ class ContinuousBatcher(_LaneWork):
         if n is None:
             n = self.chunk
         cls = self._wait(pending).astype(np.int32)
+        self._read_card()
         still = []
         rider_ids = {id(a) for a in riders}
         for act in self._active:
@@ -1275,26 +1330,21 @@ class ContinuousBatcher(_LaneWork):
                     self._serve_prewarm()
                 self._take_params()
                 self._reap_cancelled()
-                t0 = time.perf_counter()
-                self._admit()
-                t1 = time.perf_counter()
-                self._t["t_admit"] += t1 - t0
-                nxt = self._dispatch_chunk() if self._active else None
-                t2 = time.perf_counter()
-                self._t["t_dispatch"] += t2 - t1
+                with self._phase("t_admit"):
+                    self._admit()
+                with self._phase("t_dispatch"):
+                    nxt = self._dispatch_chunk() if self._active else None
                 # wait for admission outputs only now: the next chunk is
                 # already queued behind the prime
                 self._deliver_firsts()
-                t3 = time.perf_counter()
                 if pending is not None:
-                    self._deliver_chunk(*pending)
-                    self._t["t_deliver"] += time.perf_counter() - t3
+                    with self._phase("t_deliver"):
+                        self._deliver_chunk(*pending)
                 pending = nxt
                 if pending is None and not self._active:
-                    t3 = time.perf_counter()
-                    self._wake.wait(timeout=0.1)
-                    self._wake.clear()
-                    self._t["t_idle"] += time.perf_counter() - t3
+                    with self._phase("t_idle"):
+                        self._wake.wait(timeout=0.1)
+                        self._wake.clear()
                     if self._link is not None:
                         self._link.keepalive()
             except BaseException as e:

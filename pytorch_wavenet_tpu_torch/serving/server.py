@@ -60,7 +60,11 @@ Endpoints
                         parameter_count, classes (None for a student),
                         sample_rate}
   GET  /stats        -> JSON {backend} plus, with --batcher, the pool's
-                        gauges and counters (ContinuousBatcher.stats)
+                        gauges and counters (ContinuousBatcher.stats): the
+                        worker's phase seconds t_* on the host's clock, and
+                        t_prime_device / t_chunk_device, K4's seconds in
+                        prime calls and in pool chunks on the card's clock
+                        (0.0 on the CPU)
   GET  /synthesize   -> audio/wav, streamed while it generates; query
                         params num_samples (16000), temperature (1.0),
                         seed (0), chunk (2048)
@@ -79,7 +83,11 @@ Endpoints
                         included; under --mesh-data, rank 0's process
                         only), query seconds (3; clamped to [0.1, 60]);
                         one capture at a time (409 during one), 400
-                        without --profile-dir; requests keep being served
+                        without --profile-dir; requests keep being served.
+                        The program's spans: pool.<phase> on the pool's
+                        worker (one per stats() t_* phase), synth.chunk,
+                        synth.copy and k1.prepare / k1.launch / k1.finish
+                        on a single stream
   POST /vocode       -> audio/wav: copy-synthesis of the uploaded wav on a
                         conditioned model (400 on an unconditional one):
                         its log-mel frames drive a conditioned rollout of
@@ -405,13 +413,16 @@ class Synthesizer:
         done = 0
         while done < num_samples:
             n = min(chunk, num_samples - done)
-            with self.lock:
+            # profiler spans (``POST /profile``, the benchmark's traced run):
+            # the chunk's call and its copy, the copy waiting for the kernel
+            with self.lock, torch.profiler.record_function("synth.chunk"):
                 wav, _, state = fn(
                     self.params, cfg, noise, n,
                     first if state is None else None,
                     temperature=temperature, state=state, return_state=True,
                     device=self.device, **kw)
-                out = wav[0].cpu().numpy()
+                with torch.profiler.record_function("synth.copy"):
+                    out = wav[0].cpu().numpy()
             done += n
             yield out
 

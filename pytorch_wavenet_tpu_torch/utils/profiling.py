@@ -3,8 +3,8 @@
 :func:`trace` captures a ``torch.profiler`` trace (the host's ops and, on a
 card, every CUDA kernel, the hand-written ones included) and writes it as
 a Chrome trace into a directory; :class:`StepTimer` keeps wall-clock step
-statistics with a warm-up discarded; the rest counts a model's operations
-and bytes from its config, for bounds and efficiency figures.
+statistics with a warm-up discarded; :func:`trunk_flops` counts the
+trunk's operations from a config.
 """
 
 from __future__ import annotations
@@ -36,8 +36,9 @@ def trace(log_dir: str = "profiles"):
     the block raises. The block is one span named :data:`CAPTURE_SPAN`
     (category ``user_annotation``) on the calling thread: device events
     that straddle its edges (the stop waits for them) can be clipped to
-    it."""
-    from torch.profiler import ProfilerActivity, profile
+    it. Host ops and spans are recorded on every thread: a server's work
+    runs on its handler threads and the pool's worker, not the caller's."""
+    from torch.profiler import ProfilerActivity, _ExperimentalConfig, profile
 
     os.makedirs(log_dir, exist_ok=True)
     path = os.path.join(
@@ -54,7 +55,8 @@ def trace(log_dir: str = "profiles"):
         torch.zeros(1, device="cuda").add_(1)
         torch.cuda.synchronize()
         warm.stop()
-    prof = profile(activities=activities)
+    prof = profile(activities=activities, experimental_config=(
+        _ExperimentalConfig(profile_all_threads=True)))
     prof.start()
     try:
         with torch.profiler.record_function(CAPTURE_SPAN):
@@ -141,23 +143,3 @@ def trunk_flops(cfg: WaveNetConfig, batch: int, length: int | None = None,
                  + 2 * out_len * D * S)                       # skip
     head = 2 * out_len * (S * E + E * C)
     return batch * (cfg.num_layers * per_layer + head)
-
-
-def generation_step_flops(cfg: WaveNetConfig, streams: int = 1) -> int:
-    """FLOPs of one autoregressive generation step (every layer and the
-    head)."""
-    return trunk_flops(cfg, streams, length=1, out_len=1)
-
-
-def hbm_bytes_per_gen_step(cfg: WaveNetConfig, streams: int = 1,
-                           dtype_bytes: int = 4) -> int:
-    """Bytes one generation step moves if nothing stays on chip: every
-    weight, and a ring-buffer column per layer (k-1 taps read, one slot
-    written). On an NVIDIA H100 80GB HBM3 at 700 W, K1's chaconne step
-    takes about 81 µs, far above this count over the memory rate and the
-    step's operations over the peak rate (PERF.md §5): the serial chain of
-    dependent layer steps bounds single-stream generation there."""
-    weights = cfg.parameter_count() * dtype_bytes
-    queue = (cfg.num_layers * streams * cfg.kernel_size
-             * cfg.residual_channels * dtype_bytes)
-    return weights + queue

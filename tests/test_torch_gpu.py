@@ -1438,3 +1438,44 @@ def test_serving_soak_on_card_holds_its_invariants(card):
     assert 0 <= r["pool_admitted"] - r["pool_completed"] - r["pool_failed"] \
         <= r["pool_cancelled"]
     assert r["completed"] > 0 and ghbm.launches > before
+
+
+@pytest.mark.gpu
+def test_pool_device_counters_match_k4_in_a_trace_on_card(card, tmp_path):
+    """On the card ``t_prime_device`` and ``t_chunk_device`` grow over a
+    burst of primed requests, and their sum lies within 5 % of K4's device
+    time, by kernel name, in a ``profiling.trace`` capture of the same
+    burst; the worker's ``pool.*`` spans are in the capture too."""
+    import json
+    import time
+
+    from pytorch_wavenet_tpu_torch.serving import ContinuousBatcher
+    from pytorch_wavenet_tpu_torch.utils import profiling
+
+    cfg = pt.get_config("chaconne")
+    params = pt.init_wavenet(cfg, torch.Generator().manual_seed(8), card)
+    pool = ContinuousBatcher(params, cfg, lanes=16, chunk=256, device=card)
+    keys = ("t_prime_device", "t_chunk_device")
+    try:
+        pool.prewarm()
+        s0 = pool.stats()
+        with profiling.trace(str(tmp_path)) as path:
+            hs = [pool.submit(_prime(cfg, 1, i)[0], 1024, seed=i)
+                  for i in range(8)]
+            for h in hs:
+                h.result(timeout=300)
+            # the chunk in flight at the last delivery ends in the capture
+            time.sleep(0.5)
+            s1 = pool.stats()
+    finally:
+        pool.close()
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    lo, hi = profiling.capture_window(events)
+    k4_s = profiling.clipped_ms(profiling.k4_events(events), lo, hi) / 1e3
+    prime, chunk = (s1[k] - s0[k] for k in keys)
+    assert prime > 0 and chunk > 0 and s1["prime_calls"] >= 1
+    assert abs(prime + chunk - k4_s) <= 0.05 * k4_s, (prime, chunk, k4_s)
+    names = {e.get("name") for e in events
+             if e.get("cat") == "user_annotation"}
+    assert {"pool.prime_dispatch", "pool.dispatch", "pool.deliver"} <= names
