@@ -12,7 +12,10 @@ Phases (any failure stops the run with a nonzero exit):
      ``cudaOccupancyMaxActiveClusters`` at every compiled width;
   3. kernel K1 (the fused generation loop) against its plain PyTorch
      version at full width, chaconne and saber, exact and ``fuse_res``:
-     teacher-forced classes, free-running rollouts at temperature 0 and 1,
+     teacher-forced classes (and again with ``head_from = total - 1``:
+     its headless kernel's ring and class read bitwise the headed
+     kernel's, both launches counted; so every teacher-forced check of K1
+     and K4 below), free-running rollouts at temperature 0 and 1,
      a resumed chunk (t0 = rf, temperature 0.9, the serving call), a
      3-chunk resumed rollout equal to one shot bitwise, and chunks resumed
      at t0 = 0, 1, 2 and 513 equal to one shot bitwise;
@@ -121,7 +124,8 @@ Phases (any failure stops the run with a nonzero exit):
      ``calibrate_ring_scales``: teacher-forced, then the pool's resumed
      chunk (RING_LOCKSTEP steps) step by step from the kernel's state
      (classes off near-ties, ring writes within one bf16 ulp or int8
-     count), the one-step launches and three resumed chunks equal to one
+     count; the teacher-forced steps also in one launch, with the head
+     and with ``head_from``, bitwise the lockstep's), the one-step launches and three resumed chunks equal to one
      launch bitwise, timed on that chunk; the vocoder with cond + gcond at
      bf16 rings (256 steps in lockstep); times and the
      phase split (the vocoder on phase 17's chunk, f32 and bf16 rings in
@@ -391,6 +395,39 @@ def _first_mismatch(a, b):
     return int(diff[0, -1]) if diff.numel() else -1
 
 
+def _headless_check(torch, mod, launch, prime, ck, rk, cp, gaps, rp, tag):
+    """A teacher-forced case again, on fresh rings, with ``head_from =
+    total - 1`` (``launch(ring, head_from)`` returns the classes): its
+    teacher-forced steps run in the headless kernel, launched once besides
+    the kernel (``mod``'s counters). The ring and the one class read are
+    bitwise those of the same kernel with the head on every step (``ck``,
+    ``rk``), so within RING_TOL of the plain ring ``rp`` and equal to the
+    plain class ``cp`` off a near-tie (``gaps``); each headless position
+    holds the prime's next class. Returns the ring error against ``rp``."""
+    total = ck.shape[1]
+    before = (mod.launches, mod.headless_launches)
+    ring = torch.zeros_like(rk)
+    ch = launch(ring, total - 1)
+    torch.cuda.synchronize()
+    counted = (mod.launches - before[0], mod.headless_launches - before[1])
+    err = float((ring.float() - rp.float()).abs().max())
+    tie = gaps[:, -1] < NEAR_TIE
+    last = int(((ch[:, -1] != cp[:, -1]) & ~tie).sum())
+    same = torch.equal(ring, rk) and torch.equal(ch[:, -1], ck[:, -1])
+    fed = torch.equal(ch[:, :-1], prime[:, 1:total])
+    log(f"[{tag}] head_from {total - 1}: launches (kernel, headless) "
+        f"{counted}; ring and class read bitwise those of head_from 0: "
+        f"{same}; headless positions the prime's next class: {fed}; ring "
+        f"max abs err against plain {err:.3g}, {last} read classes off "
+        f"plain's away from a near-tie")
+    check(counted == (1, 1), f"{tag} head_from: launches {counted}")
+    check(same and fed, f"{tag}: head_from {total - 1} differs from "
+          f"head_from 0")
+    check(err <= RING_TOL and last == 0,
+          f"{tag} head_from: ring error {err}, {last} classes off plain")
+    return err
+
+
 def phase_kernel_vs_plain(torch, pt, gk, dev):
     """Returns the largest ring error and the class mismatch and near-tie
     counts over every comparison."""
@@ -426,6 +463,10 @@ def phase_kernel_vs_plain(torch, pt, gk, dev):
                 f"ring max abs err {err:.3g}")
             check(bad == 0, f"{tag}: kernel disagrees with plain off a near-tie")
             check(err <= RING_TOL, f"{tag}: ring error {err} > {RING_TOL}")
+            err = max(err, _headless_check(
+                torch, gk, lambda r, h: gk.fused_cuda(
+                    w, cfg, prime, r, 0, total, 0.0, 0.0, 0, fuse,
+                    head_from=h), prime, ck, rk, cp, gaps, rp, f"K1 {tag}"))
             worst = max(worst, err)
             mismatches += int(miss.sum())
             near_ties += int(ties.sum())
@@ -939,6 +980,11 @@ def phase_k4_vs_plain(torch, pt, ghbm, dev):
             check(bad == 0, f"{tag}: kernel disagrees with plain off a "
                   f"near-tie")
             check(err <= RING_TOL, f"{tag}: ring error {err} > {RING_TOL}")
+            err = max(err, _headless_check(
+                torch, ghbm, lambda r, h: ghbm.batched_cuda(
+                    w, cfg, forced, r, 0, 300, greedy, zeros, zeros, 0, 0.0,
+                    fuse, slab, True, head_from=h),
+                forced, ck, rk, cp, gaps, rp, tag))
             worst = max(worst, err)
             mismatches += int(miss.sum())
             near_ties += int(ties.sum())
@@ -1113,6 +1159,11 @@ def phase_kernel_sizes(torch, pt, gk, ghbm, dev):
                   f"{tag}: kernel disagrees with plain")
             check(torch.equal(ck, runs[1][0]) and torch.equal(rk, runs[1][1]),
                   f"{tag}: tiles 8 and 24 differ")
+            err = max(err, _headless_check(
+                torch, ghbm, lambda r, h: ghbm.batched_cuda(
+                    w, cfg, prime, r, 0, 200, greedy, zeros, zeros, 0, 0.0,
+                    fuse, slab, True, tile=8, head_from=h),
+                prime, ck, rk, cp, gaps, rp, tag + " tile 8"))
             note("K4", err, miss, ties)
         for fuse in (False, True):
             w = gk.prepare_weights(params, cfg, fuse)
@@ -1136,6 +1187,10 @@ def phase_kernel_sizes(torch, pt, gk, ghbm, dev):
                 f"{err:.3g}")
             check(bad == 0 and err <= RING_TOL,
                   f"{tag}: kernel disagrees with plain")
+            err = max(err, _headless_check(
+                torch, gk, lambda r, h: gk.fused_cuda(
+                    w, cfg, p3, r, 0, 200, 0.0, 0.0, 0, fuse, head_from=h),
+                p3, ck, rk, cp, gaps, rp, tag))
             note("K1", err, miss, ties)
     return stats["K1"], stats["K4"]
 
@@ -1972,6 +2027,10 @@ def phase_cond_k1_vs_plain(torch, pt, gk, dev):
                                       fuse, return_gaps=True, **kw)
             err, mm, nt = _forced_check(torch, ck, cp, gaps, rk, rp, 159,
                                         tag, "")
+            err = max(err, _headless_check(
+                torch, gk, lambda r, h: gk.fused_cuda(
+                    w, cfg, prime, r, 0, 160, 0.0, 0.0, 0, fuse,
+                    head_from=h, **kw), prime, ck, rk, cp, gaps, rp, tag))
             if not conditioned:
                 continue
             worst, mismatches, near_ties = (max(worst, err), mismatches + mm,
@@ -2072,6 +2131,11 @@ def phase_cond_k4_vs_plain(torch, pt, ghbm, dev):
                     (greedy, zeros, zeros), **kw)
                 err, mm, nt = _forced_check(torch, ck, cp, gaps, rk, rp, 63,
                                             tag, "")
+                err = max(err, _headless_check(
+                    torch, ghbm, lambda r, h: ghbm.batched_cuda(
+                        w, cfg, prime, r, 0, 64, greedy, zeros, zeros, 0,
+                        0.0, fuse, slab, True, head_from=h, **kw),
+                    prime, ck, rk, cp, gaps, rp, tag))
                 if not conditioned:
                     continue
                 worst, mismatches, near_ties = (
@@ -2701,6 +2765,29 @@ def phase_ring_k4_vs_plain(torch, pt, ghbm, dev, card):
                                   clock - 64, 64, (greedy, zeros, zeros),
                                   tag + " teacher-forced")
         state = ring.clone()
+        # the same 64 steps in one launch, with the head on every step and
+        # with head_from 63: both bitwise the lockstep's ring and last class
+        one_shot = []
+        for head_from in (0, 63):
+            before = (ghbm.launches, ghbm.headless_launches)
+            r = torch.zeros_like(ring)
+            c = ghbm.batched_cuda(w, cfg, prime, r, clock - 64, 64, greedy,
+                                  zeros, zeros, 0, 0.0, True, True, True,
+                                  head_from=head_from)
+            torch.cuda.synchronize()
+            one_shot.append((torch.equal(r, state)
+                             and torch.equal(c[:, -1], start[:, -1]),
+                             (ghbm.launches - before[0],
+                              ghbm.headless_launches - before[1])))
+        fed = torch.equal(c[:, :-1], prime[:, 1:])
+        log(f"[{tag}] the teacher-forced 64 steps in one launch, head_from "
+            f"0 and 63: ring and last class bitwise the lockstep's "
+            f"{[ok for ok, _ in one_shot]}, launches (kernel, headless) "
+            f"{[n for _, n in one_shot]}; headless positions the prime's "
+            f"next class: {fed}")
+        check(one_shot == [(True, (1, 0)), (True, (1, 1))] and fed,
+              f"{tag}: one-launch teacher-forced steps {one_shot}, fed "
+              f"{fed}")
         first = start[:, -1:].contiguous()
         one_ring = state.clone()
         n = RING_LOCKSTEP

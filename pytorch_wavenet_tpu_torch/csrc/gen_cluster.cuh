@@ -14,6 +14,12 @@
 //   logits = relu(relu(row) @ w_end1 + b_end1) @ w_end2 + b_end2 - reg
 //   the sampled class: argmax(logits / T + gumbel) at T > 0, else
 //   argmax(logits), first index on ties; fed back unless the prime runs.
+// A teacher-forced step before `head_from` (the first step whose class the
+// caller reads) runs without the head, in a kernel launched before the
+// rest (launch): the chain and the ring writes only, no skip row, logits
+// or sampling; its input for the next step is the prime's, and its
+// out_cls entry holds that prime class. head_from = 0 runs the head on
+// every step.
 // fuse_res walks the chain with wf[l] = w_res[l] @ w_cur[l+1]:
 //   z[l+1] = taps[l+1] + h[l] @ w_cur[l+1] + bf[l] + u[l] @ wf[l].
 // Conditioning adds to z[l] beside the taps: local conditioning, in K1 a
@@ -37,7 +43,9 @@
 //    so as soon as step t-1's ring writes are done, rank q issues cp.async
 //    copies of every tap row of the layers l = q (mod CS) for step t (0.0
 //    through the zero-fill form where ta < m or the lane is empty, never
-//    read), during the head of step t-1. At step t it waits once, computes
+//    read), during the head of step t-1 (on a headless step nothing hides
+//    the copies: they are issued right after the ring writes, which are
+//    made as soon as the chain ends). At step t it waits once, computes
 //    those layers' tap products for all 2D columns (weights from L2: off
 //    the chain), and stores each into its owner's shared memory. The ring
 //    writes of layer l are made by the same rank, so one block barrier
@@ -81,10 +89,10 @@
 // What still bounds a step (chip_smoke.py prints the split from the
 // kernel's own timers, `timers`): the chain's latency, a cluster barrier
 // and a few dependent shared-memory, shuffle and transcendental rounds per
-// layer, about half of a step at 30 layers; then the head, where the
-// 3xTF32 splits of both operands (the input rows once per m-tile) cost
-// about what the tensor cores save over f32 FMAs at 8-24 lanes, and its
-// L2 reads.
+// layer, about half of a step at 30 layers (nearly all of a headless
+// one); then the head, where the 3xTF32 splits of both operands (the input
+// rows once per m-tile) cost about what the tensor cores save over f32
+// FMAs at 8-24 lanes, and its L2 reads.
 // Summation order: every output of a chain product is the sum of KG = 8
 // row groups (group g: rows g, g + 8, ..., in order; interleaved so the
 // groups' shared-memory reads fall in different banks), combined by a
@@ -140,6 +148,7 @@ struct Args {
   int* out_cls;          // (streams, total)
   unsigned long long* timers;  // null, or (NPHASE,): ns per phase
   int streams, num_given, total, t0;
+  int head_from;         // steps t < head_from skip the head (<= num_given-1)
   int L, k, R, D, S, E, C;
   int M, cond_rows;      // cond channels (K4); rows of the cond slab
   int CS, F, resident;
@@ -702,11 +711,21 @@ __device__ __forceinline__ void chain_rows(const float* W, int n2, int cs,
   }
 }
 
-// COND: the call has conditioning inputs (cond or gcond). The kernel
-// without them is compiled apart, so their code costs the unconditioned
-// paths no registers. RT: the ring's dtype, 0 f32, 1 bf16, 2 int8 (K4).
-template <int TL, bool K1RING, bool COND, int RT = 0>
-__global__ void __launch_bounds__(NT, 1) gen_cluster_kernel(Args a) {
+// The tag of the kernel that runs a call's headless steps.
+struct Headless {};
+
+// The steps of one call on this block: HEAD, steps [head_from, total) with
+// the head; else the teacher-forced steps [0, head_from) without it. Each
+// is a kernel of its own (launch), so the headless steps cost the headed
+// kernel no registers (a branch on the step in one loop spilled more at
+// every width, at 24 lanes twice the bytes loaded, and slowed the 24-lane
+// step by 3.5 % on an H100).
+// COND: the call has conditioning inputs (cond or
+// gcond). The kernel without them is compiled apart, so their code costs
+// the unconditioned paths no registers. RT: the ring's dtype, 0 f32, 1
+// bf16, 2 int8 (K4).
+template <int TL, bool K1RING, bool COND, int RT, bool HEAD>
+__device__ __forceinline__ void gen_steps(const Args& a) {
   static_assert(RT == 0 || !K1RING, "K1's rings are f32");
   constexpr int RB = RT == 0 ? 4 : RT == 1 ? 2 : 1;  // bytes per element
   extern __shared__ __align__(16) float sm[];
@@ -743,18 +762,21 @@ __global__ void __launch_bounds__(NT, 1) gen_cluster_kernel(Args a) {
     for (int i = tid; i < ch.layers(L); i += NT) b[i] = blob[i];
     blob = b;
   }
+  const int t_begin = HEAD ? a.head_from : 0;
+  const int t_end = HEAD ? a.total : a.head_from;
   for (int lane = tid; lane < TL; lane += NT) {
     const int s = lane0 + lane;
-    cur[lane] = s < a.streams ? a.prime[(size_t)s * a.num_given] : 0;
+    cur[lane] =
+        s < a.streams ? a.prime[(size_t)s * a.num_given + t_begin] : 0;
   }
   // the first step's taps (and conditioning), issued before the loop (a
   // resumed call reads its history from the first step on)
   if (COND && a.cond != nullptr)
-    prefetch_cond<TL, K1RING>(a, ch, q, 0, lane0, cs);
+    prefetch_cond<TL, K1RING>(a, ch, q, t_begin, lane0, cs);
   if constexpr (RT == 0)
-    prefetch_taps<TL, K1RING>(a, ch, q, a.t0, lane0, taps);
+    prefetch_taps<TL, K1RING>(a, ch, q, a.t0 + t_begin, lane0, taps);
   else
-    prefetch_raw<TL, RB>(a, ch, q, a.t0, lane0, taps, ring_bytes);
+    prefetch_raw<TL, RB>(a, ch, q, a.t0 + t_begin, lane0, taps, ring_bytes);
   cl.sync();
 
   const int bsS = col_block(S, CS), bsE = col_block(E, CS);
@@ -779,7 +801,7 @@ __global__ void __launch_bounds__(NT, 1) gen_cluster_kernel(Args a) {
       t_mark = n;
     }
   };
-  for (int t = 0; t < a.total; ++t) {
+  for (int t = t_begin; t < t_end; ++t) {
     const int ta = a.t0 + t;
     cp_async_wait_all();
     __syncthreads();
@@ -980,16 +1002,22 @@ __global__ void __launch_bounds__(NT, 1) gen_cluster_kernel(Args a) {
     }
 
     mark(1);
-    // skip row: this rank's columns from the slab of u
-    if (a.skip_slab)
-      head_cols<TL, false, false, false, RT != 0>(a.w_skip, a.b_skip, S,
-                                                  L * D, L, H, s0, s1,
-                                                  scratch, part);
-    else
-      head_cols<TL, false, false, true>(a.w_skip, a.b_skip, S + R, L * D, L,
-                                        H, s0, s1, scratch, part);
-    cl.sync();  // every rank is done with its slab
-    mark(3);
+    // a headless step: no rank reads the slab of u, tz or hbuf after the
+    // chain's last cluster barrier, and the next step's stores into other
+    // ranks' tz, slab and hbuf come after its tap barrier, so no barrier
+    // takes the skip row's place
+    if constexpr (HEAD) {
+      // skip row: this rank's columns from the slab of u
+      if (a.skip_slab)
+        head_cols<TL, false, false, false, RT != 0>(a.w_skip, a.b_skip, S,
+                                                    L * D, L, H, s0, s1,
+                                                    scratch, part);
+      else
+        head_cols<TL, false, false, true>(a.w_skip, a.b_skip, S + R, L * D,
+                                          L, H, s0, s1, scratch, part);
+      cl.sync();  // every rank is done with its slab
+      mark(3);
+    }
     // the ring writes of this rank's layers, then the next step's taps
     for (int m = 0; m < n_own; ++m) {
       const int l = q + m * CS;
@@ -1012,13 +1040,25 @@ __global__ void __launch_bounds__(NT, 1) gen_cluster_kernel(Args a) {
       }
     }
     __syncthreads();  // a d = 1 layer's taps read the slot just written
-    if (t + 1 < a.total) {
+    if (t + 1 < t_end) {
       if (COND && a.cond != nullptr)
         prefetch_cond<TL, K1RING>(a, ch, q, t + 1, lane0, cs);
       if constexpr (RT == 0)
         prefetch_taps<TL, K1RING>(a, ch, q, ta + 1, lane0, taps);
       else
         prefetch_raw<TL, RB>(a, ch, q, ta + 1, lane0, taps, ring_bytes);
+    }
+    if constexpr (!HEAD) {  // the next input is the prime's (t < num_given-1)
+      mark(4);
+      for (int lane = tid; lane < TL; lane += NT) {
+        const int s = lane0 + lane;
+        if (s >= a.streams) continue;
+        const int next = a.prime[(size_t)s * a.num_given + t + 1];
+        if (q == 0) a.out_cls[(size_t)s * a.total + t] = next;
+        cur[lane] = next;
+      }
+      mark(6);
+      continue;
     }
     all_gather<TL>(cl, CS, scratch, H, s0, s1 - s0);
     cl.sync();
@@ -1097,6 +1137,31 @@ __global__ void __launch_bounds__(NT, 1) gen_cluster_kernel(Args a) {
   cl.sync();  // no rank leaves while another may still store into it
 }
 
+template <int TL, bool K1RING, bool COND, int RT = 0>
+__global__ void __launch_bounds__(NT, 1) gen_cluster_kernel(Args a) {
+  gen_steps<TL, K1RING, COND, RT, true>(a);
+}
+
+// The headless steps, launched before the kernel above when head_from > 0
+// (the same name, so a trace counts both as the one kernel's).
+template <int TL, bool K1RING, bool COND, int RT = 0>
+__global__ void __launch_bounds__(NT, 1) gen_cluster_kernel(Args a,
+                                                            Headless) {
+  gen_steps<TL, K1RING, COND, RT, false>(a);
+}
+
+// A kernel's launch attributes: `smem` bytes of dynamic shared memory, and
+// clusters of CS > 8 blocks allowed.
+template <typename K>
+cudaError_t set_attributes(K kern, int smem, int CS) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess && CS > 8)
+    err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  return err;
+}
+
 // Bytes of dynamic shared memory at tile width TL and cluster size CS,
 // with the chain weights resident when they fit (*resident says so).
 inline int shared_bytes(int TL, int CS, int L, int k, int R, int D, int S,
@@ -1108,8 +1173,10 @@ inline int shared_bytes(int TL, int CS, int L, int k, int R, int D, int S,
   return (s.nonblob + (*resident ? ch.layers(L) : 0)) * 4;
 }
 
-// Launch on `st`; returns a cudaError_t (0 = success), or -2 when even
-// the layout without the chain exceeds a block's shared memory.
+// Launch on `st`: the headless kernel over steps [0, head_from) when
+// head_from > 0, then the kernel over the rest; returns a cudaError_t (0 =
+// success), or -2 when even the layout without the chain exceeds a block's
+// shared memory.
 template <int TL, bool K1RING, int RT = 0>
 int launch(Args a, int tiles, cudaStream_t st, int* max_clusters) {
   int resident = 0;
@@ -1117,17 +1184,11 @@ int launch(Args a, int tiles, cudaStream_t st, int* max_clusters) {
                                 a.fuse_res, a.cond_rows, &resident);
   if (smem > SMEM_LIMIT) return -2;
   a.resident = resident;
-  auto kern = (a.cond != nullptr || a.gcond != nullptr)
-                  ? gen_cluster_kernel<TL, K1RING, true, RT>
-                  : gen_cluster_kernel<TL, K1RING, false, RT>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const bool cond = a.cond != nullptr || a.gcond != nullptr;
+  void (*kern)(Args) = gen_cluster_kernel<TL, K1RING, false, RT>;
+  if (cond) kern = gen_cluster_kernel<TL, K1RING, true, RT>;
+  cudaError_t err = set_attributes(kern, smem, a.CS);
   if (err != cudaSuccess) return (int)err;
-  if (a.CS > 8) {
-    err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (err != cudaSuccess) return (int)err;
-  }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(tiles * a.CS, 1, 1);
   cfg.blockDim = dim3(NT, 1, 1);
@@ -1145,6 +1206,15 @@ int launch(Args a, int tiles, cudaStream_t st, int* max_clusters) {
     return (int)err;
   }
   if (RT == 2 && a.qscale == nullptr) return -1;  // int8 without scales
+  if (a.head_from > 0) {
+    void (*headless)(Args, Headless) =
+        gen_cluster_kernel<TL, K1RING, false, RT>;
+    if (cond) headless = gen_cluster_kernel<TL, K1RING, true, RT>;
+    err = set_attributes(headless, smem, a.CS);
+    if (err != cudaSuccess) return (int)err;
+    err = cudaLaunchKernelEx(&cfg, headless, a, Headless{});
+    if (err != cudaSuccess) return (int)err;
+  }
   err = cudaLaunchKernelEx(&cfg, kern, a);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();

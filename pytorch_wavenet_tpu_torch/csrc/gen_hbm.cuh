@@ -85,14 +85,16 @@ extern "C" int wavenet_gen_batched_smem(int tile, int cluster, int L, int k,
 // Launch on `stream`; `cond` (total, M, streams) rows with `w_cond` (L, M,
 // 2D), and `gcond` (L, 2D, streams) projected rows, each null when absent;
 // `ring` of this library's dtype, and for int8 rings `qscale` (L) f32, the
-// per-layer store scales (null otherwise).
-// Returns the cudaError_t of the launch (0 = success),
-// -1 for a tile width without a compiled kernel, a cluster size other
-// than 8 or an int8 ring without its scales, -2 for a config whose
-// buffers exceed a block's shared memory. With `max_clusters` non-null it
-// launches nothing and stores cudaOccupancyMaxActiveClusters there. With
-// `timers` non-null (NPHASE int64, zeroed by the caller) the first block
-// adds the ns it spent per phase of a step (gen_cluster.cuh).
+// per-layer store scales (null otherwise). Steps t < `head_from` (at most
+// num_given - 1) are teacher-forced and run without the head: their
+// out_cls entry is the prime's next class (gen_cluster.cuh).
+// Returns the cudaError_t of the launch (0 = success), -1 for a tile width
+// without a compiled kernel, a cluster size other than 8, a head_from
+// outside [0, num_given) or an int8 ring without its scales, -2 for a
+// config whose buffers exceed a block's shared memory. With `max_clusters`
+// non-null it launches nothing and stores cudaOccupancyMaxActiveClusters
+// there. With `timers` non-null (NPHASE int64, zeroed by the caller) the
+// first block adds the ns it spent per phase of a step (gen_cluster.cuh).
 extern "C" int wavenet_gen_batched(
     const float* w_start, const float* b_start, const float* chain,
     const float* w_skip, const float* b_skip, const float* w_end1,
@@ -103,8 +105,8 @@ extern "C" int wavenet_gen_batched(
     int* out_cls, int streams, int num_given,
     int total, int t0, int L, int k, int R, int D, int S, int E, int C,
     int chain_floats, float regularize, int seed, int fuse_res,
-    int skip_slab, int lane_seed, int tile, int cluster, void* stream,
-    int* max_clusters, unsigned long long* timers) {
+    int skip_slab, int lane_seed, int head_from, int tile, int cluster,
+    void* stream, int* max_clusters, unsigned long long* timers) {
   Args a = {};
   a.w_start = w_start; a.b_start = b_start; a.chain = chain;
   a.w_skip = w_skip; a.b_skip = b_skip; a.w_end1 = w_end1;
@@ -120,7 +122,8 @@ extern "C" int wavenet_gen_batched(
   a.temperature = 0.f; a.regularize = regularize;
   a.seed = (unsigned)seed;
   a.fuse_res = fuse_res; a.skip_slab = skip_slab; a.lane_seed = lane_seed;
-  if (cluster != 8) return -1;
+  a.head_from = head_from;
+  if (cluster != 8 || head_from < 0 || head_from >= num_given) return -1;
   const int tiles = (streams + tile - 1) / tile;
   return launch_tile(a, tile, tiles, static_cast<cudaStream_t>(stream),
                      max_clusters);

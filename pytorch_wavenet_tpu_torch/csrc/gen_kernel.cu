@@ -46,10 +46,12 @@ extern "C" int wavenet_gen_fused_smem(int cluster, int L, int k, int R, int D,
 
 // Launch on `stream`; `cond` (total, L, streams, 2D) and `gcond` (L,
 // streams, 2D) are the projected conditioning rows, each null when absent
-// (`cond_rows`, the slab's rows, 0 then). Returns the cudaError_t of the
-// launch (0 = success),
-// -1 for a cluster size other than 16 or more than 8 streams, -2 for
-// a config whose buffers exceed a block's shared memory. With
+// (`cond_rows`, the slab's rows, 0 then). Steps t < `head_from` (at most
+// num_given - 1) are teacher-forced and run without the head: their
+// out_cls entry is the prime's next class (gen_cluster.cuh). Returns the
+// cudaError_t of the launch (0 = success), -1 for a cluster size other
+// than 16, more than 8 streams or a head_from outside [0, num_given), -2
+// for a config whose buffers exceed a block's shared memory. With
 // `max_clusters` non-null it launches nothing and stores
 // cudaOccupancyMaxActiveClusters there.
 extern "C" int wavenet_gen_fused(
@@ -60,8 +62,8 @@ extern "C" int wavenet_gen_fused(
     const int* prime, const int* meta, float* rings, int* out_cls,
     int streams, int num_given, int total, int t0, int L, int k, int R, int D,
     int S, int E, int C, int chain_floats, float temperature,
-    float regularize, int seed, int fuse_res, int cluster, void* stream,
-    int* max_clusters) {
+    float regularize, int seed, int fuse_res, int head_from, int cluster,
+    void* stream, int* max_clusters) {
   Args a = {};
   a.w_start = w_start; a.b_start = b_start; a.chain = chain;
   a.w_skip = w_out; a.b_skip = b_out; a.w_end1 = w_end1; a.b_end1 = b_end1;
@@ -76,7 +78,9 @@ extern "C" int wavenet_gen_fused(
   a.temperature = temperature; a.regularize = regularize;
   a.seed = (unsigned)seed;
   a.fuse_res = fuse_res; a.skip_slab = 0; a.lane_seed = 0;
-  if (cluster != 16 || streams < 1 || streams > 8)
+  a.head_from = head_from;
+  if (cluster != 16 || streams < 1 || streams > 8 || head_from < 0 ||
+      head_from >= num_given)
     return -1;
   return gen_cluster::launch<8, true>(a, 1, static_cast<cudaStream_t>(stream),
                                       max_clusters);

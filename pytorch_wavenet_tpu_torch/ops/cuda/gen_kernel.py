@@ -13,7 +13,8 @@ layer chain's weights are packed per rank of the cluster here
 :func:`fused_plain` computes the same function with PyTorch ops, step by
 step, on any device. The wrapper :func:`generate_fast_fused` runs the
 plain version only for tensors on the CPU; for CUDA tensors it launches
-the kernel or raises. ``launches`` counts kernel launches.
+the kernel or raises. ``launches`` counts kernel launches,
+``headless_launches`` those of the headless kernel.
 
 Conditioning (the vocoder) follows the TPU kernel: local conditioning
 ``cond`` ``(S, total, M)`` and global ``global_cond`` ``(S, G)`` are
@@ -42,9 +43,11 @@ from ...device import resolve_device
 from ...models.generate import classes_to_waveform
 from ...models.wavenet import Params, params_to
 
-# kernel launches since the count was last set to 0 (the plain version
-# does not count)
+# launches since the counts were last set to 0: of the kernel (one a
+# call) and of its headless version (one more a call with ``head_from``
+# above 0, launched first); the plain version counts neither
 launches = 0
+headless_launches = 0
 
 MAX_STREAMS = 8  # the lanes of the kernel's one tile
 CLUSTER = 16     # blocks of K1's one cluster (faster than 8: PERF.md)
@@ -361,7 +364,7 @@ def fused_plain(w: dict, cfg: WaveNetConfig, prime: torch.Tensor,
                 rings: torch.Tensor, t0: int, total: int, temperature: float,
                 regularize: float, seed: int, fuse_res: bool,
                 return_gaps: bool = False, cond: torch.Tensor | None = None,
-                gcond: torch.Tensor | None = None):
+                gcond: torch.Tensor | None = None, head_from: int = 0):
     """The kernel's function in PyTorch ops: ``total`` steps for every
     stream of ``prime`` (int32 ``(streams, num_given)``), updating the flat
     ``rings`` in place. ``cond`` ``(total, L, streams, 2D)`` and ``gcond``
@@ -370,10 +373,17 @@ def fused_plain(w: dict, cfg: WaveNetConfig, prime: torch.Tensor,
     Returns the sampled classes ``(streams, total)`` int32, and with
     ``return_gaps`` also the per-step gap between the two best sampling
     scores ``(streams, total)`` (what decides whether a
-    differently-rounded version may pick another class)."""
+    differently-rounded version may pick another class).
+
+    Steps ``t < head_from`` (:func:`check_head_from`) are teacher-forced
+    and run without the head: the chain and the ring writes only, no skip
+    row, logits or sampling. Their class is the prime's next one,
+    ``prime[:, t + 1]``, and their gap ``inf`` (no draw to flip); the ring
+    and every later class are those of ``head_from = 0`` bitwise."""
     L, k = cfg.num_layers, cfg.kernel_size
     D, S, C = cfg.dilation_channels, cfg.skip_channels, cfg.classes
     streams, num_given = prime.shape
+    check_head_from(head_from, num_given)
     per = periods(cfg)
     views = ring_views(rings, cfg, streams)
     if regularize != 0.0:
@@ -408,12 +418,14 @@ def fused_plain(w: dict, cfg: WaveNetConfig, prime: torch.Tensor,
                 z = z + gcond[l]
             return z
 
+        head = t >= head_from
         if not fuse_res:
             for l in range(L):
                 z = extras(l, h @ w["w_tap"][l, k - 1] + w["b_in"][l])
                 u = torch.tanh(z[:, :D]) * torch.sigmoid(z[:, D:])
                 sr = u @ w["w_out"][l] + w["b_out"][l]
-                skip = skip + sr[:, :S]
+                if head:
+                    skip = skip + sr[:, :S]
                 rows(l, ta % per[l]).copy_(h)
                 h = h + sr[:, S:]
         else:
@@ -427,9 +439,16 @@ def fused_plain(w: dict, cfg: WaveNetConfig, prime: torch.Tensor,
                 if l + 1 < L:
                     z = pre + u @ w["wf"][l]
                 sr = u @ w["w_out"][l] + w["b_out"][l]
-                skip = skip + sr[:, :S]
+                if head:
+                    skip = skip + sr[:, :S]
                 h = h + sr[:, S:]
 
+        if not head:
+            cls = prime[:, t + 1].long()
+            all_cls[:, t] = prime[:, t + 1]
+            if return_gaps:
+                gaps[:, t] = float("inf")
+            continue
         y = torch.relu(skip)
         y = torch.relu(y @ w["w_end1"] + w["b_end1"])
         score = y @ w["w_end2"] + w["b_end2"]
@@ -447,6 +466,16 @@ def fused_plain(w: dict, cfg: WaveNetConfig, prime: torch.Tensor,
     return (all_cls, gaps) if return_gaps else all_cls
 
 
+def check_head_from(head_from: int, num_given: int) -> None:
+    """Raise unless ``head_from``, the first step whose class the caller
+    reads, lies in ``[0, num_given)``: a step before it must be
+    teacher-forced (its next input the prime's), and 0 runs the head on
+    every step."""
+    if not 0 <= head_from < num_given:
+        raise ValueError(f"head_from {head_from} must lie in [0, "
+                         f"num_given = {num_given})")
+
+
 # ------------------------------------------------------------------ kernel
 
 _PTR = ctypes.c_void_p
@@ -461,7 +490,7 @@ def _bind():
     if fn.argtypes is None:
         fn.argtypes = ([_PTR] * 11 + [_INT] + [_PTR] * 4 + [_INT] * 12
                        + [ctypes.c_float, ctypes.c_float, _INT, _INT, _INT,
-                          _PTR, _PTR])
+                          _INT, _PTR, _PTR])
         fn.restype = _INT
         lib.wavenet_gen_fused_smem.argtypes = [_INT] * 10 + [_PTR]
         lib.wavenet_gen_fused_smem.restype = _INT
@@ -517,7 +546,8 @@ def operand_shapes(cfg: WaveNetConfig, fuse_res: bool) -> dict:
 
 
 def _launch_fused(w, cfg, prime, rings, t0, total, temperature, regularize,
-                  seed, fuse_res, max_clusters=None, cond=None, gcond=None):
+                  seed, fuse_res, max_clusters=None, cond=None, gcond=None,
+                  head_from=0):
     dev = prime.device
     streams, num_given = prime.shape
     per, R = periods(cfg), cfg.residual_channels
@@ -547,7 +577,7 @@ def _launch_fused(w, cfg, prime, rings, t0, total, temperature, regularize,
         prime.data_ptr(), meta.data_ptr(), rings.data_ptr(), out.data_ptr(),
         streams, num_given, total, t0, *dims, w["chain"].shape[1],
         float(temperature), float(regularize), int(seed), int(fuse),
-        CLUSTER, stream,
+        int(head_from), CLUSTER, stream,
         None if max_clusters is None else ctypes.byref(max_clusters))
     if err != 0:
         raise RuntimeError(f"gen_kernel launch failed: error {err}")
@@ -572,12 +602,14 @@ def fused_cuda(w: dict, cfg: WaveNetConfig, prime: torch.Tensor,
                rings: torch.Tensor, t0: int, total: int, temperature: float,
                regularize: float, seed: int, fuse_res: bool,
                cond: torch.Tensor | None = None,
-               gcond: torch.Tensor | None = None) -> torch.Tensor:
+               gcond: torch.Tensor | None = None,
+               head_from: int = 0) -> torch.Tensor:
     """Launch the kernel on the current stream with the same contract as
     :func:`fused_plain` (no gaps), on one cluster of :data:`CLUSTER`
-    blocks. Raises on operands that do not match ``cfg`` (the kernel
-    would read out of bounds) and if the launch fails."""
-    global launches
+    blocks: steps before ``head_from`` run without the head. Raises on
+    operands that do not match ``cfg`` (the kernel would read out of
+    bounds) and if the launch fails."""
+    global launches, headless_launches
     if prime.dim() != 2:
         raise ValueError(f"prime must be (streams, num_given), not "
                          f"{tuple(prime.shape)}")
@@ -588,6 +620,7 @@ def fused_cuda(w: dict, cfg: WaveNetConfig, prime: torch.Tensor,
     if num_given < 1 or total < 1:
         raise ValueError(f"{num_given} prime classes and {total} steps: "
                          f"the kernel needs at least one of each")
+    check_head_from(head_from, num_given)
     if t0 < 0 or t0 + total >= 2**31:
         raise ValueError("absolute steps must lie in [0, 2**31)")
     rows = 0 if cond is None else cond_rows(cfg, CLUSTER, fuse_res)
@@ -622,8 +655,10 @@ def fused_cuda(w: dict, cfg: WaveNetConfig, prime: torch.Tensor,
     if prime.dtype != torch.int32 or not prime.is_contiguous():
         raise ValueError("prime must be contiguous int32")
     out = _launch_fused(w, cfg, prime, rings, t0, total, temperature,
-                        regularize, seed, fuse_res, cond=cond, gcond=gcond)
+                        regularize, seed, fuse_res, cond=cond, gcond=gcond,
+                        head_from=head_from)
     launches += 1
+    headless_launches += int(head_from > 0)
     return out
 
 
@@ -663,6 +698,11 @@ def generate_fast_fused(params: Params, cfg: WaveNetConfig,
     sampling noise; keep it the same across the chunks of one rollout.
     ``fuse_res`` shortens the serial chain with pre-multiplied weights: the
     same function, reassociated (logits agree to about 1e-5).
+
+    The ``num_given - 1`` teacher-forced steps of a prime run without the
+    head (``head_from``): the reference keeps only their queues too, and
+    the rings and returned classes are those of a call with the head on
+    every step, bitwise.
 
     On ``device="cpu"`` this runs :func:`fused_plain`; on a CUDA device it
     launches the kernel. The call is three profiler spans in a row:
@@ -718,7 +758,8 @@ def generate_fast_fused(params: Params, cfg: WaveNetConfig,
     run = fused_plain if dev.type == "cpu" else fused_cuda
     with torch.profiler.record_function("k1.launch"):
         all_cls = run(w, cfg, prime, rings, t0, total, temperature,
-                      regularize, seed, fuse_res, cond=cproj, gcond=gproj)
+                      regularize, seed, fuse_res, cond=cproj, gcond=gproj,
+                      head_from=num_given - 1)
     with torch.profiler.record_function("k1.finish"):
         cls = all_cls[:, num_given - 1:total]
         wav = classes_to_waveform(cls, C)

@@ -59,6 +59,13 @@ projected outside to an ``(L, 2D, S)`` table (:func:`project_gcond`).
 a time, on any device. :func:`run_batched` runs it only for tensors on the
 CPU; for CUDA tensors it launches the kernel (:func:`batched_cuda`) or
 raises. ``launches`` counts kernel launches.
+
+Teacher-forced steps whose class no caller reads (``head_from``: the
+first step that is read) run without the head, on the kernel and its
+plain version alike: the chain and the ring writes only.
+:func:`generate_fast_batched` and the lane pool's prime pass ``num_given -
+1``; ``headless_launches`` counts the launches of the headless kernel
+that runs those steps.
 """
 
 from __future__ import annotations
@@ -75,11 +82,19 @@ from ...device import resolve_device
 from ...models.generate import classes_to_waveform
 from ...models.wavenet import Params, params_to
 from . import gen_kernel as k1
-from .gen_kernel import _seed_from, counter_uniform, full_f32, periods
+from .gen_kernel import (
+    _seed_from,
+    check_head_from,
+    counter_uniform,
+    full_f32,
+    periods,
+)
 
-# kernel launches since the count was last set to 0 (the plain version
-# does not count)
+# launches since the counts were last set to 0: of the kernel (one a
+# call) and of its headless version (one more a call with ``head_from``
+# above 0, launched first); the plain version counts neither
 launches = 0
+headless_launches = 0
 
 TILES = (8, 16, 24)  # lanes per cluster the kernel is compiled for
 # ring dtypes and the library each is compiled into
@@ -229,7 +244,7 @@ def batched_plain(w: dict, cfg: WaveNetConfig, prime: torch.Tensor,
                   fuse_res: bool, skip_slab: bool, lane_seed: bool,
                   return_gaps: bool = False,
                   cond: torch.Tensor | None = None,
-                  gcond: torch.Tensor | None = None):
+                  gcond: torch.Tensor | None = None, head_from: int = 0):
     """The kernel's function in PyTorch ops: ``total`` steps from absolute
     step ``t0`` for every lane of ``prime`` (int32 ``(streams,
     num_given)``), updating ``ring`` ``(sum P * R, streams)`` in place.
@@ -246,12 +261,16 @@ def batched_plain(w: dict, cfg: WaveNetConfig, prime: torch.Tensor,
     ``return_gaps``, the per-step gap between the two best sampling scores
     ``(streams, total)`` (what decides whether a differently-rounded
     version may pick another class). The sums follow the JAX kernel's
-    order."""
+    order. Steps ``t < head_from`` run without the head, as
+    ``gen_kernel.fused_plain`` says: class ``prime[:, t + 1]``, gap
+    ``inf``, the ring and later classes bitwise those of ``head_from =
+    0``."""
     L, k = cfg.num_layers, cfg.kernel_size
     R, D, S, C = (cfg.residual_channels, cfg.dilation_channels,
                   cfg.skip_channels, cfg.classes)
     fuse_res = fuse_res and L > 1
     streams, num_given = prime.shape
+    check_head_from(head_from, num_given)
     dev = prime.device
     per, first = periods(cfg), ring_offsets(cfg)
     rdt = _check_ring_dtype(w, ring)
@@ -270,6 +289,7 @@ def batched_plain(w: dict, cfg: WaveNetConfig, prime: torch.Tensor,
     cls = prime[:, 0].long()
     for t in range(total):
         ta = t0 + t
+        head = t >= head_from
         h = w["w_start"][cls] + w["b_start"]
         skip = torch.zeros((streams, S), dtype=torch.float32, device=dev)
         slab = []
@@ -296,11 +316,12 @@ def batched_plain(w: dict, cfg: WaveNetConfig, prime: torch.Tensor,
 
         def consume(l, u, h, skip):
             if skip_slab:
-                slab.append(u if rdt == torch.float32 else
-                            u.to(torch.bfloat16).to(torch.float32))
+                if head:
+                    slab.append(u if rdt == torch.float32 else
+                                u.to(torch.bfloat16).to(torch.float32))
                 return h + (u @ w["w_res"][l] + w["b_res"][l]), skip
             sr = u @ w["w_out"][l] + w["b_out"][l]
-            return h + sr[:, S:], skip + sr[:, :S]
+            return h + sr[:, S:], skip + sr[:, :S] if head else skip
 
         if not fuse_res:
             for l in range(L):
@@ -319,6 +340,12 @@ def batched_plain(w: dict, cfg: WaveNetConfig, prime: torch.Tensor,
                     z = pre + u @ w["wf"][l]
                 h, skip = consume(l, u, h, skip)
 
+        if not head:
+            cls = prime[:, t + 1].long()
+            all_cls[:, t] = prime[:, t + 1]
+            if return_gaps:
+                gaps[:, t] = float("inf")
+            continue
         if skip_slab:
             row = torch.cat(slab, dim=1) @ w["w_skip"] + w["b_skip"]
         else:
@@ -369,7 +396,7 @@ def _bind(ring_dtype=torch.float32):
     fn = lib.wavenet_gen_batched
     if fn.argtypes is None:
         fn.argtypes = ([_PTR] * 12 + [_INT] + [_PTR] * 8 + [_INT] * 12
-                       + [ctypes.c_float] + [_INT] * 6 + [_PTR] * 3)
+                       + [ctypes.c_float] + [_INT] * 7 + [_PTR] * 3)
         fn.restype = _INT
         lib.wavenet_gen_batched_smem.argtypes = [_INT] * 11 + [_PTR]
         lib.wavenet_gen_batched_smem.restype = _INT
@@ -411,7 +438,7 @@ def default_tile(streams: int, cfg: WaveNetConfig, fuse_res: bool,
 def _launch(w, cfg, prime, ring, t0, total, temps, seeds, toffs, seed,
             regularize, fuse_res, skip_slab, lane_seed, tile,
             max_clusters=None, timers=None, cond=None, gcond=None,
-            cond_rows=None):
+            cond_rows=None, head_from=0):
     dev = prime.device
     streams, num_given = prime.shape
     out = torch.empty((streams, total), dtype=torch.int32, device=dev)
@@ -441,7 +468,8 @@ def _launch(w, cfg, prime, ring, t0, total, temps, seeds, toffs, seed,
         prime.data_ptr(), w["meta"].data_ptr(), ring.data_ptr(),
         out.data_ptr(), streams, num_given, total, t0, *dims,
         w["chain"].shape[1], float(regularize), int(seed), int(fuse_res),
-        int(bool(skip_slab)), int(bool(lane_seed)), tile, CLUSTER, stream,
+        int(bool(skip_slab)), int(bool(lane_seed)), int(head_from), tile,
+        CLUSTER, stream,
         None if max_clusters is None else ctypes.byref(max_clusters),
         None if timers is None else timers.data_ptr())
     if err != 0:
@@ -481,9 +509,11 @@ def batched_cuda(w: dict, cfg: WaveNetConfig, prime: torch.Tensor,
                  tile: int | None = None,
                  timers: torch.Tensor | None = None,
                  cond: torch.Tensor | None = None,
-                 gcond: torch.Tensor | None = None) -> torch.Tensor:
+                 gcond: torch.Tensor | None = None,
+                 head_from: int = 0) -> torch.Tensor:
     """Launch the kernel on the current stream with the contract of
-    :func:`batched_plain` (no gaps). ``tile`` lanes per cluster, one of
+    :func:`batched_plain` (no gaps): steps before ``head_from`` run
+    without the head. ``tile`` lanes per cluster, one of
     ``TILES``: callers leave it to :func:`default_tile`; the tests and
     ``chip_smoke.py``'s sweep set it. Every lane's classes and ring are
     bitwise the same at any tile width. The ring's dtype (f32, bf16 or
@@ -492,8 +522,10 @@ def batched_cuda(w: dict, cfg: WaveNetConfig, prime: torch.Tensor,
     ``cfg`` (the kernel would read out of bounds), on a width, config or
     ring dtype the kernel does not take, and if the launch fails.
     ``timers``, an int64 ``(len(PHASES),)`` tensor on the device, receives
-    the ns the first block spends in each of ``PHASES`` over the call."""
-    global launches
+    the ns the first block spends in each of ``PHASES`` over the call (a
+    headless step adds to the chain's phases, "ring writes + end1" and
+    "sampling" only)."""
+    global launches, headless_launches
     fuse_res = fuse_res and cfg.num_layers > 1
     if prime.dim() != 2:
         raise ValueError(f"prime must be (streams, num_given), not "
@@ -503,6 +535,7 @@ def batched_cuda(w: dict, cfg: WaveNetConfig, prime: torch.Tensor,
         raise ValueError(f"{streams} streams, {num_given} prime classes and "
                          f"{total} steps: the kernel needs at least one of "
                          f"each")
+    check_head_from(head_from, num_given)
     if t0 < 0 or t0 + total >= 2**31:
         raise ValueError("absolute steps must lie in [0, 2**31)")
     if tile is not None and tile not in TILES:
@@ -570,8 +603,9 @@ def batched_cuda(w: dict, cfg: WaveNetConfig, prime: torch.Tensor,
         raise ValueError(f"timers must be ({len(PHASES)},) int64 on {dev}")
     out = _launch(w, cfg, prime, ring, t0, total, temps, seeds, toffs, seed,
                   regularize, fuse_res, skip_slab, lane_seed, tile,
-                  timers=timers, cond=cond, gcond=gcond)
+                  timers=timers, cond=cond, gcond=gcond, head_from=head_from)
     launches += 1
+    headless_launches += int(head_from > 0)
     return out
 
 
@@ -580,13 +614,14 @@ def run_batched(w: dict, cfg: WaveNetConfig, prime: torch.Tensor,
                 seeds: torch.Tensor, toffs: torch.Tensor, seed: int,
                 regularize: float, fuse_res: bool, skip_slab: bool,
                 lane_seed: bool, cond: torch.Tensor | None = None,
-                gcond: torch.Tensor | None = None) -> torch.Tensor:
+                gcond: torch.Tensor | None = None,
+                head_from: int = 0) -> torch.Tensor:
     """The plain version for tensors on the CPU, the kernel for CUDA
     tensors (which raises rather than fall back)."""
     run = batched_plain if prime.device.type == "cpu" else batched_cuda
     return run(w, cfg, prime, ring, t0, total, temps, seeds, toffs, seed,
                regularize, fuse_res, skip_slab, lane_seed, cond=cond,
-               gcond=gcond)
+               gcond=gcond, head_from=head_from)
 
 
 # ----------------------------------------------------------------- wrapper
@@ -650,6 +685,10 @@ def generate_fast_batched(params: Params, cfg: WaveNetConfig,
     rollout is the same whatever shares the call; a scalar temperature is
     broadcast. Without ``lane_seed``, ``generator_or_seed`` (int,
     ``torch.Generator`` or None = 0) keys one noise for the call.
+
+    The ``num_given - 1`` teacher-forced steps of a prime run without the
+    head (``head_from``): the ring and the returned classes are those of a
+    call with the head on every step, bitwise.
 
     On ``device="cpu"`` this runs :func:`batched_plain`; on a CUDA device
     it launches the kernel."""
@@ -723,7 +762,7 @@ def generate_fast_batched(params: Params, cfg: WaveNetConfig,
     all_cls = run_batched(w, cfg, prime, ring, t0, total, temps, seeds,
                           toffs, _seed_from(generator_or_seed), regularize,
                           fuse_res, skip_slab, lane_seed is not None,
-                          cond=cond, gcond=gcond)
+                          cond=cond, gcond=gcond, head_from=num_given - 1)
 
     cls = all_cls[:, num_given - 1:total]
     wav = classes_to_waveform(cls, C)

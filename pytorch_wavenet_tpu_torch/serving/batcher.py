@@ -9,7 +9,10 @@ boundaries:
 
 * every lane of the shared :class:`HbmGenState` is a slot; free lanes run
   greedy on stale state (lanes are independent in the kernel);
-* a new request is primed by a kernel call of its own; its ring column is
+* a new request is primed by a kernel call of its own, whose
+  teacher-forced steps run without the head (only the last step's class,
+  the request's first sample, is read: ``head_from = num_given - 1``;
+  ``stats()["headless_steps"]`` counts those lane-steps); its ring column is
   zero-filled where the prime never wrote, **roll-aligned** from its local
   clock to the pool's clock (ring slot = t mod period, so re-basing t is a
   per-layer roll of the slot axis) and scattered into the shared ring, all
@@ -363,14 +366,16 @@ class _LaneWork:
         if self._factors:
             self._cond_up = {"cond_up": dev_params["cond_up"]}
 
-    def _step(self, prime, ring, t0, total, temps, seeds, toffs, cond=None):
-        """One kernel call; ``cond`` ``(lanes, total, M)`` rows or None."""
+    def _step(self, prime, ring, t0, total, temps, seeds, toffs, cond=None,
+              head_from=0):
+        """One kernel call; ``cond`` ``(lanes, total, M)`` rows or None;
+        steps before ``head_from`` run without the head."""
         if cond is not None:
             cond = cond.permute(1, 2, 0).contiguous()  # (total, M, lanes)
         return run_batched(self._w, self.cfg, prime, ring, t0, total, temps,
                            seeds, toffs, 0, self._kw["regularize"],
                            self._kw["fuse_res"], self._kw["skip_slab"], True,
-                           cond=cond)
+                           cond=cond, head_from=head_from)
 
     def _frame_window(self, frames: np.ndarray, off: int, count: int):
         """The frame slab and phase that expand a timeline's rows ``[off,
@@ -451,9 +456,10 @@ class _LaneWork:
                      seeds: np.ndarray, cond=None):
         """Prime ``primes`` ``(k, ng)`` in ONE kernel call at its own size
         (``cond``: :meth:`_cond_host`'s parts for the prime's rows, or
-        None). Returns (ring columns (rows, k), their shared local clock t,
-        first samples (k,) on the device: each request's output sample
-        0)."""
+        None); its first ``ng - 1`` steps, whose classes nothing reads, run
+        without the head. Returns (ring columns (rows, k), their shared
+        local clock t, first samples (k,) on the device: each request's
+        output sample 0)."""
         ng = primes.shape[1]
         prime = self._upload(primes)
         temps = self._upload(temps)
@@ -464,9 +470,11 @@ class _LaneWork:
         if cond is not None:  # the prime consumes rows [0, ng)
             cond = self._cond_device(len(primes), ng, *cond)
         self._n["prime_calls"] += 1
+        self._n["headless_steps"] += len(primes) * (ng - 1)
         self._n["bytes_up"] += prime.numel() * 4
         with self._phase("t_prime_dispatch"), self._on_card("t_prime_device"):
-            cls = self._step(prime, ring, 0, ng, temps, seeds, toffs, cond)
+            cls = self._step(prime, ring, 0, ng, temps, seeds, toffs, cond,
+                             head_from=ng - 1)
         # the local clock is deterministic (ng - 1 ingested + 1 generated):
         # nothing here waits for the device
         return ring, ng, cls[:, ng - 1].contiguous()
@@ -664,7 +672,7 @@ class ContinuousBatcher(_LaneWork):
         # consistent-enough snapshot for monitoring)
         self._n = dict(admitted=0, completed=0, cancelled=0, failed=0,
                        samples_out=0, pool_steps=0, prime_calls=0,
-                       bytes_down=0, bytes_up=0)
+                       headless_steps=0, bytes_down=0, bytes_up=0)
         # cumulative worker-loop phase seconds (host clock, each key one
         # _phase): dispatch, chunk delivery, admission, idle;
         # t_prime_dispatch is the prime's enqueue, t_prime_sync the wait
@@ -830,7 +838,10 @@ class ContinuousBatcher(_LaneWork):
         ``free``, ``queued``, ``outstanding``, ``pool_clock``), lifetime
         counters (``admitted``, ``completed``, ``cancelled``, ``failed``,
         ``samples_out``, ``pool_steps``, ``prime_calls``, ``bytes_down``,
-        ``bytes_up``), the worker's phase seconds on the host's clock
+        ``bytes_up``; ``headless_steps``, the lane-steps of prime calls run
+        without the head, each prime's length - 1 a request; on a mesh
+        ``prime_calls`` and ``headless_steps`` count rank 0's own lanes'
+        primes), the worker's phase seconds on the host's clock
         (``t_admit``, ``t_prime_dispatch``, ``t_splice``, ``t_dispatch``,
         ``t_prime_sync``, ``t_deliver``, ``t_idle``; each also a
         ``pool.<phase>`` profiler span), and K4's seconds on the card's

@@ -64,7 +64,8 @@ Endpoints
                         worker's phase seconds t_* on the host's clock, and
                         t_prime_device / t_chunk_device, K4's seconds in
                         prime calls and in pool chunks on the card's clock
-                        (0.0 on the CPU)
+                        (0.0 on the CPU), and headless_steps, the
+                        lane-steps of prime calls run without the head
   GET  /synthesize   -> audio/wav, streamed while it generates; query
                         params num_samples (16000), temperature (1.0),
                         seed (0), chunk (2048)

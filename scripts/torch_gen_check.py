@@ -11,9 +11,14 @@ chunk of each with the split of a step from the kernel's own timers. ``chip_smok
 gcond rows against their plain versions at the ``tiny_vocoder`` and
 ``vocoder`` widths, the same lanes at 8 and 16 lanes per cluster, and a
 2048-step vocoder chunk of each without and with conditioning, with the
-split of a K4 step.
+split of a K4 step. ``--prime`` times a chaconne prime of a receptive
+field (3070 classes) with the head on every step and without it on the
+3069 teacher-forced ones (``head_from``): K4 at the 8-lane tile, as the
+lane pool's prime call runs it, with the split of a step from the
+kernel's timers, and K1 at one stream, as the stream's first chunk runs
+it, both checked bitwise against each other.
 
-  python3 scripts/torch_gen_check.py [--vocoder]
+  python3 scripts/torch_gen_check.py [--vocoder | --prime]
 """
 
 import argparse
@@ -202,10 +207,77 @@ def vocoder(dev):
                   f"{1e3 * ms / steps:.2f} us/step ({split} us)", flush=True)
 
 
+def prime_calls(dev, reps=3):
+    """A receptive-field prime at chaconne with and without the head on its
+    teacher-forced steps, bitwise the same where read: K4 (fuse_res +
+    skip_slab, the pool's flags; ``total = num_given``, the pool's prime
+    call) at the 8-lane tile with each step's split, and K1 (fuse_res) at
+    one stream, the prime alone and the stream's first 2048-sample chunk
+    after it."""
+    cfg = pt.get_config("chaconne")
+    params = pt.init_wavenet(cfg, torch.Generator().manual_seed(0), dev)
+    ng = cfg.receptive_field
+    w = ghbm.prepare_weights(params, cfg, True, True)
+    for lanes in (1, 8, 16):
+        prime = torch.from_numpy(np.random.default_rng(lanes).integers(
+            0, cfg.classes, (lanes, ng))).to(dev, torch.int32)
+        temps = torch.full((lanes,), 0.9, device=dev)
+        ids = torch.arange(lanes, dtype=torch.int32, device=dev)
+        zero = torch.zeros(lanes, dtype=torch.int32, device=dev)
+        out = {}
+        for head_from in (0, ng - 1):
+            ring = torch.zeros(ghbm.ring_rows(cfg), lanes, device=dev)
+
+            def call(tm=None):
+                return ghbm.batched_cuda(
+                    w, cfg, prime, ring, 0, ng, temps, ids, zero, 0, 0.0,
+                    True, True, True, tile=8, timers=tm, head_from=head_from)
+            ms = timed(call, reps)
+            tm = torch.zeros(len(ghbm.PHASES), dtype=torch.int64, device=dev)
+            ring.zero_()
+            out[head_from] = (call(tm), ring.clone())
+            torch.cuda.synchronize()
+            split = ", ".join(f"{n} {v / (ng * 1e3):.2f}"
+                              for n, v in zip(ghbm.PHASES, tm.tolist()))
+            print(f"K4 prime {lanes} lanes tile 8 head_from {head_from}: "
+                  f"{ms:.2f} ms, {1e3 * ms / ng:.2f} us/step ({split} us)",
+                  flush=True)
+        (c0, r0), (c1, r1) = out[0], out[ng - 1]
+        expect(torch.equal(r0, r1) and torch.equal(c0[:, -1], c1[:, -1])
+               and torch.equal(c1[:, :-1], prime[:, 1:]),
+               f"K4 prime {lanes} lanes: headless ring and first sample "
+               f"bitwise")
+    w = gk.prepare_weights(params, cfg, True)
+    prime = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.classes, (1, ng))).to(dev, torch.int32)
+    for what, total in (("prime", ng), ("prime + 2048", ng - 1 + 2048)):
+        out = {}
+        for head_from in (0, ng - 1):
+            rings = torch.zeros(sum(gk.periods(cfg))
+                                * cfg.residual_channels, device=dev)
+            ms = timed(lambda: gk.fused_cuda(
+                w, cfg, prime, rings, 0, total, 0.9, 0.0, 1, True,
+                head_from=head_from), reps)
+            rings.zero_()
+            out[head_from] = (gk.fused_cuda(
+                w, cfg, prime, rings, 0, total, 0.9, 0.0, 1, True,
+                head_from=head_from), rings.clone())
+            torch.cuda.synchronize()
+            print(f"K1 {what} 1 stream head_from {head_from}: {ms:.2f} ms, "
+                  f"{1e3 * ms / total:.2f} us/step", flush=True)
+        (c0, r0), (c1, r1) = out[0], out[ng - 1]
+        expect(torch.equal(r0, r1)
+               and torch.equal(c0[:, ng - 1:], c1[:, ng - 1:]),
+               f"K1 {what}: headless rings and classes read bitwise")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--vocoder", action="store_true",
-                    help="the conditioned cases alone")
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--vocoder", action="store_true",
+                      help="the conditioned cases alone")
+    mode.add_argument("--prime", action="store_true",
+                      help="time a chaconne prime with and without the head")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
@@ -222,8 +294,8 @@ def main():
                 print(n, line.strip())
     print(f"build {time.time() - t:.1f} s", flush=True)
     dev = torch.device("cuda")
-    if args.vocoder:
-        vocoder(dev)
+    if args.vocoder or args.prime:
+        (vocoder if args.vocoder else prime_calls)(dev)
         print(f"{len(failures)} failures")
         return 1 if failures else 0
     chaconne = pt.get_config("chaconne")

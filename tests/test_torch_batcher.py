@@ -476,3 +476,25 @@ def test_concurrent_submitters_stress(tiny):
     s = b.stats()
     assert s["admitted"] == s["completed"] == 48 and s["outstanding"] == 0
     assert s["samples_out"] == 48 * 9 and s["failed"] == 0
+
+
+@pytest.mark.parametrize("primed", [True, False], ids=["primed", "unprimed"])
+def test_stats_count_headless_prime_steps(tiny, primed):
+    """A prime call runs its ``num_given - 1`` teacher-forced steps without
+    the head: ``stats()["headless_steps"]`` adds each request's prime
+    length - 1 (0 for a one-class prime), and every request still equals
+    its solo rollout."""
+    cfg, params, _, _ = tiny
+    lengths = (cfg.receptive_field, 5) if primed else (1, 1)
+    primes = [_prime(cfg, 30 + i, n) for i, n in enumerate(lengths)]
+    b = _pool(params, cfg, lanes=2, chunk=4)
+    try:
+        handles = [b.submit(p, 9, temperature=0.9, seed=3 + i)
+                   for i, p in enumerate(primes)]
+        for i, (h, p) in enumerate(zip(handles, primes)):
+            _, c = h.result(timeout=120)
+            np.testing.assert_array_equal(
+                c, _solo(params, cfg, p, 9, temperature=0.9, seed=3 + i))
+        assert b.stats()["headless_steps"] == sum(n - 1 for n in lengths)
+    finally:
+        b.close()

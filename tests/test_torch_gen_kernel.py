@@ -278,3 +278,68 @@ def test_owned_layer_slot_holds_taps_and_h(kernel_size):
     # k = 1 and k = 2 differ only in the tap weights, which stay in L2
     assert (gk.shared_bytes_for(one, tile, gk.CLUSTER, True)
             == gk.shared_bytes_for(two, tile, gk.CLUSTER, True))
+
+
+@pytest.mark.parametrize("name", ["tiny", "tiny_vocoder"])
+@pytest.mark.parametrize("fuse_res", [False, True], ids=["exact", "fuse_res"])
+def test_headless_prime_steps_keep_rings_and_read_classes(name, fuse_res):
+    """Steps before ``head_from = num_given - 1`` run without the head: the
+    rings and the classes from ``num_given - 1`` on are bitwise those of
+    ``head_from = 0``, and each headless position holds the prime's next
+    class (gap inf); ``tiny_vocoder`` with projected cond and global cond
+    rows."""
+    cfg = pt.get_config(name, **({"gcond_channels": 3}
+                                 if name == "tiny_vocoder" else {}))
+    params = pt.init_wavenet(cfg, torch.Generator().manual_seed(4), "cpu")
+    streams = 3
+    prime = torch.from_numpy(
+        _prime(cfg, streams, 4, cfg.receptive_field + 4)).to(torch.int32)
+    ng = prime.shape[1]
+    total = ng - 1 + 9
+    cond = glob = None
+    if cfg.cond_channels:
+        g = torch.Generator().manual_seed(5)
+        cond = torch.randn((streams, total, cfg.cond_channels), generator=g)
+        glob = torch.randn((streams, cfg.gcond_channels), generator=g)
+    cproj, gproj = gk.project_cond(params, cfg, cond, glob, streams, total)
+    w = gk.prepare_weights(params, cfg, fuse_res)
+    runs = []
+    for head_from in (0, ng - 1):
+        rings = torch.zeros(sum(gk.periods(cfg)) * streams
+                            * cfg.residual_channels)
+        cls, gaps = gk.fused_plain(w, cfg, prime, rings, 0, total, 0.9, 0.05,
+                                   7, fuse_res, return_gaps=True, cond=cproj,
+                                   gcond=gproj, head_from=head_from)
+        runs.append((cls, gaps, rings))
+    (c0, g0, r0), (c1, g1, r1) = runs
+    assert torch.equal(r0, r1)
+    assert torch.equal(c0[:, ng - 1:], c1[:, ng - 1:])
+    assert torch.equal(g0[:, ng - 1:], g1[:, ng - 1:])
+    assert torch.equal(c1[:, :ng - 1], prime[:, 1:])
+    assert bool(torch.isinf(g1[:, :ng - 1]).all())
+    with pytest.raises(ValueError, match="head_from"):
+        gk.fused_plain(w, cfg, prime, r1, 0, total, 0.9, 0.05, 7, fuse_res,
+                       cond=cproj, gcond=gproj, head_from=-1)
+
+
+def test_generate_fast_fused_primes_without_the_head(tiny, monkeypatch):
+    """The entry point passes ``head_from = num_given - 1`` (0 for a resumed
+    call), and its classes and state are those of the head on every step."""
+    _, _, cfg, tp = tiny
+    prime = _prime(cfg, 2, 13)
+    seen, real = [], gk.fused_plain
+
+    def full_head(*a, **k):
+        seen.append(k["head_from"])
+        return real(*a, **{**k, "head_from": 0})
+
+    kw = dict(temperature=1.0, return_state=True, device="cpu")
+    _, c, st = pt.generate_fast_fused(tp, cfg, 3, 11, prime, **kw)
+    _, c2, _ = pt.generate_fast_fused(tp, cfg, 3, 5, state=st, **kw)
+    monkeypatch.setattr(gk, "fused_plain", full_head)
+    _, c_ref, st_ref = pt.generate_fast_fused(tp, cfg, 3, 11, prime, **kw)
+    _, c2_ref, _ = pt.generate_fast_fused(tp, cfg, 3, 5, state=st_ref, **kw)
+    assert seen == [prime.shape[1] - 1, 0]
+    assert torch.equal(c, c_ref) and torch.equal(c2, c2_ref)
+    assert all(torch.equal(a, b) for a, b in zip(st.rings, st_ref.rings))
+    assert torch.equal(st.cls, st_ref.cls)

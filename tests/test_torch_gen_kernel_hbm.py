@@ -451,3 +451,75 @@ def test_default_tile_fits_shared_memory(name, overrides, lanes):
     # no width runs 1024 lanes at once: the widest with the chain resident
     assert ghbm.default_tile(1024, pt.get_config("chaconne"), True,
                              lambda t: 15) == 24
+
+
+@pytest.mark.parametrize("name", ["tiny", "tiny_vocoder"])
+@pytest.mark.parametrize("variant", ["exact", "fuse_res"])
+def test_headless_prime_steps_keep_ring_and_read_classes(name, variant):
+    """Steps before ``head_from = num_given - 1`` run without the head: the
+    ring and the classes from ``num_given - 1`` on are bitwise those of
+    ``head_from = 0``, and each headless position holds the prime's next
+    class (gap inf). fuse_res runs with skip_slab, the pool's flags."""
+    fuse = variant == "fuse_res"
+    cfg = pt.get_config(name, **({"gcond_channels": 3}
+                                 if name == "tiny_vocoder" else {}))
+    params = pt.init_wavenet(cfg, torch.Generator().manual_seed(21), "cpu")
+    lanes = 3
+    prime = torch.from_numpy(
+        _prime(cfg, lanes, 21, cfg.receptive_field + 4)).to(torch.int32)
+    ng = prime.shape[1]
+    total = ng - 1 + 9
+    w = ghbm.prepare_weights(params, cfg, fuse, fuse)
+    temps = torch.tensor([0.0, 0.9, 1.0])
+    seeds = torch.tensor([5, 6, 7], dtype=torch.int32)
+    toffs = torch.tensor([0, 3, 1], dtype=torch.int32)
+    kcond = gcond = None
+    if cfg.cond_channels:
+        g = torch.Generator().manual_seed(22)
+        kcond = torch.randn((total, cfg.cond_channels, lanes), generator=g)
+        gcond = ghbm.project_gcond(
+            w, cfg, torch.randn((lanes, cfg.gcond_channels), generator=g),
+            lanes)
+    runs = []
+    for head_from in (0, ng - 1):
+        ring = torch.zeros(ghbm.ring_rows(cfg), lanes)
+        cls, gaps = ghbm.batched_plain(
+            w, cfg, prime, ring, 0, total, temps, seeds, toffs, 4, 0.05, fuse,
+            fuse, True, return_gaps=True, cond=kcond, gcond=gcond,
+            head_from=head_from)
+        runs.append((cls, gaps, ring))
+    (c0, g0, r0), (c1, g1, r1) = runs
+    assert torch.equal(r0, r1)
+    assert torch.equal(c0[:, ng - 1:], c1[:, ng - 1:])
+    assert torch.equal(g0[:, ng - 1:], g1[:, ng - 1:])
+    assert torch.equal(c1[:, :ng - 1], prime[:, 1:])
+    assert bool(torch.isinf(g1[:, :ng - 1]).all())
+    with pytest.raises(ValueError, match="head_from"):
+        ghbm.batched_plain(w, cfg, prime, r1, 0, total, temps, seeds, toffs,
+                           4, 0.05, fuse, fuse, True, cond=kcond, gcond=gcond,
+                           head_from=ng)
+
+
+def test_generate_fast_batched_primes_without_the_head(tiny, monkeypatch):
+    """The entry point passes ``head_from = num_given - 1`` (0 for a resumed
+    call), and its classes and state are those of the head on every step."""
+    _, _, cfg, tp = tiny
+    prime = _prime(cfg, 2, 12)
+    seen, real = [], ghbm.batched_plain
+
+    def full_head(*a, **k):
+        seen.append(k["head_from"])
+        return real(*a, **{**k, "head_from": 0})
+
+    kw = dict(temperature=[0.0, 1.0], lane_seed=[1, 2], return_state=True,
+              device="cpu")
+    _, c, st = pt.generate_fast_batched(tp, cfg, 0, 11, prime, **kw)
+    _, c2, _ = pt.generate_fast_batched(tp, cfg, 0, 5, state=st, **kw)
+    monkeypatch.setattr(ghbm, "batched_plain", full_head)
+    _, c_ref, st_ref = pt.generate_fast_batched(tp, cfg, 0, 11, prime, **kw)
+    _, c2_ref, _ = pt.generate_fast_batched(tp, cfg, 0, 5, state=st_ref,
+                                            **kw)
+    assert seen == [prime.shape[1] - 1, 0]
+    assert torch.equal(c, c_ref) and torch.equal(c2, c2_ref)
+    assert torch.equal(st.ring, st_ref.ring) and torch.equal(st.cls,
+                                                             st_ref.cls)

@@ -1479,3 +1479,156 @@ def test_pool_device_counters_match_k4_in_a_trace_on_card(card, tmp_path):
     names = {e.get("name") for e in events
              if e.get("cat") == "user_annotation"}
     assert {"pool.prime_dispatch", "pool.dispatch", "pool.deliver"} <= names
+
+
+# ------------------------------------- headless teacher-forced steps (head_from)
+
+def _headless_equal(ck, rk, c0, r0, prime):
+    """A call with ``head_from = num_given - 1`` (``ck``, ring ``rk``)
+    against the same call with the head on every step (``c0``, ``r0``):
+    the ring and the classes from ``num_given - 1`` on bitwise equal, each
+    headless position the prime's next class."""
+    ng = prime.shape[1]
+    assert torch.equal(rk, r0)
+    assert torch.equal(ck[:, ng - 1:], c0[:, ng - 1:])
+    assert torch.equal(ck[:, :ng - 1], prime[:, 1:])
+
+
+HEAD_K4 = [(rdt, tile, fr) for rdt in (torch.float32, torch.bfloat16,
+                                       torch.int8)
+           for tile in ghbm.TILES for fr in (False, True)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rdt,tile,fuse_res", HEAD_K4,
+                         ids=[f"{str(r)[6:]}-tile{t}-{'fused' if f else 'exact'}"
+                              for r, t, f in HEAD_K4])
+def test_k4_headless_prime_bitwise_on_card(card, rdt, tile, fuse_res):
+    """K4 at chaconne, 40 lanes (a ragged last cluster at every width), a
+    600-class prime (every ring wraps) and 40 steps after it: with
+    ``head_from = num_given - 1`` the ring and the classes read are bitwise
+    those of ``head_from = 0``, at every width and ring dtype, exact and
+    fuse_res + skip_slab; a call launches the kernel once, and the
+    headless kernel once more where ``head_from`` is above 0."""
+    cfg, _, w = _ring_weights(card, "chaconne", rdt, fuse_res, fuse_res)
+    _, _, temps, seeds, toffs = _k4_case(card, "tiny", 40, 0.9)
+    prime = torch.from_numpy(_prime(cfg, 40, 6, 600)).to(card, torch.int32)
+    total = prime.shape[1] - 1 + 40
+    runs = []
+    for head_from in (0, prime.shape[1] - 1):
+        ring = torch.zeros(ghbm.ring_rows(cfg), 40, dtype=rdt, device=card)
+        before = (ghbm.launches, ghbm.headless_launches)
+        c = ghbm.batched_cuda(w, cfg, prime, ring, 0, total, temps, seeds,
+                              toffs, 4, 0.05, fuse_res, fuse_res, True,
+                              tile=tile, head_from=head_from)
+        torch.cuda.synchronize()
+        assert (ghbm.launches - before[0],
+                ghbm.headless_launches - before[1]) == (1, int(head_from > 0))
+        runs.append((c, ring))
+    _headless_equal(*runs[1], *runs[0], prime)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tile", ghbm.TILES)
+@pytest.mark.parametrize("fuse_res", [False, True], ids=["exact", "fused"])
+def test_k4_headless_prime_conditioned_bitwise_on_card(card, tile, fuse_res):
+    """K4 with cond rows and gcond at ``tiny_vocoder``: the prime's
+    headless steps keep the ring and the classes read bitwise."""
+    n_prime, lanes = 90, 37
+    total = n_prime - 1 + 30
+    cfg, w, temps, seeds, toffs, cond, gcond = _k4_cond_case(
+        card, "tiny_vocoder", lanes, total, fuse_res, fuse_res)
+    prime = torch.from_numpy(_prime(cfg, lanes, 7, n_prime)).to(
+        card, torch.int32)
+    runs = []
+    for head_from in (0, n_prime - 1):
+        ring = torch.zeros(ghbm.ring_rows(cfg), lanes, device=card)
+        c = ghbm.batched_cuda(w, cfg, prime, ring, 0, total, temps, seeds,
+                              toffs, 4, 0.05, fuse_res, fuse_res, True,
+                              tile=tile, cond=cond, gcond=gcond,
+                              head_from=head_from)
+        runs.append((c, ring))
+    torch.cuda.synchronize()
+    _headless_equal(*runs[1], *runs[0], prime)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["chaconne", "tiny_vocoder"])
+@pytest.mark.parametrize("fuse_res", [False, True], ids=["exact", "fuse_res"])
+def test_k1_headless_prime_bitwise_on_card(card, name, fuse_res):
+    """K1, 3 streams: a 3070-class prime at chaconne (the stream's), or at
+    ``tiny_vocoder`` 90 classes with projected cond and gcond rows; with
+    ``head_from = num_given - 1`` the rings and the classes read are
+    bitwise those of ``head_from = 0``; a call launches the kernel once,
+    and the headless kernel once more where ``head_from`` is above 0."""
+    if name == "chaconne":
+        cfg = pt.get_config(name)
+        params = pt.init_wavenet(cfg, torch.Generator().manual_seed(0), card)
+    else:
+        cfg, params = _cond_model(card, name)
+    streams = 3
+    n_prime = cfg.receptive_field if name == "chaconne" else 90
+    prime = torch.from_numpy(_prime(cfg, streams, 8, n_prime)).to(
+        card, torch.int32)
+    ng = prime.shape[1]
+    total = ng - 1 + 40
+    cond = gcond = None
+    if cfg.cond_channels:
+        cond, gcond = gk.project_cond(
+            params, cfg,
+            _cond_rows(card, (streams, total, cfg.cond_channels), 3),
+            _cond_rows(card, (streams, cfg.gcond_channels), 4, 1.0), streams,
+            total)
+    w = gk.prepare_weights(params, cfg, fuse_res)
+    runs = []
+    for head_from in (0, ng - 1):
+        rings = torch.zeros(sum(gk.periods(cfg)) * streams
+                            * cfg.residual_channels, device=card)
+        before = (gk.launches, gk.headless_launches)
+        c = gk.fused_cuda(w, cfg, prime, rings, 0, total, 0.9, 0.05, 4,
+                          fuse_res, cond=cond, gcond=gcond,
+                          head_from=head_from)
+        torch.cuda.synchronize()
+        assert (gk.launches - before[0],
+                gk.headless_launches - before[1]) == (1, int(head_from > 0))
+        runs.append((c, rings))
+    _headless_equal(*runs[1], *runs[0], prime)
+
+
+@pytest.mark.gpu
+def test_pooled_primed_request_headless_equals_full_head_on_card(card):
+    """A pooled request primed with a receptive field of classes at
+    chaconne: its prime call runs 3069 headless steps a lane
+    (``stats()["headless_steps"]``) and its classes equal, bitwise, both
+    its solo ``generate_fast_batched`` rollout and one K4 call with the
+    head on every step."""
+    from pytorch_wavenet_tpu_torch.serving import ContinuousBatcher
+
+    cfg = pt.get_config("chaconne")
+    params = pt.init_wavenet(cfg, torch.Generator().manual_seed(9), card)
+    primes = [_prime(cfg, 1, 20 + i)[0] for i in range(2)]
+    n = 700
+    pool = ContinuousBatcher(params, cfg, lanes=16, chunk=256, fuse_res=True,
+                             skip_slab=True, device=card)
+    try:
+        pool.prewarm()
+        hs = [pool.submit(p, n, temperature=0.9, seed=40 + i)
+              for i, p in enumerate(primes)]
+        got = [h.result(timeout=300)[1] for h in hs]
+        assert pool.stats()["headless_steps"] == 2 * (cfg.receptive_field - 1)
+    finally:
+        pool.close()
+    w = ghbm.prepare_weights(params, cfg, True, True)
+    temps = torch.full((1,), 0.9, device=card)
+    toffs = torch.zeros(1, dtype=torch.int32, device=card)
+    for i, p in enumerate(primes):
+        _, solo = pt.generate_fast_batched(
+            params, cfg, 0, n, p[None], temperature=0.9, lane_seed=[40 + i],
+            fuse_res=True, skip_slab=True, device=card)
+        assert np.array_equal(got[i], solo[0].cpu().numpy())
+        prime = torch.from_numpy(p[None]).to(card, torch.int32)
+        seeds = torch.full((1,), 40 + i, dtype=torch.int32, device=card)
+        full = ghbm.batched_cuda(
+            w, cfg, prime, torch.empty(ghbm.ring_rows(cfg), 1, device=card),
+            0, len(p) - 1 + n, temps, seeds, toffs, 0, 0.0, True, True, True)
+        assert np.array_equal(got[i], full[0, len(p) - 1:].cpu().numpy())
