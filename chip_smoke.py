@@ -280,14 +280,26 @@ Phases (any failure stops the run with a nonzero exit):
      bytes a pool step and an admission; then ``serving.server --batcher
      --mesh-data 2`` under ``torch.distributed.run``: 4 seeded requests
      byte-equal to the one-process server's, SIGINT to rank 0, both ranks
-     exit 0 with their K4 launches printed.
+     exit 0 with their K4 launches printed;
+ 47. the wide-chain kernel KW (``gen_kernel_wide.py``) through
+     ``scripts/torch_wide_check.py``'s checks: against its plain version
+     at ``tiny_wnv`` (1, 5, 64 and 70 lanes, and 64 resumed at step
+     5000) and ``wnv512`` (3 and 256 lanes, and 256 resumed at step
+     5000), a lane's classes and ring bitwise at 1, 40 and 256 lanes, a
+     256-lane ``wnv512`` call of 128 steps timed with its timers' split,
+     the lane pool in frames mode at ``wnv512`` (10 requests, each
+     bitwise its solo ``generate_fast_batched``; the wide kernel
+     launched, K4 not; the launch counters set to 0 just before it, so
+     the kernels line gives the pool run's own launches), one stream
+     through ``generate_fast_fused`` and chaconne still on K4.
 
 ``python3 chip_smoke.py --remainder-only`` runs phases 1, 2, 25 and 26 only,
 ``--distill-only`` phases 1, 2, 25 (the teacher) and 27-29,
 ``--slice11-only`` phases 1, 2, 25 (the ``--ema`` snapshot) and 30-35,
 ``--slice12-only`` phases 1, 2 and 36-41, ``--slice13-only`` phases 1,
-2 and 42-45, and ``--slice14-only`` phases 1, 2 and 46; each exits 1
-without a result (short calls while working on them).
+2 and 42-45, ``--slice14-only`` phases 1, 2 and 46, and ``--wide-only``
+phases 1, 2 and 47; each exits 1 without a result (short calls while
+working on them).
 
 The line before the last is one JSON object listing the kernels; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -1378,6 +1390,32 @@ def phase_k4_serving(torch, np, pt, gk, ghbm, dev, bf16_rings=False):
     return launched, dict(samples_per_s=served, wall_s=wall,
                           ttfa_median_ms=1e3 * ttfa[n_req // 2],
                           ttfa_max_ms=1e3 * ttfa[-1])
+
+
+def phase_wide(dev):
+    """Phase 47: the wide-chain kernel's checks and time
+    (``scripts/torch_wide_check.py``, whose failures fail the run).
+    Returns its kernels-line entry."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_wide_check", os.path.join(os.path.dirname(
+            os.path.abspath(__file__)), "scripts", "torch_wide_check.py"))
+    wc = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(wc)
+    t, pool = wc.run_checks(dev, 128)
+    check(not wc.failures, f"phase 47: {wc.failures}")
+    return {"name": "gen_wide (KW, wnv512, 256 lanes, a 128-step call; "
+                    "launches: the frames-mode lane pool's)",
+            "route": "cuda",
+            "source": "pytorch_wavenet_tpu_torch/csrc/gen_kernel_wide.cu",
+            "replaces": None, "launches": pool["launches"],
+            "pool_wide_launches": pool["stats"]["wide_launches"],
+            "pool_steps": pool["stats"]["pool_steps"],
+            "pool_prime_calls": pool["stats"]["prime_calls"],
+            "ms": t["ms"], "us_per_step": t["us_per_step"],
+            "split_us_per_step": t["split"], "bound_ms": t["bound_ms"],
+            "bound_by": "bytes", "library_ms": None}
 
 
 def phase_k4_times(torch, pt, ghbm, dev, card):
@@ -5925,6 +5963,10 @@ def main():
             log(f"phase 46's 2 ranks took {time.time() - t:.1f} s")
             slice14(torch, np, pt, ghbm, dev, card, t_start, d, None)
         return 1
+    if sys.argv[1:] == ["--wide-only"]:
+        # a short call for work on phase 47 alone: no kernels line
+        log(json.dumps(phase_wide(dev)))
+        return 1
     if sys.argv[1:] == ["--distill-only"]:
         # a short call for work on phases 27-29 alone (phase 25 first for
         # the teacher): no kernels line
@@ -6014,6 +6056,9 @@ def main():
         s14 = slice14(torch, np, pt, ghbm, dev, card, t_start, d, {
             "phase 8 (f32 rings)": served,
             "phase 24 (bf16 rings)": r_served})
+    wide = phase_wide(dev)
+    log(f"phase 47 (the wide-chain kernel) done at "
+        f"{time.time() - t_start:.0f} s")
 
     kernels = [{
         "name": "gen_fused (K1, fuse_res)",
@@ -6290,6 +6335,7 @@ def main():
     slice12_entries(kernels, s12)
     slice13_entries(kernels, s13)
     slice14_entries(kernels, s14)
+    kernels.append(wide)
     log(f"the run took {time.time() - t_start:.0f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -48,6 +48,15 @@ class WaveNetConfig:
     cond_channels: int = 0
     gcond_channels: int = 0
     cond_upsample: tuple[int, ...] = ()
+    # "conv": the learnable transposed-conv stack of cond_upsample
+    # (cond_up.s{i}); "phase": one scale a phase of the hop, shared over the
+    # channels, and one bias (cond_up.w (hop,), cond_up.b (1,)), the
+    # PytorchWaveNetVocoder's ConvTranspose2d(1, 1, (1, hop))
+    cond_upsampler: str = "conv"
+    # taps of the input convolution over the one-hot classes: 1 is the
+    # start conv, 2 also reads x[t-1] through start.w_prev (a causal conv
+    # of kernel 2, zero before the start)
+    input_kernel: int = 1
     compute_dtype: Any = torch.float32
     stream_dtype: Any = torch.float32
     remat: bool = False
@@ -70,8 +79,10 @@ class WaveNetConfig:
     @property
     def receptive_field(self) -> int:
         """1 + blocks * (kernel_size-1) * (2^layers - 1): 3070 for 10x3,
-        4093 for 10x4."""
-        return 1 + self.blocks * (self.kernel_size - 1) * (2**self.layers - 1)
+        4093 for 10x4; one more for each input tap past the first (3071
+        at wnv512)."""
+        return (self.input_kernel + self.blocks * (self.kernel_size - 1)
+                * (2**self.layers - 1))
 
     @property
     def item_length(self) -> int:
@@ -87,7 +98,7 @@ class WaveNetConfig:
             self.end_channels,
             self.kernel_size,
         )
-        n = c * r
+        n = self.input_kernel * c * r
         per_layer = 2 * (k * r * d) + d * r + d * s
         if self.cond_channels:
             per_layer += self.cond_channels * 2 * d
@@ -101,13 +112,30 @@ class WaveNetConfig:
         n += e * c + c
         if self.cond_channels and self.cond_upsample:
             m = self.cond_channels
-            n += sum(2 * r * m * m for r in self.cond_upsample)
+            if self.cond_upsampler == "phase":
+                n += self.cond_hop + 1
+            else:
+                n += sum(2 * r * m * m for r in self.cond_upsample)
         return n
+
+    @property
+    def cond_hop(self) -> int:
+        """Samples a conditioning frame spans: the product of
+        ``cond_upsample``."""
+        hop = 1
+        for r in self.cond_upsample:
+            hop *= r
+        return hop
 
     def to_json(self) -> str:
         d = dataclasses.asdict(self)
         d["compute_dtype"] = dtype_name(self.compute_dtype)
         d["stream_dtype"] = dtype_name(self.stream_dtype)
+        # fields newer than the JAX package's stay out of the blob at their
+        # defaults, so a config either package writes reads as before
+        for name in ("cond_upsampler", "input_kernel"):
+            if d[name] == _DEFAULTS[name]:
+                del d[name]
         return json.dumps(d)
 
     @classmethod
@@ -123,6 +151,8 @@ class WaveNetConfig:
         known = {f.name for f in dataclasses.fields(cls)}
         return cls(**{k: v for k, v in d.items() if k in known})
 
+
+_DEFAULTS = {f.name: f.default for f in dataclasses.fields(WaveNetConfig)}
 
 PRESETS: dict[str, WaveNetConfig] = {
     "chaconne": WaveNetConfig(
@@ -198,6 +228,39 @@ PRESETS: dict[str, WaveNetConfig] = {
         output_length=4,
         bias=True,
         cond_channels=8,
+    ),
+    # the WaveNet vocoder of kan-bayashi/PytorchWaveNetVocoder
+    # (src/nets/wavenet.py; egs/arctic/sd/run.sh): 28-dimensional acoustic
+    # frames at a 5 ms shift (80 samples at 16 kHz), 44,562,001 parameters
+    "wnv512": WaveNetConfig(
+        layers=10,
+        blocks=3,
+        dilation_channels=512,
+        residual_channels=512,
+        skip_channels=256,
+        end_channels=256,
+        classes=256,
+        output_length=1024,
+        bias=True,
+        cond_channels=28,
+        cond_upsample=(80,),
+        cond_upsampler="phase",
+        input_kernel=2,
+    ),
+    "tiny_wnv": WaveNetConfig(
+        layers=3,
+        blocks=2,
+        dilation_channels=8,
+        residual_channels=8,
+        skip_channels=16,
+        end_channels=16,
+        classes=32,
+        output_length=4,
+        bias=True,
+        cond_channels=4,
+        cond_upsample=(4,),
+        cond_upsampler="phase",
+        input_kernel=2,
     ),
 }
 

@@ -20,6 +20,11 @@ in_ch, k)``):
 * ``skip_convs.{i}.weight (S, D, 1)``    -> ``layers.w_skip[i] (D, S)``
 * ``end_conv_1.weight (E, S, 1)``        -> ``end1.w (S, E)``; bias kept
 * ``end_conv_2.weight (C, E, 1)``        -> ``end2.w (E, C)``; bias kept
+
+The WaveNet vocoder of kan-bayashi/PytorchWaveNetVocoder
+(``src/nets/wavenet.py``, class ``WaveNet``) has a layout of its own, read
+by :func:`from_wnv_state_dict` into a config with ``input_kernel`` 2 and
+the phase-scale upsampler (the ``wnv512`` preset).
 """
 
 from __future__ import annotations
@@ -151,6 +156,72 @@ def from_reference_state_dict(sd: Mapping[str, np.ndarray],
             b_res[i] = w(f"residual_convs.{i}.bias")
             b_skip[i] = w(f"skip_convs.{i}.bias")
         params["layers"].update(b_in=b_in, b_res=b_res, b_skip=b_skip)
+    return from_jax_params(params, device)
+
+
+def from_wnv_state_dict(sd: Mapping[str, np.ndarray], cfg: WaveNetConfig,
+                        device: str | torch.device = "cuda"):
+    """The port's params from a PytorchWaveNetVocoder ``WaveNet`` state dict
+    (Conv1d weights ``(out_ch, in_ch, k)``, kernel index 0 the older tap):
+
+    * ``causal.conv.weight (R, C, 2)`` -> ``start.w_prev`` (tap 0, the
+      previous class) and ``start.w`` (tap 1), ``causal.conv.bias`` ->
+      ``start.b``
+    * ``dil_tanh.{l}.conv`` -> ``layers.w_in[l, :, :, :D]``,
+      ``dil_sigmoid.{l}.conv`` -> ``layers.w_in[l, :, :, D:]`` (the port
+      gates ``tanh(first half) * sigmoid(second half)``)
+    * ``aux_1x1_tanh.{l}`` / ``aux_1x1_sigmoid.{l}`` ``(D, M, 1)`` ->
+      ``layers.w_cond[l]``'s two halves; each half of ``layers.b_in[l]`` is
+      the dilated conv's bias plus the aux conv's
+    * ``res_1x1.{l}`` -> ``layers.w_res``/``b_res``, ``skip_1x1.{l}`` ->
+      ``layers.w_skip``/``b_skip``
+    * ``conv_post_1`` / ``conv_post_2`` -> ``end1`` / ``end2``
+    * ``upsampling.conv.weight (1, 1, 1, hop)`` -> ``cond_up.w (hop,)``,
+      its bias -> ``cond_up.b (1,)``"""
+    if cfg.input_kernel != 2 or cfg.cond_upsampler != "phase" \
+            or cfg.kernel_size != 2 or not cfg.bias:
+        raise ValueError("the vocoder's layout needs input_kernel 2, "
+                         "kernel_size 2, bias and the phase upsampler")
+    L, R, D = cfg.num_layers, cfg.residual_channels, cfg.dilation_channels
+
+    def w(name):
+        return np.asarray(sd[name], dtype=np.float32)
+
+    causal = w("causal.conv.weight")
+    lay = {n: np.zeros(shape, np.float32) for n, shape in (
+        ("w_in", (L, 2, R, 2 * D)), ("b_in", (L, 2 * D)),
+        ("w_cond", (L, cfg.cond_channels, 2 * D)),
+        ("w_res", (L, D, R)), ("b_res", (L, R)),
+        ("w_skip", (L, D, cfg.skip_channels)),
+        ("b_skip", (L, cfg.skip_channels)))}
+    for i in range(L):
+        for half, gate in ((slice(0, D), "tanh"), (slice(D, 2 * D),
+                                                    "sigmoid")):
+            lay["w_in"][i, :, :, half] = w(
+                f"dil_{gate}.{i}.conv.weight").transpose(2, 1, 0)
+            lay["w_cond"][i, :, half] = w(
+                f"aux_1x1_{gate}.{i}.weight")[:, :, 0].T
+            lay["b_in"][i, half] = (w(f"dil_{gate}.{i}.conv.bias")
+                                    + w(f"aux_1x1_{gate}.{i}.bias"))
+        lay["w_res"][i] = w(f"res_1x1.{i}.weight")[:, :, 0].T
+        lay["b_res"][i] = w(f"res_1x1.{i}.bias")
+        lay["w_skip"][i] = w(f"skip_1x1.{i}.weight")[:, :, 0].T
+        lay["b_skip"][i] = w(f"skip_1x1.{i}.bias")
+    params = {
+        "start": {"w": causal[:, :, 1].T, "w_prev": causal[:, :, 0].T,
+                  "b": w("causal.conv.bias")},
+        "layers": lay,
+        "end1": {"w": w("conv_post_1.weight")[:, :, 0].T,
+                 "b": w("conv_post_1.bias")},
+        "end2": {"w": w("conv_post_2.weight")[:, :, 0].T,
+                 "b": w("conv_post_2.bias")},
+        "cond_up": {"w": w("upsampling.conv.weight").reshape(-1),
+                    "b": w("upsampling.conv.bias").reshape(1)},
+    }
+    if params["cond_up"]["w"].shape != (cfg.cond_hop,):
+        raise ValueError(f"upsampling.conv holds "
+                         f"{params['cond_up']['w'].shape[0]} phases, the "
+                         f"config's hop is {cfg.cond_hop}")
     return from_jax_params(params, device)
 
 

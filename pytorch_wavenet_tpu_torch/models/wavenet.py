@@ -3,7 +3,10 @@
 The counterpart of the JAX package's ``models/wavenet.py``. Params keep
 its stacked layout, as torch tensors, so weights map across 1:1:
 
-- ``start.w (classes, R)``, optional ``start.b (R,)``
+- ``start.w (classes, R)``, optional ``start.b (R,)``; with
+  ``cfg.input_kernel`` 2 also ``start.w_prev (classes, R)``, the input
+  conv's tap on the previous class (``h[t] = w_prev[x[t-1]] + w[x[t]] +
+  b``, zero before the start)
 - ``layers.w_in (L, k, R, 2*D)``  fused filter+gate dilated-conv taps
 - ``layers.w_res (L, D, R)``, ``layers.w_skip (L, D, S)``
 - optional ``layers.b_in (L, 2*D)``, ``layers.b_res (L, R)``,
@@ -13,7 +16,8 @@ its stacked layout, as torch tensors, so weights map across 1:1:
 - conditioned models: ``layers.w_cond (L, M, 2*D)`` (local conditioning,
   ``M = cond_channels``), ``layers.w_gcond (L, G, 2*D)`` (global), and
   ``cond_up.s{i} (2, r_i, M, M)``, the learnable upsampler of
-  ``cond_upsample``
+  ``cond_upsample``, or under ``cond_upsampler="phase"`` ``cond_up.w
+  (hop,)`` and ``cond_up.b (1,)``
 
 Activations are channels-last ``(N, T, C)``, so every 1x1 conv is a plain
 ``(..., C_in) @ (C_in, C_out)`` matmul. Tap j of a layer with dilation d
@@ -48,16 +52,17 @@ def init_wavenet(cfg: WaveNetConfig, generator: torch.Generator,
     ``generator`` is a CPU ``torch.Generator``: draws happen on the host
     and the result moves to ``device``, so one seed gives the same weights
     on every device. The learnable upsampler starts as linear
-    interpolation (``ops.mel.linear_init_upsampler``)."""
+    interpolation (``ops.mel.linear_init_upsampler``); the phase-scale
+    upsampler as the nearest frame (scales 1, bias 0)."""
     dev = resolve_device(device)
-    L, k = cfg.num_layers, cfg.kernel_size
+    L, k, ki = cfg.num_layers, cfg.kernel_size, cfg.input_kernel
     R, D, S, E, C = (
         cfg.residual_channels, cfg.dilation_channels, cfg.skip_channels,
         cfg.end_channels, cfg.classes,
     )
     g = generator
     params: Params = {
-        "start": {"w": _conv_init(g, (C, R), C, dev)},
+        "start": {"w": _conv_init(g, (C, R), C * ki, dev)},
         "layers": {
             "w_in": _conv_init(g, (L, k, R, 2 * D), R * k, dev),
             "w_res": _conv_init(g, (L, D, R), D, dev),
@@ -69,7 +74,7 @@ def init_wavenet(cfg: WaveNetConfig, generator: torch.Generator,
                  "b": _conv_init(g, (C,), E, dev)},
     }
     if cfg.bias:
-        params["start"]["b"] = _conv_init(g, (R,), C, dev)
+        params["start"]["b"] = _conv_init(g, (R,), C * ki, dev)
         params["layers"]["b_in"] = _conv_init(g, (L, 2 * D), R * k, dev)
         params["layers"]["b_res"] = _conv_init(g, (L, R), D, dev)
         params["layers"]["b_skip"] = _conv_init(g, (L, S), D, dev)
@@ -78,12 +83,21 @@ def init_wavenet(cfg: WaveNetConfig, generator: torch.Generator,
         params["layers"]["w_cond"] = _conv_init(g, (L, M, 2 * D), M, dev)
     if G:
         params["layers"]["w_gcond"] = _conv_init(g, (L, G, 2 * D), G, dev)
-    if M and cfg.cond_upsample:
+    if M and cfg.cond_upsample and cfg.cond_upsampler == "phase":
+        params["cond_up"] = {
+            "w": torch.ones((cfg.cond_hop,), dtype=torch.float32, device=dev),
+            "b": torch.zeros((1,), dtype=torch.float32, device=dev)}
+    elif M and cfg.cond_upsample:
         from ..ops.mel import linear_init_upsampler
 
         params["cond_up"] = {
             k: torch.from_numpy(v).to(dev)
             for k, v in linear_init_upsampler(cfg.cond_upsample, M).items()}
+    if ki == 2:
+        params["start"]["w_prev"] = _conv_init(g, (C, R), C * ki, dev)
+    elif ki != 1:
+        raise ValueError(f"input_kernel {ki}: the input conv takes 1 or 2 "
+                         f"taps")
     return params
 
 
@@ -92,17 +106,18 @@ def upsample_cond(params: Params, cfg: WaveNetConfig, frames: torch.Tensor,
     """Frame-rate conditioning ``(..., F, M)`` -> sample-rate ``(...,
     length, M)``: through the learnable upsampler when the config has one
     (its factors must multiply to ``hop_length``, so frame i lands on
-    sample ``i * hop``), else by linear interpolation."""
+    sample ``i * hop``), or the phase-scale one (frame i covers samples
+    ``[i * hop, (i + 1) * hop)``), else by linear interpolation."""
     from ..ops import mel
 
     if cfg.cond_upsample and "cond_up" in params:
-        total = 1
-        for r in cfg.cond_upsample:
-            total *= r
-        if total != hop_length:
+        if cfg.cond_hop != hop_length:
             raise ValueError(
                 f"cond_upsample factors {cfg.cond_upsample} multiply to "
-                f"{total} but the conditioning hop is {hop_length}")
+                f"{cfg.cond_hop} but the conditioning hop is {hop_length}")
+        if cfg.cond_upsampler == "phase":
+            return mel.upsample_frames_phase(params["cond_up"], frames,
+                                             hop_length, length)
         return mel.upsample_frames_conv(params["cond_up"], frames,
                                         cfg.cond_upsample, length)
     return mel.upsample_frames(frames, hop_length, length)
@@ -153,12 +168,22 @@ class _EmbedRows(torch.autograd.Function):
 def embed_inputs(params: Params, cfg: WaveNetConfig, x: torch.Tensor) -> torch.Tensor:
     """Start conv: integer classes ``(N, T)`` are an exact row gather of
     ``start.w`` (a matmul backward, :class:`_EmbedRows`); float one-hot
-    ``(N, T, C)`` inputs go through a matmul."""
+    ``(N, T, C)`` inputs go through a matmul. With ``cfg.input_kernel`` 2
+    the previous position's row of ``start.w_prev`` (zero at position 0)
+    is added first: ``(w_prev[x[t-1]] + w[x[t]]) + b``, as the generation
+    kernels sum it."""
     w = params["start"]["w"]
     if x.dtype.is_floating_point:
         h = _mm(x, w, cfg.compute_dtype)
     else:
         h = _EmbedRows.apply(w, x.long())
+    if cfg.input_kernel == 2:
+        wp = params["start"]["w_prev"]
+        if x.dtype.is_floating_point:
+            prev = _mm(x[:, :-1], wp, cfg.compute_dtype)
+        else:
+            prev = _EmbedRows.apply(wp, x[:, :-1].long())
+        h = F.pad(prev, (0, 0, 1, 0)) + h
     if "b" in params["start"]:
         h = h + params["start"]["b"]
     return h.to(torch.float32)

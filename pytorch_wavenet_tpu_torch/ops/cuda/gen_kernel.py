@@ -707,7 +707,23 @@ def generate_fast_fused(params: Params, cfg: WaveNetConfig,
     On ``device="cpu"`` this runs :func:`fused_plain`; on a CUDA device it
     launches the kernel. The call is three profiler spans in a row:
     ``k1.prepare`` (the operands), ``k1.launch`` (the kernel, or its plain
-    version) and ``k1.finish`` (the waveform and the state's views)."""
+    version) and ``k1.finish`` (the waveform and the state's views).
+
+    A config that takes the wide-chain kernel (``gen_kernel_wide.
+    wide_needed``: the kernel-2 input, or a chain no cluster holds, as at
+    ``wnv512``) runs there instead, through
+    ``gen_kernel_hbm.generate_fast_batched`` with the same noise keying
+    (its plain version on the CPU); its state is that function's
+    ``HbmGenState``, passed back the same way."""
+    from . import gen_kernel_wide
+
+    if gen_kernel_wide.wide_needed(cfg):
+        from .gen_kernel_hbm import generate_fast_batched
+
+        return generate_fast_batched(
+            params, cfg, _seed_from(generator_or_seed), num_samples,
+            first_samples, temperature, regularize, state, return_state,
+            device=device, cond=cond, global_cond=global_cond)
     with torch.profiler.record_function("k1.prepare"):
         dev = resolve_device(device)
         params = params_to(params, dev)

@@ -60,6 +60,15 @@ a time, on any device. :func:`run_batched` runs it only for tensors on the
 CPU; for CUDA tensors it launches the kernel (:func:`batched_cuda`) or
 raises. ``launches`` counts kernel launches.
 
+A config with the kernel-2 input (``cfg.input_kernel`` 2: ``h0 =
+w_prev[x[t-1]] + w[x[t]] + b``) keeps each lane's previous class in one
+more ring row, the last, as ``class + 1`` (0: none, as a zeroed column
+reads), read only once ``ta >= 1``. Such a config, and any whose chain no
+tile of the cluster core holds (the ``wnv512`` preset's R = D = 512), runs
+on the wide-chain kernel KW (``gen_kernel_wide.py``) instead of K4:
+:func:`run_batched` dispatches, :func:`prepare_weights` prepares its
+operands, and :func:`batched_plain` is its plain version too.
+
 Teacher-forced steps whose class no caller reads (``head_from``: the
 first step that is read) run without the head, on the kernel and its
 plain version alike: the chain and the ring writes only.
@@ -82,6 +91,7 @@ from ...device import resolve_device
 from ...models.generate import classes_to_waveform
 from ...models.wavenet import Params, params_to
 from . import gen_kernel as k1
+from . import gen_kernel_wide as kw
 from .gen_kernel import (
     _seed_from,
     check_head_from,
@@ -113,7 +123,7 @@ class HbmGenState(NamedTuple):
     it back continues every stream with no re-priming, bitwise equal to an
     uninterrupted run."""
 
-    ring: torch.Tensor  # (sum(P_l) * R, streams) in the ring dtype
+    ring: torch.Tensor  # (ring_rows(cfg), streams) in the ring dtype
     t: int              # absolute steps completed
     cls: torch.Tensor   # (streams,) int32 next input class
 
@@ -124,7 +134,15 @@ def ring_offsets(cfg: WaveNetConfig) -> list[int]:
 
 
 def ring_rows(cfg: WaveNetConfig) -> int:
-    return sum(periods(cfg)) * cfg.residual_channels
+    """The ring's rows: every layer's slots, and with the kernel-2 input
+    the previous-class row."""
+    return (sum(periods(cfg)) * cfg.residual_channels
+            + int(cfg.input_kernel == 2))
+
+
+def is_wide(w: dict) -> bool:
+    """``w`` (:func:`prepare_weights`) is for the wide-chain kernel."""
+    return "wide" in w
 
 
 def prepare_weights(params: Params, cfg: WaveNetConfig, fuse_res: bool,
@@ -154,6 +172,8 @@ def prepare_weights(params: Params, cfg: WaveNetConfig, fuse_res: bool,
     if ring_dtype not in RING_LIBS:
         raise ValueError(f"ring_dtype must be one of {list(RING_LIBS)}, "
                          f"not {ring_dtype}")
+    if kw.wide_needed(cfg):
+        return _wide_weights(params, cfg, ring_dtype)
     if (ring_dtype == torch.int8) != (ring_scales is not None):
         raise ValueError("int8 rings need per-layer ring_scales (and only "
                          "they take them): calibrate_ring_scales()")
@@ -162,10 +182,7 @@ def prepare_weights(params: Params, cfg: WaveNetConfig, fuse_res: bool,
     for name in ("w_cond", "w_gcond"):
         if name in params["layers"]:
             w[name] = params["layers"][name].to(torch.float32).contiguous()
-    w["meta"] = torch.tensor(
-        [[d, P, o] for d, P, o in zip(cfg.dilations, periods(cfg),
-                                      ring_offsets(cfg))],
-        dtype=torch.int32).to(w["w_tap"].device)
+    w["meta"] = _meta(cfg, w["w_tap"].device)
     if skip_slab:
         L, D, S = cfg.num_layers, cfg.dilation_channels, cfg.skip_channels
         b_out = w.pop("b_out")
@@ -192,6 +209,37 @@ def prepare_weights(params: Params, cfg: WaveNetConfig, fuse_res: bool,
         w["qscale"] = torch.from_numpy(np.float32(127.0) / sc).to(dev)
     w["chain"] = k1.pack_chain(w, cfg, fuse_res, skip_slab, CLUSTER)
     w["ring_dtype"] = ring_dtype
+    return w
+
+
+def _meta(cfg: WaveNetConfig, device) -> torch.Tensor:
+    """Each layer's dilation, period and first ring slot, int32 ``(L, 3)``
+    on ``device``."""
+    return torch.tensor(
+        [[d, P, o] for d, P, o in zip(cfg.dilations, periods(cfg),
+                                      ring_offsets(cfg))],
+        dtype=torch.int32).to(device)
+
+
+def _wide_weights(params: Params, cfg: WaveNetConfig, ring_dtype) -> dict:
+    """:func:`prepare_weights` for the wide-chain kernel: K1's base
+    operands without ``fuse_res`` or the packed chain, ``w_cond``,
+    ``w_prev`` (the kernel-2 input's tap on the previous class) and
+    ``meta``; the kernel's packing is made at its first launch
+    (``"wide"``)."""
+    if ring_dtype != torch.float32:
+        raise ValueError(f"{ring_dtype} rings: the wide-chain kernel takes "
+                         f"f32 rings only")
+    if cfg.kernel_size != 2:
+        raise ValueError("the wide-chain kernel takes kernel_size 2")
+    w = k1.base_weights(params, cfg, False)
+    if "w_cond" in params["layers"]:
+        w["w_cond"] = params["layers"]["w_cond"].to(torch.float32).contiguous()
+    if cfg.input_kernel == 2:
+        w["w_prev"] = params["start"]["w_prev"].to(torch.float32).contiguous()
+    w["meta"] = _meta(cfg, w["w_tap"].device)
+    w["ring_dtype"] = ring_dtype
+    w["wide"] = None
     return w
 
 
@@ -264,7 +312,11 @@ def batched_plain(w: dict, cfg: WaveNetConfig, prime: torch.Tensor,
     order. Steps ``t < head_from`` run without the head, as
     ``gen_kernel.fused_plain`` says: class ``prime[:, t + 1]``, gap
     ``inf``, the ring and later classes bitwise those of ``head_from =
-    0``."""
+    0``. With the kernel-2 input the ring's last row carries each lane's
+    previous class (the module docstring); weights for the wide-chain
+    kernel (:func:`is_wide`) take neither ``fuse_res`` nor ``skip_slab``."""
+    if is_wide(w):
+        fuse_res = skip_slab = False
     L, k = cfg.num_layers, cfg.kernel_size
     R, D, S, C = (cfg.residual_channels, cfg.dilation_channels,
                   cfg.skip_channels, cfg.classes)
@@ -274,7 +326,8 @@ def batched_plain(w: dict, cfg: WaveNetConfig, prime: torch.Tensor,
     dev = prime.device
     per, first = periods(cfg), ring_offsets(cfg)
     rdt = _check_ring_dtype(w, ring)
-    slots = ring.view(sum(per), R, streams)
+    slots = ring[:sum(per) * R].view(sum(per), R, streams)
+    prev_row = ring[-1] if cfg.input_kernel == 2 else None
     w_cur = w["w_tap"][:, k - 1]
     hot = temps > 0
     any_hot = bool(hot.any())
@@ -290,7 +343,14 @@ def batched_plain(w: dict, cfg: WaveNetConfig, prime: torch.Tensor,
     for t in range(total):
         ta = t0 + t
         head = t >= head_from
-        h = w["w_start"][cls] + w["b_start"]
+        h = w["w_start"][cls]
+        if prev_row is not None:  # the kernel-2 input's previous class
+            pv = prev_row.to(torch.float32)
+            valid = (pv > 0.5) & (ta >= 1)
+            p = torch.clamp(pv.long() - 1, 0, C - 1)
+            h = torch.where(valid[:, None], w["w_prev"][p] + h, h)
+            prev_row.copy_(cls.to(prev_row.dtype) + 1)
+        h = h + w["b_start"]
         skip = torch.zeros((streams, S), dtype=torch.float32, device=dev)
         slab = []
 
@@ -617,7 +677,15 @@ def run_batched(w: dict, cfg: WaveNetConfig, prime: torch.Tensor,
                 gcond: torch.Tensor | None = None,
                 head_from: int = 0) -> torch.Tensor:
     """The plain version for tensors on the CPU, the kernel for CUDA
-    tensors (which raises rather than fall back)."""
+    tensors (which raises rather than fall back): the wide-chain kernel
+    for weights prepared for it (:func:`is_wide`), else K4."""
+    if prime.device.type != "cpu" and is_wide(w):
+        if gcond is not None:
+            raise ValueError("the wide-chain kernel takes no global "
+                             "conditioning")
+        return kw.wide_cuda(w, cfg, prime, ring, t0, total, temps, seeds,
+                            toffs, seed, regularize, lane_seed, cond=cond,
+                            head_from=head_from)
     run = batched_plain if prime.device.type == "cpu" else batched_cuda
     return run(w, cfg, prime, ring, t0, total, temps, seeds, toffs, seed,
                regularize, fuse_res, skip_slab, lane_seed, cond=cond,
@@ -691,7 +759,9 @@ def generate_fast_batched(params: Params, cfg: WaveNetConfig,
     call with the head on every step, bitwise.
 
     On ``device="cpu"`` this runs :func:`batched_plain`; on a CUDA device
-    it launches the kernel."""
+    it launches the kernel: K4, or the wide-chain kernel where the config
+    needs it (``gen_kernel_wide.wide_needed``: the kernel-2 input, or a
+    chain no tile of K4 holds)."""
     if lane_clock is not None and lane_seed is None:
         raise ValueError("lane_clock only rebases the lane_seed noise "
                          "counters: pass lane_seed too")

@@ -8,6 +8,10 @@ sample-rate conditioning rows ``(..., length, M)`` with frame i centred at
 sample ``i * hop``: by linear interpolation (:func:`upsample_frames`), by
 the model's learnable transposed-conv stack (:func:`upsample_frames_conv`)
 or, in the serving pool, window by window (:func:`expand_frames_window`).
+The phase-scale upsampler (:func:`upsample_frames_phase`, the
+PytorchWaveNetVocoder's ``ConvTranspose2d(1, 1, (1, hop), stride (1,
+hop))``) instead holds frame i over samples ``[i * hop, (i + 1) * hop)``,
+each row the frame times its phase's scale plus one bias.
 
 The products of the learnable stack sum over the M input channels in a
 fixed order (one channel after the other), so a row's value depends only
@@ -153,6 +157,23 @@ def upsample_frames_conv(up_params: dict, frames: torch.Tensor,
     return x[..., :length, :]
 
 
+def upsample_frames_phase(up_params: dict, frames: torch.Tensor,
+                          hop_length: int, length: int) -> torch.Tensor:
+    """The phase-scale upsampler: row t of ``(..., length, M)`` is ``frames[
+    ..., min(t // hop, F - 1), :] * w[t % hop] + b`` with ``w =
+    up_params["w"]`` ``(hop,)`` and ``b = up_params["b"]`` ``(1,)`` (the
+    last frame held past the timeline's end); a product and a sum a
+    value, so any window of rows is bitwise the same."""
+    dev = frames.device
+    t = torch.arange(length, dtype=torch.long, device=dev)
+    i = torch.clamp(torch.div(t, hop_length, rounding_mode="floor"),
+                    max=frames.shape[-2] - 1)
+    scale = up_params["w"].to(device=dev, dtype=torch.float32)[
+        t % hop_length][:, None]
+    return frames.index_select(-2, i) * scale + up_params["b"].to(
+        device=dev, dtype=torch.float32)
+
+
 def frames_window_len(count: int, hop_length: int,
                       factors: tuple[int, ...] = ()) -> int:
     """Frame-slab length that :func:`expand_frames_window` needs to expand
@@ -164,7 +185,8 @@ def frames_window_len(count: int, hop_length: int,
 
 def expand_frames_window(params, frames: torch.Tensor, hop_length: int,
                          phase: torch.Tensor, count: int,
-                         factors: tuple[int, ...] = ()) -> torch.Tensor:
+                         factors: tuple[int, ...] = (),
+                         phase_scale: bool = False) -> torch.Tensor:
     """Expand a per-lane frame slab to ``count`` sample-rate rows, bitwise
     the same for every chunking of a timeline: the interpolation weight of
     global row t comes from the integer ``t mod hop`` (one f32 division of
@@ -177,11 +199,21 @@ def expand_frames_window(params, frames: torch.Tensor, hop_length: int,
     ``len(factors) + 1`` replicated rows the same way). ``phase``:
     ``(lanes,)`` integer ``off_l mod hop``. ``factors``: the learnable
     stages (``params["cond_up"]``), or ``()`` for linear interpolation.
-    Returns ``(lanes, count, M)`` f32."""
+    ``phase_scale``: the phase-scale upsampler of ``params["cond_up"]``
+    (:func:`upsample_frames_phase`) instead. Returns ``(lanes, count, M)``
+    f32."""
     dev = frames.device
     j = (phase.to(device=dev, dtype=torch.long)[:, None]
          + torch.arange(count, dtype=torch.long, device=dev)[None])
     M = frames.shape[-1]
+    if phase_scale:
+        up = params["cond_up"]
+        i0 = torch.clamp(torch.div(j, hop_length, rounding_mode="floor"),
+                         max=frames.shape[1] - 1)
+        rows = torch.gather(frames, 1, i0[..., None].expand(-1, -1, M))
+        scale = up["w"].to(device=dev, dtype=torch.float32)[
+            j % hop_length][..., None]
+        return rows * scale + up["b"].to(device=dev, dtype=torch.float32)
     if factors:
         x = frames
         for i, _ in enumerate(factors):

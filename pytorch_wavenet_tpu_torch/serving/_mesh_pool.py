@@ -378,7 +378,7 @@ class _Follower(_LaneWork):
         self._n_data, self._width = _data_blocks(mesh, lanes)
         self.timeout = timedelta(seconds=batcher.MESH_TIMEOUT)
         self._n = dict(prime_calls=0, pool_steps=0, headless_steps=0,
-                       bytes_up=0)
+                       bytes_up=0, wide_launches=0)
         self._t = dict(t_prime_dispatch=0.0, t_splice=0.0)
         self._rows = self._zero_rows()
         self._failed = False

@@ -93,6 +93,7 @@ from ..device import resolve_device
 from ..models.wavenet import Params, params_to
 from ..ops.cuda.gen_kernel_hbm import (
     HbmGenState,
+    is_wide,
     periods,
     prepare_weights,
     ring_offsets,
@@ -246,12 +247,21 @@ class _LaneWork:
                 f"light_chunk={light_chunk} must be in [1, chunk={chunk})")
         self.cond_hop = cond_hop
         self._factors: tuple[int, ...] = ()
+        # the model's phase-scale upsampler expands the frames
+        self._phase_up = False
         if cond_hop is not None:
             if cfg.cond_channels == 0:
                 raise ValueError("cond_hop needs cfg.cond_channels > 0")
             if cond_hop < 1:
                 raise ValueError(f"cond_hop must be >= 1, got {cond_hop}")
-            if cfg.cond_upsample and "cond_up" in params:
+            if (cfg.cond_upsample and "cond_up" in params
+                    and cfg.cond_upsampler == "phase"):
+                if cfg.cond_hop != cond_hop:
+                    raise ValueError(
+                        f"the phase upsampler's hop {cfg.cond_hop} != "
+                        f"cond_hop {cond_hop}")
+                self._phase_up = True
+            elif cfg.cond_upsample and "cond_up" in params:
                 total = int(np.prod(cfg.cond_upsample))
                 if total != cond_hop:
                     raise ValueError(
@@ -363,7 +373,7 @@ class _LaneWork:
         self._w = prepare_weights(dev_params, self.cfg,
                                   self._kw["fuse_res"], self._kw["skip_slab"],
                                   self.ring_dtype)
-        if self._factors:
+        if self._factors or self._phase_up:
             self._cond_up = {"cond_up": dev_params["cond_up"]}
 
     def _step(self, prime, ring, t0, total, temps, seeds, toffs, cond=None,
@@ -372,6 +382,8 @@ class _LaneWork:
         steps before ``head_from`` run without the head."""
         if cond is not None:
             cond = cond.permute(1, 2, 0).contiguous()  # (total, M, lanes)
+        if self.device.type == "cuda" and is_wide(self._w):
+            self._n["wide_launches"] += 1
         return run_batched(self._w, self.cfg, prime, ring, t0, total, temps,
                            seeds, toffs, 0, self._kw["regularize"],
                            self._kw["fuse_res"], self._kw["skip_slab"], True,
@@ -402,7 +414,7 @@ class _LaneWork:
         phase = self._upload(np.asarray(phases, np.int64))
         return expand_frames_window(self._cond_up, dev.to(torch.float32),
                                     self.cond_hop, phase, count,
-                                    self._factors)
+                                    self._factors, self._phase_up)
 
     def _expand(self, slabs: list, phases: list, count: int) -> torch.Tensor:
         return self._expand_wire(self._wire_frames(slabs), phases, count)
@@ -481,7 +493,9 @@ class _LaneWork:
 
     def _splice_rows(self):
         """Per ring row (layer l, slot s, channel r): the layer's first
-        slot, its period, s and r, as device tensors (built once)."""
+        slot, its period, s and r, as device tensors (built once). The
+        kernel-2 input's previous-class row, the ring's last, is a slot of
+        its own with period 1: it is copied as it is."""
         if self._rowmap is None:
             R = self.cfg.residual_channels
             first, per, slot = [], [], []
@@ -490,6 +504,11 @@ class _LaneWork:
                 per += [P] * P * R
                 slot += np.repeat(np.arange(P), R).tolist()
             r = np.tile(np.arange(R), sum(self._periods))
+            if self.cfg.input_kernel == 2:
+                first.append(sum(self._periods))
+                per.append(1)
+                slot.append(0)
+                r = np.append(r, 0)
             self._rowmap = tuple(self._upload(np.asarray(a, np.int64))
                                  for a in (first, per, slot, r))
         return self._rowmap
@@ -672,7 +691,8 @@ class ContinuousBatcher(_LaneWork):
         # consistent-enough snapshot for monitoring)
         self._n = dict(admitted=0, completed=0, cancelled=0, failed=0,
                        samples_out=0, pool_steps=0, prime_calls=0,
-                       headless_steps=0, bytes_down=0, bytes_up=0)
+                       headless_steps=0, bytes_down=0, bytes_up=0,
+                       wide_launches=0)
         # cumulative worker-loop phase seconds (host clock, each key one
         # _phase): dispatch, chunk delivery, admission, idle;
         # t_prime_dispatch is the prime's enqueue, t_prime_sync the wait
@@ -839,13 +859,16 @@ class ContinuousBatcher(_LaneWork):
         counters (``admitted``, ``completed``, ``cancelled``, ``failed``,
         ``samples_out``, ``pool_steps``, ``prime_calls``, ``bytes_down``,
         ``bytes_up``; ``headless_steps``, the lane-steps of prime calls run
-        without the head, each prime's length - 1 a request; on a mesh
+        without the head, each prime's length - 1 a request;
+        ``wide_launches``, the calls that ran the wide-chain kernel rather
+        than K4 (``gen_kernel_hbm.is_wide``; 0 on the CPU); on a mesh
         ``prime_calls`` and ``headless_steps`` count rank 0's own lanes'
         primes), the worker's phase seconds on the host's clock
         (``t_admit``, ``t_prime_dispatch``, ``t_splice``, ``t_dispatch``,
         ``t_prime_sync``, ``t_deliver``, ``t_idle``; each also a
-        ``pool.<phase>`` profiler span), and K4's seconds on the card's
-        clock, from timing events around its launches: ``t_prime_device``
+        ``pool.<phase>`` profiler span), and the kernel's seconds on the
+        card's clock (K4's, or the wide-chain kernel's), from timing events
+        around its launches: ``t_prime_device``
         in prime calls, ``t_chunk_device`` in pool chunks (rank 0's block on
         a mesh; 0.0 on the CPU). On a mesh
         also ``mesh_ranks``, the bytes rank 0 sent its followers and took
