@@ -13,66 +13,124 @@
 // ring's last row as class + 1, 0 for none).
 //
 // What bounds it on this card: a step is 30 layers of two dependent
-// products whose batch is the pool's lanes, [tap | h | c_t] (2R + M) x 2D
+// products whose batch is the pool's lanes, [tap | c_t | h] (2R + M) x 2D
 // and u D x (R + S), then the head: 88.5 MFLOP a lane-step at wnv512,
-// 22.7 GFLOP a step at 256 lanes (45.8 us at the TF32 peak), with all
-// 178 MB of weights read each step (53 us at 3.35 TB/s). What the design
-// does about it: ONE persistent cooperative launch a call, one block an
-// SM, walks the steps and layers; each product is split into 32-row x
-// 64-lane tiles over the blocks, the lanes as the tensor cores' N, so all
-// lanes share one read of each layer's weights a step (from HBM, then L2
-// for the other lane tiles). The tiles stream K in 64-deep stages through
-// a 5-stage cp.async pipeline (16-byte copies of the lanes' rows: the
-// wrapper pads the lanes to a multiple of 4) and multiply on the tensor cores in
-// 3xTF32 (tf32.cuh), which holds f32 accuracy; each warp holds 16 lanes
-// of 32 rows over half of every stage's depth, with the hi x hi products
-// and the cross terms in separate sums, so eight mma chains run apart.
+// 22.7 GFLOP a step at 256 lanes, 45.8 us at the TF32 peak and three
+// times that (138 us) as the 3xTF32 products that hold f32 accuracy; the
+// weights read each step with their pre-split low parts (356 MB, 106 us at
+// 3.35 TB/s); and 2L + 3 phases a step, each depending on the one before
+// across the whole grid, so that each pays a grid barrier and a pipeline
+// fill that the design has to hide. On an H100 the 256-lane step takes
+// about 745 us (PERF.md): the gate products 446 of it, about 0.9 us a
+// 64-deep stage against 0.2 us of tensor-core work, for with one step's
+// products in flight each step waits on the next step's loads and split;
+// the 2L + 3 barriers take 48.
+//
+// What the design does about it: ONE persistent cooperative launch a call,
+// one CTA an SM (two consumer warpgroups and a producer warpgroup, which
+// hands registers to the consumers: setmaxnreg 88 / 208), in clusters
+// of 2 along the weight rows; the phases (the gate products; the residual
+// and skip products, h of layer l+1 written straight into its ring slot;
+// end1; end2; the sampling; 2L for a teacher-forced step, which skips the
+// skip rows and the head) meet at grid barriers on one counter. Each
+// product splits into tiles of 64 lanes x 32 weight rows (lanes on wgmma's
+// M, rows on its N):
+//  - one producer thread fills a 6-stage ring of 64-deep stages with bulk
+//    copies completing on an mbarrier a stage: the tile's 32 rows of
+//    weights, pre-split into TF32 hi and lo by the wrapper's `pack` and
+//    laid out as wgmma's K-major B image of each stage (4 KB a copy), and
+//    the lanes' rows, two 32-lane boxes of a tensor map (128-byte
+//    swizzled), which the cluster's two CTAs (the same lanes, other weight
+//    rows) load once between them, each multicasting one box to both;
+//  - the two consumer warpgroups each take half of every stage's depth:
+//    for each 8-deep step a warpgroup reads its lanes' values into
+//    registers, splits them into TF32 hi and lo there (tf32.cuh), and
+//    issues wgmma m64n32k8 three times, a_lo b_hi, a_hi b_lo and a_hi
+//    b_hi, each into its own sum (three independent chains); a step's
+//    products run while the next step's values load (wgmma.wait_group 1),
+//    and a stage goes back to the producers of both CTAs (an mbarrier
+//    arrival in each) once its last step is done. No __syncthreads sits in
+//    the loop; its waits and arrivals are asm without branches, so that
+//    ptxas keeps the wgmma asynchronous;
+//  - the grid barriers are split: the consumers only arrive (their writes
+//    fenced for the async proxy) and go on; a producer waits for the count
+//    before it copies what the phase before wrote. The gate's K runs tap,
+//    conditioning rows, h: the taps (written steps before) and the
+//    conditioning rows wait for no barrier, so 9 of a gate tile's 17
+//    stages load and multiply while the grid still finishes the residual
+//    products; a stage's weights are copied up to 5 stages ahead, into the
+//    phase before. The consumers wait at a barrier only where they read
+//    what other blocks wrote with plain loads: before the sampling (the
+//    logits) and after each write of input rows (layer 0's residual
+//    product reads them back); and a block that took part in no tile of a
+//    phase waits for the barrier before it arrives at the next, so that
+//    the count holds one barrier's arrivals at a time. A row tile falls to
+//    the same CTA in every phase, so an epilogue reads back (the residual,
+//    the skip sums) only what its own thread wrote.
 // The gate rows are packed so a tile holds the tanh and sigmoid rows of
-// the same 16 channels: u is made in registers. A grid barrier (one
-// counter, release/acquire) separates the phases: after the gate
-// products, after the residual and skip products (h of layer l+1 is
-// written straight into its ring slot), after end1, end2 and the
-// sampling, 2L + 3 a step (2L for a teacher-forced step, which skips the
-// skip rows and the head). Measured (PERF.md): 1.06 ms a 256-lane step,
-// each tile's stages bound by their loads of the lanes' rows and their
-// mma.sync work, which add rather than overlap.
+// the same 8 channels: u is made in registers.
+//
+// Tile plan by lane count: the lanes split into tiles of 64, the last one
+// ragged (a 32-lane box wholly past the lanes is not copied; lanes past
+// them read zeros), the streams padded to a multiple of 4 for 16-byte
+// copies; the cluster size, 2 or 1, is the larger that runs the gate's
+// tiles in the fewest rounds over the clusters the card holds at once. At
+// 256 lanes and wnv512: 32 row tiles x 4 lane tiles, 64 cluster tiles on
+// 66 clusters of 2 (132 SMs); residual + skip 48, the head 16. Few lanes
+// leave most CTAs without tiles: one lane streams the weights through 32.
 //
 // Every sum's order is fixed by the configuration alone: a product sums
-// each half of every 64-deep stage in 8-deep mma steps in order, the
-// stages in order, then the two halves, so a lane's classes and ring are
-// the same bits at any lane count, tile or grid size.
+// its 8-deep wgmma steps in order over the padded depth, each of the three
+// terms apart, then (a_lo b_hi + a_hi b_lo) + a_hi b_hi, the first
+// warpgroup's half of the depth before the second's, so a lane's classes
+// and ring are the same bits at any lane count, tile, cluster or grid
+// size.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include "gen_common.cuh"
+#include "sm90.cuh"
 #include "tf32.cuh"
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
-constexpr int BM = 32;      // rows of a tile: two m16 tiles
-constexpr int BN = 64;      // lanes of a tile: two n8 tiles a warp pair
-constexpr int KC = 64;      // depth of a pipeline stage
-constexpr int STAGES = 5;
-constexpr int AST = KC + 4;  // padded rows: conflict-free fragment loads
-constexpr int BST = BN + 8;
-constexpr int A_TILE = BM * AST;
-constexpr int B_TILE = KC * BST;
-constexpr int SMEM_BYTES = STAGES * (A_TILE + B_TILE) * 4;
+constexpr int CONSUMERS = 256;  // two warpgroups; then the producer's
+constexpr int THREADS = CONSUMERS + 128;
+constexpr int WARPS = CONSUMERS / 32;  // the warps of the lane-wise phases
+constexpr int BL = 64;      // lanes of a tile: wgmma's M
+constexpr int BR = 32;      // weight rows of a tile: wgmma's N
+constexpr int KC = 64;      // depth of a stage: 4 wgmma steps a warpgroup
+constexpr int BOX = 32;     // lanes of a box: one 128-byte swizzle row
+constexpr int STAGES = 6;
+constexpr int A_TILE = KC * BL;   // floats: 2 boxes of 64 rows x 32 lanes
+constexpr int W_TILE = BR * KC;   // floats, one of hi / lo
+constexpr int GROUP = 8 * KC;     // floats: 8 rows of a stage
+constexpr int XCH = 16 * 128;     // floats: a warpgroup's sums of a tile
+constexpr int SMEM_BYTES =
+    (STAGES * (A_TILE + 2 * W_TILE) + XCH) * 4 + 2 * STAGES * 8 + 1024;
+constexpr int MAX_CLUSTER = 2;
+// registers a thread: the producer warpgroup's, the consumers' (128 x 88
+// + 256 x 208 = 64,512 of the SM's 65,536; ptxas then spills in neither)
+constexpr int PRODUCER_REGS = 88, CONSUMER_REGS = 208;
 
 // the phases of a step that `timers` accumulates (ns, block 0's view)
 enum { PH_GATE, PH_OUT, PH_BAR, PH_INPUT, PH_END1, PH_END2, PH_SAMPLE,
        NPHASE };
 
+// the lanes' operands as the copies read them: (streams, rows, slots)
+// boxes of 32 lanes x 64 rows, 128-byte swizzled
+enum { MAP_RING, MAP_COND, MAP_U, MAP_SKIP, MAP_Y, NMAP };
+
 struct Args {
+  CUtensorMap maps[NMAP];
   const float *A0, *A1, *a;    // input taps (C, R) (A0 may be null), bias (R)
-  const float *W1, *b1;        // (L, M1p, K1p), (L, M1p): gate products
-  const float *W2, *b2;        // (L, Rp + Sp, K2p), (L, Rp + Sp)
-  const float *E1, *be1;       // (Ep, K3p), (Ep)
-  const float *E2, *be2;       // (Cp, K4p), (Cp)
+  const float *W1, *b1;        // (L, 2, K1p/KC, M1p/8, KC/4, 8, 4), (L, M1p)
+  const float *W2, *b2;        // (L, 2, K2p/KC, (Rp+Sp)/8, ...), (L, Rp + Sp)
+  const float *E1, *be1;       // (2, K3p/KC, Ep/8, ...), (Ep)
+  const float *E2, *be2;       // (2, K4p/KC, Cp/8, ...), (Cp)
   const float* cond;           // (total, M, streams) or null
   const float* temps;
   const int *seeds, *toffs, *prime, *meta;
@@ -86,42 +144,9 @@ struct Args {
   int streams, num_given, total, t0, L, R, D, S, E, C, M;
   int M1p, K1p, Rp, Sp, K2p, Ep, K3p, Cp, K4p;
   int extra_row;  // the ring's previous-class row, or -1
-  int seed, lane_seed, head_from;
+  int seed, lane_seed, head_from, slots;
   float regularize;
 };
-
-// rows [0, n0) of a product's B operand from p0, the next n1 from p1, the
-// next n2 from p2 (a null part, and every row past them, reads 0)
-struct Src {
-  const float* p[3];
-  int n[3];
-};
-
-__device__ __forceinline__ const float* src_row(const Src& s, int k,
-                                                int streams) {
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    if (k < s.n[i]) return s.p[i] ? s.p[i] + (size_t)k * streams : nullptr;
-    k -= s.n[i];
-  }
-  return nullptr;
-}
-
-__device__ __forceinline__ void cp16(float* dst, const float* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wait_groups() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 __device__ __forceinline__ unsigned long long now_ns() {
   unsigned long long t;
@@ -129,170 +154,375 @@ __device__ __forceinline__ unsigned long long now_ns() {
   return t;
 }
 
-// Every block of the grid arrives before any leaves; the block's writes
-// before it are visible to every block after it.
-__device__ __forceinline__ void grid_barrier(unsigned long long* bar,
-                                             unsigned long long& target) {
-  __syncthreads();
+// the thread's warp, known to the compiler to be the same across the warp
+__device__ __forceinline__ int warp_id() {
+  return __shfl_sync(0xffffffffu, (int)(threadIdx.x >> 5), 0);
+}
+
+// A part of a product's lanes' operand: `rows` rows of slot `slot` of a
+// map (slot -1 reads zeros); each part takes its rows rounded up to KC
+// of the product's depth, the rows past it read zeros too.
+struct Part {
+  const CUtensorMap* map;
+  int rows, slot;
+  bool dep;  // written by the phase before: its copies wait for the grid
+};
+
+// One product's phase: rows [rt0, rt0 + nrt) tiles of BR of the packed
+// weights W (hi, then lo) of Mp rows and depth Kp, times the lanes'
+// operand made of parts.
+struct Prod {
+  const float* W;
+  int Mp, Kp, rt0, nrt;
+  Part part[3];
+};
+
+// Where this CTA stands: its shared memory, barriers and the stage counter
+// that its producer and consumers each advance in the same order.
+struct Pipe {
+  float* As;       // STAGES x A_TILE, 1024-byte aligned
+  float* Ws;       // STAGES x 2 W_TILE
+  uint64_t* full;  // STAGES: the producer's arrival and the copies' bytes
+  uint64_t* empty; // STAGES: every consumer warp of the cluster
+  float* X;        // XCH: the second warpgroup's sums, for the first
+  unsigned it;     // stages walked so far
+  int cs, rank, cluster, clusters;
+  int g0, g1;      // the boxes of a stage's lanes' rows this CTA copies
+};
+
+
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;" ::"n"(CONSUMERS) : "memory");
+}
+
+// The consumers' arrival at a grid barrier: this block's writes before it
+// made visible to every block, to their copies (the async proxy) too,
+// then one arrival on the grid's count. The consumers go on to the next
+// phase at once: what in it depends on other blocks' writes arrives by
+// copies, which the producers issue after the count (wait_grid).
+__device__ __forceinline__ void grid_arrive(unsigned long long* bar) {
+  fence_proxy_async_global();
+  consumers_sync();
   if (threadIdx.x == 0) {
-    target += gridDim.x;
     __threadfence();
     atomicAdd(bar, 1ull);
-    unsigned long long v;
-    do {
-      asm volatile("ld.acquire.gpu.global.u64 %0, [%1];"
-                   : "=l"(v)
-                   : "l"(bar)
-                   : "memory");
-    } while (v < target);
+  }
+}
+
+// until every block has arrived `target` times in all; reads after it see
+// their writes before it
+__device__ __forceinline__ void poll_grid(unsigned long long* bar,
+                                          unsigned long long target) {
+  unsigned long long v;
+  do {
+    asm volatile("ld.acquire.gpu.global.u64 %0, [%1];"
+                 : "=l"(v)
+                 : "l"(bar)
+                 : "memory");
+  } while (v < target);
+}
+
+// The producer's wait for the grid before a copy of what the phase before
+// wrote.
+__device__ __forceinline__ void wait_grid(unsigned long long* bar,
+                                          unsigned long long target) {
+  poll_grid(bar, target);
+  fence_proxy_async_global();
+}
+
+// The consumers' wait for the grid (the sampling's reads of the logits).
+__device__ __forceinline__ void grid_wait(unsigned long long* bar,
+                                          unsigned long long target) {
+  if (threadIdx.x == 0) {
+    poll_grid(bar, target);
     __threadfence();
   }
-  __syncthreads();
+  consumers_sync();
 }
 
-__device__ __forceinline__ void cp16z(float* dst, const float* src,
-                                      bool valid) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
+// The cluster tiles of a product, numbered over all its rows so that a
+// row tile falls to the same CTA in every phase of the product (an
+// epilogue reads back what the same thread wrote there before): lane
+// tiles fastest, then groups of `cs` row tiles, one a CTA of the cluster;
+// cluster tile ct is cluster ct % clusters'. A phase takes the row tiles
+// [rt0, rt0 + nrt): its cluster tiles [ct0, ct1); a CTA whose row tile
+// lies outside them takes part with no rows.
+struct Span {
+  int ct0, ct1, nlt;
+};
+
+__device__ __forceinline__ Span span_of(const Pipe& p, int rt0, int nrt,
+                                        int streams) {
+  const int nlt = (streams + BL - 1) / BL;
+  return Span{rt0 / p.cs * nlt, (rt0 + nrt + p.cs - 1) / p.cs * nlt, nlt};
 }
 
-// One BM x BN tile of A (Mp, Kp) row-major times B (Kp, streams). Warp w
-// takes lanes n0 + 16 (w % 4) .. + 15 (two n8 tiles) and half w / 4 of
-// each stage's depth; the 3xTF32 terms sum into two accumulators (the
-// hi x hi products, and the two cross terms), then the halves meet in
-// shared memory in a fixed order. On return the warps of half 0 hold the
-// tile in acc[q][j]: rows m0 + 16q + (g, g + 8), lanes n0 + 16 (w % 4) +
-// 8j + (2t, 2t + 1), in mma.sync's accumulator order; the function
-// returns whether the calling warp holds it. RELU_B: B is read through
-// max(0, .). The streams are a multiple of 4, so B's rows copy in 16-byte
-// pieces.
-template <bool RELU_B>
-__device__ bool tile_mma(const float* __restrict__ A, int Kp, int m0,
-                         const Src& src, int n0, int streams, float* smem,
-                         float (&acc)[2][2][4]) {
-  float* As = smem;
-  float* Bs = smem + STAGES * A_TILE;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int wn = warp & 3, wk = warp >> 2;
-  float cm[2][2][4], cc[2][2][4];
-#pragma unroll
-  for (int q = 0; q < 2; ++q)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) cm[q][j][i] = cc[q][j][i] = 0.f;
-  const int nk = Kp / KC;
-  const bool active = n0 + wn * 16 < streams;
+// this cluster's first cluster tile at or after ct0
+__device__ __forceinline__ int first_tile(const Pipe& p, int ct0) {
+  return ct0 + ((p.cluster - ct0) % p.clusters + p.clusters) % p.clusters;
+}
 
-  auto load = [&](int stage, int kc) {
-#pragma unroll
-    for (int i = 0; i < BM * KC / (4 * THREADS); ++i) {
-      const int e = tid + i * THREADS, m = e / (KC / 4);
-      const int c4 = (e % (KC / 4)) * 4;
-      cp16(As + stage * A_TILE + m * AST + c4,
-           A + (size_t)(m0 + m) * Kp + kc * KC + c4);
+// this CTA's row tile of cluster tile ct, or -1
+__device__ __forceinline__ int row_tile(const Pipe& p, int ct, int nlt,
+                                        int rt0, int nrt) {
+  const int rt = ct / nlt * p.cs + p.rank;
+  return rt >= rt0 && rt < rt0 + nrt ? rt : -1;
+}
+
+// Calls f(row tile or -1, first lane) for each tile this CTA takes part
+// in, in the same order on every CTA of the cluster.
+template <class F>
+__device__ __forceinline__ void each_tile(const Pipe& p, int rt0, int nrt,
+                                          int streams, F f) {
+  const Span sp = span_of(p, rt0, nrt, streams);
+  for (int ct = first_tile(p, sp.ct0); ct < sp.ct1; ct += p.clusters)
+    f(row_tile(p, ct, sp.nlt, rt0, nrt), ct % sp.nlt * BL);
+}
+
+// A stage of a phase as the producer walks it: its tile and depth, and
+// the part of the lanes' operand it reads. Advanced in order, without
+// divisions.
+struct Cursor {
+  int ct, kc, rt, n0, pi, pk;  // cluster tile, stage, row tile, lane, part
+};
+
+// The producer's side of a phase (one thread): for each stage of each
+// tile, wait until every consumer warp of the cluster has released the
+// buffer, copy this tile's weights and this CTA's boxes of the lanes' rows
+// to every CTA of the cluster (boxes [g0, g1) of a stage's 2). The weights
+// run up to STAGES stages ahead of the rows, into the phase before's last
+// stages; the rows of a part that the phase before wrote wait for the
+// grid (`target`, the consumers' count), those of any other part (the
+// gate's taps and conditioning rows) do not.
+__device__ void produce(const Prod& q, Pipe& p, int streams,
+                        unsigned long long* bar, unsigned long long target) {
+  const int nk = q.Kp / KC;
+  const Span sp = span_of(p, q.rt0, q.nrt, streams);
+  const int nlt = sp.nlt;
+  if (first_tile(p, sp.ct0) >= sp.ct1) return;
+  const uint16_t mask = (uint16_t)((1u << p.cs) - 1);
+  const size_t wstride = (size_t)q.Mp * q.Kp;  // hi to lo
+  const size_t kstride = (size_t)(q.Mp / 8) * GROUP;  // a stage's weights
+  auto at = [&](Cursor& c) {  // a new tile
+    c.kc = c.pi = c.pk = 0;
+    c.rt = row_tile(p, c.ct, nlt, q.rt0, q.nrt);
+    c.n0 = c.ct % nlt * BL;
+  };
+  auto next = [&](Cursor& c) {
+    c.pk += KC;
+    while (c.pi < 3 && c.pk >= q.part[c.pi].rows) {  // parts may be empty
+      c.pk = 0;
+      ++c.pi;
     }
-    float* bs = Bs + stage * B_TILE;
-#pragma unroll
-    for (int i = 0; i < KC * BN / (4 * THREADS); ++i) {
-      const int e = tid + i * THREADS, kr = e / (BN / 4);
-      const int nc = (e % (BN / 4)) * 4, n = n0 + nc;
-      const float* row = src_row(src, kc * KC + kr, streams);
-      const bool valid = row != nullptr && n < streams;
-      cp16z(bs + kr * BST + nc, valid ? row + n : A, valid);
+    if (++c.kc == nk) {
+      c.ct += p.clusters;
+      if (c.ct < sp.ct1) at(c);
     }
   };
-
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < nk) load(s, s);
-    commit();
-  }
-  for (int kc = 0; kc < nk; ++kc) {
-    wait_groups<STAGES - 2>();
-    __syncthreads();
-    const int nxt = kc + STAGES - 1;
-    if (nxt < nk) load(nxt % STAGES, nxt);
-    commit();
-    if (!active) continue;
-    const float* as = As + (kc % STAGES) * A_TILE;
-    const float* bs = Bs + (kc % STAGES) * B_TILE + wn * 16 + g;
-#pragma unroll
-    for (int kk = wk * (KC / 2); kk < (wk + 1) * (KC / 2); kk += 8) {
-      unsigned bh[2][2], bl[2][2];
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        float b0 = bs[(kk + t) * BST + 8 * j];
-        float b1 = bs[(kk + t + 4) * BST + 8 * j];
-        if (RELU_B) {
-          b0 = fmaxf(b0, 0.f);
-          b1 = fmaxf(b1, 0.f);
-        }
-        tf32_split(b0, bh[j][0], bl[j][0]);
-        tf32_split(b1, bh[j][1], bl[j][1]);
-      }
-#pragma unroll
-      for (int q = 0; q < 2; ++q) {
-        const float* ar = as + (q * 16 + g) * AST + kk + t;
-        unsigned ah[4], al[4];
-        tf32_split(ar[0], ah[0], al[0]);
-        tf32_split(ar[8 * AST], ah[1], al[1]);
-        tf32_split(ar[4], ah[2], al[2]);
-        tf32_split(ar[8 * AST + 4], ah[3], al[3]);
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          mma_tf32(cc[q][j], al, bh[j][0], bh[j][1]);
-          mma_tf32(cc[q][j], ah, bl[j][0], bl[j][1]);
-          mma_tf32(cm[q][j], ah, bh[j][0], bh[j][1]);
-        }
-      }
+  auto boxes = [&](const Cursor& c) {
+    return min(BL / BOX, (streams - c.n0 + BOX - 1) / BOX);
+  };
+  // a stage: its buffer free, its bytes expected, its weights copied
+  auto weights = [&](const Cursor& c, unsigned it) {
+    const int b = it % STAGES;
+    mbar_wait(&p.empty[b], ((it / STAGES) & 1) ^ 1);
+    mbar_arrive_tx(&p.full[b], (unsigned)boxes(c) * KC * BOX * 4 +
+                                   (c.rt >= 0 ? 2 * W_TILE * 4 : 0));
+    if (c.rt >= 0) {
+      float* ws = p.Ws + b * 2 * W_TILE;
+      const float* w =
+          q.W + (size_t)c.kc * kstride + (size_t)c.rt * (BR / 8) * GROUP;
+      bulk_load(ws, w, W_TILE * 4, &p.full[b]);
+      bulk_load(ws + W_TILE, w + wstride, W_TILE * 4, &p.full[b]);
     }
+  };
+  // a stage: this CTA's boxes of the lanes' rows
+  auto rows = [&](const Cursor& c, unsigned it) {
+    const int b = it % STAGES, nbox = boxes(c);
+    const Part& pt = q.part[c.pi];
+    float* as = p.As + b * A_TILE;
+    for (int g = p.g0; g < p.g1 && g < nbox; ++g)
+      tma_load_3d_multicast(as + g * KC * BOX, pt.map, c.n0 + g * BOX, c.pk,
+                            pt.slot, &p.full[b], mask);
+  };
+  Cursor c{first_tile(p, sp.ct0), 0, 0, 0, 0, 0};
+  at(c);
+  Cursor r = c;
+  unsigned it = p.it, rit = p.it;
+  bool waited = false;
+  while (r.ct < sp.ct1) {
+    // (a stage's buffer comes free once the consumers have the next
+    // stage's data: the weights run at most STAGES - 1 ahead)
+    for (; c.ct < sp.ct1 && it - rit < STAGES - 1; next(c)) weights(c, it++);
+    if (!waited && q.part[r.pi].dep) {
+      wait_grid(bar, target);
+      waited = true;
+    }
+    rows(r, rit++);
+    next(r);
   }
-  wait_groups<0>();
-  __syncthreads();
-  // the two halves of the depth: half 1 hands its sums to half 0
-  float* red = smem + (wn * 32 + lane) * 16;
-  if (wk == 1 && active) {
-#pragma unroll
-    for (int q = 0; q < 2; ++q)
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          red[q * 8 + j * 4 + i] = cc[q][j][i] + cm[q][j][i];
-  }
-  __syncthreads();
-  if (wk == 0 && active) {
-#pragma unroll
-    for (int q = 0; q < 2; ++q)
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          acc[q][j][i] = (cc[q][j][i] + cm[q][j][i]) + red[q * 8 + j * 4 + i];
-  }
-  __syncthreads();
-  return wk == 0 && active;
+  p.it = it;
 }
 
-// Calls f(row, lane, value) for each element of a tile that the calling
-// warp holds (tile_mma's layout).
-template <class F>
-__device__ __forceinline__ void each(const float (&acc)[2][2][4], int m0,
-                                     int n0, F f) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+// Where a thread's A values of an 8-deep step lie in a stage's boxes of
+// the lanes' rows, for its 4 values (a0-a3): wgmma's logical k = t reads
+// the stage's row 8s + 2t and k = t + 4 row 8s + 2t + 1 (`pack` orders
+// the weights' K so), which keeps the 128-byte swizzled reads free of bank
+// conflicts; the offsets do not depend on the step s (+ 8 s rows).
+__device__ __forceinline__ void a_offsets(int l0, int (&off)[4]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int l = l0 + g;                      // a0, a2; a1, a3: l + 8
+  const int c = (l & 31) >> 2, e = l & 3;    // 16-byte chunk, its word
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int k = 2 * t + (i >> 1);
+    const int cc = c + 2 * (i & 1);
+    off[i] = (l >> 5) * KC * BOX + k * BOX + (((cc ^ k) << 2) | e);
+  }
+}
+
+// step s's A values, split into TF32 hi and lo
+template <bool RELU>
+__device__ __forceinline__ void load_a(const float* as, const int (&off)[4],
+                                       int s, unsigned (&h)[4],
+                                       unsigned (&lo)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float x = as[8 * s * BOX + off[i]];
+    if (RELU) x = fmaxf(x, 0.f);
+    tf32_split(x, h[i], lo[i]);
+    reg_fence(h[i]);
+    reg_fence(lo[i]);
+  }
+}
+
+// A warpgroup's sums of a tile: a_lo b_hi, a_hi b_lo and a_hi b_hi, each
+// its own chain of wgmma.
+constexpr int NACC = 3;
+
+// Issues a warpgroup's products of one 8-deep step s as one group, each
+// term into its own sum (three independent chains of wgmma).
+__device__ __forceinline__ void issue_step(float (&acc)[NACC][16],
+                                           const float* ws, int s,
+                                           const unsigned (&h)[4],
+                                           const unsigned (&lo)[4]) {
+  const uint64_t dh = gmma_desc(ws + s * 64, 128, 2048);
+  const uint64_t dl = gmma_desc(ws + W_TILE + s * 64, 128, 2048);
+  wgmma_fence();
+  wgmma_tf32_n32(acc[0], lo, dh);
+  wgmma_tf32_n32(acc[1], h, dl);
+  wgmma_tf32_n32(acc[2], h, dh);
+  wgmma_commit();
+}
+
+
+// a warpgroup's sum of a tile: the cross terms, then the main term
+__device__ __forceinline__ float acc_sum(const float (&acc)[NACC][16],
+                                         int e) {
+  return (acc[0][e] + acc[1][e]) + acc[2][e];
+}
+
+
+// where element e of a thread's tile fragment lies: rows 8 apart in
+// groups of 4 (e % 8 < 4 and the next 4 are rows r and r + 8), lanes 8
+// apart
+__device__ __forceinline__ int row_of(int e) {
+  return 8 * (e >> 2) + (e & 1);
+}
+
+__device__ __forceinline__ int lane_of(int e) { return 8 * ((e >> 1) & 1); }
+
+__device__ __forceinline__ void named_sync(int id) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "n"(CONSUMERS) : "memory");
+}
+
+// The consumers' side of a phase: for each tile, 64 lanes x 32 rows, each
+// warpgroup summing its half of every stage's depth (the first warpgroup
+// steps 0-3, the second 4-7); a step's products run while the next step's
+// A values load (two register sets). The second warpgroup hands
+// its sums to the first, which adds them after its own and calls post(r0,
+// n, x) with the 16 elements it holds: x[e] is row r0 + row_of(e) (in the
+// product's packed rows) of lane n + lane_of(e); pre(r0, n) runs at the
+// tile's start, for the epilogue's reads. A tile with no lanes or rows
+// only passes the stages on. Returns whether this CTA took part in a tile.
+template <bool RELU, class Pre, class Post>
+__device__ __forceinline__ bool consume(const Prod& q, Pipe& p, int streams,
+                                        Pre pre, Post post) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = warp_id();
   const int g = lane >> 2, t = lane & 3;
+  const int v = warp >> 2, w4 = warp & 3;
+  const int nk = q.Kp / KC, s0 = 4 * v;
+  const int l0 = 16 * w4;  // the warp's first lane in the tile
+  int off[4];
+  a_offsets(l0, off);
+  float* xch = p.X + w4 * 32 + lane;  // element i at xch[128 i]
+  auto full = [&]() {
+    const int b = p.it % STAGES;
+    mbar_wait(&p.full[b], (p.it / STAGES) & 1);
+    ++p.it;
+    return b;
+  };
+  auto release = [&](int b) {
+    __syncwarp();
+    mbar_arrive_remote(&p.empty[b], lane, lane < p.cs);
+  };
+  each_tile(p, q.rt0, q.nrt, streams, [&](int rt, int n0) {
+    if (rt < 0 || n0 >= streams) {
+      for (int kc = 0; kc < nk; ++kc) release(full());
+      return;
+    }
+    const int r0 = rt * BR + 2 * t, n = n0 + l0 + g;
+    if (v == 0) pre(r0, n);
+    float acc[NACC][16];
 #pragma unroll
-  for (int q = 0; q < 2; ++q)
+    for (int c = 0; c < NACC; ++c)
 #pragma unroll
-    for (int j = 0; j < 2; ++j)
+      for (int i = 0; i < 16; ++i) acc[c][i] = 0.f;
+    // a step: its lanes' values into registers and split, its products
+    // issued; then the step before it done (wgmma.wait_group 1), which
+    // frees the other register set: a step's products run while the next
+    // step's values load
+    unsigned h0[4], lo0[4], h1[4], lo1[4];
+    auto step = [&](int b, int s, unsigned (&h)[4], unsigned (&lo)[4]) {
+      load_a<RELU>(p.As + b * A_TILE, off, s, h, lo);
+      issue_step(acc, p.Ws + b * 2 * W_TILE, s, h, lo);
+      wgmma_wait<1>();
+    };
+    int b0 = full();
+    step(b0, s0, h0, lo0);
+    step(b0, s0 + 1, h1, lo1);
+    step(b0, s0 + 2, h0, lo0);
+    step(b0, s0 + 3, h1, lo1);
+    for (int kc = 1; kc < nk; ++kc) {
+      const int b1 = full();
+      step(b1, s0, h0, lo0);
+      release(b0);  // its last step done
+      step(b1, s0 + 1, h1, lo1);
+      step(b1, s0 + 2, h0, lo0);
+      step(b1, s0 + 3, h1, lo1);
+      b0 = b1;
+    }
+    wgmma_wait<0>();
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        f(m0 + q * 16 + g + 8 * (i >> 1),
-          n0 + (warp & 3) * 16 + j * 8 + 2 * t + (i & 1), acc[q][j][i]);
+    for (int c = 0; c < NACC; ++c)
+#pragma unroll
+      for (int i = 0; i < 16; ++i) reg_fence(acc[c][i]);
+    release(b0);
+    if (v == 1) {
+#pragma unroll
+      for (int e = 0; e < 16; ++e) xch[128 * e] = acc_sum(acc, e);
+    }
+    named_sync(2);
+    if (v == 0) {
+      float x[16];
+#pragma unroll
+      for (int e = 0; e < 16; ++e) x[e] = acc_sum(acc, e) + xch[128 * e];
+      post(r0, n, x);
+    }
+    named_sync(3);
+  });
+  const Span sp = span_of(p, q.rt0, q.nrt, streams);
+  return first_tile(p, sp.ct0) < sp.ct1;
 }
 
 // the ring row of layer-0 slot `slot`, channel 0, of every lane
@@ -393,12 +623,71 @@ __device__ int sample_lane(const Args& a, int n, int lane, int ta) {
   return bi == 0x7fffffff ? 0 : bi;
 }
 
-__global__ void __launch_bounds__(THREADS, 1) wide_step_kernel(const Args a) {
-  extern __shared__ __align__(16) float smem[];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+// The products of a step, for the producer and the consumers alike.
+// Gate products of layer l at step t: z = [tap | c_t | h] @ W1[l] + b1[l];
+// each 16 rows of a tile are the tanh rows and then the sigmoid rows of
+// the same 8 channels, so a thread holds both of each of its channels.
+__device__ __forceinline__ Prod gate_prod(const Args& a, int t, int l) {
+  const int ta = a.t0 + t;
+  const int d = a.meta[3 * l], P = a.meta[3 * l + 1], f = a.meta[3 * l + 2];
+  const CUtensorMap* ring = &a.maps[MAP_RING];
+  return Prod{a.W1 + (size_t)l * 2 * a.M1p * a.K1p, a.M1p, a.K1p, 0,
+              a.M1p / BR,
+              {{ring, a.R, ta >= d ? f + (ta - d) % P : -1, false},
+               {a.cond ? &a.maps[MAP_COND] : ring, a.M, a.cond ? t : -1,
+                false},
+               {ring, a.R, f + ta % P, true}}};
+}
+
+// The residual rows (h of layer l + 1) and, on a step with the head, the
+// skip rows.
+__device__ __forceinline__ Prod out_prod(const Args& a, int l, bool head) {
+  const bool last = l + 1 == a.L;
+  const int lo = last ? a.Rp / BR : 0;
+  const int hi = head ? (a.Rp + a.Sp) / BR : (last ? lo : a.Rp / BR);
+  const int M2 = a.Rp + a.Sp;
+  return Prod{a.W2 + (size_t)l * 2 * M2 * a.K2p, M2, a.K2p, lo, hi - lo,
+              {{&a.maps[MAP_U], a.D, 0, true}}};
+}
+
+// end1: y = relu(relu(skip) @ E1 + be1); end2: the logits
+__device__ __forceinline__ Prod end1_prod(const Args& a) {
+  return Prod{a.E1, a.Ep, a.K3p, 0, a.Ep / BR,
+              {{&a.maps[MAP_SKIP], a.S, 0, true}}};
+}
+
+__device__ __forceinline__ Prod end2_prod(const Args& a) {
+  return Prod{a.E2, a.Cp, a.K4p, 0, a.Cp / BR,
+              {{&a.maps[MAP_Y], a.E, 0, true}}};
+}
+
+// The producer thread's walk through the call: every phase's copies, the
+// lanes' rows of each after the consumers' grid barrier before it.
+__device__ void producer_loop(const Args& a, Pipe& p) {
+  const unsigned long long nb = gridDim.x;
+  unsigned long long target = nb;  // after the first input rows
+  for (int t = 0; t < a.total; ++t) {
+    const bool head = t >= a.head_from;
+    for (int l = 0; l < a.L; ++l) {
+      produce(gate_prod(a, t, l), p, a.streams, a.bar, target);
+      target += nb;
+      produce(out_prod(a, l, head), p, a.streams, a.bar, target);
+      target += nb;
+    }
+    if (!head) continue;
+    produce(end1_prod(a), p, a.streams, a.bar, target);
+    target += nb;
+    produce(end2_prod(a), p, a.streams, a.bar, target);
+    target += 2 * nb;  // and the sampling's
+  }
+}
+
+// The consumers' walk through the call (two warpgroups): the lane-wise
+// phases, each product's tiles and their epilogues, and the grid barriers.
+__device__ __forceinline__ void consumer_loop(const Args& a, Pipe& p) {
+  const int warp = warp_id(), lane = threadIdx.x & 31;
   const int nb = gridDim.x, bid = blockIdx.x;
   const int ns = a.streams;
-  const int ntn = (ns + BN - 1) / BN;
   const int wid = bid * WARPS + warp, nwarps = nb * WARPS;
   unsigned long long target = 0;
   const bool timed = a.timers != nullptr && bid == 0 && threadIdx.x == 0;
@@ -413,88 +702,94 @@ __global__ void __launch_bounds__(THREADS, 1) wide_step_kernel(const Args a) {
       tmark = x;
     }
   };
-  auto sync = [&]() {
-    grid_barrier(a.bar, target);
+  // a grid barrier, the consumers' side: arrive; and wait too where they
+  // read what other blocks wrote: the logits, before the sampling, and the
+  // input rows, which layer 0's residual product reads back
+  // A block that took part in no tile of the phase first waits for the
+  // barrier before (every other block's copies did): the count has to
+  // hold one barrier's arrivals at a time.
+  auto sync = [&](bool wait = false, bool idle = false) {
+    if (idle) grid_wait(a.bar, target);
+    grid_arrive(a.bar);
+    target += nb;
+    if (wait) grid_wait(a.bar, target);
     mark(PH_BAR);
   };
 
+  bool busy = true;  // this block took part in the phase's tiles
   for (int n = wid; n < ns; n += nwarps) input_lane(a, n, lane);
   mark(PH_INPUT);
-  sync();
+  sync(true);  // the residual product of layer 0 reads the input rows back
 
   for (int t = 0; t < a.total; ++t) {
     const int ta = a.t0 + t;
     const bool head = t >= a.head_from;
     for (int l = 0; l < a.L; ++l) {
-      const int d = a.meta[3 * l], P = a.meta[3 * l + 1],
-                f = a.meta[3 * l + 2];
+      const int P = a.meta[3 * l + 1], f = a.meta[3 * l + 2];
       const float* cur = a.ring + (size_t)(f + ta % P) * a.R * ns;
-      const float* tap =
-          ta >= d ? a.ring + (size_t)(f + (ta - d) % P) * a.R * ns : nullptr;
-      const int M2 = a.Rp + a.Sp;
-      // the gate products: z = [tap | h | c_t] @ W1[l] + b1[l]; a tile's
-      // rows 0-15 are the tanh rows and 16-31 the sigmoid rows of the
-      // same 16 channels
       {
-        const Src src{{tap, cur,
-                       a.cond ? a.cond + (size_t)t * a.M * ns : nullptr},
-                      {a.R, a.R, a.M}};
-        const float* W1 = a.W1 + (size_t)l * a.M1p * a.K1p;
         const float* b1 = a.b1 + (size_t)l * a.M1p;
-        const int tiles = (a.M1p / BM) * ntn;
-        for (int i = bid; i < tiles; i += nb) {
-          const int mt = i / ntn, n0 = (i % ntn) * BN;
-          float acc[2][2][4];
-          if (!tile_mma<false>(W1, a.K1p, mt * BM, src, n0, ns, smem, acc))
-            continue;
+        float bias[16];
+        busy = consume<false>(
+            gate_prod(a, t, l), p, ns,
+            [&](int r0, int n) {
 #pragma unroll
-          for (int j = 0; j < 2; ++j)
+              for (int e = 0; e < 16; ++e) bias[e] = b1[r0 + row_of(e)];
+            },
+            [&](int r0, int n, const float (&x)[16]) {
+              // e % 8 < 4: tanh rows; e + 4 the sigmoid rows of the same
+              // channels, each 16 rows a group of 8 channels
 #pragma unroll
-            for (int i2 = 0; i2 < 4; ++i2) {
-              const int r = (lane >> 2) + 8 * (i2 >> 1), ch = mt * 16 + r;
-              const int n =
-                  n0 + (warp & 3) * 16 + j * 8 + 2 * (lane & 3) + (i2 & 1);
-              if (ch < a.D && n < ns) {
-                const float zt = acc[0][j][i2] + b1[mt * BM + r];
-                const float zs = acc[1][j][i2] + b1[mt * BM + 16 + r];
-                a.U[(size_t)ch * ns + n] = tanhf(zt) * sigmoidf_(zs);
+              for (int e = 0; e < 16; ++e) {
+                if (e % 8 >= 4) continue;
+                const int row = r0 + row_of(e);
+                const int ch = (row >> 4) * 8 + (row & 7), m = n + lane_of(e);
+                if (ch < a.D && m < ns)
+                  a.U[(size_t)ch * ns + m] = tanhf(x[e] + bias[e]) *
+                                             sigmoidf_(x[e + 4] + bias[e + 4]);
               }
-            }
-        }
+            });
       }
       mark(PH_GATE);
-      sync();
-      // the residual rows (h of layer l + 1, into its ring slot) and, on a
-      // step with the head, the skip rows
+      sync(false, !busy);
       {
         const bool last = l + 1 == a.L;
-        const int lo = last ? a.Rp / BM : 0;
-        const int hi = head ? (a.Rp + a.Sp) / BM : (last ? lo : a.Rp / BM);
         float* nxt = last ? nullptr
                           : a.ring + (size_t)(a.meta[3 * l + 5] +
                                               ta % a.meta[3 * l + 4]) *
                                          a.R * ns;
-        const Src src{{a.U, nullptr, nullptr}, {a.D, 0, 0}};
-        const float* W2 = a.W2 + (size_t)l * M2 * a.K2p;
+        const int M2 = a.Rp + a.Sp;
         const float* b2 = a.b2 + (size_t)l * M2;
-        const int tiles = (hi - lo) * ntn;
-        for (int i = bid; i < tiles; i += nb) {
-          const int mt = lo + i / ntn, n0 = (i % ntn) * BN;
-          float acc[2][2][4];
-          if (!tile_mma<false>(W2, a.K2p, mt * BM, src, n0, ns, smem, acc))
-            continue;
-          each(acc, mt * BM, n0, [&](int row, int n, float x) {
-            if (n >= ns) return;
-            const float v = x + b2[row];
-            if (row < a.Rp) {
-              if (row < a.R)
-                nxt[(size_t)row * ns + n] = cur[(size_t)row * ns + n] + v;
-            } else if (row - a.Rp < a.S) {
-              float* p = a.skip + (size_t)(row - a.Rp) * ns + n;
-              *p = (l == 0 ? 0.f : *p) + v;
-            }
-          });
-        }
+        // h of layer l + 1 (row < R) and the skip sums (Rp <= row < Rp +
+        // S), their earlier values read at the tile's start
+        float bias[16], old[16];
+        busy = consume<false>(
+            out_prod(a, l, head), p, ns,
+            [&](int r0, int n) {
+#pragma unroll
+              for (int e = 0; e < 16; ++e) {
+                const int row = r0 + row_of(e), m = n + lane_of(e);
+                bias[e] = b2[row];
+                old[e] = 0.f;
+                if (m >= ns) continue;
+                if (row < a.R)
+                  old[e] = cur[(size_t)row * ns + m];
+                else if (row >= a.Rp && row - a.Rp < a.S && l > 0)
+                  old[e] = a.skip[(size_t)(row - a.Rp) * ns + m];
+              }
+            },
+            [&](int r0, int n, const float (&x)[16]) {
+#pragma unroll
+              for (int e = 0; e < 16; ++e) {
+                const int row = r0 + row_of(e), m = n + lane_of(e);
+                if (m >= ns) continue;
+                if (row < a.R)
+                  nxt[(size_t)row * ns + m] = old[e] + (x[e] + bias[e]);
+                else if (row >= a.Rp && row - a.Rp < a.S)
+                  a.skip[(size_t)(row - a.Rp) * ns + m] =
+                      old[e] + (x[e] + bias[e]);
+              }
+            });
         mark(PH_OUT);
         if (last && !head) {
           for (int n = wid; n < ns; n += nwarps)
@@ -502,61 +797,214 @@ __global__ void __launch_bounds__(THREADS, 1) wide_step_kernel(const Args a) {
           mark(PH_INPUT);
         }
       }
-      sync();
+      sync(l + 1 == a.L && !head, !busy);  // and after writing input rows
     }
     if (!head) continue;
-    // end1: y = relu(relu(skip) @ E1 + be1)
     {
-      const Src src{{a.skip, nullptr, nullptr}, {a.S, 0, 0}};
-      const int tiles = (a.Ep / BM) * ntn;
-      for (int i = bid; i < tiles; i += nb) {
-        const int mt = i / ntn, n0 = (i % ntn) * BN;
-        float acc[2][2][4];
-        if (!tile_mma<true>(a.E1, a.K3p, mt * BM, src, n0, ns, smem, acc))
-          continue;
-        each(acc, mt * BM, n0, [&](int e, int n, float x) {
-          if (e < a.E && n < ns)
-            a.Y[(size_t)e * ns + n] = fmaxf(x + a.be1[e], 0.f);
-        });
-      }
+      float bias[16];
+      busy = consume<true>(
+          end1_prod(a), p, ns,
+          [&](int r0, int) {
+#pragma unroll
+            for (int e = 0; e < 16; ++e) bias[e] = a.be1[r0 + row_of(e)];
+          },
+          [&](int r0, int n, const float (&x)[16]) {
+#pragma unroll
+            for (int e = 0; e < 16; ++e) {
+              const int row = r0 + row_of(e), m = n + lane_of(e);
+              if (row < a.E && m < ns)
+                a.Y[(size_t)row * ns + m] = fmaxf(x[e] + bias[e], 0.f);
+            }
+          });
     }
     mark(PH_END1);
-    sync();
-    // end2: the logits, lane-major for the sampling's reads
+    sync(false, !busy);
+    // the logits, lane-major for the sampling's reads
     {
-      const Src src{{a.Y, nullptr, nullptr}, {a.E, 0, 0}};
-      const int tiles = (a.Cp / BM) * ntn;
-      for (int i = bid; i < tiles; i += nb) {
-        const int mt = i / ntn, n0 = (i % ntn) * BN;
-        float acc[2][2][4];
-        if (!tile_mma<false>(a.E2, a.K4p, mt * BM, src, n0, ns, smem, acc))
-          continue;
-        each(acc, mt * BM, n0, [&](int k, int n, float x) {
-          if (k < a.C && n < ns) a.logits[(size_t)n * a.C + k] = x + a.be2[k];
-        });
-      }
+      float bias[16];
+      busy = consume<false>(
+          end2_prod(a), p, ns,
+          [&](int r0, int) {
+#pragma unroll
+            for (int e = 0; e < 16; ++e) bias[e] = a.be2[r0 + row_of(e)];
+          },
+          [&](int r0, int n, const float (&x)[16]) {
+#pragma unroll
+            for (int e = 0; e < 16; ++e) {
+              const int row = r0 + row_of(e), m = n + lane_of(e);
+              if (row < a.C && m < ns)
+                a.logits[(size_t)m * a.C + row] = x[e] + bias[e];
+            }
+          });
     }
     mark(PH_END2);
-    sync();
+    sync(true, !busy);  // the sampling reads every block's logits
     for (int n = wid; n < ns; n += nwarps)
       advance_lane(a, n, lane, t, ta, sample_lane(a, n, lane, ta));
     mark(PH_SAMPLE);
-    sync();
+    sync(true);
   }
   if (timed)
     for (int i = 0; i < NPHASE; ++i) a.timers[i] += tacc[i];
+  cluster_sync();
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
+    wide_step_kernel(const __grid_constant__ Args a) {
+  extern __shared__ __align__(1024) float smem_raw[];
+  // the swizzled boxes want 1024-byte aligned buffers
+  float* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023) / 4;
+  const int warp = warp_id(), lane = threadIdx.x & 31;
+  const int nb = gridDim.x, bid = blockIdx.x;
+  Pipe p;
+  p.As = smem;
+  p.Ws = smem + STAGES * A_TILE;
+  p.X = p.Ws + STAGES * 2 * W_TILE;
+  p.full = (uint64_t*)(p.X + XCH);
+  p.empty = p.full + STAGES;
+  p.it = 0;
+  {
+    unsigned cs;
+    asm volatile("mov.u32 %0, %%cluster_nctarank;" : "=r"(cs));
+    p.cs = (int)cs;
+  }
+  p.rank = (int)cluster_rank();
+  p.cluster = bid / p.cs;
+  p.clusters = nb / p.cs;
+  p.g0 = p.rank * (BL / BOX) / p.cs;
+  p.g1 = (p.rank + 1) * (BL / BOX) / p.cs;
+  // stale lanes' values must be finite: a tile's unused lanes multiply too
+  for (int i = threadIdx.x; i < STAGES * (A_TILE + 2 * W_TILE); i += THREADS)
+    smem[i] = 0.f;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&p.full[s], 1);
+      mbar_init(&p.empty[s], (unsigned)(p.cs * WARPS));
+    }
+    mbar_init_fence();
+  }
+  fence_proxy_async();
+  __syncthreads();
+  cluster_sync();
+
+  // one big branch (setmaxnreg wants paths that do not meet again): the
+  // producer warpgroup gives up registers for the consumers' sums
+  if (warp >= WARPS) {  // the producer warpgroup: one thread copies
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (warp == WARPS && lane == 0) producer_loop(a, p);
+    __syncwarp();
+    // no CTA leaves while a peer may still arrive on its barriers
+    cluster_sync();
+  } else {
+    setmaxnreg_inc<CONSUMER_REGS>();
+    consumer_loop(a, p);
+  }
+}
+
+// the largest clusters of each size (index) the card holds at once, found
+// at first use
+int max_clusters[MAX_CLUSTER + 1];
+
+cudaError_t cluster_counts() {
+  if (max_clusters[1] > 0) return cudaSuccess;
+  const void* kernel = (const void*)wide_step_kernel;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  if (err != cudaSuccess) return err;
+  for (int cs = 1; cs <= MAX_CLUSTER; cs *= 2) {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(cs);
+    cfg.blockDim = dim3(THREADS);
+    cfg.dynamicSmemBytes = SMEM_BYTES;
+    cudaLaunchAttribute at[1];
+    at[0].id = cudaLaunchAttributeClusterDimension;
+    at[0].val.clusterDim.x = cs;
+    at[0].val.clusterDim.y = 1;
+    at[0].val.clusterDim.z = 1;
+    cfg.attrs = at;
+    cfg.numAttrs = 1;
+    int n = 0;
+    if ((err = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg)) !=
+        cudaSuccess)
+      return err;
+    max_clusters[cs] = n;
+  }
+  return max_clusters[1] > 0 ? cudaSuccess : cudaErrorInvalidConfiguration;
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// The map of a (slots, rows, streams) f32 array for boxes of 32 lanes x KC
+// rows of one slot, 128-byte swizzled (out-of-range reads give zeros).
+int encode_map(CUtensorMap* m, const float* base, int streams, int rows,
+               int slots) {
+  static EncodeTiled encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn,
+                                              cudaEnableDefault, &q);
+    if (err != cudaSuccess) return (int)err;
+    if (fn == nullptr || q != cudaDriverEntryPointSuccess)
+      return (int)cudaErrorSymbolNotFound;
+    encode = (EncodeTiled)fn;
+  }
+  const cuuint64_t dims[3] = {(cuuint64_t)streams,
+                              (cuuint64_t)(rows > 0 ? rows : 1),
+                              (cuuint64_t)(slots > 0 ? slots : 1)};
+  const cuuint64_t strides[2] = {(cuuint64_t)streams * 4,
+                                 (cuuint64_t)streams * 4 * dims[1]};
+  const cuuint32_t box[3] = {BOX, KC, 1}, elem[3] = {1, 1, 1};
+  const CUresult r =
+      encode(m, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, (void*)base, dims, strides,
+             box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 extern "C" {
 
+
+// The cluster size and the grid the kernel takes for `streams` lanes and
+// `gate_tiles` row tiles of the gate product: the larger cluster (2 or 1)
+// that runs the gate's tiles in the fewest rounds. Returns a CUDA error
+// code.
+int wavenet_wide_plan(int streams, int gate_tiles, int* cs_out,
+                      int* grid_out) {
+  cudaError_t err = cluster_counts();
+  if (err != cudaSuccess) return (int)err;
+  const int nlt = (streams + BL - 1) / BL;
+  int best = 0, best_rounds = 0;
+  for (int cs = MAX_CLUSTER; cs >= 1; cs /= 2) {
+    const int n = max_clusters[cs];
+    if (n < 1) continue;
+    const int tiles = (gate_tiles + cs - 1) / cs * nlt;
+    const int rounds = (tiles + n - 1) / n;
+    if (best == 0 || rounds < best_rounds) {
+      best = cs;
+      best_rounds = rounds;
+    }
+  }
+  *cs_out = best;
+  *grid_out = best * max_clusters[best];
+  return 0;
+}
+
 // ptrs: A0, A1, a, W1, b1, W2, b2, E1, be1, E2, be2, cond, temps, seeds,
 // toffs, prime, meta, ring, out, U, skip, Y, logits, cur, bar, timers.
 // ints: streams, num_given, total, t0, L, R, D, S, E, C, M, M1p, K1p, Rp,
-// Sp, K2p, Ep, K3p, Cp, K4p, extra_row, seed, lane_seed, head_from; streams
-// a multiple of 4. One block an SM. Returns a CUDA error code (0 on
-// success).
+// Sp, K2p, Ep, K3p, Cp, K4p, extra_row, seed, lane_seed, head_from, slots
+// (the ring's layer slots of R rows); streams a multiple of 4. One block
+// an SM, in clusters along the weight rows.
+// Returns a CUDA error code (0 on success).
 int wavenet_gen_wide(void* const* ptrs, const int* ints, float regularize,
                      cudaStream_t stream) {
   Args a;
@@ -611,28 +1059,40 @@ int wavenet_gen_wide(void* const* ptrs, const int* ints, float regularize,
   a.seed = ints[i++];
   a.lane_seed = ints[i++];
   a.head_from = ints[i++];
+  a.slots = ints[i++];
   a.regularize = regularize;
 
   if (a.streams % 4 != 0) return (int)cudaErrorInvalidValue;
-  const void* kernel = (const void*)wide_step_kernel;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
-  if (err != cudaSuccess) return (int)err;
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                    dev)) != cudaSuccess)
-    return (int)err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, kernel, THREADS, SMEM_BYTES)) != cudaSuccess)
-    return (int)err;
-  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  int e;
+  if ((e = encode_map(&a.maps[MAP_RING], a.ring, a.streams, a.R, a.slots)) ||
+      (e = encode_map(&a.maps[MAP_U], a.U, a.streams, a.D, 1)) ||
+      (e = encode_map(&a.maps[MAP_SKIP], a.skip, a.streams, a.S, 1)) ||
+      (e = encode_map(&a.maps[MAP_Y], a.Y, a.streams, a.E, 1)) ||
+      (a.cond != nullptr && (e = encode_map(&a.maps[MAP_COND], a.cond,
+                                            a.streams, a.M, a.total))))
+    return e;
+  int cs = 0, grid = 0;
+  if ((e = wavenet_wide_plan(a.streams, a.M1p / BR, &cs, &grid)) != 0)
+    return e;
+  cudaError_t err;
   if ((err = cudaMemsetAsync(a.bar, 0, sizeof(unsigned long long),
                              stream)) != cudaSuccess)
     return (int)err;
-  void* params[] = {&a};
-  err = cudaLaunchCooperativeKernel(kernel, dim3(sms), dim3(THREADS), params,
-                                    SMEM_BYTES, stream);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = SMEM_BYTES;
+  cfg.stream = stream;
+  cudaLaunchAttribute at[2];
+  at[0].id = cudaLaunchAttributeClusterDimension;
+  at[0].val.clusterDim.x = cs;
+  at[0].val.clusterDim.y = 1;
+  at[0].val.clusterDim.z = 1;
+  at[1].id = cudaLaunchAttributeCooperative;
+  at[1].val.cooperative = 1;
+  cfg.attrs = at;
+  cfg.numAttrs = 2;
+  err = cudaLaunchKernelEx(&cfg, wide_step_kernel, a);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

@@ -8,18 +8,23 @@ with ``-Xptxas -v`` (registers, shared memory, spills), then
 off near-ties of 1e-4, rings within 1e-4, the previous-class row exactly),
 from a fresh ring and resumed past every period, at lane counts on and off
 a multiple of 4 up to the pool's 256; a lane's classes and ring the same
-bits at 1, 40 and 256 lanes; ``wnv512`` steps at 256 lanes timed with the
-split of a step from the kernel's timers; ``wnv512`` served through the
+bits at every lane count of ``LANE_BITS_CASES`` (on both sides of the
+kernel's 32-lane boxes and 64-lane tiles, and of two and four tiles),
+fresh and resumed; ``wnv512`` steps at 256 lanes timed with the split of a step from
+the kernel's timers; ``wnv512`` served through the
 lane pool in frames mode (each request bitwise its solo
 ``generate_fast_batched`` call, the wide kernel launched and K4 not) and
 through ``generate_fast_fused`` (one lane on the wide kernel); and
 ``chaconne`` still on K4. About two minutes with the build. ``--digest
 --root DIR`` prints instead a digest of chaconne's K4 and K1 classes and
 rings from the package under DIR (a checkout of another commit unpacked
-with ``git archive``), so two commits compare in one call.
+with ``git archive``), so two commits compare in one call. ``--timing
+--against DIR`` prints the ``wnv512`` step at 1, 8, 64 and 256 lanes of
+this package beside DIR's.
 
   python3 scripts/torch_wide_check.py [--steps N]
   python3 scripts/torch_wide_check.py --digest [--root DIR]
+  python3 scripts/torch_wide_check.py --timing [--against DIR] [--steps N]
 """
 
 import argparse
@@ -117,30 +122,38 @@ def against_plain(dev, name, lanes, n_prime, steps, t0=0):
            f"{torch.equal(rk[-1], rp[-1])} ({int((~sure).sum())} near-ties)")
 
 
-def lane_bits(dev, name, n_prime, steps):
-    """Lane 0..39's classes and ring at 1, 40 and 256 lanes: the same
-    bits."""
+def lane_bits(dev, name, n_prime, steps, t0=0, counts=(1, 40, 256)):
+    """Lane i's classes and ring at each lane count in ``counts``: the same
+    bits as at the largest. At ``t0`` > 0 every count resumes from the
+    same seeded ring (each lane's column), past every period."""
     cfg, params, w = model(name, dev)
     total = n_prime - 1 + steps
-    big = lane_inputs(cfg, 256, n_prime, total, 2, dev)
+    most = max(counts)
+    big = lane_inputs(cfg, most, n_prime, total, 2, dev)
+    ring0 = torch.zeros((ghbm.ring_rows(cfg), most), device=dev)
+    if t0:
+        g = torch.Generator().manual_seed(t0 + 1)
+        ring0.copy_(0.5 * torch.randn(ring0.shape, generator=g))
+        if cfg.input_kernel == 2:
+            ring0[-1] = torch.randint(1, cfg.classes + 1, (most,),
+                                      generator=g)
     res = {}
-    for lanes in (1, 40, 256):
+    for lanes in counts:
         prime, temps, seeds, toffs = (x[:lanes].contiguous()
                                       for x in big[:4])
         cond = big[4][:, :, :lanes].contiguous()
-        ring = torch.zeros((ghbm.ring_rows(cfg), lanes), device=dev)
-        cls = kw.wide_cuda(w, cfg, prime, ring, 0, total, temps, seeds,
+        ring = ring0[:, :lanes].contiguous()
+        cls = kw.wide_cuda(w, cfg, prime, ring, t0, total, temps, seeds,
                            toffs, 5, 0.0, True, cond=cond,
                            head_from=n_prime - 1)
         res[lanes] = (cls, ring)
     torch.cuda.synchronize()
-    base_cls, base_ring = res[40]
+    base_cls, base_ring = res[most]
     for lanes, (cls, ring) in res.items():
-        n = min(40, lanes)
-        expect(torch.equal(cls[:n], base_cls[:n])
-               and torch.equal(ring[:, :n], base_ring[:, :n]),
-               f"{name}: {lanes} lanes give lane 0..{n - 1}'s classes and "
-               f"ring bitwise")
+        expect(torch.equal(cls, base_cls[:lanes])
+               and torch.equal(ring, base_ring[:, :lanes]),
+               f"{name} from t0 {t0}: {lanes} lanes give lane 0..{lanes - 1}"
+               f"'s classes and ring bitwise as at {most}")
 
 
 def timing(dev, steps, lanes=256, reps=3):
@@ -180,6 +193,39 @@ def timing(dev, steps, lanes=256, reps=3):
            "the kernel's timers split every step into its phases")
     return {"ms": min(ms), "us_per_step": per, "bound_ms": least * steps * 1e3,
             "split": dict(zip(kw.PHASES, split.round(2).tolist()))}
+
+
+def timing_table(dev, steps, against=None):
+    """KW's step at 1, 8, 64 and 256 lanes (``TIMING_LANES``), and with
+    ``against`` (a checkout of another commit, unpacked with ``git
+    archive``) the same from its package beside it, run before and after
+    this package's (the faster of its two runs); returns {lanes: (this,
+    that)} in us a step."""
+    import json
+    import subprocess
+
+    def other():
+        out = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--timing-json",
+             "--steps", str(steps), "--root", against],
+            capture_output=True, text=True, check=True).stdout
+        return json.loads(out.strip().splitlines()[-1])
+
+    first = other() if against else None
+    mine = {n: timing(dev, steps, lanes=n)["us_per_step"]
+            for n in TIMING_LANES}
+    table = {}
+    if against:
+        second = other()
+        print(f"KW step (us), {os.path.abspath(ROOT)} against "
+              f"{os.path.abspath(against)}:", flush=True)
+    for n in TIMING_LANES:
+        that = (min(first[str(n)], second[str(n)]) if against else None)
+        table[n] = (mine[n], that)
+        if against:
+            print(f"  {n:4d} lanes: {mine[n]:8.1f} against {that:8.1f} "
+                  f"({mine[n] / that:.3f})", flush=True)
+    return table
 
 
 def pool_vs_solo(dev, lanes=8, chunk=256):
@@ -271,7 +317,15 @@ PLAIN_CASES = (  # name, lanes, prime, steps, t0
     ("tiny_wnv", 64, 3, 16, 0), ("tiny_wnv", 70, 3, 16, 0),
     ("tiny_wnv", 64, 1, 16, 5000), ("wnv512", 3, 4, 6, 0),
     ("wnv512", 256, 1, 8, 0), ("wnv512", 256, 1, 8, 5000))
-LANE_BITS_CASES = (("tiny_wnv", 4, 12), ("wnv512", 2, 4))
+# name, prime, steps, t0, lane counts: on both sides of a box (32 lanes),
+# a tile (64) and two tiles (128)
+LANE_BITS_CASES = (
+    ("tiny_wnv", 4, 12), ("wnv512", 2, 4),
+    ("tiny_wnv", 4, 12, 0, (1, 31, 33, 63, 64, 65, 127, 128, 129, 200, 256)),
+    ("tiny_wnv", 4, 12, 5000, (1, 63, 64, 65, 127, 128, 129, 200, 256)),
+    ("wnv512", 2, 4, 0, (1, 63, 64, 65, 200, 256)),
+    ("wnv512", 2, 4, 5000, (1, 63, 64, 65, 200, 256)))
+TIMING_LANES = (1, 8, 64, 256)
 
 
 def run_checks(dev, steps):
@@ -317,6 +371,12 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, default=256)
     ap.add_argument("--digest", action="store_true")
+    ap.add_argument("--timing", action="store_true",
+                    help="only the step at 1, 8, 64 and 256 lanes")
+    ap.add_argument("--against", default=None,
+                    help="with --timing: a checkout to time beside this one")
+    ap.add_argument("--timing-json", action="store_true",
+                    help=argparse.SUPPRESS)
     ap.add_argument("--root", default=ROOT)
     a = ap.parse_args()
     dev = torch.device("cuda")
@@ -324,6 +384,22 @@ def main():
     if a.digest:
         digest(dev)
         return 0
+    if a.timing_json:
+        import json
+
+        with open(os.devnull, "w") as quiet:
+            saved, sys.stdout = sys.stdout, quiet
+            try:
+                got = {n: timing(dev, a.steps, lanes=n)["us_per_step"]
+                       for n in TIMING_LANES}
+            finally:
+                sys.stdout = saved
+        print(json.dumps(got), flush=True)
+        return 0
+    if a.timing:
+        print(torch.cuda.get_device_name(0), flush=True)
+        timing_table(dev, a.steps, a.against)
+        return 1 if failures else 0
     print(torch.cuda.get_device_name(0), torch.__version__, torch.version.cuda,
           flush=True)
     t = time.time()

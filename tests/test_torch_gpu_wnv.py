@@ -1,8 +1,8 @@
 """The wide-chain kernel KW (``ops/cuda/gen_kernel_wide.py``) on a card
 (marked ``gpu``; each test skips without one), one test a check of
 ``scripts/torch_wide_check.py``, the one copy of them: against its plain
-version at ``tiny_wnv`` and ``wnv512``, a lane's bits at 1, 40 and 256
-lanes, the timers' split, the lane pool in frames mode against one
+version at ``tiny_wnv`` and ``wnv512``, a lane's bits at every lane count
+of ``LANE_BITS_CASES`` (fresh and resumed), the timers' split, the lane pool in frames mode against one
 ``generate_fast_batched`` call, one stream through ``generate_fast_fused``,
 and chaconne still on K4.
 

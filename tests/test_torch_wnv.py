@@ -215,36 +215,150 @@ def test_existing_presets_unchanged(name):
     np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=0)
 
 
+def _kernel_operands(p):
+    """The kernel's packed weights (``gen_kernel_wide.pack``) decoded: hi
+    + lo of each product, row-major, K in the kernel's order."""
+    out = {}
+    for n in ("W1", "W2", "E1", "E2"):
+        hi, lo = p[n].unbind(p[n].dim() - 6)
+        out[n] = kw.untile(hi) + kw.untile(lo)
+    return out
+
+
 def test_wide_packing_reproduces_the_gate_and_output_products(wnv):
-    """The kernel's packed operands (``gen_kernel_wide.pack``) applied as
-    plain products give the plain version's gate inputs and [res | skip]
-    rows."""
+    """The kernel's packed operands (``gen_kernel_wide.pack``), decoded and
+    applied as plain products to lanes' rows laid out as the kernel reads
+    them (each part of K at its ``k_parts`` offset, K in ``k_order``),
+    give the plain version's gate inputs and [res | skip] rows."""
     cfg, params = wnv
     w = ghbm.prepare_weights(params, cfg, False, False)
     p = kw.pack(w, cfg)
+    ops = _kernel_operands(p)
     dm = kw.dims(cfg)
     R, D, S, M = (cfg.residual_channels, cfg.dilation_channels,
                   cfg.skip_channels, cfg.cond_channels)
     g = torch.Generator().manual_seed(11)
     tap, cur, c = (torch.randn(5, n, generator=g) for n in (R, R, M))
     b = torch.zeros(dm["K1p"], 5)
-    b[:2 * R + M] = torch.cat([tap, cur, c], 1).T
+    for k0, part in zip(kw.k_parts(cfg), (tap, cur, c)):
+        b[k0:k0 + part.shape[1]] = part.T
+    b = kw.k_order(b.T).T
     rows = kw.gate_rows(cfg)
     for l in range(cfg.num_layers):
         z = tap @ w["w_tap"][l, 0] + cur @ w["w_tap"][l, 1] + \
             c @ w["w_cond"][l] + w["b_in"][l]
-        packed = (p["W1"][l] @ b).T + p["b1"][l]
+        packed = (ops["W1"][l] @ b).T + p["b1"][l]
         torch.testing.assert_close(packed[:, rows >= 0],
                                    z[:, rows[rows >= 0]], atol=1e-5, rtol=0)
         assert torch.all(packed[:, rows < 0] == 0)
         u = torch.randn(5, D, generator=g)
         bu = torch.zeros(dm["K2p"], 5)
         bu[:D] = u.T
-        out = (p["W2"][l] @ bu).T + p["b2"][l]
+        out = (ops["W2"][l] @ kw.k_order(bu.T).T).T + p["b2"][l]
         sr = u @ w["w_out"][l] + w["b_out"][l]
         torch.testing.assert_close(out[:, :R], sr[:, S:], atol=1e-5, rtol=0)
         torch.testing.assert_close(out[:, dm["Rp"]:dm["Rp"] + S], sr[:, :S],
                                    atol=1e-5, rtol=0)
+
+
+def _odd_wide():
+    """A wide config of uneven widths, so every padding of the packed
+    operands is partial."""
+    return dataclasses.replace(
+        pt.get_config("tiny_wnv"), residual_channels=72, dilation_channels=20,
+        skip_channels=40, end_channels=24, classes=40, cond_channels=5)
+
+
+@pytest.mark.parametrize("name", ["tiny_wnv", "wnv512", "odd"])
+def test_wide_dims_pad_rows_to_tiles_and_each_k_part_to_a_stage(name):
+    """Rows pad to the tile's 32 (the gate's to 16 channels, their tanh and
+    sigmoid rows); each part of K (tap, cond, h in that order: the kernel
+    copies the parts no earlier phase wrote first) starts at a multiple of
+    a stage's depth and has room for its rows."""
+    cfg = _odd_wide() if name == "odd" else pt.get_config(name)
+    dm = kw.dims(cfg)
+    R, D, M = (cfg.residual_channels, cfg.dilation_channels,
+               cfg.cond_channels)
+    assert dm["M1p"] == 2 * -(-D // 16) * 16
+    for n, width in (("Rp", R), ("Sp", cfg.skip_channels),
+                     ("Ep", cfg.end_channels), ("Cp", cfg.classes)):
+        assert dm[n] % kw.BR == 0 and width <= dm[n] < width + kw.BR
+    tap, h, cond = kw.k_parts(cfg)  # in K: tap, cond, h
+    assert tap == 0
+    for k0, k1, n in ((tap, cond, R), (cond, h, M), (h, dm["K1p"], R)):
+        assert k0 % kw.KC == 0 and n <= k1 - k0 < n + kw.KC
+    for n, width in (("K2p", D), ("K3p", cfg.skip_channels),
+                     ("K4p", cfg.end_channels)):
+        assert dm[n] % kw.KC == 0 and width <= dm[n] < width + kw.KC
+    if name == "wnv512":
+        assert dm == dict(M1p=1024, K1p=1088, Rp=512, Sp=256, K2p=512,
+                          Ep=256, K3p=256, Cp=256, K4p=256)
+
+
+def test_wide_gate_rows_pair_tanh_and_sigmoid_rows_of_8_channels():
+    """Each 16 packed gate rows hold the tanh rows and then the sigmoid
+    rows of the same 8 channels (a thread of the kernel holds both of each
+    of its channels); a tile of 32 rows holds two such groups."""
+    cfg = _odd_wide()
+    D = cfg.dilation_channels
+    rows = kw.gate_rows(cfg).view(-1, 2, 8)  # groups: tanh, sigmoid rows
+    assert rows.shape[0] * 16 == kw.dims(cfg)["M1p"]
+    assert kw.dims(cfg)["M1p"] % kw.BR == 0
+    ch = torch.arange(rows.shape[0] * 8).view(-1, 8)
+    assert torch.equal(rows[:, 0], torch.where(ch < D, ch, -1))
+    assert torch.equal(rows[:, 1], torch.where(ch < D, ch + D, -1))
+
+
+def test_wide_tile_is_wgmma_core_matrices_a_stage_and_inverts():
+    """``tile`` puts each stage's 8-row groups as K-major core matrices (8
+    rows x 4 k, contiguous), a tile's 16 rows of a stage as one contiguous
+    block; ``untile`` inverts it."""
+    x = torch.randn(3, 48, 192)
+    t = kw.tile(x)
+    assert t.shape == (3, 3, 6, 16, 8, 4)
+    assert torch.equal(kw.untile(t), x)
+    for kc, grp, core, r, j in ((0, 0, 0, 0, 0), (2, 5, 15, 7, 3),
+                                (1, 3, 6, 2, 1)):
+        assert t[1, kc, grp, core, r, j] == x[1, 8 * grp + r,
+                                               64 * kc + 4 * core + j]
+    flat = t.reshape(3, 3, -1)  # stage kc: row tiles of 16 x 64, in order
+    tile1 = flat[2, 1, 1024:2048].view(2, 16, 8, 4)
+    assert torch.equal(kw.untile(tile1[None]), x[2, 16:32, 64:128])
+
+
+def test_wide_k_order_permutes_within_each_8_deep_step():
+    k = torch.arange(24.)
+    assert kw.k_order(k).tolist() == [
+        b + j for b in (0, 8, 16) for j in kw.K_ORDER]
+    w, x = torch.randn(5, 64), torch.randn(64, 3)
+    torch.testing.assert_close(kw.k_order(w) @ kw.k_order(x.T).T, w @ x)
+
+
+def test_wide_weights_split_into_tf32_hi_and_exact_lo():
+    """Every packed product's weights are hi + lo exactly, the kernel's
+    order of ``pack_rows``' weights; hi is TF32 (the low 13 bits zero) and
+    lo at most 2^-11 of the weight."""
+    cfg = _odd_wide()
+    params = W.init_wavenet(cfg, torch.Generator().manual_seed(23), "cpu")
+    w = ghbm.prepare_weights(params, cfg, False, False)
+    p, rows = kw.pack(w, cfg), kw.pack_rows(w, cfg)
+    dm = kw.dims(cfg)
+    L = cfg.num_layers
+    shapes = dict(W1=(L, 2, dm["K1p"] // 64, dm["M1p"] // 8, 16, 8, 4),
+                  W2=(L, 2, dm["K2p"] // 64, (dm["Rp"] + dm["Sp"]) // 8, 16,
+                      8, 4),
+                  E1=(2, dm["K3p"] // 64, dm["Ep"] // 8, 16, 8, 4),
+                  E2=(2, dm["K4p"] // 64, dm["Cp"] // 8, 16, 8, 4))
+    for n in ("W1", "W2", "E1", "E2"):
+        assert tuple(p[n].shape) == shapes[n]
+        hi, lo = (kw.untile(x) for x in p[n].unbind(p[n].dim() - 6))
+        want = kw.k_order(rows[n])
+        assert torch.equal(hi + lo, want)
+        assert torch.all(hi.view(torch.int32) & 0x1FFF == 0)
+        assert torch.all(lo.abs() <= want.abs() * 2.0**-11)
+        assert torch.count_nonzero(lo) > 0
+    for n in ("b1", "b2", "be1", "be2"):
+        assert torch.equal(p[n], rows[n])
 
 
 def _solo(params, cfg, prime, n, frames, temperature, seed):
